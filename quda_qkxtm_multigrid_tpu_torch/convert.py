@@ -1,0 +1,36 @@
+"""Carry fields across from the JAX package through numpy.
+
+Both packages store fields in the same canonical layouts (see
+``lattice.py``), so a field crosses as a plain numpy array with no
+reindexing.  The functions take and give numpy arrays and never import
+the JAX package: the caller turns its arrays into numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, DiracParams, make_dirac
+from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+
+
+def spinor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """numpy field (any canonical layout) → tensor of the same dtype (a
+    copy, on ``device``)."""
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def spinor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """tensor → numpy array on the host."""
+    return t.detach().resolve_conj().cpu().numpy()
+
+
+def dirac_from_numpy(u, params: DiracParams, geom: Geometry, clover=None,
+                     clover_inv=None, device="cpu") -> Dirac:
+    """Build the port's ``Dirac`` on the JAX package's gauge (and clover)
+    fields, given as numpy arrays [4,2,3,3,T,Z,W] (and [2,2,6,6,T,Z,W])."""
+    def conv(a):
+        return None if a is None else spinor_from_numpy(a, device)
+    return make_dirac(conv(u), params, geom, clover=conv(clover),
+                      clover_inv=conv(clover_inv))

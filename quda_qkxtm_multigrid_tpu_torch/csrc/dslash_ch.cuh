@@ -1,0 +1,243 @@
+// Device code of the fused Wilson hop (see dslash_ch.cu for what it
+// replaces and computes, the operand layout and what bounds it).
+
+#pragma once
+
+#include <cstdint>
+
+namespace qkx {
+
+template <typename R>
+struct Cplx {
+  R re, im;
+};
+
+template <typename R>
+__device__ __forceinline__ Cplx<R> cadd(Cplx<R> a, Cplx<R> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+
+// a * b
+template <typename R>
+__device__ __forceinline__ Cplx<R> cmul(Cplx<R> a, Cplx<R> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+
+// conj(a) * b
+template <typename R>
+__device__ __forceinline__ Cplx<R> cjmul(Cplx<R> a, Cplx<R> b) {
+  return {a.re * b.re + a.im * b.im, a.re * b.im - a.im * b.re};
+}
+
+// i^code * z
+template <typename R>
+__device__ __forceinline__ Cplx<R> mul_phase(int code, Cplx<R> z) {
+  switch (code & 3) {
+    case 0: return z;
+    case 1: return {-z.im, z.re};
+    case 2: return {-z.re, -z.im};
+    default: return {z.im, -z.re};
+  }
+}
+
+// Row s of gamma_mu (DeGrand-Rossi basis) has one nonzero entry,
+// i^gamma_phase(mu, s), in column gamma_col(mu, s).  Rows 2 and 3 of
+// (1 + sg gamma_mu) are then sg i^phase times rows gamma_col of the
+// upper half (the rank-2 projection).
+__host__ __device__ constexpr int gamma_col(int mu, int s) {
+  return mu < 2 ? 3 - s : (s ^ 2);
+}
+
+__host__ __device__ constexpr int gamma_phase(int mu, int s) {
+  return mu == 0   ? (s < 2 ? 1 : 3)
+         : mu == 1 ? ((s == 0 || s == 3) ? 2 : 0)
+         : mu == 2 ? ((s == 0 || s == 3) ? 1 : 3)
+                   : 0;
+}
+
+template <typename R>
+struct DslashArgs {
+  const R* psi;   // [T, 24, Z, W], opposite parity
+  const R* g;     // [T, 96|144, Z, W], doubled links of the output parity
+  const R* cinv;  // [T, 144, Z, W] or null
+  const R* x;     // [T, 24, Z, W] or null
+  R* out;         // [T, 24, Z, W]
+  R* out2;        // [T, 24, Z, W] or null
+  int T, Z, W, Xh, parity;
+  int twist;      // 1: b(1 + i a g5) with (ta, tb)
+  R ta, tb;
+  int clover;     // 0 none, 1 A (fwd), 2 A^dag (dag)
+  int xpay;       // 1: x + xc * (...)
+  R xc;
+  int post;       // 0 none, 1 A^dag of the result, 2 b'(1 + i a' g5) with (pa, pb)
+  R pa, pb;
+};
+
+template <typename R>
+__device__ __forceinline__ Cplx<R> load_c(const R* base, int ch, int64_t zw) {
+  return {base[(int64_t)ch * zw], base[(int64_t)(ch + 1) * zw]};
+}
+
+template <typename R>
+__device__ __forceinline__ void store_c(R* base, int ch, int64_t zw,
+                                        Cplx<R> v) {
+  base[(int64_t)ch * zw] = v.re;
+  base[(int64_t)(ch + 1) * zw] = v.im;
+}
+
+// v[kk] <- M v (dag = false) or M^dag v (dag = true) on the two chiral
+// 6-blocks, kk = h*6 + r, M at channel ((h*6+r)*6+c)*2.
+template <typename R>
+__device__ __forceinline__ void chiral_apply(const R* m, int64_t zw, bool dag,
+                                             const Cplx<R> (&v)[12],
+                                             Cplx<R> (&res)[12]) {
+#pragma unroll
+  for (int kk = 0; kk < 12; ++kk) {
+    const int h = kk / 6, r = kk % 6;
+    Cplx<R> sum = {R(0), R(0)};
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const int row = dag ? c : r, col = dag ? r : c;
+      const Cplx<R> e = load_c(m, ((h * 6 + row) * 6 + col) * 2, zw);
+      sum = cadd(sum, dag ? cjmul(e, v[h * 6 + c]) : cmul(e, v[h * 6 + c]));
+    }
+    res[kk] = sum;
+  }
+}
+
+template <typename R>
+__device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
+  const R ag = kk < 6 ? a : -a;
+  return {b * (v.re - ag * v.im), b * (v.im + ag * v.re)};
+}
+
+template <typename R, bool DAG, bool RECON12>
+__device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
+                                            int z, int w) {
+  constexpr int NROWS = RECON12 ? 2 : 3;
+  constexpr int NG = NROWS * 48;
+  const int64_t zw = (int64_t)a.Z * a.W;
+  const int64_t site = (int64_t)z * a.W + w;
+  const int y = w / a.Xh, k = w - y * a.Xh;
+  const bool s0 = ((t + z + y + a.parity) & 1) == 0;  // true x is even
+  const R* gs = a.g + (int64_t)t * NG * zw + site;
+
+  Cplx<R> acc[4][3];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[s][c] = {R(0), R(0)};
+
+#pragma unroll
+  for (int mu = 0; mu < 4; ++mu) {
+#pragma unroll
+    for (int fb = 0; fb < 2; ++fb) {
+      const bool fwd = fb == 0;
+      // projector 1 + sg g_mu: sg = +1 (phase code 0) or -1 (code 2)
+      const int sgc = (fwd ? DAG : !DAG) ? 0 : 2;
+      int tn = t, zn = z, wn = w;
+      if (mu == 3) {
+        tn = fwd ? (t + 1 == a.T ? 0 : t + 1) : (t == 0 ? a.T - 1 : t - 1);
+      } else if (mu == 2) {
+        zn = fwd ? (z + 1 == a.Z ? 0 : z + 1) : (z == 0 ? a.Z - 1 : z - 1);
+      } else if (mu == 1) {
+        wn = fwd ? (w + a.Xh >= a.W ? w + a.Xh - a.W : w + a.Xh)
+                 : (w < a.Xh ? w - a.Xh + a.W : w - a.Xh);
+      } else if (fwd) {   // x: checkerboard rule, wrapping in the row
+        wn = s0 ? w : (k == a.Xh - 1 ? w - (a.Xh - 1) : w + 1);
+      } else {
+        wn = s0 ? (k == 0 ? w + (a.Xh - 1) : w - 1) : w;
+      }
+      const R* pn = a.psi + (int64_t)tn * 24 * zw + (int64_t)zn * a.W + wn;
+
+      Cplx<R> hs[2][3];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          hs[s][c] = cadd(load_c(pn, (s * 3 + c) * 2, zw),
+                          mul_phase(gamma_phase(mu, s) + sgc,
+                                    load_c(pn, (gamma_col(mu, s) * 3 + c) * 2, zw)));
+
+      Cplx<R> u[3][3];
+#pragma unroll
+      for (int r = 0; r < NROWS; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          u[r][c] = load_c(gs, (((mu * 2 + fb) * NROWS + r) * 3 + c) * 2, zw);
+      if (RECON12) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int c1 = (c + 1) % 3, c2 = (c + 2) % 3;
+          const Cplx<R> p = cmul(u[0][c1], u[1][c2]);
+          const Cplx<R> q = cmul(u[0][c2], u[1][c1]);
+          u[2][c] = {p.re - q.re, q.im - p.im};  // conj(p - q)
+        }
+      }
+
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          Cplx<R> sum = {R(0), R(0)};
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            sum = cadd(sum, fwd ? cmul(u[r][c], hs[s][c])
+                                : cjmul(u[c][r], hs[s][c]));
+          acc[s][r] = cadd(acc[s][r], sum);
+#pragma unroll
+          for (int sl = 2; sl < 4; ++sl)
+            if (gamma_col(mu, sl) == s)
+              acc[sl][r] = cadd(acc[sl][r],
+                                mul_phase(gamma_phase(mu, sl) + sgc, sum));
+        }
+      }
+    }
+  }
+
+  Cplx<R> res[12];
+#pragma unroll
+  for (int kk = 0; kk < 12; ++kk) res[kk] = acc[kk / 3][kk % 3];
+  if (a.clover) {
+    const Cplx<R> hop[12] = {res[0], res[1], res[2], res[3], res[4], res[5],
+                             res[6], res[7], res[8], res[9], res[10], res[11]};
+    chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, a.clover == 2,
+                 hop, res);
+  }
+  const R* xs = a.xpay ? a.x + (int64_t)t * 24 * zw + site : nullptr;
+  R* os = a.out + (int64_t)t * 24 * zw + site;
+#pragma unroll
+  for (int kk = 0; kk < 12; ++kk) {
+    Cplx<R> v = res[kk];
+    if (a.twist) v = g5_rotate(v, kk, a.ta, a.tb);
+    if (a.xpay) {
+      const Cplx<R> xv = load_c(xs, 2 * kk, zw);
+      v = {xv.re + a.xc * v.re, xv.im + a.xc * v.im};
+    }
+    res[kk] = v;
+    store_c(os, 2 * kk, zw, v);
+  }
+  if (a.post) {
+    R* o2 = a.out2 + (int64_t)t * 24 * zw + site;
+    Cplx<R> v2[12];
+    if (a.post == 1) {
+      chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, true, res, v2);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 12; ++kk) v2[kk] = g5_rotate(res[kk], kk, a.pa, a.pb);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 12; ++kk) store_c(o2, 2 * kk, zw, v2[kk]);
+  }
+}
+
+// One thread per output site: grid (ceil(W / blockDim.x), Z, T).
+template <typename R, bool DAG, bool RECON12>
+__global__ void __launch_bounds__(128)
+    dslash_ch_kernel(const DslashArgs<R> a) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= a.W) return;
+  dslash_site<R, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w);
+}
+
+}  // namespace qkx

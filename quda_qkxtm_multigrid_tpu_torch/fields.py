@@ -1,0 +1,28 @@
+"""Field constructors on the canonical layouts (see lattice.py):
+
+  spinor  [2, 4, 3, T, Z, W]          complex
+  gauge   [4, 2, 3, 3, T, Z, W]       complex
+  clover  [2, 2, 6, 6, T, Z, W]       complex
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, site_index
+
+
+def zeros_spinor(geom: Geometry, dtype=torch.complex128, device="cpu",
+                 nspin: int = 4, ncolor: int = 3) -> torch.Tensor:
+    return torch.zeros((2, nspin, ncolor) + geom.lat_shape, dtype=dtype,
+                       device=device)
+
+
+def point_source(geom: Geometry, coords, spin: int, color: int,
+                 dtype=torch.complex128, device="cpu") -> torch.Tensor:
+    """Delta source at global site ``coords=(x,y,z,t)``, unit at
+    (spin, color)."""
+    p, t, z, w = site_index(geom, coords)
+    psi = zeros_spinor(geom, dtype, device)
+    psi[p, spin, color, t, z, w] = 1.0
+    return psi

@@ -1,0 +1,74 @@
+"""Wilson hopping term on the canonical layout, plain PyTorch.
+
+    D_{p<-1-p} psi(x) = sum_mu (1 - gamma_mu) U_mu(x)        psi(x+mu)
+                              + (1 + gamma_mu) U_mu^dag(x-mu) psi(x-mu)
+
+(no 1/2 — folded into kappa); dagger swaps the projectors.  Full Wilson
+operator M = psi - kappa D psi.  Layouts: psi [4,3,T,Z,W] per parity,
+u [4,2,3,3,T,Z,W].  This is the in-port oracle for the CUDA hop kernel
+(ops/dslash_kernel.py).
+
+Flops: 1,320 per site per application.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, gather_neighbor
+from quda_qkxtm_multigrid_tpu_torch.ops import gamma as _g
+from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import (
+    su3_mul as _su3, su3_dag_mul as _su3_dag, spinmat_mul)
+
+WILSON_DSLASH_FLOPS_PER_SITE = 1320
+
+
+def _proj(mu: int, plus: bool, psi):
+    """(1 ± gamma_mu) psi over the leading spin axis: psi [4,3,T,Z,W]."""
+    return spinmat_mul(_g.PROJ[mu, 1 if plus else 0], psi)
+
+
+def dslash_parity(u, psi_opp, parity: int, geom: Geometry,
+                  dagger: bool = False):
+    """Hopping term writing sites of ``parity`` from the opposite-parity
+    field ``psi_opp`` [4,3,T,Z,W]."""
+    out = None
+    for mu in range(4):
+        fwd_psi = gather_neighbor(psi_opp, mu, True, parity, geom)
+        bwd_psi = gather_neighbor(psi_opp, mu, False, parity, geom)
+        u_bwd = gather_neighbor(u[mu, 1 - parity], mu, False, parity, geom)
+        term = _su3(u[mu, parity], _proj(mu, dagger, fwd_psi))
+        term = term + _su3_dag(u_bwd, _proj(mu, not dagger, bwd_psi))
+        out = term if out is None else out + term
+    return out
+
+
+def wilson_mat(u, psi, kappa: float, geom: Geometry, dagger: bool = False):
+    """Full Wilson operator on [2,4,3,T,Z,W]: out = psi - kappa D psi."""
+    d_even = dslash_parity(u, psi[1], 0, geom, dagger)
+    d_odd = dslash_parity(u, psi[0], 1, geom, dagger)
+    return psi - kappa * torch.stack([d_even, d_odd])
+
+
+def double_gauge(u, geom: Geometry):
+    """ud[mu, parity, 0] = U_mu(x) and ud[mu, parity, 1] = U_mu(x-mu) for
+    x of ``parity``: both hop directions addressable at the output site,
+    so the hop reads no gathered links.  [4, 2, 2, 3, 3, T, Z, W]."""
+    return torch.stack([torch.stack([
+        torch.stack([u[mu, p],
+                     gather_neighbor(u[mu, 1 - p], mu, False, p, geom)])
+        for p in range(2)]) for mu in range(4)])
+
+
+def dslash_parity_doubled(ud, psi_opp, parity: int, geom: Geometry,
+                          dagger: bool = False):
+    """dslash_parity using a doubled gauge field (no link gathers)."""
+    out = None
+    for mu in range(4):
+        fwd_psi = gather_neighbor(psi_opp, mu, True, parity, geom)
+        bwd_psi = gather_neighbor(psi_opp, mu, False, parity, geom)
+        term = _su3(ud[mu, parity, 0], _proj(mu, dagger, fwd_psi))
+        term = term + _su3_dag(ud[mu, parity, 1],
+                               _proj(mu, not dagger, bwd_psi))
+        out = term if out is None else out + term
+    return out

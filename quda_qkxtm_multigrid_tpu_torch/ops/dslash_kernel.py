@@ -1,0 +1,263 @@
+"""Fused Wilson-hop kernel on the planar-channel layout: the counterpart
+of the JAX package's ``ops/dslash_pallas5.py`` (K1, ``_plane_body``).
+
+Channel layout: a complex field [A..., T, Z, W] becomes a real
+[T, prod(A)*2, Z, W] tensor with channel ``a*2 + ri``.  So a spinor is
+[T, 24, Z, W], a recon-12 doubled gauge of one parity [T, 96, Z, W]
+(full: [T, 144, Z, W]) and a chiral-block clover of one parity
+[T, 144, Z, W].  Neighbouring w are neighbouring addresses, which is
+what the CUDA kernel needs for coalesced loads.
+
+``dslash_ch`` computes, for the output ``parity``,
+
+    D ψ = Σ_μ (1∓γ_μ) U_μ(x) ψ(x+μ̂) + (1±γ_μ) U_μ†(x−μ̂) ψ(x−μ̂)
+
+followed by the epilogues, in order: twist b(1 + i a γ5) or the chiral
+6×6 clover ("fwd": A·, "dag": A†·); xpay x + c·(…); and an optional
+second output ``post_op``: ("clover",) applies A† to the result,
+("twist", a, b) applies b(1 + i a γ5) to it.
+
+On a CUDA tensor it launches ``csrc/dslash_ch.cu`` (float or double);
+on a CPU tensor it runs ``dslash_ch_reference``.  There is no fallback
+between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, gather_neighbor
+from quda_qkxtm_multigrid_tpu_torch.ops import gamma as _g
+from quda_qkxtm_multigrid_tpu_torch.ops.clover import clover_apply
+from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import su3_mul, su3_dag_mul
+
+_KERNEL_DTYPES = (torch.float32, torch.float64)
+_CLOVER_MODES = {None: 0, "fwd": 1, "dag": 2}
+
+
+def to_channels(x: torch.Tensor) -> torch.Tensor:
+    """complex [A..., T, Z, W] → real [T, prod(A)*2, Z, W] (same precision)."""
+    t, z, w = x.shape[-3:]
+    flat = x.reshape(-1, t, z, w)
+    ri = torch.stack([flat.real, flat.imag], dim=1).reshape(-1, t, z, w)
+    return ri.movedim(0, 1).contiguous()
+
+
+def from_channels(x: torch.Tensor, lead_shape) -> torch.Tensor:
+    """real [T, prod(A)*2, Z, W] → complex [A..., T, Z, W]."""
+    t, ch, z, w = x.shape
+    v = x.movedim(1, 0).reshape(ch // 2, 2, t, z, w)
+    return torch.complex(v[:, 0], v[:, 1]).reshape(
+        tuple(lead_shape) + (t, z, w))
+
+
+def gauge_channels(ud: torch.Tensor, parity: int, recon12: bool,
+                   dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Doubled gauge [4,2,2,3,3,T,Z,W] → channel operand of one parity:
+    [T, 96, Z, W] with rows 0 and 1 only (recon-12) or [T, 144, Z, W].
+    ``dtype`` casts the real channels (default: the field's precision)."""
+    g = ud[:, parity][:, :, :2] if recon12 else ud[:, parity]
+    ch = to_channels(g)
+    return ch if dtype is None else ch.to(dtype)
+
+
+def clover_channels(clover_field: torch.Tensor, parity: int,
+                    dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Chiral-block clover (or its inverse) [2p,2ch,6,6,T,Z,W] → channel
+    operand [T, 144, Z, W] of one parity."""
+    ch = to_channels(clover_field[parity])
+    return ch if dtype is None else ch.to(dtype)
+
+
+def _proj_rank2(mu: int, plus: bool):
+    """Rank-2 structure of 1 ± gamma_mu: the upper rows as (column, coef)
+    lists and each lower row as (upper row, phase).  Every phase is one
+    of ±1, ±i."""
+    P = _g.PROJ[mu, 1 if plus else 0]
+    upper = [[(t, complex(P[s, t])) for t in range(4) if abs(P[s, t]) > 1e-12]
+             for s in (0, 1)]
+    recon = []
+    for low in (2, 3):
+        hit = None
+        for up in (0, 1):
+            nz = np.abs(P[up]) > 1e-12
+            if np.array_equal(np.abs(P[low]) > 1e-12, nz):
+                r = P[low][nz] / P[up][nz]
+                if np.allclose(r, r[0]):
+                    hit = (up, complex(r[0]))
+                    break
+        if hit is None:
+            raise AssertionError(f"1±gamma_{mu} is not rank 2 ({plus=})")
+        recon.append(hit)
+    return upper, recon
+
+
+def _links(g_ch: torch.Tensor, recon12: bool) -> torch.Tensor:
+    """Channel gauge of one parity → complex [4(mu), 2(fb), 3, 3, T, Z, W],
+    row 2 rebuilt as conj(r0 × r1) for recon-12."""
+    if not recon12:
+        return from_channels(g_ch, (4, 2, 3, 3))
+    g = from_channels(g_ch, (4, 2, 2, 3))
+    r0, r1 = g[:, :, 0], g[:, :, 1]
+    r2 = torch.stack([r0[:, :, (c + 1) % 3] * r1[:, :, (c + 2) % 3]
+                      - r0[:, :, (c + 2) % 3] * r1[:, :, (c + 1) % 3]
+                      for c in range(3)], dim=2).conj()
+    return torch.cat([g, r2[:, :, None]], dim=2)
+
+
+def _g5_rotate(v: torch.Tensor, a: float, b: float) -> torch.Tensor:
+    """b (1 + i a γ5) v for a spinor [4, 3, T, Z, W]."""
+    g5 = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=v.real.dtype,
+                      device=v.device).reshape(4, 1, 1, 1, 1)
+    return b * (v + (1j * a) * g5 * v)
+
+
+def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
+                        dagger: bool = False, recon12: bool = False,
+                        twist=None, xpay_coef=None, x_ch=None, clover=None,
+                        cinv_ch=None, post_op=None):
+    """Plain PyTorch version of ``dslash_ch``: channels → complex →
+    rank-2 projected hop on the doubled links → epilogues → channels."""
+    psi = from_channels(psi_ch, (4, 3))
+    u = _links(g_ch, recon12)
+    acc = [None] * 4
+    for mu in range(4):
+        for fb, (fwd, plus) in enumerate(((True, dagger),
+                                          (False, not dagger))):
+            nb = gather_neighbor(psi, mu, fwd, parity, geom)
+            upper, recon = _proj_rank2(mu, plus)
+            h = torch.stack([sum(coef * nb[t] for t, coef in upper[s])
+                             for s in (0, 1)])
+            uh = su3_mul(u[mu, 0], h) if fb == 0 else su3_dag_mul(u[mu, 1], h)
+            rows = [uh[0], uh[1], recon[0][1] * uh[recon[0][0]],
+                    recon[1][1] * uh[recon[1][0]]]
+            acc = [r if a is None else a + r for a, r in zip(acc, rows)]
+    res = torch.stack(acc)
+    if clover is not None:
+        res = clover_apply(from_channels(cinv_ch, (2, 6, 6)), res,
+                           dagger=clover == "dag")
+    if twist is not None:
+        res = _g5_rotate(res, *twist)
+    if xpay_coef is not None:
+        res = from_channels(x_ch, (4, 3)) + xpay_coef * res
+    out = to_channels(res)
+    if post_op is None:
+        return out
+    if post_op[0] == "clover":
+        res2 = clover_apply(from_channels(cinv_ch, (2, 6, 6)), res,
+                            dagger=True)
+    else:
+        res2 = _g5_rotate(res, post_op[1], post_op[2])
+    return out, to_channels(res2)
+
+
+def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
+                    clover, cinv_ch, post_op):
+    """Raise on anything the kernel (and its plain version) does not take."""
+    shape = (geom.T, 24, geom.Z, geom.W)
+    if tuple(psi_ch.shape) != shape:
+        raise ValueError(f"psi_ch shape {tuple(psi_ch.shape)} != {shape}")
+    if psi_ch.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"psi_ch dtype {psi_ch.dtype} not in {_KERNEL_DTYPES}")
+    ng = 96 if recon12 else 144
+    want = {"g_ch": (g_ch, (geom.T, ng, geom.Z, geom.W))}
+    if clover not in _CLOVER_MODES:
+        raise ValueError(f"clover={clover!r} not one of None, 'fwd', 'dag'")
+    if twist is not None and clover is not None:
+        raise ValueError("twist and clover epilogues are mutually exclusive")
+    if clover is not None:
+        if cinv_ch is None:
+            raise ValueError("clover epilogue needs cinv_ch")
+        want["cinv_ch"] = (cinv_ch, (geom.T, 144, geom.Z, geom.W))
+    if (xpay_coef is None) != (x_ch is None):
+        raise ValueError("xpay_coef and x_ch go together")
+    if x_ch is not None:
+        want["x_ch"] = (x_ch, shape)
+    if post_op is not None:
+        if post_op == ("clover",):
+            if clover is None:
+                raise ValueError("post_op ('clover',) needs the clover "
+                                 "epilogue's cinv_ch")
+        elif not (len(post_op) == 3 and post_op[0] == "twist"):
+            raise ValueError(f"post_op={post_op!r} not ('clover',) or "
+                             "('twist', a, b)")
+    tensors = {"psi_ch": psi_ch, **{k: v[0] for k, v in want.items()}}
+    for name, (t, shp) in want.items():
+        if tuple(t.shape) != shp:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shp}")
+    for name, t in tensors.items():
+        if t.dtype != psi_ch.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != {psi_ch.dtype}")
+        if t.device != psi_ch.device:
+            raise ValueError(f"{name} on {t.device}, psi_ch on "
+                             f"{psi_ch.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def _launch(lib, g_ch, psi_ch, out, out2, parity: int, geom: Geometry,
+            dagger, recon12, twist, xpay_coef, x_ch, clover, cinv_ch,
+            post_op, stream: int) -> int:
+    """Call the C entry point of the kernel; returns its CUDA error code."""
+    fn = (lib.qkx_dslash_ch_f32 if psi_ch.dtype == torch.float32
+          else lib.qkx_dslash_ch_f64)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ta, tb = twist if twist is not None else (0.0, 0.0)
+    post = {None: 0, "clover": 1, "twist": 2}[
+        None if post_op is None else post_op[0]]
+    pa, pb = (post_op[1], post_op[2]) if post == 2 else (0.0, 0.0)
+    return fn(ptr(psi_ch), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
+              ptr(out2), geom.T, geom.Z, geom.W, geom.Xh, parity,
+              int(dagger), int(recon12), int(twist is not None), ta, tb,
+              _CLOVER_MODES[clover], int(xpay_coef is not None),
+              0.0 if xpay_coef is None else xpay_coef, post, pa, pb,
+              ctypes.c_void_p(stream))
+
+
+def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
+              recon12: bool = False, twist=None, xpay_coef=None, x_ch=None,
+              clover=None, cinv_ch=None, post_op=None):
+    """Fused Wilson hop with epilogues on channel operands (module
+    docstring).  Returns ``out`` or, with ``post_op``, ``(out, out2)``.
+
+    A CUDA ``psi_ch`` launches the CUDA kernel on the current stream
+    (``dslash_ch.launches`` counts the launches); a CPU ``psi_ch`` runs
+    ``dslash_ch_reference``.  Anything else raises."""
+    _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
+                    clover, cinv_ch, post_op)
+    if psi_ch.device.type == "cpu":
+        return dslash_ch_reference(g_ch, psi_ch, parity, geom, dagger,
+                                   recon12, twist, xpay_coef, x_ch, clover,
+                                   cinv_ch, post_op)
+    if psi_ch.device.type != "cuda":
+        raise ValueError(f"no dslash_ch for device {psi_ch.device}")
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    lib = _build.load_library()
+    out = torch.empty_like(psi_ch)
+    out2 = torch.empty_like(psi_ch) if post_op is not None else None
+    stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
+    with torch.cuda.device(psi_ch.device):
+        err = _launch(lib, g_ch, psi_ch, out, out2, parity, geom, dagger,
+                      recon12, twist, xpay_coef, x_ch, clover, cinv_ch,
+                      post_op, stream)
+    if err != 0:
+        raise RuntimeError(f"dslash_ch kernel launch failed: CUDA error {err}")
+    dslash_ch.launches += 1
+    return out if out2 is None else (out, out2)
+
+
+dslash_ch.launches = 0
+
+
+def dslash_parity_kernel(ud, psi_opp, parity: int, geom: Geometry,
+                         dagger: bool = False, recon12: bool = True):
+    """``dslash_parity`` through ``dslash_ch``: complex [4,3,T,Z,W] →
+    channels → hop → complex, in the precision of ``psi_opp`` (the
+    double kernel for complex128)."""
+    psi_ch = to_channels(psi_opp)
+    g_ch = gauge_channels(ud, parity, recon12, psi_ch.dtype)
+    out = dslash_ch(g_ch, psi_ch, parity, geom, dagger, recon12=recon12)
+    return from_channels(out, (4, 3))

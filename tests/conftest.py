@@ -49,3 +49,8 @@ def pytest_configure(config):
         "markers",
         "slow: full-pipeline tests (solves at tight tol in c128 on CPU); "
         "deselect with -m 'not slow' for the smoke tier")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels have no CPU "
+        "mode); the test skips itself where torch.cuda.is_available() is "
+        "false")
