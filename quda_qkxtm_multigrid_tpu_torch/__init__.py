@@ -9,9 +9,11 @@ through numpy with no reindexing:
     gauge   [4, 2, 3, 3, T, Z, W]
     clover  [2, 2, 6, 6, T, Z, W]
 
-Plain tensor code is PyTorch.  The Wilson-hop kernel that the JAX
-package writes in Pallas (``ops/dslash_pallas5.py``) is hand-written
-CUDA here (``csrc/dslash_ch.cu``), built by ``_build.py`` at first use.
+Plain tensor code is PyTorch.  The Wilson-hop kernels that the JAX
+package writes in Pallas (``ops/dslash_pallas5.py``) are hand-written
+CUDA here: the single-source hop (``csrc/dslash_ch.cu``) and its
+multi-source form (``csrc/dslash_ch_msrc.cu``), built by ``_build.py``
+at first use.
 On a CPU tensor every kernel wrapper runs its plain PyTorch version; on
 a CUDA tensor it launches the kernel or raises.
 

@@ -1,10 +1,12 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, which ``ctypes`` loads.  The library
-lands in ``build/torch_kernels/`` beside the package, named by a hash of
-the sources and flags, so an edited source builds anew and an unchanged
-one is built once.  Nothing is downloaded and nothing is prebuilt.
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into a shared library
+of its own with a plain C interface, which ``ctypes`` loads.  The
+compilers run side by side, one process per source, all started
+together.  The libraries land in ``build/torch_kernels/qkx_kernels-<hash>/``
+beside the package, the hash taken over the sources and flags, so an
+edited source builds anew and an unchanged one is built once.  Nothing
+is downloaded and nothing is prebuilt.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,8 +29,12 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # (psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
 #  twist, ta, tb, clover, xpay, xc, post, pa, pb, stream)
 _DSLASH_ARGTYPES = [_P] * 6 + [_I] * 8 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
+# (psi, g, cinv, x, out, n, T, Z, W, Xh, parity, dagger, recon12, twist,
+#  ta, tb, clover, xpay, xc, stream)
+_MSRC_ARGTYPES = [_P] * 5 + [_I] * 9 + [_D, _D, _I, _I, _D, _P]
 ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
-                "qkx_dslash_ch_f64": _DSLASH_ARGTYPES}
+                "qkx_dslash_ch_f64": _DSLASH_ARGTYPES,
+                "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES}
 
 
 def _sources() -> list[Path]:
@@ -56,36 +63,58 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"qkx_kernels-{source_hash()}.so"
+def library_dir() -> Path:
+    """Directory of the libraries built from the current sources."""
+    return BUILD_DIR / f"qkx_kernels-{source_hash()}"
 
 
-def build() -> Path:
-    """Compile the sources unless the library for their hash exists.
-    The compiler's output (``-Xptxas -v``: registers, spills) is kept
-    beside the library as ``.log``."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+def build() -> list[Path]:
+    """Compile every ``.cu`` whose library for the current hash is
+    missing, one ``nvcc`` process per source, all running at once.  The
+    compiler's output (``-Xptxas -v``: registers, spills) is kept beside
+    each library as ``<source>.log``.  Returns the libraries."""
+    out_dir = library_dir()
+    libs = [out_dir / f"{cu.stem}.so" for cu in sorted(CSRC.glob("*.cu"))]
+    todo = [so for so in libs if not so.exists()]
+    if not todo:
+        return libs
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for so in todo:
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{so.stem}.cu")]
+        procs.append((so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for so, tmp, cmd, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, declare every entry point."""
-    lib = ctypes.CDLL(str(build()))
+def load_library() -> types.SimpleNamespace:
+    """Build if needed and load once per process.  Returns every entry
+    point of ``ENTRY_POINTS`` as an attribute, with its argument types
+    declared (the loaded libraries stay referenced under ``_libs``)."""
+    libs = [ctypes.CDLL(str(so)) for so in build()]
+    fns = {}
     for name, argtypes in ENTRY_POINTS.items():
-        fn = getattr(lib, name)
+        owners = [lib for lib in libs if hasattr(lib, name)]
+        if len(owners) != 1:
+            raise RuntimeError(f"entry point {name} found in {len(owners)} "
+                               "libraries, expected 1")
+        fn = getattr(owners[0], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return types.SimpleNamespace(_libs=libs, **fns)

@@ -1,8 +1,12 @@
-"""Solve-level benchmark of the port: the twisted-clover CG solve.
+"""Solve-level benchmarks of the port: the twisted-clover CG solve and
+the MG-GCR-PC solve.
 
 ``bench_cg`` times ``invert.invert`` on a random SU(3) gauge field and a
-point source: one cold solve, then one timed warm solve.  GFLOP/s counts
-one ``flops_per_mat`` per CG iteration, the JAX package's convention.
+point source: one cold solve, then one timed warm solve.  ``bench_mg``
+times the multigrid setup and then one cold and one warm ``mg_solve``,
+and certifies the warm solution in complex128.  GFLOP/s counts one
+``flops_per_mat`` per outer iteration, the JAX package's convention (the
+V-cycle's work is not counted).
 """
 
 from __future__ import annotations
@@ -13,8 +17,13 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch import fields
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, DiracParams, make_dirac
-from quda_qkxtm_multigrid_tpu_torch.invert import invert
+from quda_qkxtm_multigrid_tpu_torch.invert import invert, true_residual
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+    MGParams, MGPreconditioner, mg_solve, setup_mg)
+from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
+from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+    dslash_ch, dslash_ch_msrc)
 from quda_qkxtm_multigrid_tpu_torch.utils import rng
 
 
@@ -25,15 +34,18 @@ def tmc_params(use_kernels: bool = True) -> DiracParams:
 
 
 def make_problem(geom: Geometry, device="cuda", seed: int = 7,
-                 use_kernels: bool = True) -> tuple[Dirac, torch.Tensor]:
-    """Random complex128 SU(3) gauge made on ``device`` from ``seed``, its
-    twisted-clover operator, and the point source at (0,0,0,0), spin 0,
-    colour 0."""
+                 use_kernels: bool = True,
+                 dtype=torch.complex128) -> tuple[Dirac, torch.Tensor]:
+    """Random SU(3) gauge made in complex128 on ``device`` from ``seed``
+    and cast to ``dtype``, its twisted-clover operator in ``dtype``, and
+    the point source at (0,0,0,0), spin 0, colour 0.  The complex64
+    problem is the one the JAX package's MG benchmark solves."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    u = rng.random_gauge(gen, geom, dtype=torch.complex128)
+    u = rng.random_gauge(gen, geom, dtype=torch.complex128).to(dtype)
     d = make_dirac(u, tmc_params(use_kernels), geom)
-    b = fields.point_source(geom, (0, 0, 0, 0), 0, 0, device=device)
+    b = fields.point_source(geom, (0, 0, 0, 0), 0, 0, dtype=dtype,
+                            device=device)
     return d, b
 
 
@@ -59,3 +71,66 @@ def bench_cg(geom: Geometry, tol: float = 1e-7, maxiter: int = 2000,
             "true_res": out.true_res, "true_res_cold": cold.true_res,
             "gflops": d.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
             "solver": "cg-fused" if d._has_fused_matpc else "cg"}
+
+
+def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
+             block=(4, 4, 4, 4), solver: str = "gcr-pc", n_krylov: int = 5,
+             problem=None, seed: int = 3) -> tuple[dict, MGPreconditioner]:
+    """MG setup, then one cold and one warm ``mg_solve`` (``problem`` is
+    a ``(dirac, b)`` pair, the complex64 problem of ``make_problem`` on
+    the GPU if not given; ``seed`` seeds the setup sources).  The
+    reference MG settings: ``block``, ``nvec``, ``smoother_pc``, otherwise
+    ``MGParams`` defaults.
+
+    Returns the record and the preconditioner.  The record holds the
+    setup's host seconds and their split, the multi-source CG
+    iterations of each null-vector batch, each solve's outer iterations
+    and seconds, GFLOP/s, the warm solution's true residual in
+    complex128 (a complex128 operator on the same gauge, every hop
+    through the double-precision kernel where the operator uses the
+    kernels), the kernel launches of the setup and of the warm solve,
+    and the peak device memory (None on the CPU)."""
+    d, b = problem if problem is not None else make_problem(
+        geom, dtype=torch.complex64)
+    dev = b.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = MGParams(block=tuple(block), nvec=nvec, smoother_pc=True,
+                      outer_solver=solver)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k1_0, k2_0 = dslash_ch.launches, dslash_ch_msrc.launches
+    t0 = time.perf_counter()
+    mg = setup_mg(d, params, gen)
+    _sync(dev)
+    setup_secs = time.perf_counter() - t0
+    k1_1, k2_1 = dslash_ch.launches, dslash_ch_msrc.launches
+    t0 = time.perf_counter()
+    cold = mg_solve(mg, b, tol=tol, n_krylov=n_krylov)
+    _sync(dev)
+    secs_cold = time.perf_counter() - t0
+    k1_2, k2_2 = dslash_ch.launches, dslash_ch_msrc.launches
+    t0 = time.perf_counter()
+    out = mg_solve(mg, b, tol=tol, n_krylov=n_krylov)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    k1_3, k2_3 = dslash_ch.launches, dslash_ch_msrc.launches
+    b2 = float(norm2(b))
+    d128 = make_dirac(d.u.to(torch.complex128), d.params, geom)
+    _, rel = true_residual(d128, out.x.to(torch.complex128),
+                           b.to(torch.complex128))
+    del d128
+    record = {
+        "solver": f"mg-{solver}", "nvec": nvec, "block": list(block),
+        "n_krylov": n_krylov, "setup_secs": setup_secs,
+        **{k: v for k, v in mg.setup_stats.items()},
+        "iters": out.iters, "iters_cold": cold.iters, "secs": secs,
+        "secs_cold": secs_cold,
+        "gflops": d.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
+        "true_res": float(rel),
+        "true_res_solve": (float(out.r2) / b2) ** 0.5,
+        "k1_launches_setup": k1_1 - k1_0, "k2_launches_setup": k2_1 - k2_0,
+        "k1_launches_solve": k1_3 - k1_2, "k2_launches_solve": k2_3 - k2_2,
+        "k1_launches_cold_solve": k1_2 - k1_1,
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None)}
+    return record, mg

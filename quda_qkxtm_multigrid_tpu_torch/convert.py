@@ -13,6 +13,8 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, DiracParams, make_dirac
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
+    BlockGeometry, Transfer, block_orthonormalize_flat, to_blocked_flat)
 
 
 def spinor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -34,3 +36,26 @@ def dirac_from_numpy(u, params: DiracParams, geom: Geometry, clover=None,
         return None if a is None else spinor_from_numpy(a, device)
     return make_dirac(conv(u), params, geom, clover=conv(clover),
                       clover_inv=conv(clover_inv))
+
+
+def transfer_from_numpy(v, bg: BlockGeometry, dtype=torch.complex128,
+                        device="cpu") -> Transfer:
+    """The port's ``Transfer`` from the JAX package's MG state, given as
+    numpy: the planar pair ``(vr, vi)`` of ``Transfer.v``, each
+    [2, Tc,Zc,Yc,Xc, nvec, bdof], or the complex V of that shape (what
+    ``vec_outfile`` holds), used as it is; or raw null vectors
+    [nvec, 2,4,3,T,Z,W], block-orthonormalised here as ``setup_mg``
+    does."""
+    vshape = (2,) + tuple(bg.coarse_shape) + (bg.nvec, bg.bdof)
+    if isinstance(v, (tuple, list)) and len(v) == 2:
+        a = np.asarray(v[0]) + 1j * np.asarray(v[1])
+    else:
+        a = np.asarray(v)
+    if a.shape == vshape:
+        return Transfer(v=torch.tensor(a, dtype=dtype, device=device), bg=bg)
+    raw = (bg.nvec, 2, 4, 3) + bg.fine.lat_shape
+    if a.shape != raw:
+        raise ValueError(f"V shape {a.shape} is neither {vshape} nor raw "
+                         f"null vectors {raw}")
+    flat = to_blocked_flat(torch.tensor(a, dtype=dtype, device=device), bg)
+    return Transfer(v=block_orthonormalize_flat(flat), bg=bg)

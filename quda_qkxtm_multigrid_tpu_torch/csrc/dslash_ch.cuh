@@ -111,9 +111,11 @@ __device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
   return {b * (v.re - ag * v.im), b * (v.im + ag * v.re)};
 }
 
+// soff: offset of one source's psi, x, out and out2 within a batch of
+// sources (0 for a single source); the gauge and clover are shared.
 template <typename R, bool DAG, bool RECON12>
 __device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
-                                            int z, int w) {
+                                            int z, int w, int64_t soff) {
   constexpr int NROWS = RECON12 ? 2 : 3;
   constexpr int NG = NROWS * 48;
   const int64_t zw = (int64_t)a.Z * a.W;
@@ -148,7 +150,7 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
       } else {
         wn = s0 ? (k == 0 ? w + (a.Xh - 1) : w - 1) : w;
       }
-      const R* pn = a.psi + (int64_t)tn * 24 * zw + (int64_t)zn * a.W + wn;
+      const R* pn = a.psi + soff + (int64_t)tn * 24 * zw + (int64_t)zn * a.W + wn;
 
       Cplx<R> hs[2][3];
 #pragma unroll
@@ -204,8 +206,8 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
     chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, a.clover == 2,
                  hop, res);
   }
-  const R* xs = a.xpay ? a.x + (int64_t)t * 24 * zw + site : nullptr;
-  R* os = a.out + (int64_t)t * 24 * zw + site;
+  const R* xs = a.xpay ? a.x + soff + (int64_t)t * 24 * zw + site : nullptr;
+  R* os = a.out + soff + (int64_t)t * 24 * zw + site;
 #pragma unroll
   for (int kk = 0; kk < 12; ++kk) {
     Cplx<R> v = res[kk];
@@ -218,7 +220,7 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
     store_c(os, 2 * kk, zw, v);
   }
   if (a.post) {
-    R* o2 = a.out2 + (int64_t)t * 24 * zw + site;
+    R* o2 = a.out2 + soff + (int64_t)t * 24 * zw + site;
     Cplx<R> v2[12];
     if (a.post == 1) {
       chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, true, res, v2);
@@ -237,7 +239,7 @@ __global__ void __launch_bounds__(128)
     dslash_ch_kernel(const DslashArgs<R> a) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= a.W) return;
-  dslash_site<R, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w);
+  dslash_site<R, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w, 0);
 }
 
 }  // namespace qkx

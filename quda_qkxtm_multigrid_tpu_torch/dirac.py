@@ -37,35 +37,39 @@ from quda_qkxtm_multigrid_tpu_torch.ops import clover as _cl
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops import twist as _twist
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    clover_channels, dslash_ch, from_channels, gauge_channels, to_channels)
+    clover_channels, dslash_ch, dslash_ch_msrc, from_channels,
+    gauge_channels, to_channels)
 
 
 def _ch_clover_apply(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
                      dag: bool = False) -> torch.Tensor:
     """Chiral-block 6×6 matrix field (channel operand [T, 144, Z, W])
-    applied to a planar-channel spinor [T, 24, Z, W]; ``dag`` applies
-    the conjugate transpose.  Used only for the leading A⁻¹† of the
-    dagger ordering; every other application is a kernel epilogue."""
-    t, _, z, w = v_ch.shape
-    v = torch.complex(v_ch[:, 0::2], v_ch[:, 1::2]).reshape(t, 2, 6, z, w)
+    applied to a planar-channel spinor [..., T, 24, Z, W] (any leading
+    batch axes); ``dag`` applies the conjugate transpose.  Used only for
+    the leading A⁻¹† of the dagger ordering; every other application is
+    a kernel epilogue."""
+    t, _, z, w = v_ch.shape[-4:]
+    lead = v_ch.shape[:-4]
+    v = torch.complex(v_ch[..., 0::2, :, :], v_ch[..., 1::2, :, :]).reshape(
+        *lead, t, 2, 6, z, w)
     m = torch.complex(cinv_ch[:, 0::2], cinv_ch[:, 1::2]).reshape(
         t, 2, 6, 6, z, w)
     if dag:
-        out = torch.einsum("thcrzw,thczw->thrzw", m.conj(), v)
+        out = torch.einsum("thcrzw,...thczw->...thrzw", m.conj(), v)
     else:
-        out = torch.einsum("thrczw,thczw->thrzw", m, v)
-    return torch.stack([out.real, out.imag], dim=3).reshape(v_ch.shape)
+        out = torch.einsum("thrczw,...thczw->...thrzw", m, v)
+    return torch.stack([out.real, out.imag], dim=-3).reshape(v_ch.shape)
 
 
 def _ch_twist(psi_ch: torch.Tensor, a: float, b: float) -> torch.Tensor:
-    """b (1 + i a γ5) on a planar-channel field [T, 24, Z, W]
+    """b (1 + i a γ5) on a planar-channel field [..., T, 24, Z, W]
     (channel (s*3+c)*2 + ri; γ5 = +1 for spins 0,1 and −1 for 2,3)."""
-    re, im = psi_ch[:, 0::2], psi_ch[:, 1::2]
+    re, im = psi_ch[..., 0::2, :, :], psi_ch[..., 1::2, :, :]
     g5 = torch.tensor([1.0] * 6 + [-1.0] * 6, dtype=psi_ch.dtype,
-                      device=psi_ch.device).reshape(1, 12, 1, 1)
+                      device=psi_ch.device).reshape(12, 1, 1)
     out_re = b * (re - (a * g5) * im)
     out_im = b * (im + (a * g5) * re)
-    return torch.stack([out_re, out_im], dim=2).reshape(psi_ch.shape)
+    return torch.stack([out_re, out_im], dim=-3).reshape(psi_ch.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,9 +164,11 @@ class Dirac(nn.Module):
             return from_channels(out, (4, 3))
         return _dsl.dslash_parity(self.u, psi_opp, parity, self.geom, dagger)
 
-    def _matpc_tm_ch(self, psi_ch: torch.Tensor, dagger: bool):
+    def _matpc_tm_ch(self, psi_ch: torch.Tensor, dagger: bool,
+                     hop=dslash_ch):
         """Fused twisted-mass symmetric matpc on channels: the A⁻¹ twists
-        and the final −κ² xpay run in the hop epilogues."""
+        and the final −κ² xpay run in the hop epilogues.  ``hop`` is
+        ``dslash_ch`` or, on a batch of sources, ``dslash_ch_msrc``."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
         g = self._operands(psi_ch.dtype)["g"]
@@ -171,39 +177,49 @@ class Dirac(nn.Module):
             a = -a
         tw = (-a, 1.0 / (1.0 + a * a))
         if not dagger:
-            t = dslash_ch(g[1 - pr], psi_ch, 1 - pr, self.geom, recon12=True,
-                          twist=tw)
-            return dslash_ch(g[pr], t, pr, self.geom, recon12=True, twist=tw,
-                             xpay_coef=-(k * k), x_ch=psi_ch)
+            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, recon12=True,
+                    twist=tw)
+            return hop(g[pr], t, pr, self.geom, recon12=True, twist=tw,
+                       xpay_coef=-(k * k), x_ch=psi_ch)
         t = _ch_twist(psi_ch, tw[0], tw[1])
-        t = dslash_ch(g[1 - pr], t, 1 - pr, self.geom, dagger=True,
-                      recon12=True, twist=tw)
-        return dslash_ch(g[pr], t, pr, self.geom, dagger=True, recon12=True,
-                         xpay_coef=-(k * k), x_ch=psi_ch)
+        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, recon12=True,
+                twist=tw)
+        return hop(g[pr], t, pr, self.geom, dagger=True, recon12=True,
+                   xpay_coef=-(k * k), x_ch=psi_ch)
 
-    def _matpc_clover_ch(self, psi_ch: torch.Tensor, dagger: bool):
+    def _matpc_clover_ch(self, psi_ch: torch.Tensor, dagger: bool,
+                         hop=dslash_ch):
         """Fused (twisted-)clover symmetric matpc on channels: the A⁻¹
-        chiral 6×6 matvecs run in the hop epilogues."""
+        chiral 6×6 matvecs run in the hop epilogues (``hop`` as in
+        ``_matpc_tm_ch``)."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
         ops = self._operands(psi_ch.dtype)
         g, ci = ops["g"], ops["ci"]
         if not dagger:
-            t = dslash_ch(g[1 - pr], psi_ch, 1 - pr, self.geom, recon12=True,
-                          clover="fwd", cinv_ch=ci[1 - pr])
-            return dslash_ch(g[pr], t, pr, self.geom, recon12=True,
-                             clover="fwd", cinv_ch=ci[pr],
-                             xpay_coef=-(k * k), x_ch=psi_ch)
+            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, recon12=True,
+                    clover="fwd", cinv_ch=ci[1 - pr])
+            return hop(g[pr], t, pr, self.geom, recon12=True, clover="fwd",
+                       cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch)
         t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
-        t = dslash_ch(g[1 - pr], t, 1 - pr, self.geom, dagger=True,
-                      recon12=True, clover="dag", cinv_ch=ci[1 - pr])
-        return dslash_ch(g[pr], t, pr, self.geom, dagger=True, recon12=True,
-                         xpay_coef=-(k * k), x_ch=psi_ch)
+        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, recon12=True,
+                clover="dag", cinv_ch=ci[1 - pr])
+        return hop(g[pr], t, pr, self.geom, dagger=True, recon12=True,
+                   xpay_coef=-(k * k), x_ch=psi_ch)
 
-    def _fused_matpc_ch(self, psi_ch: torch.Tensor, dagger: bool):
+    def _fused_matpc_ch(self, psi_ch: torch.Tensor, dagger: bool,
+                        hop=dslash_ch):
         if self.params.has_clover:
-            return self._matpc_clover_ch(psi_ch, dagger)
-        return self._matpc_tm_ch(psi_ch, dagger)
+            return self._matpc_clover_ch(psi_ch, dagger, hop)
+        return self._matpc_tm_ch(psi_ch, dagger, hop)
+
+    def _fused_matpc_ch_msrc(self, psi_ch_b: torch.Tensor, dagger: bool):
+        """Multi-source fused matpc on float32 channels [n, T, 24, Z, W]:
+        the same chain with the multi-source hop, which reads the gauge
+        and clover once for all n sources.  The dagger half's leading
+        A⁻¹† (or twist) runs batched before the first hop: the
+        multi-source kernel has no second output."""
+        return self._fused_matpc_ch(psi_ch_b, dagger, hop=dslash_ch_msrc)
 
     def _fused_matpc_dagm_ch(self, psi_ch: torch.Tensor, hop=dslash_ch):
         """matpc†·matpc as four fused hops: the leading A⁻¹† of the dagger

@@ -16,6 +16,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     from_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+from quda_qkxtm_multigrid_tpu_torch.solvers.msrc import msrc_cg
 
 
 class InvertResult(NamedTuple):
@@ -48,6 +49,38 @@ def invert(dirac: Dirac, b: torch.Tensor, tol: float = 1e-10,
     x = dirac.reconstruct(x_p, b)
     _, rel = true_residual(dirac, x, b)
     return InvertResult(x, res.iters, float(rel))
+
+
+def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
+                maxiter: int = 1000) -> InvertResult:
+    """Solve M x_i = b_i for a batch bs [n, 2,4,3,T,Z,W] with one
+    multi-source CG on M_pc† M_pc (``solvers.msrc.msrc_cg``).
+
+    Source preparation, the M_pc† of the right-hand side, the
+    reconstruction and the true residual run source by source.  On the
+    fused kernel chain the CG runs on float32 channels [n, T, 24, Z, W]
+    and each matvec is two multi-source matpc halves, i.e. four
+    multi-source kernel launches.  ``true_res`` is the worst source's
+    |M x_i − b_i| / |b_i|."""
+    rhs = torch.stack([dirac.matpc(dirac.prepare(b), dagger=True)
+                       for b in bs])
+    if dirac._has_fused_matpc:
+        def matvec_b(v_ch_b):
+            return dirac._fused_matpc_ch_msrc(
+                dirac._fused_matpc_ch_msrc(v_ch_b, False), True)
+
+        rhs_ch = torch.stack([to_channels(r) for r in rhs]).to(torch.float32)
+        res = msrc_cg(matvec_b, rhs_ch, tol=tol, maxiter=maxiter)
+        x_p = torch.stack([from_channels(v, (4, 3)) for v in res.x]).to(
+            rhs.dtype)
+    else:
+        res = msrc_cg(lambda v: torch.stack([dirac.matpc_dagm(a) for a in v]),
+                      rhs, tol=tol, maxiter=maxiter)
+        x_p = res.x
+    del rhs
+    x = torch.stack([dirac.reconstruct(a, b) for a, b in zip(x_p, bs)])
+    worst = max(float(true_residual(dirac, a, b)[1]) for a, b in zip(x, bs))
+    return InvertResult(x, res.iters, worst)
 
 
 def true_residual(dirac: Dirac, x: torch.Tensor, b: torch.Tensor):

@@ -151,6 +151,31 @@ def spinor_from_lex(full: torch.Tensor, geom: Geometry) -> torch.Tensor:
     return split.reshape((2, 4, 3) + geom.lat_shape).contiguous()
 
 
+def spinor_to_lex_dof_leading(psi: torch.Tensor,
+                              geom: Geometry) -> torch.Tensor:
+    """canonical [..., 2,4,3,T,Z,W] → [..., 4,3,T,Z,Y,X] (spin and colour
+    stay ahead of the site axes; any leading batch axes are kept)."""
+    lead = psi.shape[:-6]
+    p = psi.reshape(*lead, 2, 4, 3, *geom.cb4_shape)
+    even, odd = p.select(-7, 0), p.select(-7, 1)     # [...,4,3,T,Z,Y,Xh]
+    r = _row_parity(geom, psi.device)                # [T,Z,Y,1]
+    pairs = torch.stack([torch.where(r, odd, even),
+                         torch.where(r, even, odd)], dim=-1)
+    return pairs.reshape(*lead, 4, 3, geom.T, geom.Z, geom.Y, geom.X)
+
+
+def spinor_from_lex_dof_leading(full: torch.Tensor,
+                                geom: Geometry) -> torch.Tensor:
+    """[..., 4,3,T,Z,Y,X] → canonical [..., 2,4,3,T,Z,W]."""
+    lead = full.shape[:-6]
+    pairs = full.reshape(*lead, 4, 3, geom.T, geom.Z, geom.Y, geom.Xh, 2)
+    r = _row_parity(geom, full.device)
+    even = torch.where(r, pairs[..., 1], pairs[..., 0])
+    odd = torch.where(r, pairs[..., 0], pairs[..., 1])
+    return torch.stack([even, odd], dim=-7).reshape(
+        *lead, 2, 4, 3, *geom.lat_shape)
+
+
 def site_index(geom: Geometry, coords):
     """(x,y,z,t) → (parity, t, z, w) canonical indices."""
     x, y, z, t = coords

@@ -15,6 +15,11 @@ def norm2(x: torch.Tensor) -> torch.Tensor:
     return torch.vdot(x.reshape(-1), x.reshape(-1)).real
 
 
+def cDotProduct(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """<x, y> = Σ conj(x) y as a 0-d tensor."""
+    return torch.vdot(x.reshape(-1), y.reshape(-1))
+
+
 def reDotProduct(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Re <x, y> as a real 0-d tensor."""
     return torch.vdot(x.reshape(-1), y.reshape(-1)).real

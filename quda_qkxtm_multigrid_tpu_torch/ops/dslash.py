@@ -72,3 +72,23 @@ def dslash_parity_doubled(ud, psi_opp, parity: int, geom: Geometry,
                                _proj(mu, not dagger, bwd_psi))
         out = term if out is None else out + term
     return out
+
+
+def hop_apply(u, psi, mu: int, sign: int, geom: Geometry):
+    """One of the eight directional hop terms on a full field
+    [2,4,3,T,Z,W]:
+      sign=+1: out(x) = (1 − γ_mu) U_mu(x) psi(x+mu)
+      sign=-1: out(x) = (1 + γ_mu) U_mu†(x-mu) psi(x-mu)
+    The coarse-operator build restricts each term separately."""
+    outs = []
+    for parity in (0, 1):
+        src = psi[1 - parity]
+        if sign > 0:
+            fwd = gather_neighbor(src, mu, True, parity, geom)
+            outs.append(_su3(u[mu, parity], _proj(mu, False, fwd)))
+        else:
+            bwd = gather_neighbor(src, mu, False, parity, geom)
+            u_bwd = gather_neighbor(u[mu, 1 - parity], mu, False, parity,
+                                    geom)
+            outs.append(_su3_dag(u_bwd, _proj(mu, True, bwd)))
+    return torch.stack(outs)

@@ -20,6 +20,13 @@ second output ``post_op``: ("clover",) applies A† to the result,
 On a CUDA tensor it launches ``csrc/dslash_ch.cu`` (float or double);
 on a CPU tensor it runs ``dslash_ch_reference``.  There is no fallback
 between the two.
+
+``dslash_ch_msrc`` is the multi-source form (K2, the counterpart of
+``dslash_ch_pallas5_msrc``): the same hop and epilogues, without
+``post_op``, over a batch ψ [n, T, 24, Z, W] that shares one gauge and
+one clover inverse, in float32 only.  On a CUDA tensor it launches
+``csrc/dslash_ch_msrc.cu``; on a CPU tensor it runs
+``dslash_ch_msrc_reference``.
 """
 
 from __future__ import annotations
@@ -261,3 +268,81 @@ def dslash_parity_kernel(ud, psi_opp, parity: int, geom: Geometry,
     g_ch = gauge_channels(ud, parity, recon12, psi_ch.dtype)
     out = dslash_ch(g_ch, psi_ch, parity, geom, dagger, recon12=recon12)
     return from_channels(out, (4, 3))
+
+
+def dslash_ch_msrc_reference(g_ch, psi_ch_b, parity: int, geom: Geometry,
+                             dagger: bool = False, recon12: bool = False,
+                             twist=None, xpay_coef=None, x_ch=None,
+                             clover=None, cinv_ch=None):
+    """Plain PyTorch version of ``dslash_ch_msrc``: ``dslash_ch_reference``
+    on each source."""
+    return torch.stack([
+        dslash_ch_reference(g_ch, psi_ch_b[i], parity, geom, dagger, recon12,
+                            twist, xpay_coef,
+                            None if x_ch is None else x_ch[i], clover,
+                            cinv_ch)
+        for i in range(psi_ch_b.shape[0])])
+
+
+def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
+                         x_ch, clover, cinv_ch):
+    """Raise on anything the multi-source kernel does not take."""
+    if psi_ch_b.dim() != 5 or psi_ch_b.shape[0] < 1:
+        raise ValueError(f"psi_ch_b shape {tuple(psi_ch_b.shape)} is not "
+                         "[n, T, 24, Z, W]")
+    if psi_ch_b.dtype != torch.float32:
+        raise TypeError(f"psi_ch_b dtype {psi_ch_b.dtype}: the multi-source "
+                        "kernel is float32 only")
+    if not psi_ch_b.is_contiguous():
+        raise ValueError("psi_ch_b is not contiguous")
+    if x_ch is not None:
+        if tuple(x_ch.shape) != tuple(psi_ch_b.shape):
+            raise ValueError(f"x_ch shape {tuple(x_ch.shape)} != "
+                             f"{tuple(psi_ch_b.shape)}")
+        if not x_ch.is_contiguous():
+            raise ValueError("x_ch is not contiguous")
+    _check_operands(g_ch, psi_ch_b[0], geom, recon12, twist, xpay_coef,
+                    None if x_ch is None else x_ch[0], clover, cinv_ch,
+                    None)
+
+
+def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
+                   dagger: bool = False, recon12: bool = False, twist=None,
+                   xpay_coef=None, x_ch=None, clover=None, cinv_ch=None):
+    """Fused Wilson hop with epilogues over a batch of sources
+    ψ [n, T, 24, Z, W] float32 (module docstring).
+
+    A CUDA ``psi_ch_b`` launches the multi-source CUDA kernel once on
+    the current stream (``dslash_ch_msrc.launches`` counts the launches);
+    a CPU ``psi_ch_b`` runs ``dslash_ch_msrc_reference``.  Anything else
+    raises."""
+    _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
+                         x_ch, clover, cinv_ch)
+    if psi_ch_b.device.type == "cpu":
+        return dslash_ch_msrc_reference(g_ch, psi_ch_b, parity, geom, dagger,
+                                        recon12, twist, xpay_coef, x_ch,
+                                        clover, cinv_ch)
+    if psi_ch_b.device.type != "cuda":
+        raise ValueError(f"no dslash_ch_msrc for device {psi_ch_b.device}")
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    lib = _build.load_library()
+    out = torch.empty_like(psi_ch_b)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ta, tb = twist if twist is not None else (0.0, 0.0)
+    stream = torch.cuda.current_stream(psi_ch_b.device).cuda_stream
+    with torch.cuda.device(psi_ch_b.device):
+        err = lib.qkx_dslash_ch_msrc_f32(
+            ptr(psi_ch_b), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
+            psi_ch_b.shape[0], geom.T, geom.Z, geom.W, geom.Xh, parity,
+            int(dagger), int(recon12), int(twist is not None), ta, tb,
+            _CLOVER_MODES[clover], int(xpay_coef is not None),
+            0.0 if xpay_coef is None else xpay_coef,
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"dslash_ch_msrc kernel launch failed: CUDA "
+                           f"error {err}")
+    dslash_ch_msrc.launches += 1
+    return out
+
+
+dslash_ch_msrc.launches = 0

@@ -22,9 +22,11 @@ def _normal_complex(gen: torch.Generator, shape, dtype) -> torch.Tensor:
 
 
 def random_spinor(gen: torch.Generator, geom: Geometry,
-                  dtype=torch.complex128) -> torch.Tensor:
-    """Gaussian random colour-spinor field [2, 4, 3, T, Z, W]."""
-    return _normal_complex(gen, (2, 4, 3) + geom.lat_shape, dtype)
+                  dtype=torch.complex128, batch_shape=()) -> torch.Tensor:
+    """Gaussian random colour-spinor field [*batch_shape, 2, 4, 3, T, Z,
+    W], drawn as one batch."""
+    return _normal_complex(gen, tuple(batch_shape) + (2, 4, 3)
+                           + geom.lat_shape, dtype)
 
 
 def su3_project_leading(a: torch.Tensor) -> torch.Tensor:

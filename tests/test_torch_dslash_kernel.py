@@ -317,3 +317,49 @@ def test_kernel_matches_reference_on_card():
             ref = ref if isinstance(ref, tuple) else (ref,)
             for a, b in zip(got, ref):
                 assert float((a - b).norm() / b.norm()) <= tol
+
+
+@pytest.mark.cuda
+def test_msrc_kernel_matches_reference_and_single_source_on_card():
+    """The multi-source CUDA kernel against its plain version (float32,
+    1e-5) and against n single-source kernel launches (1e-6; the two
+    share the per-site device code), over the forms of the multigrid
+    setup, for n = 1 and 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    geom_j = jlat.Geometry(8, 8, 8, 8)
+    u, ud, psi, x, cinv = _fields(geom_j, 34)
+    geom = tlat.Geometry(8, 8, 8, 8)
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    g = [dk.gauge_channels(T(ud, dev), p, True, f32) for p in (0, 1)]
+    ci = [dk.clover_channels(T(cinv, dev), p, f32) for p in (0, 1)]
+    src = torch.stack([dk.to_channels(T(psi[p], dev)) for p in (0, 1, 0)])
+    xs = torch.stack([dk.to_channels(T(x[p], dev)) for p in (1, 0, 1)])
+    forms = [dict(parity=1, clover="fwd"),
+             dict(parity=0, clover="fwd", xpay=True),
+             dict(parity=1, dagger=True, clover="dag"),
+             dict(parity=0, dagger=True, xpay=True),
+             dict(parity=0, twist=(-A_TW, B_TW), xpay=True),
+             dict(parity=1, dagger=True, twist=(A_TW, B_TW))]
+    for n in (1, 3):
+        psi_b, x_b = src[:n].to(f32).contiguous(), xs[:n].to(f32).contiguous()
+        for f in forms:
+            p = f["parity"]
+            kw = dict(dagger=f.get("dagger", False), recon12=True,
+                      twist=f.get("twist"))
+            if "clover" in f:
+                kw.update(clover=f["clover"], cinv_ch=ci[p])
+            xpay = dict(xpay_coef=XC, x_ch=x_b) if "xpay" in f else {}
+            before = dk.dslash_ch_msrc.launches
+            got = dk.dslash_ch_msrc(g[p], psi_b, p, geom, **kw, **xpay)
+            assert dk.dslash_ch_msrc.launches == before + 1
+            ref = dk.dslash_ch_msrc_reference(g[p], psi_b, p, geom, **kw,
+                                              **xpay)
+            assert float((got - ref).norm() / ref.norm()) <= 1e-5
+            singles = torch.stack([
+                dk.dslash_ch(g[p], psi_b[i], p, geom, **kw,
+                             **({"xpay_coef": XC, "x_ch": x_b[i]}
+                                if xpay else {}))
+                for i in range(n)])
+            assert float((got - singles).norm() / singles.norm()) <= 1e-6

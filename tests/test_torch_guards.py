@@ -81,15 +81,19 @@ def test_build_targets_hopper():
     for f in ("-std=c++17", "-O3", "-shared", "-fPIC"):
         assert f in flags
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
-    assert {p.name for p in _build._sources()} >= {"dslash_ch.cu",
-                                                   "dslash_ch.cuh"}
+    assert {p.name for p in _build._sources()} >= {
+        "dslash_ch.cu", "dslash_ch.cuh", "dslash_ch_msrc.cu"}
 
 
-def test_entry_points_pass_pointers_as_void_p():
-    for argtypes in _build.ENTRY_POINTS.values():
-        assert len(argtypes) == 23
-        assert argtypes[:6] == [ctypes.c_void_p] * 6
-        assert argtypes[-1] is ctypes.c_void_p          # the stream
+@pytest.mark.parametrize("name,n_args,n_ptrs", [
+    ("qkx_dslash_ch_f32", 23, 6), ("qkx_dslash_ch_f64", 23, 6),
+    ("qkx_dslash_ch_msrc_f32", 20, 5)])
+def test_entry_points_pass_pointers_as_void_p(name, n_args, n_ptrs):
+    argtypes = _build.ENTRY_POINTS[name]
+    assert len(argtypes) == n_args
+    assert argtypes[:n_ptrs] == [ctypes.c_void_p] * n_ptrs
+    assert ctypes.c_void_p not in argtypes[n_ptrs:-1]
+    assert argtypes[-1] is ctypes.c_void_p          # the stream
 
 
 def test_source_hash_follows_sources(tmp_path, monkeypatch):
@@ -100,7 +104,7 @@ def test_source_hash_follows_sources(tmp_path, monkeypatch):
     with open(tmp_path / "dslash_ch.cuh", "a") as f:
         f.write("// edit\n")
     assert _build.source_hash() != h0
-    assert _build.library_path().name.startswith("qkx_kernels-")
+    assert _build.library_dir().name == f"qkx_kernels-{_build.source_hash()}"
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -111,3 +115,18 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_msrc_kernel_refuses_other_devices():
+    """No fallback: the multi-source wrapper runs its plain version only
+    on the CPU and launches the kernel only on CUDA; any other device
+    raises."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_msrc)
+    geom = Geometry(4, 4, 4, 4)
+    g = torch.empty((4, 96, 4, 8), device="meta")
+    psi = torch.empty((2, 4, 24, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no dslash_ch_msrc for device"):
+        dslash_ch_msrc(g, psi, 0, geom, recon12=True)
