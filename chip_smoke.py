@@ -29,17 +29,33 @@ and does not print its last line:
    into null vectors (through the multi-source kernel), orthonormalisation
    and coarse build; cold and warm solves; the complex128 true residual;
    the kernels' launch counts; restrict and prolong against complex128;
-   the V-cycle's share of a solve.
+   the V-cycle's share of a solve;
+7. the bf16 operand tier (K1d, K2d) and the mixed-precision solve: K1d
+   against its plain version at 16³×32 for every form of the bf16 chain
+   and the bf16-ψ hop, and against the float32 kernel (the difference
+   must show the bf16 rounding); K2d against its plain version and n K1d
+   launches, n = 1, 3, 8; the mixed-precision CG at 32³×64 (complex128
+   outer through K1's double instance, bf16 sloppy inner through K1d,
+   tol 1e-10): restarts, inner iterations, time, the complex128 true
+   residual, peak memory, launch counts; the same solve with the
+   complex64 sloppy operator and with mixed BiCGstab; the split of a
+   bf16 solve into inner and outer matvecs and complex128 stages; K1d
+   and K2d timed at 32³×64 against their plain versions and the float32
+   kernels (K2d also in the bare form); then a bf16-tier CG and a
+   multi-source solve on the bf16 tier at 16³×32.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero before printing any result.  The last line of its output is
 one JSON object, {"ok": true, "device": {...}}; the line before it holds
-the table of both kernels as JSON.
+the table of the kernels as JSON, each with its bound: the larger of
+its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s
+(an H100 SXM's published peaks).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -65,10 +81,25 @@ MG_JAX_RECORD_ITERS = 15  # the JAX package's 32³×64 MG-GCR-PC record
 MG_ITERS_BAND = (10, 30)
 MG_TRANSFER_LIMIT = 1e-6  # complex64 restrict / prolong vs complex128
 
+MIXED_TOL = 1e-10
+MIXED_TRUE_RES_LIMIT = 5e-10
+BF16_BAND = (1e-5, 2e-2)  # bf16 kernel vs float32 kernel: bf16 is read
+BF16_PATH_TOL = 1e-3      # the bf16-tier CG and multi-source solves
+BF16_PATH_TRUE_RES = 1e-2
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_FLOPS_PER_S = 67e12    # float32 outside the tensor cores, published
+HOP_FLOPS, CLOVER_FLOPS, XPAY_FLOPS = 1320, 504, 48   # per site
+
 KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch.cu"
 KERNEL_REPLACES = "quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:30"
 MSRC_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_msrc.cu"
 MSRC_KERNEL_REPLACES = "quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:960"
+BF16_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_bf16.cu"
+BF16_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:512 "
+                        "(bf16=True)")
+BF16_MSRC_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/"
+                             "dslash_pallas5.py:960 (bf16=True)")
 
 
 def _import_port():
@@ -115,6 +146,20 @@ def _compare_timed(kernel, plain, n_kernel=20, n_plain=3, reps=5):
         tp.append(_time_ms(plain, n_plain))
         tk.append(_time_ms(kernel, n_kernel))
     return statistics.median(tk), statistics.median(tp)
+
+
+def _bound(nbytes: int, flops: int):
+    """(least ms, "bytes" or "operations") of a kernel that moves
+    ``nbytes`` (each input read once, each output written once) and does
+    ``flops`` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def _compare(got, ref, label: str, limit: float) -> float:
@@ -339,8 +384,11 @@ def phase_slice(geom_dims):
                      f" GFLOP/s, {nbytes / tk / 1e6:.1f} GB/s (min bytes)")
         print(line, flush=True)
     tk, tp = timings["float32 hop"]
+    v32 = to_channels(v).to(torch.float32)
+    bound = _bound(_nbytes(d._operands(torch.float32)["g"][pr], v32, v32),
+                   HOP_FLOPS * sites)
     return {"launches": launches, "ms": tk, "plain_ms": tp,
-            "max_abs_err": max_abs}
+            "max_abs_err": max_abs, "bound": bound}
 
 
 def _msrc_cases(twist_a: float, twist_b: float, xc: float):
@@ -449,7 +497,11 @@ def phase_msrc(check_dims, time_dims, n_time: int):
     print(f"  multi-source kernel {tk:.4f} ms ({tk / n_time:.4f} ms a "
           f"source)  {n_time} single-source launches {t1:.4f} ms  plain "
           f"{tp:.4f} ms", flush=True)
-    return {"max_abs_err": max_abs, "ms": tk, "plain_ms": tp, "k1_ms": t1}
+    bound = _bound(_nbytes(g[0], kw["cinv_ch"], psi_b, x_b, psi_b),
+                   n_time * (HOP_FLOPS + CLOVER_FLOPS + XPAY_FLOPS)
+                   * geom.half_volume)
+    return {"max_abs_err": max_abs, "ms": tk, "plain_ms": tp, "k1_ms": t1,
+            "bound": bound}
 
 
 def phase_mg(geom_dims):
@@ -556,6 +608,377 @@ def phase_mg(geom_dims):
     return launches, rec
 
 
+def _bf16_fields(dims, seed):
+    """Random gauge, clover inverse and spinors on the card; the channel
+    operands of both parities in float32 and in bf16."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, gauge_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    geom = Geometry(*dims)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    u = rng.random_gauge(gen, geom)
+    _, cinv = make_clover_pair(u, geom, tmc_params())
+    ud = double_gauge(u, geom)
+    ops = {dt: {"g": [gauge_channels(ud, p, True, dt) for p in (0, 1)],
+                "ci": [clover_channels(cinv, p, dt) for p in (0, 1)]}
+           for dt in (torch.float32, torch.bfloat16)}
+    del u, ud, cinv
+    return geom, gen, ops
+
+
+def _bf16_kwargs(c, ops, x_ch, p):
+    kw = dict(dagger=c.get("dagger", False), recon12=True,
+              twist=c.get("twist"), post_op=c.get("post_op"))
+    if "xpay" in c:
+        kw.update(xpay_coef=c["xpay"], x_ch=x_ch)
+    if "clover" in c:
+        kw.update(clover=c["clover"], cinv_ch=ops["ci"][p])
+    return kw
+
+
+def phase_bf16_kernels(check_dims):
+    """K1d against its plain version for every recon-12 form of the
+    chains and for the bf16-ψ hop, and against the float32 kernel on the
+    float32 operands of the same fields; K2d against its plain version
+    and against n K1d launches.  Returns the largest absolute error of
+    each kernel against its plain version, {"k1d": .., "k2d": ..}."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
+        dslash_ch_reference, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    print(f"phase 7a: bf16 operand kernels vs plain and vs the float32 "
+          f"kernel at {check_dims}", flush=True)
+    geom, gen, ops = _bf16_fields(check_dims, 21)
+    f32, b16 = torch.float32, torch.bfloat16
+    psi = rng.random_spinor(gen, geom)
+    x = rng.random_spinor(gen, geom)
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    cases = [(lbl, c) for lbl, c in _hop_cases(a, 1 / (1 + a * a),
+                                               -kappa * kappa)
+             if c["recon12"]]
+    max_abs = {"k1d": 0.0, "k2d": 0.0}
+    for label, c in cases + [(f"bf16-psi hop parity {p} dagger {int(dg)}",
+                              dict(parity=p, dagger=dg, psi16=True))
+                             for p in (0, 1) for dg in (False, True)]:
+        p = c["parity"]
+        v = to_channels(psi[1 - p]).to(f32)
+        xc = to_channels(x[p]).to(f32)
+        kw16 = _bf16_kwargs(c, ops[b16], xc, p)
+        kw32 = _bf16_kwargs(c, ops[f32], xc, p)
+        v16 = v.to(b16) if c.get("psi16") else v
+        before = dslash_ch.launches_bf16
+        got = dslash_ch(ops[b16]["g"][p], v16, p, geom, **kw16)
+        torch.cuda.synchronize()
+        if dslash_ch.launches_bf16 != before + 1:
+            raise AssertionError("dslash_ch did not count its bf16 launch")
+        ref = dslash_ch_reference(ops[b16]["g"][p], v16, p, geom, **kw16)
+        max_abs["k1d"] = max(max_abs["k1d"], _compare(
+            got, ref, f"bf16 {label}", F32_LIMIT))
+        k32 = dslash_ch(ops[f32]["g"][p], v16.to(f32), p, geom, **kw32)
+        got = got if isinstance(got, tuple) else (got,)
+        k32 = k32 if isinstance(k32, tuple) else (k32,)
+        diff = max(_rel(g16, g32) for g16, g32 in zip(got, k32))
+        ok = BF16_BAND[0] <= diff <= BF16_BAND[1]
+        print(f"    vs float32 kernel {diff:.3e}  (band {BF16_BAND[0]:.0e}"
+              f"..{BF16_BAND[1]:.0e})  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"bf16 {label}: {diff:.3e} against the "
+                                 f"float32 kernel outside {BF16_BAND}")
+
+    msrc = _msrc_cases(a, 1 / (1 + a * a), -kappa * kappa)
+    n_max = max(MSRC_NS)
+    src = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
+                       for _ in range(n_max)]).to(f32)
+    xs = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
+                      for _ in range(n_max)]).to(f32)
+    for n in MSRC_NS:
+        psi_b, x_b = src[:n].contiguous(), xs[:n].contiguous()
+        for label, c in msrc:
+            p = c["parity"]
+            kw = _bf16_kwargs(c, ops[b16], x_b, p)
+            kw.pop("post_op")
+            before = dslash_ch_msrc.launches_bf16
+            got = dslash_ch_msrc(ops[b16]["g"][p], psi_b, p, geom, **kw)
+            torch.cuda.synchronize()
+            if dslash_ch_msrc.launches_bf16 != before + 1:
+                raise AssertionError("dslash_ch_msrc did not count its "
+                                     "bf16 launch")
+            ref = dslash_ch_msrc_reference(ops[b16]["g"][p], psi_b, p, geom,
+                                           **kw)
+            max_abs["k2d"] = max(max_abs["k2d"], _compare(
+                got, ref, f"bf16 n={n} {label}", F32_LIMIT))
+            kw1 = {k: v for k, v in kw.items() if k != "x_ch"}
+            singles = torch.stack([
+                dslash_ch(ops[b16]["g"][p], psi_b[i], p, geom,
+                          x_ch=None if "x_ch" not in kw else x_b[i], **kw1)
+                for i in range(n)])
+            _check(f"bf16 n={n} {label} vs {n} K1d launches",
+                   _rel(got, singles), MSRC_VS_K1_LIMIT)
+    return max_abs
+
+
+def phase_mixed(geom_dims):
+    """The slice: mixed-precision CG at ``geom_dims`` on the complex128
+    operator with the bf16 sloppy operator (counts read around it), then
+    the complex64 sloppy operator and mixed BiCGstab for comparison, and
+    the split of a third bf16 solve.  Returns the slice's record with
+    its launch counts and the split."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_cg, make_problem)
+    from quda_qkxtm_multigrid_tpu_torch.dirac import as_sloppy
+    from quda_qkxtm_multigrid_tpu_torch.invert import invert
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import dslash_ch
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 7b: mixed-precision twisted-clover solve at {geom_dims}, "
+          f"complex128 outer, tol {MIXED_TOL}", flush=True)
+    # free what earlier phases left in reference cycles (phase 6's timed
+    # MG methods), so the peak memory below is this solve's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, b = make_problem(geom, DEVICE, seed=7)
+    torch.cuda.synchronize()
+    runs = {}
+    for solver, sloppy in (("cg-mixed", "bf16"), ("cg-mixed", "c64"),
+                           ("bicgstab-mixed", "bf16")):
+        dslash_ch.launches = dslash_ch.launches_bf16 = 0
+        rec = bench_cg(geom, tol=MIXED_TOL, problem=(d, b), solver=solver,
+                       sloppy=sloppy)
+        rec["k1"], rec["k1d"] = dslash_ch.launches, dslash_ch.launches_bf16
+        runs[(solver, sloppy)] = rec
+        print(f"  {rec['solver']}: restarts {rec['restarts']} (cold "
+              f"{rec['restarts_cold']}), inner iterations {rec['iters']} "
+              f"(cold {rec['iters_cold']}), warm secs {rec['secs']:.4f}, "
+              f"diverged {rec['diverged']}, true_res {rec['true_res']:.3e} "
+              f"(complex128; cold {rec['true_res_cold']:.3e}), peak memory "
+              f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB, launches K1 "
+              f"{rec['k1']} K1d {rec['k1d']}", flush=True)
+        if rec["diverged"]:
+            raise AssertionError(f"{rec['solver']} diverged")
+        _check(f"{rec['solver']} true residual (complex128)",
+               max(rec["true_res"], rec["true_res_cold"]),
+               MIXED_TRUE_RES_LIMIT)
+    rec = runs[("cg-mixed", "bf16")]
+    # per solve: K1 (double) prepare 1, rhs matpc† 2, 4 a restart,
+    # reconstruct 1, true residual 2; K1d 4 an inner CG iteration
+    want_k1 = 2 * 6 + 4 * (rec["restarts"] + rec["restarts_cold"])
+    want_k1d = 4 * (rec["iters"] + rec["iters_cold"])
+    if (rec["k1"], rec["k1d"]) != (want_k1, want_k1d):
+        raise AssertionError(f"slice launches K1 {rec['k1']} K1d "
+                             f"{rec['k1d']} != {want_k1}, {want_k1d}")
+
+    # where a warm bf16 solve's time goes (synchronised around each call)
+    sloppy = as_sloppy(d, kernel_bf16=True)
+    invert(d, b, tol=MIXED_TOL, solver="cg-mixed", sloppy_dirac=sloppy)
+    parts = {"inner matvec": 0.0, "outer matvec": 0.0,
+             "complex128 stages": 0.0}
+    wrapped = [(sloppy, "_fused_matpc_dagm_ch", "inner matvec"),
+               (d, "_fused_matpc_dagm_ch", "outer matvec")] + [
+        (d, name, "complex128 stages")
+        for name in ("prepare", "matpc", "reconstruct", "m")]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[name] += time.perf_counter() - t
+            return out
+        return run
+
+    for obj, attr, name in wrapped:
+        setattr(obj, attr, timed(name, getattr(obj, attr)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    invert(d, b, tol=MIXED_TOL, solver="cg-mixed", sloppy_dirac=sloppy)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    for obj, attr, _ in wrapped:
+        delattr(obj, attr)
+    print(f"  split of a third bf16 solve ({total:.4f} s): " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in parts.items()) + f"; BLAS, "
+        f"conversions and host syncs {total - sum(parts.values()):.4f} s",
+        flush=True)
+    rec["split"] = {"total": total, **parts}
+    return rec
+
+
+def phase_bf16_timing(geom_dims, n_time: int):
+    """K1d (bare hop, matpc†matpc chain) and K2d (n sources, clover fwd
+    + xpay) at ``geom_dims``, each timed in turns against its plain
+    version and against the float32 kernel of the same form, and the
+    multi-source matpc† half of both tiers.  Returns the medians, the
+    bounds and each kernel's largest absolute error against its plain
+    version here, {"k1d": .., "k2d": ..}."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_problem
+    from quda_qkxtm_multigrid_tpu_torch.dirac import (
+        _ch_clover_apply, _ch_matrix_apply, as_sloppy)
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
+        dslash_ch_reference, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 7c: bf16 kernels timed at {geom_dims} (median of 5, in "
+          f"turns)", flush=True)
+    d, _ = make_problem(geom, DEVICE, seed=7, dtype=torch.complex64)
+    s = as_sloppy(d, kernel_bf16=True)
+    f32 = torch.float32
+    o16, o32 = s._operands(f32), d._operands(f32)
+    pr = d.params.matpc_parity
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    v = to_channels(rng.random_spinor(gen, geom, torch.complex64)[0])
+    out = {}
+
+    def turns(name, fns, n_runs, reps=5):
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        times = {k: [] for k in fns}
+        for _ in range(reps):
+            for k, fn in fns.items():
+                times[k].append(_time_ms(fn, n_runs[k]))
+        med = {k: statistics.median(t) for k, t in times.items()}
+        print(f"  {name:<30s} " + "  ".join(f"{k} {t:.4f} ms"
+                                            for k, t in med.items()),
+              flush=True)
+        out[name] = med
+
+    hop = dict(recon12=True)
+    err = {}
+    err["k1d"] = _compare(dslash_ch(o16["g"][pr], v, pr, geom, **hop),
+                   dslash_ch_reference(o16["g"][pr], v, pr, geom, **hop),
+                   f"K1d bare hop at {geom_dims}", F32_LIMIT)
+    turns("K1d bare hop", {
+        "bf16": lambda: dslash_ch(o16["g"][pr], v, pr, geom, **hop),
+        "plain": lambda: dslash_ch_reference(o16["g"][pr], v, pr, geom,
+                                             **hop),
+        "f32": lambda: dslash_ch(o32["g"][pr], v, pr, geom, **hop)},
+        {"bf16": 20, "plain": 3, "f32": 20})
+    err["k1d"] = max(err["k1d"], _compare(
+        s._fused_matpc_dagm_ch(v),
+        s._fused_matpc_dagm_ch(v, hop=dslash_ch_reference),
+        f"K1d matpc†matpc at {geom_dims}", F32_LIMIT))
+    turns("K1d matpc†matpc", {
+        "bf16": lambda: s._fused_matpc_dagm_ch(v),
+        "plain": lambda: s._fused_matpc_dagm_ch(v, hop=dslash_ch_reference),
+        "f32": lambda: d._fused_matpc_dagm_ch(v)},
+        {"bf16": 10, "plain": 2, "f32": 10})
+    psi_b = torch.stack([to_channels(rng.random_spinor(
+        gen, geom, torch.complex64)[0]) for _ in range(n_time)])
+    x_b = torch.stack([to_channels(rng.random_spinor(
+        gen, geom, torch.complex64)[0]) for _ in range(n_time)])
+    kw = dict(recon12=True, clover="fwd", xpay_coef=-0.115 ** 2, x_ch=x_b)
+    err["k2d"] = _compare(
+        dslash_ch_msrc(o16["g"][0], psi_b, 0, geom, cinv_ch=o16["ci"][0],
+                       **kw),
+        dslash_ch_msrc_reference(o16["g"][0], psi_b, 0, geom,
+                                 cinv_ch=o16["ci"][0], **kw),
+        f"K2d n={n_time} at {geom_dims}", F32_LIMIT)
+    turns(f"K2d n={n_time} clover fwd + xpay", {
+        "bf16": lambda: dslash_ch_msrc(o16["g"][0], psi_b, 0, geom,
+                                       cinv_ch=o16["ci"][0], **kw),
+        "plain": lambda: dslash_ch_msrc_reference(
+            o16["g"][0], psi_b, 0, geom, cinv_ch=o16["ci"][0], **kw),
+        "f32": lambda: dslash_ch_msrc(o32["g"][0], psi_b, 0, geom,
+                                      cinv_ch=o32["ci"][0], **kw)},
+        {"bf16": 10, "plain": 1, "f32": 10})
+    # the bare form of the same batch: what the epilogue's loads cost
+    turns(f"K2d n={n_time} bare hop", {
+        "bf16": lambda: dslash_ch_msrc(o16["g"][0], psi_b, 0, geom,
+                                       recon12=True),
+        "f32": lambda: dslash_ch_msrc(o32["g"][0], psi_b, 0, geom,
+                                      recon12=True)},
+        {"bf16": 10, "f32": 10})
+    # the multi-source matpc† half of the solve: a plain A⁻¹† on the
+    # batch (its matrices kept on the operator), then two K2d launches
+    turns(f"msrc matpc† half n={n_time}", {
+        "bf16": lambda: s._fused_matpc_ch_msrc(psi_b, True),
+        "f32": lambda: d._fused_matpc_ch_msrc(psi_b, True)},
+        {"bf16": 5, "f32": 5})
+    # its leading A⁻¹† alone (bf16 tier): with the kept matrices, and with
+    # the matrices widened and rebuilt from the bf16 operand on each call
+    kept = s._clover_matrix(f32, pr)
+    turns(f"msrc leading A⁻¹† n={n_time}", {
+        "kept": lambda: _ch_matrix_apply(psi_b, kept, dag=True),
+        "rebuilt": lambda: _ch_clover_apply(psi_b, o16["ci"][pr], dag=True)},
+        {"kept": 5, "rebuilt": 5})
+    sites = geom.half_volume
+    # four hops: gauge of each parity twice, A⁻¹ three times (the post_op
+    # reuses its load), spinors 2 + 4 + 2 + 3 times
+    chain_bytes = (2 * _nbytes(*o16["g"], o16["ci"][1 - pr])
+                   + _nbytes(o16["ci"][pr]) + 11 * _nbytes(v))
+    bounds = {
+        "K1d bare hop": _bound(_nbytes(o16["g"][pr], v, v),
+                               HOP_FLOPS * sites),
+        "K1d matpc†matpc": _bound(
+            chain_bytes, (4 * HOP_FLOPS + 4 * CLOVER_FLOPS + 2 * XPAY_FLOPS)
+            * sites),
+        f"K2d n={n_time} clover fwd + xpay": _bound(
+            _nbytes(o16["g"][0], o16["ci"][0], psi_b, x_b, psi_b),
+            n_time * (HOP_FLOPS + CLOVER_FLOPS + XPAY_FLOPS) * sites),
+        f"K2d n={n_time} bare hop": _bound(
+            _nbytes(o16["g"][0], psi_b, psi_b), n_time * HOP_FLOPS * sites)}
+    for name, (ms, by) in bounds.items():
+        print(f"  {name} bound {ms:.4f} ms ({by}); kernel at "
+              f"{ms / out[name]['bf16']:.2f} of it", flush=True)
+    return out, bounds, err
+
+
+def phase_bf16_paths(check_dims):
+    """The other paths of the bf16 tier at ``check_dims``: CG on a
+    bf16-tier operator (prepare and reconstruct through the bf16-ψ hop)
+    and the multi-source solve on it (K2d), each with its launch counts
+    read around it.  Returns the K1d and K2d counts."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_problem
+    from quda_qkxtm_multigrid_tpu_torch.invert import invert, invert_msrc
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc)
+
+    geom = Geometry(*check_dims)
+    print(f"phase 7d: bf16-tier CG and multi-source solve at {check_dims}, "
+          f"tol {BF16_PATH_TOL}", flush=True)
+    d, b = make_problem(geom, DEVICE, seed=9, bf16=True)
+    dslash_ch.launches = dslash_ch.launches_bf16 = 0
+    res = invert(d, b, tol=BF16_PATH_TOL)
+    k1d, k1 = dslash_ch.launches_bf16, dslash_ch.launches
+    print(f"  CG: {res.iters} iterations, true_res {res.true_res:.3e}, "
+          f"launches K1d {k1d} K1 {k1}", flush=True)
+    _check("bf16-tier CG true residual", res.true_res, BF16_PATH_TRUE_RES)
+    if (k1d, k1) != (4 * res.iters + 6, 0):
+        raise AssertionError(f"bf16-tier CG launches K1d {k1d} K1 {k1} != "
+                             f"{4 * res.iters + 6}, 0")
+    bs = torch.stack([b, torch.roll(b, 1, dims=-1), 1j * b])
+    dslash_ch.launches_bf16 = dslash_ch_msrc.launches_bf16 = 0
+    dslash_ch_msrc.launches = 0
+    res = invert_msrc(d, bs, tol=BF16_PATH_TOL)
+    k2d, k2 = dslash_ch_msrc.launches_bf16, dslash_ch_msrc.launches
+    print(f"  multi-source CG, n=3: {res.iters} iterations, worst true_res "
+          f"{res.true_res:.3e}, launches K2d {k2d} K2 {k2} K1d "
+          f"{dslash_ch.launches_bf16}", flush=True)
+    _check("bf16-tier multi-source worst true residual", res.true_res,
+           BF16_PATH_TRUE_RES)
+    if (k2d, k2) != (4 * res.iters, 0):
+        raise AssertionError(f"multi-source launches K2d {k2d} K2 {k2} != "
+                             f"{4 * res.iters}, 0")
+    return k1d + dslash_ch.launches_bf16, k2d
+
+
 def main():
     _import_port()
     import torch
@@ -565,19 +988,39 @@ def main():
     k = phase_slice(SLICE_GEOM)
     k2 = phase_msrc(CHECK_GEOM, SLICE_GEOM, MSRC_TIME_N)
     launches, _ = phase_mg(SLICE_GEOM)
+    err_16 = phase_bf16_kernels(CHECK_GEOM)
+    mixed = phase_mixed(SLICE_GEOM)
+    times, bounds, err_time = phase_bf16_timing(SLICE_GEOM, MSRC_TIME_N)
+    k1d_paths, k2d_paths = phase_bf16_paths(CHECK_GEOM)
     print(f"dslash_ch launches: CG path {k['launches']}, MG path "
-          f"{launches['dslash_ch']}")
+          f"{launches['dslash_ch']}, mixed path (double) {mixed['k1']}; "
+          f"bf16 (K1d): mixed path {mixed['k1d']}, bf16-tier paths "
+          f"{k1d_paths}; K2d: {k2d_paths}")
+    hop16 = times["K1d bare hop"]
+    msrc16 = times[f"K2d n={MSRC_TIME_N} clover fwd + xpay"]
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
     print(json.dumps({"kernels": [
-        {"name": "dslash_ch", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": KERNEL_REPLACES,
-         "launches": k["launches"] + launches["dslash_ch"],
-         "max_abs_err": max(max_abs, k["max_abs_err"]), "ms": k["ms"],
-         "plain_ms": k["plain_ms"]},
-        {"name": "dslash_ch_msrc", "route": "cuda",
-         "source": MSRC_KERNEL_SOURCE, "replaces": MSRC_KERNEL_REPLACES,
-         "launches": launches["dslash_ch_msrc"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]}]}))
+        entry("dslash_ch", KERNEL_SOURCE, KERNEL_REPLACES,
+              k["launches"] + launches["dslash_ch"] + mixed["k1"],
+              max(max_abs, k["max_abs_err"]), k["ms"], k["plain_ms"],
+              k["bound"]),
+        entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
+              launches["dslash_ch_msrc"], k2["max_abs_err"], k2["ms"],
+              k2["plain_ms"], k2["bound"]),
+        entry("dslash_ch_bf16", BF16_KERNEL_SOURCE, BF16_KERNEL_REPLACES,
+              mixed["k1d"] + k1d_paths, max(err_16["k1d"], err_time["k1d"]),
+              hop16["bf16"], hop16["plain"], bounds["K1d bare hop"]),
+        entry("dslash_ch_msrc_bf16", BF16_KERNEL_SOURCE,
+              BF16_MSRC_KERNEL_REPLACES, k2d_paths,
+              max(err_16["k2d"], err_time["k2d"]),
+              msrc16["bf16"], msrc16["plain"],
+              bounds[f"K2d n={MSRC_TIME_N} clover fwd + xpay"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

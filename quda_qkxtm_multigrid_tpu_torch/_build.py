@@ -34,7 +34,11 @@ _DSLASH_ARGTYPES = [_P] * 6 + [_I] * 8 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
 _MSRC_ARGTYPES = [_P] * 5 + [_I] * 9 + [_D, _D, _I, _I, _D, _P]
 ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f64": _DSLASH_ARGTYPES,
-                "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES}
+                "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES,
+                # the bf16 operand tier (csrc/dslash_ch_bf16.cu)
+                "qkx_dslash_ch_f32_g16": _DSLASH_ARGTYPES,
+                "qkx_dslash_ch_f32_g16s16": _DSLASH_ARGTYPES,
+                "qkx_dslash_ch_msrc_f32_g16": _MSRC_ARGTYPES}
 
 
 def _sources() -> list[Path]:

@@ -2,7 +2,9 @@
 the MG-GCR-PC solve.
 
 ``bench_cg`` times ``invert.invert`` on a random SU(3) gauge field and a
-point source: one cold solve, then one timed warm solve.  ``bench_mg``
+point source: one cold solve, then one timed warm solve, with CG or one
+of the other solvers of ``invert`` (the mixed ones with a bf16 or a
+complex64 sloppy operator).  ``bench_mg``
 times the multigrid setup and then one cold and one warm ``mg_solve``,
 and certifies the warm solution in complex128.  GFLOP/s counts one
 ``flops_per_mat`` per outer iteration, the JAX package's convention (the
@@ -16,7 +18,8 @@ import time
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch import fields
-from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, DiracParams, make_dirac
+from quda_qkxtm_multigrid_tpu_torch.dirac import (
+    Dirac, DiracParams, as_sloppy, make_dirac)
 from quda_qkxtm_multigrid_tpu_torch.invert import invert, true_residual
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
@@ -27,23 +30,26 @@ from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
 from quda_qkxtm_multigrid_tpu_torch.utils import rng
 
 
-def tmc_params(use_kernels: bool = True) -> DiracParams:
-    """The reference twisted-clover point: κ=0.115, μ=0.05, c_sw=1.0."""
+def tmc_params(use_kernels: bool = True, bf16: bool = False) -> DiracParams:
+    """The reference twisted-clover point: κ=0.115, μ=0.05, c_sw=1.0
+    (``bf16``: the bf16 operand tier; the JAX package's
+    ``_tmc_params(use_pallas, bf16)``)."""
     return DiracParams(kind="twisted-clover", kappa=0.115, mu=0.05,
-                       csw=1.0, use_kernels=use_kernels)
+                       csw=1.0, use_kernels=use_kernels, kernel_bf16=bf16)
 
 
 def make_problem(geom: Geometry, device="cuda", seed: int = 7,
-                 use_kernels: bool = True,
-                 dtype=torch.complex128) -> tuple[Dirac, torch.Tensor]:
+                 use_kernels: bool = True, dtype=torch.complex128,
+                 bf16: bool = False) -> tuple[Dirac, torch.Tensor]:
     """Random SU(3) gauge made in complex128 on ``device`` from ``seed``
-    and cast to ``dtype``, its twisted-clover operator in ``dtype``, and
-    the point source at (0,0,0,0), spin 0, colour 0.  The complex64
-    problem is the one the JAX package's MG benchmark solves."""
+    and cast to ``dtype``, its twisted-clover operator in ``dtype`` (in
+    the bf16 operand tier with ``bf16``), and the point source at
+    (0,0,0,0), spin 0, colour 0.  The complex64 problem is the one the
+    JAX package's MG benchmark solves."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     u = rng.random_gauge(gen, geom, dtype=torch.complex128).to(dtype)
-    d = make_dirac(u, tmc_params(use_kernels), geom)
+    d = make_dirac(u, tmc_params(use_kernels, bf16), geom)
     b = fields.point_source(geom, (0, 0, 0, 0), 0, 0, dtype=dtype,
                             device=device)
     return d, b
@@ -55,22 +61,47 @@ def _sync(device: torch.device):
 
 
 def bench_cg(geom: Geometry, tol: float = 1e-7, maxiter: int = 2000,
-             problem=None) -> dict:
-    """Warm wall-clock of the twisted-clover CG solve (``problem`` is a
+             problem=None, solver: str = "cg",
+             sloppy: str | None = None) -> dict:
+    """Warm wall-clock of the twisted-clover solve (``problem`` is a
     ``(dirac, b)`` pair, made on the GPU by ``make_problem`` if not
-    given)."""
+    given).  ``solver`` is one of ``invert.SOLVERS``; a mixed solver's
+    sloppy operator is ``sloppy``: "bf16" (``as_sloppy`` in the bf16
+    operand tier) or "c64" (``invert``'s default, one tier down).
+
+    The record holds the warm and cold iterations (mixed: summed inner
+    ones) and restarts, seconds, true residuals, GFLOP/s (one
+    ``flops_per_mat`` an iteration), ``diverged``, and the peak device
+    memory over both solves (None on the CPU)."""
     d, b = problem if problem is not None else make_problem(geom)
     dev = b.device
-    cold = invert(d, b, tol=tol, maxiter=maxiter)
+    if solver.endswith("-mixed") != (sloppy is not None):
+        raise ValueError(f"sloppy={sloppy!r} with solver={solver!r}: a "
+                         "mixed solver takes 'bf16' or 'c64', another none")
+    if sloppy not in (None, "bf16", "c64"):
+        raise ValueError(f"sloppy={sloppy!r} not 'bf16' or 'c64'")
+    kw = dict(tol=tol, maxiter=maxiter, solver=solver)
+    if sloppy == "bf16":
+        kw["sloppy_dirac"] = as_sloppy(d, kernel_bf16=True)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cold = invert(d, b, **kw)
     _sync(dev)
     t0 = time.perf_counter()
-    out = invert(d, b, tol=tol, maxiter=maxiter)
+    out = invert(d, b, **kw)
     _sync(dev)
     secs = time.perf_counter() - t0
+    fused = "-fused" if d._has_fused_matpc else ""
     return {"iters": out.iters, "iters_cold": cold.iters, "secs": secs,
             "true_res": out.true_res, "true_res_cold": cold.true_res,
             "gflops": d.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
-            "solver": "cg-fused" if d._has_fused_matpc else "cg"}
+            "solver": solver + fused + (f"-{sloppy}" if sloppy else ""),
+            "restarts": None if out.stats is None else out.stats.restarts,
+            "restarts_cold": None if cold.stats is None
+            else cold.stats.restarts,
+            "diverged": out.stats is not None and out.stats.diverged,
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None)}
 
 
 def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,

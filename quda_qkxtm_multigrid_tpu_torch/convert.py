@@ -17,9 +17,9 @@ from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     BlockGeometry, Transfer, block_orthonormalize_flat, to_blocked_flat)
 
 
-def spinor_from_numpy(a, device="cpu") -> torch.Tensor:
+def spinor_from_numpy(a, device="cuda") -> torch.Tensor:
     """numpy field (any canonical layout) → tensor of the same dtype (a
-    copy, on ``device``)."""
+    copy, on ``device``: the card unless the caller asks for the CPU)."""
     return torch.tensor(np.asarray(a), device=device)
 
 
@@ -28,24 +28,42 @@ def spinor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().resolve_conj().cpu().numpy()
 
 
-def dirac_from_numpy(u, params: DiracParams, geom: Geometry, clover=None,
-                     clover_inv=None, device="cpu") -> Dirac:
+def params_from_jax(p) -> DiracParams:
+    """The port's ``DiracParams`` for a JAX package ``DiracParams`` (read
+    by attribute; this module does not import it): ``use_pallas`` maps
+    to ``use_kernels`` and ``pallas_bf16`` to ``kernel_bf16``.  A
+    non-degenerate twist (``epsilon``) has no counterpart yet."""
+    if getattr(p, "epsilon", 0.0):
+        raise ValueError("DiracParams.epsilon (DiracNdeg) is not ported")
+    return DiracParams(kind=p.kind, kappa=p.kappa, mu=p.mu, csw=p.csw,
+                       flavor=p.flavor, matpc_parity=p.matpc_parity,
+                       asymmetric=p.asymmetric, use_kernels=p.use_pallas,
+                       kernel_bf16=p.pallas_bf16)
+
+
+def dirac_from_numpy(u, params, geom: Geometry, clover=None,
+                     clover_inv=None, device="cuda") -> Dirac:
     """Build the port's ``Dirac`` on the JAX package's gauge (and clover)
-    fields, given as numpy arrays [4,2,3,3,T,Z,W] (and [2,2,6,6,T,Z,W])."""
+    fields, given as numpy arrays [4,2,3,3,T,Z,W] (and [2,2,6,6,T,Z,W]).
+    ``params`` is the port's ``DiracParams`` or the JAX package's, which
+    ``params_from_jax`` carries across (its ``pallas_bf16`` included).
+    The operator lives on ``device``, the card unless asked otherwise."""
     def conv(a):
         return None if a is None else spinor_from_numpy(a, device)
+    if not isinstance(params, DiracParams):
+        params = params_from_jax(params)
     return make_dirac(conv(u), params, geom, clover=conv(clover),
                       clover_inv=conv(clover_inv))
 
 
 def transfer_from_numpy(v, bg: BlockGeometry, dtype=torch.complex128,
-                        device="cpu") -> Transfer:
+                        device="cuda") -> Transfer:
     """The port's ``Transfer`` from the JAX package's MG state, given as
     numpy: the planar pair ``(vr, vi)`` of ``Transfer.v``, each
     [2, Tc,Zc,Yc,Xc, nvec, bdof], or the complex V of that shape (what
     ``vec_outfile`` holds), used as it is; or raw null vectors
     [nvec, 2,4,3,T,Z,W], block-orthonormalised here as ``setup_mg``
-    does."""
+    does.  V lives on ``device``, the card unless asked otherwise."""
     vshape = (2,) + tuple(bg.coarse_shape) + (bg.nvec, bg.bdof)
     if isinstance(v, (tuple, list)) and len(v) == 2:
         a = np.asarray(v[0]) + 1j * np.asarray(v[1])

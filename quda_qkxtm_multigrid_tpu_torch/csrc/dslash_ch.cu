@@ -34,57 +34,10 @@
 // where the epilogue is off; the stream is PyTorch's current stream.  The
 // launch neither synchronises nor allocates: the caller owns every
 // buffer.  Returns cudaGetLastError() after the launch (0 on success).
-// The device code is in dslash_ch.cuh.
-
-#include <cuda_runtime.h>
+// The device code and the launcher are in dslash_ch.cuh; the bf16
+// operand tier of this kernel is dslash_ch_bf16.cu.
 
 #include "dslash_ch.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-
-template <typename R>
-int launch(const void* psi, const void* g, const void* cinv, const void* x,
-           void* out, void* out2, int T, int Z, int W, int Xh, int parity,
-           int dagger, int recon12, int twist, double ta, double tb,
-           int clover, int xpay, double xc, int post, double pa, double pb,
-           void* stream) {
-  qkx::DslashArgs<R> a;
-  a.psi = static_cast<const R*>(psi);
-  a.g = static_cast<const R*>(g);
-  a.cinv = static_cast<const R*>(cinv);
-  a.x = static_cast<const R*>(x);
-  a.out = static_cast<R*>(out);
-  a.out2 = static_cast<R*>(out2);
-  a.T = T;
-  a.Z = Z;
-  a.W = W;
-  a.Xh = Xh;
-  a.parity = parity;
-  a.twist = twist;
-  a.ta = static_cast<R>(ta);
-  a.tb = static_cast<R>(tb);
-  a.clover = clover;
-  a.xpay = xpay;
-  a.xc = static_cast<R>(xc);
-  a.post = post;
-  a.pa = static_cast<R>(pa);
-  a.pb = static_cast<R>(pb);
-  const dim3 block(kThreads);
-  const dim3 grid((W + kThreads - 1) / kThreads, Z, T);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dagger) {
-    if (recon12) qkx::dslash_ch_kernel<R, true, true><<<grid, block, 0, s>>>(a);
-    else qkx::dslash_ch_kernel<R, true, false><<<grid, block, 0, s>>>(a);
-  } else {
-    if (recon12) qkx::dslash_ch_kernel<R, false, true><<<grid, block, 0, s>>>(a);
-    else qkx::dslash_ch_kernel<R, false, false><<<grid, block, 0, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 extern "C" int qkx_dslash_ch_f32(const void* psi, const void* g,
                                  const void* cinv, const void* x, void* out,
@@ -93,9 +46,9 @@ extern "C" int qkx_dslash_ch_f32(const void* psi, const void* g,
                                  int twist, double ta, double tb, int clover,
                                  int xpay, double xc, int post, double pa,
                                  double pb, void* stream) {
-  return launch<float>(psi, g, cinv, x, out, out2, T, Z, W, Xh, parity,
-                       dagger, recon12, twist, ta, tb, clover, xpay, xc,
-                       post, pa, pb, stream);
+  return qkx::launch_dslash<float, float, float>(
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
+      twist, ta, tb, clover, xpay, xc, post, pa, pb, stream);
 }
 
 extern "C" int qkx_dslash_ch_f64(const void* psi, const void* g,
@@ -105,7 +58,7 @@ extern "C" int qkx_dslash_ch_f64(const void* psi, const void* g,
                                  int twist, double ta, double tb, int clover,
                                  int xpay, double xc, int post, double pa,
                                  double pb, void* stream) {
-  return launch<double>(psi, g, cinv, x, out, out2, T, Z, W, Xh, parity,
-                        dagger, recon12, twist, ta, tb, clover, xpay, xc,
-                        post, pa, pb, stream);
+  return qkx::launch_dslash<double, double, double>(
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
+      twist, ta, tb, clover, xpay, xc, post, pa, pb, stream);
 }

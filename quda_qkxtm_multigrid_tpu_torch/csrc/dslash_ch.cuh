@@ -1,11 +1,24 @@
 // Device code of the fused Wilson hop (see dslash_ch.cu for what it
-// replaces and computes, the operand layout and what bounds it).
+// replaces and computes, the operand layout and what bounds it), and the
+// host-side launchers that the entry points of dslash_ch.cu,
+// dslash_ch_msrc.cu and dslash_ch_bf16.cu instantiate.
+//
+// Three types: R, the arithmetic and output type (float or double); G,
+// the storage type of the gauge and clover-inverse operands; S, that of
+// psi and x.  G and S are R itself, or __nv_bfloat16 with R = float (the
+// bf16 operand tier, dslash_ch_bf16.cu): every load converts to R, so
+// the arithmetic is the same code in every instance.
 
 #pragma once
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
 namespace qkx {
+
+constexpr int kThreads = 128;
 
 template <typename R>
 struct Cplx {
@@ -55,12 +68,12 @@ __host__ __device__ constexpr int gamma_phase(int mu, int s) {
                    : 0;
 }
 
-template <typename R>
+template <typename R, typename G = R, typename S = R>
 struct DslashArgs {
-  const R* psi;   // [T, 24, Z, W], opposite parity
-  const R* g;     // [T, 96|144, Z, W], doubled links of the output parity
-  const R* cinv;  // [T, 144, Z, W] or null
-  const R* x;     // [T, 24, Z, W] or null
+  const S* psi;   // [T, 24, Z, W], opposite parity
+  const G* g;     // [T, 96|144, Z, W], doubled links of the output parity
+  const G* cinv;  // [T, 144, Z, W] or null
+  const S* x;     // [T, 24, Z, W] or null
   R* out;         // [T, 24, Z, W]
   R* out2;        // [T, 24, Z, W] or null
   int T, Z, W, Xh, parity;
@@ -73,9 +86,17 @@ struct DslashArgs {
   R pa, pb;
 };
 
-template <typename R>
-__device__ __forceinline__ Cplx<R> load_c(const R* base, int ch, int64_t zw) {
-  return {base[(int64_t)ch * zw], base[(int64_t)(ch + 1) * zw]};
+// One stored real, widened on load (bf16 -> float is exact).
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ double ld(const double* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename R, typename T>
+__device__ __forceinline__ Cplx<R> load_c(const T* base, int ch, int64_t zw) {
+  return {static_cast<R>(ld(base + (int64_t)ch * zw)),
+          static_cast<R>(ld(base + (int64_t)(ch + 1) * zw))};
 }
 
 template <typename R>
@@ -87,8 +108,8 @@ __device__ __forceinline__ void store_c(R* base, int ch, int64_t zw,
 
 // v[kk] <- M v (dag = false) or M^dag v (dag = true) on the two chiral
 // 6-blocks, kk = h*6 + r, M at channel ((h*6+r)*6+c)*2.
-template <typename R>
-__device__ __forceinline__ void chiral_apply(const R* m, int64_t zw, bool dag,
+template <typename R, typename G>
+__device__ __forceinline__ void chiral_apply(const G* m, int64_t zw, bool dag,
                                              const Cplx<R> (&v)[12],
                                              Cplx<R> (&res)[12]) {
 #pragma unroll
@@ -98,7 +119,7 @@ __device__ __forceinline__ void chiral_apply(const R* m, int64_t zw, bool dag,
 #pragma unroll
     for (int c = 0; c < 6; ++c) {
       const int row = dag ? c : r, col = dag ? r : c;
-      const Cplx<R> e = load_c(m, ((h * 6 + row) * 6 + col) * 2, zw);
+      const Cplx<R> e = load_c<R>(m, ((h * 6 + row) * 6 + col) * 2, zw);
       sum = cadd(sum, dag ? cjmul(e, v[h * 6 + c]) : cmul(e, v[h * 6 + c]));
     }
     res[kk] = sum;
@@ -113,16 +134,17 @@ __device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
 
 // soff: offset of one source's psi, x, out and out2 within a batch of
 // sources (0 for a single source); the gauge and clover are shared.
-template <typename R, bool DAG, bool RECON12>
-__device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
-                                            int z, int w, int64_t soff) {
+template <typename R, typename G, typename S, bool DAG, bool RECON12>
+__device__ __forceinline__ void dslash_site(const DslashArgs<R, G, S>& a,
+                                            int t, int z, int w,
+                                            int64_t soff) {
   constexpr int NROWS = RECON12 ? 2 : 3;
   constexpr int NG = NROWS * 48;
   const int64_t zw = (int64_t)a.Z * a.W;
   const int64_t site = (int64_t)z * a.W + w;
   const int y = w / a.Xh, k = w - y * a.Xh;
   const bool s0 = ((t + z + y + a.parity) & 1) == 0;  // true x is even
-  const R* gs = a.g + (int64_t)t * NG * zw + site;
+  const G* gs = a.g + (int64_t)t * NG * zw + site;
 
   Cplx<R> acc[4][3];
 #pragma unroll
@@ -150,23 +172,23 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
       } else {
         wn = s0 ? (k == 0 ? w + (a.Xh - 1) : w - 1) : w;
       }
-      const R* pn = a.psi + soff + (int64_t)tn * 24 * zw + (int64_t)zn * a.W + wn;
+      const S* pn = a.psi + soff + (int64_t)tn * 24 * zw + (int64_t)zn * a.W + wn;
 
       Cplx<R> hs[2][3];
 #pragma unroll
       for (int s = 0; s < 2; ++s)
 #pragma unroll
         for (int c = 0; c < 3; ++c)
-          hs[s][c] = cadd(load_c(pn, (s * 3 + c) * 2, zw),
+          hs[s][c] = cadd(load_c<R>(pn, (s * 3 + c) * 2, zw),
                           mul_phase(gamma_phase(mu, s) + sgc,
-                                    load_c(pn, (gamma_col(mu, s) * 3 + c) * 2, zw)));
+                                    load_c<R>(pn, (gamma_col(mu, s) * 3 + c) * 2, zw)));
 
       Cplx<R> u[3][3];
 #pragma unroll
       for (int r = 0; r < NROWS; ++r)
 #pragma unroll
         for (int c = 0; c < 3; ++c)
-          u[r][c] = load_c(gs, (((mu * 2 + fb) * NROWS + r) * 3 + c) * 2, zw);
+          u[r][c] = load_c<R>(gs, (((mu * 2 + fb) * NROWS + r) * 3 + c) * 2, zw);
       if (RECON12) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
@@ -206,14 +228,14 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
     chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, a.clover == 2,
                  hop, res);
   }
-  const R* xs = a.xpay ? a.x + soff + (int64_t)t * 24 * zw + site : nullptr;
+  const S* xs = a.xpay ? a.x + soff + (int64_t)t * 24 * zw + site : nullptr;
   R* os = a.out + soff + (int64_t)t * 24 * zw + site;
 #pragma unroll
   for (int kk = 0; kk < 12; ++kk) {
     Cplx<R> v = res[kk];
     if (a.twist) v = g5_rotate(v, kk, a.ta, a.tb);
     if (a.xpay) {
-      const Cplx<R> xv = load_c(xs, 2 * kk, zw);
+      const Cplx<R> xv = load_c<R>(xs, 2 * kk, zw);
       v = {xv.re + a.xc * v.re, xv.im + a.xc * v.im};
     }
     res[kk] = v;
@@ -234,12 +256,104 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R>& a, int t,
 }
 
 // One thread per output site: grid (ceil(W / blockDim.x), Z, T).
-template <typename R, bool DAG, bool RECON12>
-__global__ void __launch_bounds__(128)
-    dslash_ch_kernel(const DslashArgs<R> a) {
+template <typename R, typename G, typename S, bool DAG, bool RECON12>
+__global__ void __launch_bounds__(kThreads)
+    dslash_ch_kernel(const DslashArgs<R, G, S> a) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= a.W) return;
-  dslash_site<R, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w, 0);
+  dslash_site<R, G, S, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w, 0);
+}
+
+// n sources: grid (ceil(W / blockDim.x) * n, Z, T), blockIdx.x =
+// w_block * n + source (dslash_ch_msrc.cu says why).
+template <typename R, typename G, typename S, bool DAG, bool RECON12>
+__global__ void __launch_bounds__(kThreads)
+    dslash_ch_msrc_kernel(const DslashArgs<R, G, S> a, int n) {
+  const int s = blockIdx.x % n;
+  const int w = (blockIdx.x / n) * blockDim.x + threadIdx.x;
+  if (w >= a.W) return;
+  const int64_t per_source = (int64_t)a.T * 24 * a.Z * a.W;
+  dslash_site<R, G, S, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w,
+                                     s * per_source);
+}
+
+// ---- host side ------------------------------------------------------
+
+template <typename R, typename G, typename S>
+DslashArgs<R, G, S> make_args(const void* psi, const void* g,
+                              const void* cinv, const void* x, void* out,
+                              void* out2, int T, int Z, int W, int Xh,
+                              int parity, int twist, double ta, double tb,
+                              int clover, int xpay, double xc, int post,
+                              double pa, double pb) {
+  DslashArgs<R, G, S> a;
+  a.psi = static_cast<const S*>(psi);
+  a.g = static_cast<const G*>(g);
+  a.cinv = static_cast<const G*>(cinv);
+  a.x = static_cast<const S*>(x);
+  a.out = static_cast<R*>(out);
+  a.out2 = static_cast<R*>(out2);
+  a.T = T;
+  a.Z = Z;
+  a.W = W;
+  a.Xh = Xh;
+  a.parity = parity;
+  a.twist = twist;
+  a.ta = static_cast<R>(ta);
+  a.tb = static_cast<R>(tb);
+  a.clover = clover;
+  a.xpay = xpay;
+  a.xc = static_cast<R>(xc);
+  a.post = post;
+  a.pa = static_cast<R>(pa);
+  a.pb = static_cast<R>(pb);
+  return a;
+}
+
+// Single-source launch; returns cudaGetLastError() (0 on success).
+template <typename R, typename G, typename S>
+int launch_dslash(const void* psi, const void* g, const void* cinv,
+                  const void* x, void* out, void* out2, int T, int Z, int W,
+                  int Xh, int parity, int dagger, int recon12, int twist,
+                  double ta, double tb, int clover, int xpay, double xc,
+                  int post, double pa, double pb, void* stream) {
+  const DslashArgs<R, G, S> a =
+      make_args<R, G, S>(psi, g, cinv, x, out, out2, T, Z, W, Xh, parity,
+                         twist, ta, tb, clover, xpay, xc, post, pa, pb);
+  const dim3 block(kThreads);
+  const dim3 grid((W + kThreads - 1) / kThreads, Z, T);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dagger) {
+    if (recon12) dslash_ch_kernel<R, G, S, true, true><<<grid, block, 0, s>>>(a);
+    else dslash_ch_kernel<R, G, S, true, false><<<grid, block, 0, s>>>(a);
+  } else {
+    if (recon12) dslash_ch_kernel<R, G, S, false, true><<<grid, block, 0, s>>>(a);
+    else dslash_ch_kernel<R, G, S, false, false><<<grid, block, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Multi-source launch (no second output); returns cudaGetLastError().
+template <typename R, typename G, typename S>
+int launch_dslash_msrc(const void* psi, const void* g, const void* cinv,
+                       const void* x, void* out, int n, int T, int Z, int W,
+                       int Xh, int parity, int dagger, int recon12,
+                       int twist, double ta, double tb, int clover, int xpay,
+                       double xc, void* stream) {
+  const DslashArgs<R, G, S> a =
+      make_args<R, G, S>(psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity,
+                         twist, ta, tb, clover, xpay, xc, 0, 0.0, 0.0);
+  const dim3 block(kThreads);
+  const dim3 grid(((W + kThreads - 1) / kThreads) * n, Z, T);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dagger) {
+    if (recon12) dslash_ch_msrc_kernel<R, G, S, true, true><<<grid, block, 0, s>>>(a, n);
+    else dslash_ch_msrc_kernel<R, G, S, true, false><<<grid, block, 0, s>>>(a, n);
+  } else {
+    if (recon12) dslash_ch_msrc_kernel<R, G, S, false, true><<<grid, block, 0, s>>>(a, n);
+    else dslash_ch_msrc_kernel<R, G, S, false, false><<<grid, block, 0, s>>>(a, n);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace qkx

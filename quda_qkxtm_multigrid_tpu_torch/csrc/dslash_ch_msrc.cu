@@ -32,29 +32,11 @@
 // Host side: a plain C interface for ctypes, as dslash_ch.cu.  Every
 // pointer is a device pointer (cinv and x may be null where their
 // epilogue is off); the stream is PyTorch's current stream.  Returns
-// cudaGetLastError() after the launch (0 on success).
-
-#include <cuda_runtime.h>
+// cudaGetLastError() after the launch (0 on success).  The kernel
+// (dslash_ch_msrc_kernel) and its launcher are in dslash_ch.cuh; its
+// bf16 operand tier (K2d) is in dslash_ch_bf16.cu.
 
 #include "dslash_ch.cuh"
-
-namespace {
-
-constexpr int kThreads = 128;
-
-// Grid (ceil(W / blockDim.x) * n, Z, T): blockIdx.x = w_block * n + source.
-template <typename R, bool DAG, bool RECON12>
-__global__ void __launch_bounds__(kThreads)
-    dslash_ch_msrc_kernel(const qkx::DslashArgs<R> a, int n) {
-  const int s = blockIdx.x % n;
-  const int w = (blockIdx.x / n) * blockDim.x + threadIdx.x;
-  if (w >= a.W) return;
-  const int64_t per_source = (int64_t)a.T * 24 * a.Z * a.W;
-  qkx::dslash_site<R, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w,
-                                    s * per_source);
-}
-
-}  // namespace
 
 extern "C" int qkx_dslash_ch_msrc_f32(const void* psi, const void* g,
                                       const void* cinv, const void* x,
@@ -63,37 +45,7 @@ extern "C" int qkx_dslash_ch_msrc_f32(const void* psi, const void* g,
                                       int recon12, int twist, double ta,
                                       double tb, int clover, int xpay,
                                       double xc, void* stream) {
-  using R = float;
-  qkx::DslashArgs<R> a;
-  a.psi = static_cast<const R*>(psi);
-  a.g = static_cast<const R*>(g);
-  a.cinv = static_cast<const R*>(cinv);
-  a.x = static_cast<const R*>(x);
-  a.out = static_cast<R*>(out);
-  a.out2 = nullptr;
-  a.T = T;
-  a.Z = Z;
-  a.W = W;
-  a.Xh = Xh;
-  a.parity = parity;
-  a.twist = twist;
-  a.ta = static_cast<R>(ta);
-  a.tb = static_cast<R>(tb);
-  a.clover = clover;
-  a.xpay = xpay;
-  a.xc = static_cast<R>(xc);
-  a.post = 0;
-  a.pa = R(0);
-  a.pb = R(0);
-  const dim3 block(kThreads);
-  const dim3 grid(((W + kThreads - 1) / kThreads) * n, Z, T);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dagger) {
-    if (recon12) dslash_ch_msrc_kernel<R, true, true><<<grid, block, 0, s>>>(a, n);
-    else dslash_ch_msrc_kernel<R, true, false><<<grid, block, 0, s>>>(a, n);
-  } else {
-    if (recon12) dslash_ch_msrc_kernel<R, false, true><<<grid, block, 0, s>>>(a, n);
-    else dslash_ch_msrc_kernel<R, false, false><<<grid, block, 0, s>>>(a, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return qkx::launch_dslash_msrc<float, float, float>(
+      psi, g, cinv, x, out, n, T, Z, W, Xh, parity, dagger, recon12, twist,
+      ta, tb, clover, xpay, xc, stream);
 }

@@ -23,6 +23,12 @@ With ``use_kernels`` every hop goes through ``ops.dslash_kernel.dslash_ch``
 Schur operators run as chains of fused hops on planar-channel fields
 [T, 24, Z, W] (the ``_..._ch`` methods).  The channel chain computes in
 the precision of the field it is given.
+
+``kernel_bf16`` is the bf16 operand tier (the JAX package's
+``pallas_bf16``, "the 'half' analogue"): the chain reads bfloat16 gauge
+and clover-inverse channels and keeps float32 spinors, and ``dslash``
+also rounds ψ to bfloat16.  ``as_sloppy`` makes such an operator over
+the same fields: the sloppy operator of the mixed-precision solvers.
 """
 
 from __future__ import annotations
@@ -37,8 +43,19 @@ from quda_qkxtm_multigrid_tpu_torch.ops import clover as _cl
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops import twist as _twist
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    clover_channels, dslash_ch, dslash_ch_msrc, from_channels,
-    gauge_channels, to_channels)
+    cast_channels, clover_channels, dslash_ch, dslash_ch_msrc,
+    from_channels, gauge_channels, to_channels)
+
+
+def _ch_clover_matrix(cinv_ch: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The chiral-block 6×6 matrices of a channel operand [T, 144, Z, W]
+    as a complex field [T, 2, 6, 6, Z, W] of the real ``dtype`` (a bf16
+    operand is widened)."""
+    t, _, z, w = cinv_ch.shape
+    cinv_ch = cinv_ch.to(dtype)
+    return torch.complex(cinv_ch[:, 0::2], cinv_ch[:, 1::2]).reshape(
+        t, 2, 6, 6, z, w)
 
 
 def _ch_clover_apply(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
@@ -47,13 +64,19 @@ def _ch_clover_apply(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
     applied to a planar-channel spinor [..., T, 24, Z, W] (any leading
     batch axes); ``dag`` applies the conjugate transpose.  Used only for
     the leading A⁻¹† of the dagger ordering; every other application is
-    a kernel epilogue."""
+    a kernel epilogue.  A bf16 matrix is widened to the spinor's dtype."""
+    return _ch_matrix_apply(v_ch, _ch_clover_matrix(cinv_ch, v_ch.dtype),
+                            dag)
+
+
+def _ch_matrix_apply(v_ch: torch.Tensor, m: torch.Tensor,
+                     dag: bool = False) -> torch.Tensor:
+    """``_ch_clover_apply`` with the matrices given as
+    ``_ch_clover_matrix`` makes them."""
     t, _, z, w = v_ch.shape[-4:]
     lead = v_ch.shape[:-4]
     v = torch.complex(v_ch[..., 0::2, :, :], v_ch[..., 1::2, :, :]).reshape(
         *lead, t, 2, 6, z, w)
-    m = torch.complex(cinv_ch[:, 0::2], cinv_ch[:, 1::2]).reshape(
-        t, 2, 6, 6, z, w)
     if dag:
         out = torch.einsum("thcrzw,...thczw->...thrzw", m.conj(), v)
     else:
@@ -78,7 +101,9 @@ class DiracParams:
 
     ``use_kernels`` takes the place of the JAX package's ``use_pallas``:
     hops go through the hand-written kernel wrapper (``dslash_ch``)
-    instead of the plain PyTorch stencil."""
+    instead of the plain PyTorch stencil.  ``kernel_bf16`` takes the
+    place of its ``pallas_bf16``: the kernels read bf16 gauge and
+    clover-inverse operands (with ``use_kernels`` only)."""
 
     kind: str = "wilson"        # wilson | twisted-mass | clover | twisted-clover
     kappa: float = 0.12
@@ -88,6 +113,7 @@ class DiracParams:
     matpc_parity: int = 0       # 0 = even-even, 1 = odd-odd
     asymmetric: bool = False    # asymmetric Schur variant
     use_kernels: bool = False   # hops through ops.dslash_kernel.dslash_ch
+    kernel_bf16: bool = False   # bf16 operand tier (JAX: pallas_bf16)
 
     def __post_init__(self):
         kinds = ("wilson", "twisted-mass", "clover", "twisted-clover")
@@ -104,6 +130,9 @@ class DiracParams:
             raise ValueError("flavor must be +1 or -1")
         if self.matpc_parity not in (0, 1):
             raise ValueError("matpc_parity must be 0 or 1")
+        if self.kernel_bf16 and not self.use_kernels:
+            raise ValueError("kernel_bf16 is a tier of the kernels: it "
+                             "needs use_kernels")
 
     @property
     def has_twist(self) -> bool:
@@ -141,23 +170,50 @@ class Dirac(nn.Module):
         return super()._apply(*args, **kwargs)
 
     def _operands(self, dtype: torch.dtype) -> dict:
-        """Channel operands of both parities in real ``dtype``: recon-12
-        gauge ``g`` [T,96,Z,W] and clover inverse ``ci`` [T,144,Z,W].
-        Built once per dtype and reused by every hop."""
-        if dtype not in self._ch_cache:
-            ops = {"g": [gauge_channels(self.u_doubled, p, True, dtype)
+        """Channel operands of both parities for spinors of real
+        ``dtype``: recon-12 gauge ``g`` [T,96,Z,W] and clover inverse
+        ``ci`` [T,144,Z,W], in ``dtype`` or, in the bf16 tier, in
+        bfloat16.  Built once per operand dtype (which names the tier)
+        and reused by every hop."""
+        op = torch.bfloat16 if self.params.kernel_bf16 else dtype
+        if op not in self._ch_cache:
+            ops = {"g": [gauge_channels(self.u_doubled, p, True, op)
                          for p in (0, 1)]}
             if self.params.has_clover:
-                ops["ci"] = [clover_channels(self.clover_inv, p, dtype)
+                ops["ci"] = [clover_channels(self.clover_inv, p, op)
                              for p in (0, 1)]
-            self._ch_cache[dtype] = ops
-        return self._ch_cache[dtype]
+            self._ch_cache[op] = ops
+        return self._ch_cache[op]
+
+    def _clover_matrix(self, dtype: torch.dtype, parity: int):
+        """The clover inverse of ``parity`` as complex matrices
+        (``_ch_clover_matrix``) for spinors of real ``dtype``, made from
+        the channel operand once and kept: the leading A⁻¹† of the
+        multi-source dagger half reads it on every call (the multi-source
+        path runs on float32 spinors: one parity in complex64, 0.6 GB at
+        32³×64)."""
+        key = ("matrix", dtype, parity)
+        if key not in self._ch_cache:
+            self._ch_cache[key] = _ch_clover_matrix(
+                self._operands(dtype)["ci"][parity], dtype)
+        return self._ch_cache[key]
+
+    def _chain_channels(self, psi_p: torch.Tensor) -> torch.Tensor:
+        """A complex field as the channel spinor of the fused chain: in
+        its own precision, or float32 in the bf16 tier (spinors stay
+        float32 there, as the JAX package's ``matpc_dagm`` keeps them)."""
+        ch = to_channels(psi_p)
+        return ch.to(torch.float32) if self.params.kernel_bf16 else ch
 
     # ---- hopping ----------------------------------------------------
     def dslash(self, psi_opp: torch.Tensor, parity: int,
                dagger: bool = False) -> torch.Tensor:
         if self.params.use_kernels:
             psi_ch = to_channels(psi_opp)
+            if self.params.kernel_bf16:
+                # the bf16-ψ hop of dslash_parity_pallas5: float32 out,
+                # so the result is complex64
+                psi_ch = cast_channels(psi_ch, torch.bfloat16)
             g = self._operands(psi_ch.dtype)["g"][parity]
             out = dslash_ch(g, psi_ch, parity, self.geom, dagger,
                             recon12=True)
@@ -201,7 +257,13 @@ class Dirac(nn.Module):
                     clover="fwd", cinv_ch=ci[1 - pr])
             return hop(g[pr], t, pr, self.geom, recon12=True, clover="fwd",
                        cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch)
-        t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
+        if hop is dslash_ch_msrc:
+            # every matvec of the multi-source CG: keep the matrices
+            t = _ch_matrix_apply(psi_ch,
+                                 self._clover_matrix(psi_ch.dtype, pr),
+                                 dag=True)
+        else:
+            t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
         t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, recon12=True,
                 clover="dag", cinv_ch=ci[1 - pr])
         return hop(g[pr], t, pr, self.geom, dagger=True, recon12=True,
@@ -309,7 +371,7 @@ class Dirac(nn.Module):
     def matpc(self, psi_p: torch.Tensor, dagger: bool = False):
         p = self.params
         if self._has_fused_matpc:
-            out = self._fused_matpc_ch(to_channels(psi_p), dagger)
+            out = self._fused_matpc_ch(self._chain_channels(psi_p), dagger)
             return from_channels(out, (4, 3))
         pr, k = p.matpc_parity, p.kappa
         if p.asymmetric:
@@ -330,7 +392,7 @@ class Dirac(nn.Module):
 
     def matpc_dagm(self, psi_p: torch.Tensor) -> torch.Tensor:
         if self._has_fused_matpc:
-            out = self._fused_matpc_dagm_ch(to_channels(psi_p))
+            out = self._fused_matpc_dagm_ch(self._chain_channels(psi_p))
             return from_channels(out, (4, 3))
         return self.matpc(self.matpc(psi_p), dagger=True)
 
@@ -368,6 +430,19 @@ class Dirac(nn.Module):
             extra += _cl.CLOVER_APPLY_FLOPS_PER_SITE
         return ((_dsl.WILSON_DSLASH_FLOPS_PER_SITE + 48 + extra)
                 * self.geom.volume)
+
+
+def as_sloppy(dirac: Dirac, **param_overrides) -> Dirac:
+    """An operator over the same fields with other parameters, e.g.
+    ``as_sloppy(d, kernel_bf16=True)``, the bf16 sloppy operator of the
+    mixed-precision solvers.  ``u``, ``clover``, ``clover_inv`` and
+    ``u_doubled`` are the same tensors (no copy); only the new
+    operator's channel operands are new memory (bf16 gauge and clover
+    inverse of both parities: ~1 GB at 32³×64).  The counterpart of the
+    JAX package's ``dirac.as_sloppy``."""
+    params = dataclasses.replace(dirac.params, **param_overrides)
+    return Dirac(dirac.u, params, dirac.geom, clover=dirac.clover,
+                 clover_inv=dirac.clover_inv, u_doubled=dirac.u_doubled)
 
 
 def make_dirac(u: torch.Tensor, params: DiracParams, geom: Geometry,

@@ -3,6 +3,9 @@
   spinor  [2, 4, 3, T, Z, W]          complex
   gauge   [4, 2, 3, 3, T, Z, W]       complex
   clover  [2, 2, 6, 6, T, Z, W]       complex
+
+They make their field on the card unless the caller names another
+device (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -12,16 +15,16 @@ import torch
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, site_index
 
 
-def zeros_spinor(geom: Geometry, dtype=torch.complex128, device="cpu",
+def zeros_spinor(geom: Geometry, dtype=torch.complex128, device="cuda",
                  nspin: int = 4, ncolor: int = 3) -> torch.Tensor:
     return torch.zeros((2, nspin, ncolor) + geom.lat_shape, dtype=dtype,
                        device=device)
 
 
 def point_source(geom: Geometry, coords, spin: int, color: int,
-                 dtype=torch.complex128, device="cpu") -> torch.Tensor:
+                 dtype=torch.complex128, device="cuda") -> torch.Tensor:
     """Delta source at global site ``coords=(x,y,z,t)``, unit at
-    (spin, color)."""
+    (spin, color), on the card unless ``device`` says otherwise."""
     p, t, z, w = site_index(geom, coords)
     psi = zeros_spinor(geom, dtype, device)
     psi[p, spin, color, t, z, w] = 1.0

@@ -1,13 +1,16 @@
 """High-level solve entry point.
 
-Factorise the solve (even-odd preconditioned normal equations), prepare
-the Schur source, run CG, reconstruct the full-lattice solution, and
-report the true residual of the full operator in the source's precision.
+Factorise the solve (even-odd preconditioned system), prepare the Schur
+source, run the Krylov solver, reconstruct the full-lattice solution,
+and report the true residual of the full operator in the source's
+precision.  Solvers: "cg" and its mixed-precision form "cg-mixed" on the
+normal equations M_pc† M_pc x_p = M_pc† src; "bicgstab" and
+"bicgstab-mixed" on M_pc x_p = src.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -15,40 +18,98 @@ from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     from_channels, to_channels)
-from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import (
+    bicgstab, bicgstab_mixed)
+from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg, cg_mixed
 from quda_qkxtm_multigrid_tpu_torch.solvers.msrc import msrc_cg
+from quda_qkxtm_multigrid_tpu_torch.solvers.support import ReliableStats
+
+SOLVERS = ("cg", "cg-mixed", "bicgstab", "bicgstab-mixed")
 
 
 class InvertResult(NamedTuple):
     x: torch.Tensor       # full solution [2,4,3,T,Z,W]
-    iters: int
+    iters: int            # Krylov iterations (mixed: summed inner ones)
     true_res: float       # |M x − b| / |b|
+    stats: Optional[ReliableStats] = None   # restarts of a mixed solver
+
+
+def _default_sloppy(dirac: Dirac) -> Dirac:
+    """The sloppy operator when the caller gives none: the operator one
+    tier down, complex128 → complex64 (the JAX package's
+    ``_default_sloppy``).  On the fused chain that is the operator
+    itself: its kernels read channel operands in the spinors' dtype, so
+    the float32 inner loop reads float32 channels cast from the
+    complex128 fields (what a complex64 copy gives), cached beside the
+    float64 ones, and no field is copied.  Otherwise it is a complex64
+    cast copy of the fields (a complex64 field is shared as it is)."""
+    if dirac._has_fused_matpc:
+        return dirac
+    lo = torch.complex64
+
+    def cast(t):
+        return None if t is None else t.to(lo)
+    return Dirac(cast(dirac.u), dirac.params, dirac.geom,
+                 clover=cast(dirac.clover), clover_inv=cast(dirac.clover_inv),
+                 u_doubled=cast(dirac.u_doubled))
 
 
 def invert(dirac: Dirac, b: torch.Tensor, tol: float = 1e-10,
-           maxiter: int = 1000, solver: str = "cg") -> InvertResult:
-    """Solve M x = b via CG on M_pc† M_pc x_p = M_pc† src.
+           maxiter: int = 1000, solver: str = "cg",
+           sloppy_dirac: Dirac | None = None,
+           inner_tol: float = 1e-2) -> InvertResult:
+    """Solve M x = b with ``solver`` (one of ``SOLVERS``) on the even-odd
+    preconditioned system.  The mixed solvers run their inner solve on
+    ``sloppy_dirac`` (``_default_sloppy`` if None; the bf16 tier is
+    ``as_sloppy(dirac, kernel_bf16=True)``) to ``inner_tol``, and
+    ``maxiter`` caps the sum of their inner iterations.
 
     When the operator has the fused kernel chain (``use_kernels`` with a
-    twisted or clover kind, symmetric Schur form), the CG loop runs on
-    float32 planar-channel fields and each matvec is four fused hops;
-    source preparation, reconstruction and the true residual stay in the
+    twisted or clover kind, symmetric Schur form), the Krylov loops run
+    on planar-channel fields, converted once per solve: "cg" and
+    "bicgstab" in float32, each matvec four (two) fused hops; the mixed
+    solvers' outer loop in the fields' precision (float64 channels for a
+    complex128 operator, K1's double instance) and their inner loop on
+    the sloppy operator's float32 channels (bf16 operands in the bf16
+    tier).  This differs on purpose from the JAX package, whose fused
+    outer matvec is float32 (its ``matpc_dagm``): the card has native
+    float64, so the outer here certifies the tolerance in complex128.
+    Source preparation, reconstruction and the true residual stay in the
     fields' precision."""
-    if solver != "cg":
-        raise ValueError(f"unknown solver {solver!r}; only 'cg' is ported")
+    if solver not in SOLVERS:
+        raise ValueError(f"unknown solver {solver!r}; one of {SOLVERS}")
+    mixed = solver.endswith("-mixed")
+    if mixed and sloppy_dirac is None:
+        sloppy_dirac = _default_sloppy(dirac)
+    normal = solver.startswith("cg")
     src = dirac.prepare(b)
-    rhs = dirac.matpc(src, dagger=True)
-    if dirac._has_fused_matpc:
-        rhs_ch = to_channels(rhs).to(torch.float32)
-        res = cg(dirac._fused_matpc_dagm_ch, rhs_ch, tol=tol,
-                 maxiter=maxiter)
-        x_p = from_channels(res.x, (4, 3)).to(rhs.dtype)
+    rhs = dirac.matpc(src, dagger=True) if normal else src
+    fused = dirac._has_fused_matpc and (
+        not mixed or sloppy_dirac._has_fused_matpc)
+
+    def matvec(d: Dirac):
+        if fused:
+            return (d._fused_matpc_dagm_ch if normal
+                    else lambda v: d._fused_matpc_ch(v, False))
+        return d.matpc_dagm if normal else d.matpc
+
+    v = rhs
+    if fused:
+        v = to_channels(rhs)
+        if not mixed or dirac.params.kernel_bf16:
+            v = v.to(torch.float32)
+    if mixed:
+        solve = cg_mixed if normal else bicgstab_mixed
+        res = solve(matvec(dirac), matvec(sloppy_dirac), v, tol=tol,
+                    maxiter=maxiter, inner_tol=inner_tol,
+                    lo_dtype=torch.float32 if fused else torch.complex64)
     else:
-        res = cg(dirac.matpc_dagm, rhs, tol=tol, maxiter=maxiter)
-        x_p = res.x
+        res = (cg if normal else bicgstab)(matvec(dirac), v, tol=tol,
+                                           maxiter=maxiter)
+    x_p = from_channels(res.x, (4, 3)).to(rhs.dtype) if fused else res.x
     x = dirac.reconstruct(x_p, b)
     _, rel = true_residual(dirac, x, b)
-    return InvertResult(x, res.iters, float(rel))
+    return InvertResult(x, res.iters, float(rel), res.stats)
 
 
 def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
@@ -60,8 +121,8 @@ def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
     reconstruction and the true residual run source by source.  On the
     fused kernel chain the CG runs on float32 channels [n, T, 24, Z, W]
     and each matvec is two multi-source matpc halves, i.e. four
-    multi-source kernel launches.  ``true_res`` is the worst source's
-    |M x_i − b_i| / |b_i|."""
+    multi-source kernel launches (K2d in the bf16 tier).  ``true_res``
+    is the worst source's |M x_i − b_i| / |b_i|."""
     rhs = torch.stack([dirac.matpc(dirac.prepare(b), dagger=True)
                        for b in bs])
     if dirac._has_fused_matpc:

@@ -24,9 +24,18 @@ between the two.
 ``dslash_ch_msrc`` is the multi-source form (K2, the counterpart of
 ``dslash_ch_pallas5_msrc``): the same hop and epilogues, without
 ``post_op``, over a batch ψ [n, T, 24, Z, W] that shares one gauge and
-one clover inverse, in float32 only.  On a CUDA tensor it launches
+one clover inverse, in float32.  On a CUDA tensor it launches
 ``csrc/dslash_ch_msrc.cu``; on a CPU tensor it runs
 ``dslash_ch_msrc_reference``.
+
+The bf16 operand tier (the JAX package's ``bf16=True``, K1d and K2d)
+takes bfloat16 gauge and clover-inverse channels beside float32 spinors;
+the bare hop also takes a bfloat16 ψ (the form of ``Dirac.dslash`` under
+``DiracParams.kernel_bf16``).  Every operand is widened to float32 and
+the output is float32.  The operand dtypes pick the kernel instance
+(``_kernel_form``); on a CUDA tensor a bf16 operand launches
+``csrc/dslash_ch_bf16.cu`` or raises, never the float32 kernel on
+widened copies.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops.clover import clover_apply
 from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import su3_mul, su3_dag_mul
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
+_BF16 = torch.bfloat16
 _CLOVER_MODES = {None: 0, "fwd": 1, "dag": 2}
 
 
@@ -61,22 +71,38 @@ def from_channels(x: torch.Tensor, lead_shape) -> torch.Tensor:
         tuple(lead_shape) + (t, z, w))
 
 
+def cast_channels(ch: torch.Tensor, dtype: torch.dtype | None):
+    """Cast real channels to ``dtype`` (None keeps them).  bfloat16 goes
+    through float32, as the JAX package's operands do (float32 channels,
+    then ``.astype(bf16)``), so the two round alike from complex128."""
+    if dtype is None:
+        return ch
+    if dtype == _BF16:
+        ch = ch.to(torch.float32)
+    return ch.to(dtype)
+
+
 def gauge_channels(ud: torch.Tensor, parity: int, recon12: bool,
                    dtype: torch.dtype | None = None) -> torch.Tensor:
     """Doubled gauge [4,2,2,3,3,T,Z,W] → channel operand of one parity:
     [T, 96, Z, W] with rows 0 and 1 only (recon-12) or [T, 144, Z, W].
-    ``dtype`` casts the real channels (default: the field's precision)."""
+    ``dtype`` casts the real channels (default: the field's precision;
+    bfloat16 is the bf16 operand tier)."""
     g = ud[:, parity][:, :, :2] if recon12 else ud[:, parity]
-    ch = to_channels(g)
-    return ch if dtype is None else ch.to(dtype)
+    return cast_channels(to_channels(g), dtype)
 
 
 def clover_channels(clover_field: torch.Tensor, parity: int,
                     dtype: torch.dtype | None = None) -> torch.Tensor:
     """Chiral-block clover (or its inverse) [2p,2ch,6,6,T,Z,W] → channel
-    operand [T, 144, Z, W] of one parity."""
-    ch = to_channels(clover_field[parity])
-    return ch if dtype is None else ch.to(dtype)
+    operand [T, 144, Z, W] of one parity (``dtype`` as in
+    ``gauge_channels``)."""
+    return cast_channels(to_channels(clover_field[parity]), dtype)
+
+
+def _widen(t):
+    """A bf16 operand as float32 (exact), as the kernels load it."""
+    return t.to(torch.float32) if t is not None and t.dtype == _BF16 else t
 
 
 def _proj_rank2(mu: int, plus: bool):
@@ -127,7 +153,10 @@ def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
                         twist=None, xpay_coef=None, x_ch=None, clover=None,
                         cinv_ch=None, post_op=None):
     """Plain PyTorch version of ``dslash_ch``: channels → complex →
-    rank-2 projected hop on the doubled links → epilogues → channels."""
+    rank-2 projected hop on the doubled links → epilogues → channels.
+    bf16 operands are widened to float32 first, as the kernels (and the
+    JAX package's ``_kernel_v5._mk``) widen each load."""
+    g_ch, psi_ch, cinv_ch = _widen(g_ch), _widen(psi_ch), _widen(cinv_ch)
     psi = from_channels(psi_ch, (4, 3))
     u = _links(g_ch, recon12)
     acc = [None] * 4
@@ -161,14 +190,46 @@ def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
     return out, to_channels(res2)
 
 
+def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool) -> str:
+    """The kernel instance that the operand dtypes select, as the suffix
+    of its C entry point: "f32" or "f64" (every operand of one dtype),
+    "f32_g16" (bf16 gauge and clover inverse, float32 ψ and x: the fused
+    chain of the bf16 tier) or "f32_g16s16" (bf16 gauge and ψ, bare hop:
+    ``Dirac.dslash`` of the bf16 tier).  Raises on any other mix."""
+    pd, gd = psi_ch.dtype, g_ch.dtype
+    named = {"g_ch": g_ch, "cinv_ch": cinv_ch, "x_ch": x_ch}
+    if gd != _BF16:
+        if pd not in _KERNEL_DTYPES:
+            raise TypeError(f"psi_ch dtype {pd} not in {_KERNEL_DTYPES} "
+                            "or bfloat16")
+        want = {k: pd for k in named}
+        form = "f32" if pd == torch.float32 else "f64"
+    elif pd == torch.float32:
+        want = {"g_ch": _BF16, "cinv_ch": _BF16, "x_ch": torch.float32}
+        form = "f32_g16"
+    elif pd == _BF16:
+        if not bare:
+            raise TypeError("a bfloat16 psi_ch takes the bare hop only "
+                            "(no twist, clover, xpay or post_op)")
+        want = {"g_ch": _BF16}
+        form = "f32_g16s16"
+    else:
+        raise TypeError(f"psi_ch dtype {pd} with a bfloat16 gauge: "
+                        "float32 or bfloat16 only")
+    for name, t in named.items():
+        if t is not None and t.dtype != want[name]:
+            raise TypeError(f"{name} dtype {t.dtype} != {want[name]} with "
+                            f"psi_ch {pd} and g_ch {gd}")
+    return form
+
+
 def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
-                    clover, cinv_ch, post_op):
-    """Raise on anything the kernel (and its plain version) does not take."""
+                    clover, cinv_ch, post_op) -> str:
+    """Raise on anything the kernel (and its plain version) does not take;
+    returns the kernel form (``_kernel_form``)."""
     shape = (geom.T, 24, geom.Z, geom.W)
     if tuple(psi_ch.shape) != shape:
         raise ValueError(f"psi_ch shape {tuple(psi_ch.shape)} != {shape}")
-    if psi_ch.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"psi_ch dtype {psi_ch.dtype} not in {_KERNEL_DTYPES}")
     ng = 96 if recon12 else 144
     want = {"g_ch": (g_ch, (geom.T, ng, geom.Z, geom.W))}
     if clover not in _CLOVER_MODES:
@@ -191,26 +252,29 @@ def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
         elif not (len(post_op) == 3 and post_op[0] == "twist"):
             raise ValueError(f"post_op={post_op!r} not ('clover',) or "
                              "('twist', a, b)")
+    form = _kernel_form(
+        g_ch, psi_ch, None if clover is None else cinv_ch, x_ch,
+        bare=twist is None and clover is None and x_ch is None
+        and post_op is None)
     tensors = {"psi_ch": psi_ch, **{k: v[0] for k, v in want.items()}}
     for name, (t, shp) in want.items():
         if tuple(t.shape) != shp:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {shp}")
     for name, t in tensors.items():
-        if t.dtype != psi_ch.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != {psi_ch.dtype}")
         if t.device != psi_ch.device:
             raise ValueError(f"{name} on {t.device}, psi_ch on "
                              f"{psi_ch.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+    return form
 
 
-def _launch(lib, g_ch, psi_ch, out, out2, parity: int, geom: Geometry,
-            dagger, recon12, twist, xpay_coef, x_ch, clover, cinv_ch,
-            post_op, stream: int) -> int:
-    """Call the C entry point of the kernel; returns its CUDA error code."""
-    fn = (lib.qkx_dslash_ch_f32 if psi_ch.dtype == torch.float32
-          else lib.qkx_dslash_ch_f64)
+def _launch(lib, form: str, g_ch, psi_ch, out, out2, parity: int,
+            geom: Geometry, dagger, recon12, twist, xpay_coef, x_ch, clover,
+            cinv_ch, post_op, stream: int) -> int:
+    """Call the C entry point ``qkx_dslash_ch_<form>`` of the kernel;
+    returns its CUDA error code."""
+    fn = getattr(lib, f"qkx_dslash_ch_{form}")
     ptr = lambda t: None if t is None else t.data_ptr()
     ta, tb = twist if twist is not None else (0.0, 0.0)
     post = {None: 0, "clover": 1, "twist": 2}[
@@ -230,11 +294,13 @@ def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
     """Fused Wilson hop with epilogues on channel operands (module
     docstring).  Returns ``out`` or, with ``post_op``, ``(out, out2)``.
 
-    A CUDA ``psi_ch`` launches the CUDA kernel on the current stream
-    (``dslash_ch.launches`` counts the launches); a CPU ``psi_ch`` runs
-    ``dslash_ch_reference``.  Anything else raises."""
-    _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
-                    clover, cinv_ch, post_op)
+    A CUDA ``psi_ch`` launches the CUDA kernel that the operand dtypes
+    select on the current stream (``dslash_ch.launches`` counts the
+    float32 / float64 launches, K1; ``dslash_ch.launches_bf16`` those of
+    the bf16 tier, K1d); a CPU ``psi_ch`` runs ``dslash_ch_reference``.
+    Anything else raises."""
+    form = _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef,
+                           x_ch, clover, cinv_ch, post_op)
     if psi_ch.device.type == "cpu":
         return dslash_ch_reference(g_ch, psi_ch, parity, geom, dagger,
                                    recon12, twist, xpay_coef, x_ch, clover,
@@ -243,20 +309,26 @@ def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
         raise ValueError(f"no dslash_ch for device {psi_ch.device}")
     from quda_qkxtm_multigrid_tpu_torch import _build
     lib = _build.load_library()
-    out = torch.empty_like(psi_ch)
-    out2 = torch.empty_like(psi_ch) if post_op is not None else None
+    out_dtype = torch.float32 if form.startswith("f32") else torch.float64
+    out = torch.empty(psi_ch.shape, dtype=out_dtype, device=psi_ch.device)
+    out2 = torch.empty_like(out) if post_op is not None else None
     stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
     with torch.cuda.device(psi_ch.device):
-        err = _launch(lib, g_ch, psi_ch, out, out2, parity, geom, dagger,
-                      recon12, twist, xpay_coef, x_ch, clover, cinv_ch,
-                      post_op, stream)
+        err = _launch(lib, form, g_ch, psi_ch, out, out2, parity, geom,
+                      dagger, recon12, twist, xpay_coef, x_ch, clover,
+                      cinv_ch, post_op, stream)
     if err != 0:
-        raise RuntimeError(f"dslash_ch kernel launch failed: CUDA error {err}")
-    dslash_ch.launches += 1
+        raise RuntimeError(f"dslash_ch kernel launch failed "
+                           f"(qkx_dslash_ch_{form}): CUDA error {err}")
+    if "g16" in form:
+        dslash_ch.launches_bf16 += 1
+    else:
+        dslash_ch.launches += 1
     return out if out2 is None else (out, out2)
 
 
 dslash_ch.launches = 0
+dslash_ch.launches_bf16 = 0
 
 
 def dslash_parity_kernel(ud, psi_opp, parity: int, geom: Geometry,
@@ -275,7 +347,7 @@ def dslash_ch_msrc_reference(g_ch, psi_ch_b, parity: int, geom: Geometry,
                              twist=None, xpay_coef=None, x_ch=None,
                              clover=None, cinv_ch=None):
     """Plain PyTorch version of ``dslash_ch_msrc``: ``dslash_ch_reference``
-    on each source."""
+    on each source (bf16 operands widened to float32)."""
     return torch.stack([
         dslash_ch_reference(g_ch, psi_ch_b[i], parity, geom, dagger, recon12,
                             twist, xpay_coef,
@@ -285,14 +357,16 @@ def dslash_ch_msrc_reference(g_ch, psi_ch_b, parity: int, geom: Geometry,
 
 
 def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
-                         x_ch, clover, cinv_ch):
-    """Raise on anything the multi-source kernel does not take."""
+                         x_ch, clover, cinv_ch) -> str:
+    """Raise on anything the multi-source kernel does not take; returns
+    the kernel form, "f32" or "f32_g16" (bf16 gauge and clover
+    inverse)."""
     if psi_ch_b.dim() != 5 or psi_ch_b.shape[0] < 1:
         raise ValueError(f"psi_ch_b shape {tuple(psi_ch_b.shape)} is not "
                          "[n, T, 24, Z, W]")
     if psi_ch_b.dtype != torch.float32:
         raise TypeError(f"psi_ch_b dtype {psi_ch_b.dtype}: the multi-source "
-                        "kernel is float32 only")
+                        "kernel's spinors are float32 only")
     if not psi_ch_b.is_contiguous():
         raise ValueError("psi_ch_b is not contiguous")
     if x_ch is not None:
@@ -301,9 +375,9 @@ def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
                              f"{tuple(psi_ch_b.shape)}")
         if not x_ch.is_contiguous():
             raise ValueError("x_ch is not contiguous")
-    _check_operands(g_ch, psi_ch_b[0], geom, recon12, twist, xpay_coef,
-                    None if x_ch is None else x_ch[0], clover, cinv_ch,
-                    None)
+    return _check_operands(g_ch, psi_ch_b[0], geom, recon12, twist,
+                           xpay_coef, None if x_ch is None else x_ch[0],
+                           clover, cinv_ch, None)
 
 
 def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
@@ -313,11 +387,12 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
     ψ [n, T, 24, Z, W] float32 (module docstring).
 
     A CUDA ``psi_ch_b`` launches the multi-source CUDA kernel once on
-    the current stream (``dslash_ch_msrc.launches`` counts the launches);
-    a CPU ``psi_ch_b`` runs ``dslash_ch_msrc_reference``.  Anything else
-    raises."""
-    _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
-                         x_ch, clover, cinv_ch)
+    the current stream, K2 or, with bf16 gauge and clover inverse, K2d
+    (``dslash_ch_msrc.launches`` and ``dslash_ch_msrc.launches_bf16``
+    count the launches); a CPU ``psi_ch_b`` runs
+    ``dslash_ch_msrc_reference``.  Anything else raises."""
+    form = _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist,
+                                xpay_coef, x_ch, clover, cinv_ch)
     if psi_ch_b.device.type == "cpu":
         return dslash_ch_msrc_reference(g_ch, psi_ch_b, parity, geom, dagger,
                                         recon12, twist, xpay_coef, x_ch,
@@ -331,7 +406,7 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
     ta, tb = twist if twist is not None else (0.0, 0.0)
     stream = torch.cuda.current_stream(psi_ch_b.device).cuda_stream
     with torch.cuda.device(psi_ch_b.device):
-        err = lib.qkx_dslash_ch_msrc_f32(
+        err = getattr(lib, f"qkx_dslash_ch_msrc_{form}")(
             ptr(psi_ch_b), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
             psi_ch_b.shape[0], geom.T, geom.Z, geom.W, geom.Xh, parity,
             int(dagger), int(recon12), int(twist is not None), ta, tb,
@@ -339,10 +414,14 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
             0.0 if xpay_coef is None else xpay_coef,
             ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"dslash_ch_msrc kernel launch failed: CUDA "
-                           f"error {err}")
-    dslash_ch_msrc.launches += 1
+        raise RuntimeError(f"dslash_ch_msrc kernel launch failed "
+                           f"(qkx_dslash_ch_msrc_{form}): CUDA error {err}")
+    if form == "f32_g16":
+        dslash_ch_msrc.launches_bf16 += 1
+    else:
+        dslash_ch_msrc.launches += 1
     return out
 
 
 dslash_ch_msrc.launches = 0
+dslash_ch_msrc.launches_bf16 = 0

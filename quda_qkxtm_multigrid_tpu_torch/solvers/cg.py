@@ -1,4 +1,6 @@
-"""Conjugate gradient on a hermitian positive-definite operator.
+"""Conjugate gradient on a hermitian positive-definite operator, and its
+mixed-precision form ``cg_mixed`` (a sloppy inner CG inside
+high-precision defect-correction restarts).
 
 A Python loop over eager PyTorch ops: the stopping test reads |r|² on
 the host, so each iteration synchronises with the device once.  Works
@@ -13,12 +15,15 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import (
     axpy, norm2, reDotProduct, xpay)
+from quda_qkxtm_multigrid_tpu_torch.solvers.support import (
+    ReliableStats, defect_correction)
 
 
 class CGResult(NamedTuple):
     x: torch.Tensor
     iters: int             # iterations used
     r2: torch.Tensor       # final |r|² of the solved system (0-d)
+    stats: Optional[ReliableStats] = None   # of the mixed-precision solver
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
@@ -49,3 +54,27 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         r2 = r2_new
         k += 1
     return CGResult(x, k, r2)
+
+
+def cg_mixed(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor,
+             tol: float = 1e-10, maxiter: int = 2000,
+             inner_tol: float = 1e-3, inner_maxiter: int = 500,
+             lo_dtype: torch.dtype = torch.complex64, max_restarts: int = 20,
+             max_res_increase: int = 1,
+             max_res_increase_total: int = 10) -> CGResult:
+    """Mixed-precision CG: a sloppy inner CG on ``matvec_lo`` in
+    ``lo_dtype`` to ``inner_tol``, inside high-precision defect-correction
+    restarts on ``matvec_hi`` in b's precision (the role of matSloppy and
+    reliable updates, reference inv_cg_quda.cpp:207-311).  The restart
+    loop and its residual-increase counters are
+    ``support.defect_correction``; ``stats.diverged`` reports a stop at
+    the sloppy operator's precision floor.  ``iters`` sums the inner
+    iterations, and ``maxiter`` caps that sum (the JAX package takes
+    ``maxiter`` and does not use it)."""
+    x, r2, iters, stats = defect_correction(
+        matvec_hi,
+        lambda r, cap: cg(matvec_lo, r, tol=inner_tol,
+                          maxiter=min(inner_maxiter, cap)),
+        b, lo_dtype, tol, maxiter, max_restarts, max_res_increase,
+        max_res_increase_total)
+    return CGResult(x, iters, r2, stats)

@@ -7,6 +7,7 @@ plain (``use_kernels=False``) and through the kernel wrapper
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -19,10 +20,14 @@ from quda_qkxtm_multigrid_tpu.utils import rng as jrng
 
 from quda_qkxtm_multigrid_tpu_torch import dirac as td
 from quda_qkxtm_multigrid_tpu_torch import lattice as tlat
-from quda_qkxtm_multigrid_tpu_torch.convert import (
-    dirac_from_numpy, spinor_from_numpy as T, spinor_to_numpy as N)
+from quda_qkxtm_multigrid_tpu_torch import convert
+from quda_qkxtm_multigrid_tpu_torch.convert import spinor_to_numpy as N
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash_kernel as dk
 from quda_qkxtm_multigrid_tpu_torch.ops.gamma import apply_gamma5
+
+# the tests run on the CPU; the converters default to the card
+dirac_from_numpy = functools.partial(convert.dirac_from_numpy, device="cpu")
+T = functools.partial(convert.spinor_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 

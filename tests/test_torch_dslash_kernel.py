@@ -7,6 +7,7 @@ dispatch and operand checks.  The CUDA kernel itself runs only on a
 card: its test carries the ``cuda`` marker and skips elsewhere.
 """
 
+import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -26,10 +27,13 @@ from quda_qkxtm_multigrid_tpu.ops.dslash_pallas5 import (
 from quda_qkxtm_multigrid_tpu.utils import rng as jrng
 
 from quda_qkxtm_multigrid_tpu_torch import lattice as tlat
-from quda_qkxtm_multigrid_tpu_torch.convert import (
-    spinor_from_numpy as T, spinor_to_numpy as N)
+from quda_qkxtm_multigrid_tpu_torch import convert
+from quda_qkxtm_multigrid_tpu_torch.convert import spinor_to_numpy as N
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as tdsl
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash_kernel as dk
+
+# the tests run on the CPU; the converters default to the card
+T = functools.partial(convert.spinor_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 

@@ -82,12 +82,15 @@ def test_build_targets_hopper():
         assert f in flags
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
     assert {p.name for p in _build._sources()} >= {
-        "dslash_ch.cu", "dslash_ch.cuh", "dslash_ch_msrc.cu"}
+        "dslash_ch.cu", "dslash_ch.cuh", "dslash_ch_msrc.cu",
+        "dslash_ch_bf16.cu"}
 
 
 @pytest.mark.parametrize("name,n_args,n_ptrs", [
     ("qkx_dslash_ch_f32", 23, 6), ("qkx_dslash_ch_f64", 23, 6),
-    ("qkx_dslash_ch_msrc_f32", 20, 5)])
+    ("qkx_dslash_ch_msrc_f32", 20, 5), ("qkx_dslash_ch_f32_g16", 23, 6),
+    ("qkx_dslash_ch_f32_g16s16", 23, 6),
+    ("qkx_dslash_ch_msrc_f32_g16", 20, 5)])
 def test_entry_points_pass_pointers_as_void_p(name, n_args, n_ptrs):
     argtypes = _build.ENTRY_POINTS[name]
     assert len(argtypes) == n_args

@@ -10,6 +10,7 @@ state, the MG options that are not ported, and ``bench_mg`` at a tiny
 size.  Tolerances are normwise relative.
 """
 
+import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,15 +26,20 @@ from quda_qkxtm_multigrid_tpu.utils import rng as jrng
 
 from quda_qkxtm_multigrid_tpu_torch import lattice as tlat
 from quda_qkxtm_multigrid_tpu_torch.benchmarks import bench_mg, make_problem
-from quda_qkxtm_multigrid_tpu_torch.convert import (
-    dirac_from_numpy, spinor_from_numpy as T, spinor_to_numpy as N,
-    transfer_from_numpy)
+from quda_qkxtm_multigrid_tpu_torch import convert
+from quda_qkxtm_multigrid_tpu_torch.convert import spinor_to_numpy as N
 from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams
 from quda_qkxtm_multigrid_tpu_torch.mg import coarse_op as tco
 from quda_qkxtm_multigrid_tpu_torch.mg import multigrid as tmg
 from quda_qkxtm_multigrid_tpu_torch.mg import transfer as ttr
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as tdsl
 from quda_qkxtm_multigrid_tpu_torch.utils import checkpoint as tckpt
+
+# the tests run on the CPU; the converters default to the card
+dirac_from_numpy = functools.partial(convert.dirac_from_numpy, device="cpu")
+T = functools.partial(convert.spinor_from_numpy, device="cpu")
+transfer_from_numpy = functools.partial(
+    convert.transfer_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 

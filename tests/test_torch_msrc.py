@@ -7,6 +7,7 @@ complex128 (1e-10); the fused float32 ``invert_msrc``; and the wrapper's
 operand checks.  Tolerances are normwise relative.
 """
 
+import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -27,12 +28,16 @@ from quda_qkxtm_multigrid_tpu.solvers.msrc import msrc_cg as j_msrc_cg
 from quda_qkxtm_multigrid_tpu.utils import rng as jrng
 
 from quda_qkxtm_multigrid_tpu_torch import lattice as tlat
-from quda_qkxtm_multigrid_tpu_torch.convert import (
-    dirac_from_numpy, spinor_from_numpy as T, spinor_to_numpy as N)
+from quda_qkxtm_multigrid_tpu_torch import convert
+from quda_qkxtm_multigrid_tpu_torch.convert import spinor_to_numpy as N
 from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams
 from quda_qkxtm_multigrid_tpu_torch.invert import invert_msrc
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash_kernel as dk
 from quda_qkxtm_multigrid_tpu_torch.solvers.msrc import msrc_cg
+
+# the tests run on the CPU; the converters default to the card
+dirac_from_numpy = functools.partial(convert.dirac_from_numpy, device="cpu")
+T = functools.partial(convert.spinor_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 

@@ -7,6 +7,7 @@ Tolerance: 1e-12 normwise relative (both sides sum in the same order;
 only the last bits may differ).
 """
 
+import functools
 import numpy as np
 import jax
 import pytest
@@ -24,8 +25,8 @@ from quda_qkxtm_multigrid_tpu.utils import rng as jrng
 
 from quda_qkxtm_multigrid_tpu_torch import fields as tfields
 from quda_qkxtm_multigrid_tpu_torch import lattice as tlat
-from quda_qkxtm_multigrid_tpu_torch.convert import (
-    spinor_from_numpy as T, spinor_to_numpy)
+from quda_qkxtm_multigrid_tpu_torch import convert
+from quda_qkxtm_multigrid_tpu_torch.convert import spinor_to_numpy
 from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams as TParams
 from quda_qkxtm_multigrid_tpu_torch.ops import clover as tcl
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as tdsl
@@ -33,6 +34,9 @@ from quda_qkxtm_multigrid_tpu_torch.ops import gamma as tgamma
 from quda_qkxtm_multigrid_tpu_torch.ops import smallmat as tsm
 from quda_qkxtm_multigrid_tpu_torch.ops import twist as ttw
 from quda_qkxtm_multigrid_tpu_torch.utils import rng as trng
+
+# the tests run on the CPU; the converters default to the card
+T = functools.partial(convert.spinor_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 
@@ -108,7 +112,7 @@ def test_site_index_and_point_source(coords):
     assert tlat.site_index(GT, coords) == tuple(
         int(v) for v in jlat.site_index(GJ, coords))
     ref = np.asarray(jfields.point_source(GJ, coords, 2, 1))
-    got = tfields.point_source(GT, coords, 2, 1)
+    got = tfields.point_source(GT, coords, 2, 1, device="cpu")
     np.testing.assert_array_equal(spinor_to_numpy(got), ref)
 
 

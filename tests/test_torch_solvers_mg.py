@@ -7,6 +7,7 @@ operator at Geometry(4,4,4,8).  Solutions agree to 1e-10 (normwise
 relative), iteration counts exactly.
 """
 
+import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -22,12 +23,16 @@ from quda_qkxtm_multigrid_tpu.solvers.mr import mr as j_mr
 from quda_qkxtm_multigrid_tpu.utils import rng as jrng
 
 from quda_qkxtm_multigrid_tpu_torch import lattice as tlat
-from quda_qkxtm_multigrid_tpu_torch.convert import (
-    dirac_from_numpy, spinor_from_numpy as T, spinor_to_numpy as N)
+from quda_qkxtm_multigrid_tpu_torch import convert
+from quda_qkxtm_multigrid_tpu_torch.convert import spinor_to_numpy as N
 from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams
 from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import bicgstab
 from quda_qkxtm_multigrid_tpu_torch.solvers.gcr import gcr, gcr_cycle
 from quda_qkxtm_multigrid_tpu_torch.solvers.mr import mr
+
+# the tests run on the CPU; the converters default to the card
+dirac_from_numpy = functools.partial(convert.dirac_from_numpy, device="cpu")
+T = functools.partial(convert.spinor_from_numpy, device="cpu")
 
 torch.set_num_threads(1)
 
