@@ -42,7 +42,21 @@ and does not print its last line:
    bf16 solve into inner and outer matvecs and complex128 stages; K1d
    and K2d timed at 32³×64 against their plain versions and the float32
    kernels (K2d also in the bare form); then a bf16-tier CG and a
-   multi-source solve on the bf16 tier at 16³×32.
+   multi-source solve on the bf16 tier at 16³×32;
+8. the compact channel operator, the bf16 spinor storage (K1e) and the
+   recon-8 gauge (K3): (a) at 16³×32 every K1e form against its plain
+   version and against its float32-storage kernel (the difference must
+   show the bf16 rounding), the K1d form with a float32 A⁻¹, and K3
+   against its plain version and against K1 recon-12; (b)
+   ``benchmarks.bench_bf16_spinor`` at 32³×64 (hop A/B, the bf16-storage
+   CG floor and its mixed recovery at 16³×32) and ``bench_recon8``, then
+   the K1e and K3 bare hops timed against their plain versions and
+   against K1d / K1 f32 recon-12; (c) the complex128 mixed CG of phase
+   7b with the compact bf16-spinor chain as its sloppy operator, beside
+   the bf16 operand tier's, at 32³×64; (d) at 48³×96, the compact bf16
+   tier's CG (``bench_compact``, tol 1e-6) and the same solve certified
+   to 1e-9 in complex128 by a float64 defect-correction outer
+   (``bench_cg48_dc``), with the peak device memory.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero before printing any result.  The last line of its output is
@@ -65,6 +79,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
+T_START = time.perf_counter()
 
 F32_LIMIT = 1e-5      # normwise relative error, float32 kernel vs plain
 F64_LIMIT = 1e-12     # the same in float64, and the complex128 identities
@@ -100,6 +115,23 @@ BF16_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:512 "
                         "(bf16=True)")
 BF16_MSRC_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/"
                              "dslash_pallas5.py:960 (bf16=True)")
+BF16S_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_bf16s.cu"
+BF16S_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:512 "
+                         "(out_dtype=bf16)")
+R8_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_r8.cu"
+R8_KERNEL_REPLACES = "quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:91"
+
+BIG_GEOM = (48, 48, 48, 96)
+COMPACT_TOL, COMPACT_MAXITER = 1e-6, 600
+COMPACT_ITERS_BAND = (8, 30)     # the JAX package's compact48 record: 13
+COMPACT_TRUE_RES = 1e-5
+DC_TOL, DC_INNER_TOL = 1e-9, 1e-6
+BF16_FLOOR_BAND = (1e-4, 1e-2)   # the JAX bf16 session record: 1.69e-3
+BF16_RECOVERY_TOL, BF16_RECOVERY_LIMIT = 1e-8, 1e-7
+BF16_OUT_LIMIT = 1e-4            # normwise, a bf16 output vs its plain version
+F32_SUM_BOUND = 2.0 ** -20       # float32 summation order, of the largest value
+DECODE_FLOPS = 480               # recon-8: ~60 flop a link, 8 links a site
+CARD_BYTES = 80e9
 
 
 def _import_port():
@@ -124,16 +156,10 @@ def _check(label: str, value: float, limit: float):
 
 
 def _time_ms(fn, n: int) -> float:
-    """Mean ms per call over ``n`` back-to-back calls (CUDA events)."""
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / n
+    """Mean ms per call over ``n`` back-to-back calls (CUDA events: the
+    port's ``benchmarks.time_ms``)."""
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import time_ms
+    return time_ms(fn, DEVICE, n)
 
 
 def _compare_timed(kernel, plain, n_kernel=20, n_plain=3, reps=5):
@@ -780,38 +806,53 @@ def phase_mixed(geom_dims):
     # where a warm bf16 solve's time goes (synchronised around each call)
     sloppy = as_sloppy(d, kernel_bf16=True)
     invert(d, b, tol=MIXED_TOL, solver="cg-mixed", sloppy_dirac=sloppy)
-    parts = {"inner matvec": 0.0, "outer matvec": 0.0,
-             "complex128 stages": 0.0}
     wrapped = [(sloppy, "_fused_matpc_dagm_ch", "inner matvec"),
                (d, "_fused_matpc_dagm_ch", "outer matvec")] + [
         (d, name, "complex128 stages")
         for name in ("prepare", "matpc", "reconstruct", "m")]
+    rec["split"] = _split(
+        "a third bf16 solve", wrapped,
+        lambda: invert(d, b, tol=MIXED_TOL, solver="cg-mixed",
+                       sloppy_dirac=sloppy))
+    return rec
+
+
+def _split(label: str, wrapped, run) -> dict:
+    """Run ``run()`` once with a synchronised host timer around each
+    wrapped callable, ``wrapped`` a list of (object, attribute, part);
+    print and return the seconds of each part and of the rest (BLAS,
+    conversions and host syncs)."""
+    import torch
+    parts = {name: 0.0 for _, _, name in wrapped}
 
     def timed(name, fn):
-        def run(*args, **kwargs):
+        def timed_call(*args, **kwargs):
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             parts[name] += time.perf_counter() - t
             return out
-        return run
+        return timed_call
 
+    saved = [(obj, attr, vars(obj).get(attr)) for obj, attr, _ in wrapped]
     for obj, attr, name in wrapped:
         setattr(obj, attr, timed(name, getattr(obj, attr)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    invert(d, b, tol=MIXED_TOL, solver="cg-mixed", sloppy_dirac=sloppy)
+    run()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    for obj, attr, _ in wrapped:
-        delattr(obj, attr)
-    print(f"  split of a third bf16 solve ({total:.4f} s): " + ", ".join(
+    for obj, attr, own in saved:
+        if own is None:
+            delattr(obj, attr)
+        else:
+            setattr(obj, attr, own)
+    print(f"  split of {label} ({total:.4f} s): " + ", ".join(
         f"{k} {v:.4f} s" for k, v in parts.items()) + f"; BLAS, "
         f"conversions and host syncs {total - sum(parts.values()):.4f} s",
         flush=True)
-    rec["split"] = {"total": total, **parts}
-    return rec
+    return {"total": total, **parts}
 
 
 def phase_bf16_timing(geom_dims, n_time: int):
@@ -979,6 +1020,467 @@ def phase_bf16_paths(check_dims):
     return k1d + dslash_ch.launches_bf16, k2d
 
 
+def _bf16_ulp_check(label: str, got, ref) -> float:
+    """A bf16 output against its plain version.  Both round a float32
+    result once; the two float32 results differ by the summation order
+    (the kernel fuses multiply-adds), which is ~1e-7 of the terms.  So
+    every element must lie within one bf16 ulp of the plain one, except
+    where that order's difference is itself larger than an ulp: where the
+    sum cancels to a small value, at most F32_SUM_BOUND of the output's
+    largest value.  The normwise difference must stay within
+    BF16_OUT_LIMIT.  Returns the largest absolute error."""
+    import torch
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    beyond = d > ulp
+    bound = F32_SUM_BOUND * float(r.abs().max())
+    n_beyond, n_bad = int(beyond.sum()), int((beyond & (d > bound)).sum())
+    worst = float((d / ulp).max())
+    print(f"    largest difference {worst:.2f} bf16 ulp; {n_beyond} of "
+          f"{d.numel()} elements beyond one ulp, {n_bad} of them above "
+          f"the float32 summation bound {bound:.2e}", flush=True)
+    if n_bad:
+        raise AssertionError(f"{label}: {n_bad} elements more than one "
+                             "bf16 ulp apart beyond float32 summation")
+    _check(label, _rel(g, r), BF16_OUT_LIMIT)
+    return float(d.max())
+
+
+def _k1e_cases(twist_a: float, twist_b: float, xc: float):
+    """The forms of the compact chains, each with ψ, x and out dtypes:
+    (label, case, counter).  The float32-A⁻¹ K1d form is the dagger hop
+    after the plain A⁻¹† of the bf16-storage clover chain."""
+    tw = (-twist_a, twist_b)
+    return [
+        ("o16 clover fwd", dict(parity=1, clover="fwd", out16=True), "k1e"),
+        ("o16 twist", dict(parity=1, twist=tw, out16=True), "k1e"),
+        ("s16o16 clover fwd + xpay",
+         dict(parity=0, clover="fwd", xpay=xc, psi16=True, out16=True), "k1e"),
+        ("s16o16 twist + xpay",
+         dict(parity=0, twist=tw, xpay=xc, psi16=True, out16=True), "k1e"),
+        ("s16o16 bare", dict(parity=1, psi16=True, out16=True), "k1e"),
+        ("s16o16 bare dagger",
+         dict(parity=0, dagger=True, psi16=True, out16=True), "k1e"),
+        ("x16 dagger xpay", dict(parity=0, dagger=True, xpay=xc, x16=True),
+         "k1e"),
+        ("s16 dagger twist", dict(parity=1, dagger=True,
+                                  twist=(twist_a, twist_b), psi16=True),
+         "k1e"),
+        ("g16c32 dagger clover dag",
+         dict(parity=1, dagger=True, clover="dag"), "k1d"),
+    ]
+
+
+def phase_k1e_k3_kernels(check_dims):
+    """Phase 8a: every K1e form (and the float32-A⁻¹ K1d form) against
+    its plain version and against the float32-storage kernel of the same
+    operation; K3 against its plain version and against K1 recon-12, in
+    every epilogue form.  Returns the largest absolute error of each
+    kernel against its plain version, {"k1e": .., "k1d": .., "k3": ..}."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, dslash_ch, dslash_ch_reference, gauge_channels,
+        to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    print(f"phase 8a: bf16 spinor storage (K1e) and recon-8 (K3) kernels vs "
+          f"plain at {check_dims}", flush=True)
+    geom = Geometry(*check_dims)
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    u = rng.random_gauge(gen, geom)
+    _, cinv = make_clover_pair(u, geom, tmc_params())
+    ud = double_gauge(u, geom)
+    f32, b16 = torch.float32, torch.bfloat16
+    g16 = [gauge_channels(ud, p, True, b16) for p in (0, 1)]
+    g32 = [gauge_channels(ud, p, True, f32) for p in (0, 1)]
+    g8 = [gauge_channels(ud, p, False, f32, recon8=True) for p in (0, 1)]
+    ci = [clover_channels(cinv, p, f32) for p in (0, 1)]
+    del u, ud, cinv
+    psi = rng.random_spinor(gen, geom)
+    x = rng.random_spinor(gen, geom)
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    b = 1 / (1 + a * a)
+    counters = {"k1e": "launches_bf16s", "k1d": "launches_bf16"}
+    err = {"k1e": 0.0, "k1d": 0.0, "k3": 0.0}
+    for label, c, kern in _k1e_cases(a, b, -kappa * kappa):
+        p = c["parity"]
+        v = to_channels(psi[1 - p]).to(f32)
+        xv = to_channels(x[p]).to(f32)
+        kw = dict(dagger=c.get("dagger", False), recon12=True,
+                  twist=c.get("twist"),
+                  out_dtype=b16 if c.get("out16") else None)
+        kw32 = dict(kw, out_dtype=None)
+        if "xpay" in c:
+            kw.update(xpay_coef=c["xpay"],
+                      x_ch=xv.to(b16) if c.get("x16") else xv)
+            kw32.update(xpay_coef=c["xpay"], x_ch=xv)
+        if "clover" in c:
+            kw.update(clover=c["clover"], cinv_ch=ci[p])
+            kw32.update(clover=c["clover"], cinv_ch=ci[p])
+        v_in = v.to(b16) if c.get("psi16") else v
+        name = counters[kern]
+        before = getattr(dslash_ch, name)
+        got = dslash_ch(g16[p], v_in, p, geom, **kw)
+        torch.cuda.synchronize()
+        if getattr(dslash_ch, name) != before + 1:
+            raise AssertionError(f"{label}: dslash_ch.{name} did not count "
+                                 "the launch")
+        ref = dslash_ch_reference(g16[p], v_in, p, geom, **kw)
+        if got.dtype == b16:
+            err[kern] = max(err[kern], _bf16_ulp_check(f"K1e {label}", got,
+                                                       ref))
+        else:
+            err[kern] = max(err[kern], _compare(
+                got, ref, f"{'K1e' if kern == 'k1e' else 'K1d'} {label}",
+                F32_LIMIT))
+        k32 = dslash_ch(g16[p], v, p, geom, **kw32)
+        if kern == "k1e":
+            diff = _rel(got.float(), k32)
+            ok = BF16_BAND[0] <= diff <= BF16_BAND[1]
+            print(f"    vs float32-storage kernel {diff:.3e}  (band "
+                  f"{BF16_BAND[0]:.0e}..{BF16_BAND[1]:.0e})  "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"K1e {label}: {diff:.3e} against the "
+                                     f"float32-storage kernel outside "
+                                     f"{BF16_BAND}")
+
+    for label, c in _hop_cases(a, b, -kappa * kappa):
+        if not c["recon12"]:
+            continue
+        p = c["parity"]
+        kw = dict(dagger=c.get("dagger", False), twist=c.get("twist"),
+                  post_op=c.get("post_op"))
+        if "xpay" in c:
+            kw.update(xpay_coef=c["xpay"], x_ch=to_channels(x[p]).to(f32))
+        if "clover" in c:
+            kw.update(clover=c["clover"], cinv_ch=ci[p])
+        v = to_channels(psi[1 - p]).to(f32)
+        before = dslash_ch.launches_r8
+        got = dslash_ch(g8[p], v, p, geom, recon8=True, **kw)
+        torch.cuda.synchronize()
+        if dslash_ch.launches_r8 != before + 1:
+            raise AssertionError("dslash_ch did not count its recon-8 launch")
+        ref = dslash_ch_reference(g8[p], v, p, geom, recon8=True, **kw)
+        err["k3"] = max(err["k3"], _compare(got, ref, f"K3 {label}",
+                                            F32_LIMIT))
+        r12 = dslash_ch(g32[p], v, p, geom, recon12=True, **kw)
+        _compare(got, r12, f"K3 {label} vs K1 recon-12", F32_LIMIT)
+    return err
+
+
+def phase_bf16_spinor(time_dims, check_dims):
+    """Phase 8b: ``bench_bf16_spinor`` and ``bench_recon8`` at
+    ``time_dims`` (the paths of K1e and K3, counted around each; their
+    records hold the kernels' times: K1e against K1d, K3 against K1 f32
+    recon-12), then the K1e and K3 bare hops against their plain
+    versions, checked and the plain versions timed.  Returns the
+    launches, the times, the bounds and the largest errors."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_bf16_spinor, bench_recon8, median_ms)
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_reference, gauge_channels, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*time_dims)
+    print(f"phase 8b: bench_bf16_spinor at {time_dims} (CG at "
+          f"{check_dims}) and bench_recon8", flush=True)
+    dslash_ch.launches_bf16s = 0
+    rec = bench_bf16_spinor(geom, Geometry(*check_dims), DEVICE)
+    k1e = dslash_ch.launches_bf16s
+    print(f"  hop: float32 spinors {rec['f32_spinor_ms']:.4f} ms "
+          f"({rec['f32_spinor_gflops']:.1f} GFLOP/s), bf16 spinors "
+          f"{rec['bf16_spinor_ms']:.4f} ms ({rec['bf16_spinor_gflops']:.1f}"
+          f" GFLOP/s)", flush=True)
+    print(f"  bf16-storage CG floor {rec['bf16_storage_cg_floor']:.3e} after "
+          f"{rec['bf16_storage_cg_iters']} iterations (JAX record 1.69e-3 "
+          f"after 22); mixed recovery to {BF16_RECOVERY_TOL:.0e}: true_res "
+          f"{rec['mixed_bf16_true_res']:.3e} (JAX 7.42e-8), inner "
+          f"iterations {rec['mixed_bf16_iters']} (JAX 63), restarts "
+          f"{rec['mixed_bf16_restarts']}, diverged "
+          f"{rec['mixed_bf16_diverged']}; K1e launches {k1e}", flush=True)
+    lo, hi = BF16_FLOOR_BAND
+    if not lo <= rec["bf16_storage_cg_floor"] <= hi:
+        raise AssertionError(f"bf16-storage floor "
+                             f"{rec['bf16_storage_cg_floor']:.3e} outside "
+                             f"{BF16_FLOOR_BAND}")
+    if rec["mixed_bf16_diverged"]:
+        raise AssertionError("the mixed recovery diverged")
+    _check("mixed recovery true residual", rec["mixed_bf16_true_res"],
+           BF16_RECOVERY_LIMIT)
+    if k1e == 0:
+        raise AssertionError("bench_bf16_spinor launched no K1e")
+    dslash_ch.launches_r8 = 0
+    r8 = bench_recon8(geom, DEVICE)
+    k3 = dslash_ch.launches_r8
+    print(f"  recon-8 hop {r8['recon8_ms']:.4f} ms "
+          f"({r8['recon8_gflops']:.1f} GFLOP/s), recon-12 "
+          f"{r8['recon12_ms']:.4f} ms; K3 launches {k3}", flush=True)
+    _check("K3 vs K1 recon-12 (bench_recon8)", r8["recon8_vs_recon12"],
+           F32_LIMIT)
+    if k3 == 0:
+        raise AssertionError("bench_recon8 launched no K3")
+
+    print(f"  K1e and K3 bare hops at {time_dims} against their plain "
+          f"versions (plain timed, median of 5)", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    ud = double_gauge(rng.random_gauge(gen, geom), geom)
+    f32, b16 = torch.float32, torch.bfloat16
+    g16 = gauge_channels(ud, 0, True, b16)
+    g8 = gauge_channels(ud, 0, False, f32, recon8=True)
+    del ud
+    v = to_channels(rng.random_spinor(gen, geom)[1]).to(f32)
+    v16 = v.to(b16)
+    k1e_plain = lambda: dslash_ch_reference(g16, v16, 0, geom, recon12=True,
+                                            out_dtype=b16)
+    k3_plain = lambda: dslash_ch_reference(g8, v, 0, geom, recon8=True)
+    err = {"k1e": _bf16_ulp_check(
+               f"K1e bare hop at {time_dims}",
+               dslash_ch(g16, v16, 0, geom, recon12=True, out_dtype=b16),
+               k1e_plain()),
+           "k3": _compare(dslash_ch(g8, v, 0, geom, recon8=True), k3_plain(),
+                          f"K3 bare hop at {time_dims}", F32_LIMIT)}
+    med = {"K1e": rec["bf16_spinor_ms"], "K1d": rec["f32_spinor_ms"],
+           "K3": r8["recon8_ms"], "K1 f32": r8["recon12_ms"],
+           "K1e plain": median_ms(k1e_plain, DEVICE, n=3),
+           "K3 plain": median_ms(k3_plain, DEVICE, n=3)}
+    print("  " + "  ".join(f"{k} {t:.4f} ms" for k, t in med.items()),
+          flush=True)
+    sites = geom.half_volume
+    bounds = {"k1e": _bound(_nbytes(g16, v16, v16), HOP_FLOPS * sites),
+              "k3": _bound(_nbytes(g8, v, v),
+                           (HOP_FLOPS + DECODE_FLOPS) * sites)}
+    for k, key in (("k1e", "K1e"), ("k3", "K3")):
+        ms, by = bounds[k]
+        print(f"  {key} bound {ms:.4f} ms ({by}); kernel at "
+              f"{ms / med[key]:.2f} of it", flush=True)
+    return {"k1e": k1e, "k3": k3, "times": med, "bounds": bounds,
+            "err": err, "record": rec, "recon8": r8}
+
+
+def _compact_chain_forms(cd, v, x, storage):
+    """The four hops of the clover Schur chain ``cd.matpc_dagm_ch(v,
+    storage)`` on channel spinors ``v`` and ``x`` of ``cd``'s spinor
+    dtype, with ψ, x and the output in the dtypes that chain gives them:
+    (label, kernel, parity, ψ, keyword arguments of ``cd._hop``)."""
+    pr, k = cd.params.matpc_parity, cd.params.kappa
+    ci = cd.cinv_ch
+    if storage is None:
+        fwd, last, s, xs, o = "K1d", "K1d", v, x, {}
+    else:
+        fwd, last, s, xs, o = ("K1e", "K1e", v.to(storage), x.to(storage),
+                               dict(out_dtype=storage))
+    return [
+        ("clover fwd", fwd, 1 - pr, v,
+         dict(clover="fwd", cinv_ch=ci[1 - pr], **o)),
+        ("clover fwd + xpay", fwd, pr, s,
+         dict(clover="fwd", cinv_ch=ci[pr], xpay_coef=-k * k, x_ch=x, **o)),
+        ("dagger clover dag", "K1d", 1 - pr, v,
+         dict(dagger=True, clover="dag", cinv_ch=ci[1 - pr])),
+        ("dagger xpay", last, pr, v,
+         dict(dagger=True, xpay_coef=-k * k, x_ch=xs)),
+    ]
+
+
+def _compact_forms_check(cd, forms, where: str) -> dict:
+    """Each of ``forms`` (``_compact_chain_forms``' tuples) launched once
+    through ``cd._hop`` on ``cd``'s own channels and held against its
+    plain version: float32 outputs within F32_LIMIT, float64 within
+    F64_LIMIT, bf16 outputs by ``_bf16_ulp_check``.  Returns the largest
+    absolute error of each kernel, keyed by its name."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_reference)
+    err = {}
+    for label, kern, p, psi, kw in forms:
+        got = cd._hop(p, psi, **kw)
+        torch.cuda.synchronize()
+        ref = dslash_ch_reference(cd.g_ch[p], psi, p, cd.geom, recon12=True,
+                                  **kw)
+        name = f"{kern} {label} {where}"
+        if got.dtype == torch.bfloat16:
+            e = _bf16_ulp_check(name, got, ref)
+        else:
+            e = _compare(got, ref, name, F64_LIMIT
+                         if got.dtype == torch.float64 else F32_LIMIT)
+        del got, ref
+        err[kern] = max(err.get(kern, 0.0), e)
+    return err
+
+
+def phase_compact_mixed(geom_dims):
+    """Phase 8c: the complex128 mixed CG of phase 7b (same operator,
+    source and tol) with the compact bf16-spinor chain as the sloppy
+    operator (``bench_compact_sloppy``: K1e), beside the bf16 operand
+    tier's (``bench_cg``: K1d), each with its launch counts read around
+    it; then the split of a third compact-sloppy solve, and each hop of
+    the compact chain against its plain version at this size on the
+    compact operator's own channels.  Returns the compact run's record,
+    with those errors under "err"."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import compact
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_cg, bench_compact_sloppy, compact_sloppy_solve, make_problem)
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 8c: mixed-precision solve at {geom_dims} with the compact "
+          f"bf16-spinor sloppy chain, complex128 outer, tol {MIXED_TOL}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, b = make_problem(geom, DEVICE, seed=7)
+    runs = {}
+    for sloppy in ("bf16", "compact-bf16"):
+        dslash_ch.launches = dslash_ch.launches_bf16 = 0
+        dslash_ch.launches_bf16s = 0
+        if sloppy == "bf16":
+            rec = bench_cg(geom, tol=MIXED_TOL, problem=(d, b),
+                           solver="cg-mixed", sloppy="bf16")
+        else:
+            rec, cd = bench_compact_sloppy(geom, tol=MIXED_TOL,
+                                           problem=(d, b))
+        rec.update(k1=dslash_ch.launches, k1d=dslash_ch.launches_bf16,
+                   k1e=dslash_ch.launches_bf16s)
+        runs[sloppy] = rec
+        print(f"  {rec['solver']}: restarts {rec['restarts']} (cold "
+              f"{rec['restarts_cold']}), inner iterations {rec['iters']} "
+              f"(cold {rec['iters_cold']}), warm secs {rec['secs']:.4f}, "
+              f"diverged {rec['diverged']}, true_res {rec['true_res']:.3e} "
+              f"(complex128; cold {rec['true_res_cold']:.3e}), peak memory "
+              f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB, launches K1 "
+              f"{rec['k1']} K1d {rec['k1d']} K1e {rec['k1e']}", flush=True)
+        if rec["diverged"]:
+            raise AssertionError(f"{rec['solver']} diverged")
+        _check(f"{rec['solver']} true residual (complex128)",
+               max(rec["true_res"], rec["true_res_cold"]),
+               MIXED_TRUE_RES_LIMIT)
+    rec = runs["compact-bf16"]
+    # per solve: K1 (double) 2·6 + 4 a restart; an inner iteration: three
+    # K1e hops and the K1d hop after the plain A⁻¹†
+    inner = rec["iters"] + rec["iters_cold"]
+    want = (2 * 6 + 4 * (rec["restarts"] + rec["restarts_cold"]), inner,
+            3 * inner)
+    if (rec["k1"], rec["k1d"], rec["k1e"]) != want or rec["k1e"] == 0:
+        raise AssertionError(f"compact sloppy launches K1 {rec['k1']} K1d "
+                             f"{rec['k1d']} K1e {rec['k1e']} != {want}")
+    # where a warm compact-sloppy solve's time goes
+    rec["split"] = _split(
+        "a third compact-sloppy solve",
+        [(cd, "_hop", "inner hops (K1e, K1d)"),
+         (compact, "_ch_clover_apply", "inner plain A⁻¹† on bf16"),
+         (d, "_fused_matpc_dagm_ch", "outer matvec")] + [
+            (d, name, "complex128 stages")
+            for name in ("prepare", "matpc", "reconstruct", "m")],
+        lambda: compact_sloppy_solve(d, cd, b, tol=MIXED_TOL))
+    psi = rng.random_spinor(torch.Generator(device=DEVICE).manual_seed(47),
+                            geom)
+    v, x = (to_channels(psi[p]).to(torch.float32) for p in (0, 1))
+    rec["err"] = _compact_forms_check(
+        cd, _compact_chain_forms(cd, v, x, torch.bfloat16),
+        f"at {geom_dims}")
+    rec["k1d_sloppy_run"] = runs["bf16"]
+    return rec
+
+
+def phase_compact48(geom_dims):
+    """Phase 8d: the compact bf16 tier at ``geom_dims`` (48³×96):
+    ``bench_compact`` (tol 1e-6) and ``bench_cg48_dc`` (tol 1e-9 in
+    complex128) on one build, with the launch counts and the peak device
+    memory; then each kernel form of that path against its plain version
+    at this size.  Returns the K1 and K1d launches, both records, the
+    peak and the kernels' largest errors."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_cg48_dc, bench_compact, make_compact_problem)
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 8d: compact bf16 tier at {geom_dims}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pb = make_compact_problem(geom, DEVICE, seed=7)
+    print(f"  gauge and source {time.perf_counter() - t0 - pb.build_secs - pb.exact_build_secs:.2f} s, "
+          f"bf16 tier build {pb.build_secs:.2f} s, float64 channels "
+          f"{pb.exact_build_secs:.2f} s; peak so far "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    dslash_ch.launches = dslash_ch.launches_bf16 = 0
+    rec = bench_compact(geom, tol=COMPACT_TOL, maxiter=COMPACT_MAXITER,
+                        problem=pb)
+    print(f"  bench_compact: iters {rec['iters']} (JAX record 13), secs "
+          f"{rec['secs']:.4f}, GFLOP/s {rec['gflops']:.1f}, true_res "
+          f"{rec['true_res']:.3e} (compact operator), "
+          f"{rec['true_res_exact']:.3e} (complex128 against the exact "
+          f"operator), operands {rec['operand_gib']:.2f} GiB (+ "
+          f"{rec['exact_operand_gib']:.2f} GiB float64 channels)",
+          flush=True)
+    lo, hi = COMPACT_ITERS_BAND
+    if not lo <= rec["iters"] <= hi:
+        raise AssertionError(f"compact CG iterations {rec['iters']} outside "
+                             f"{COMPACT_ITERS_BAND}")
+    _check("compact true residual (its own operator)", rec["true_res"],
+           COMPACT_TRUE_RES)
+    from quda_qkxtm_multigrid_tpu_torch import compact
+    rec["split"] = _split(
+        "a third compact solve",
+        [(pb.sloppy, "_hop", "hops (K1d)"),
+         (compact, "_ch_clover_apply", "plain A, A⁻¹ and A⁻¹† applies"),
+         (compact, "_ch_twist", "plain twists")],
+        lambda: compact.invert_compact_full(pb.sloppy, pb.b, tol=COMPACT_TOL,
+                                            maxiter=COMPACT_MAXITER))
+    dc = bench_cg48_dc(geom, inner_tol=DC_INNER_TOL, tol=DC_TOL, problem=pb)
+    launches = {"k1": dslash_ch.launches, "k1d": dslash_ch.launches_bf16}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  bench_cg48_dc: restarts {dc['restarts']}, inner iterations "
+          f"{dc['inner_iters']}, secs {dc['secs']:.4f} (outer residuals "
+          f"{dc['resid_secs']:.4f}), diverged {dc['diverged']}, true_res "
+          f"{dc['true_res']:.3e} (complex128, exact operator)", flush=True)
+    print(f"  launches K1 {launches['k1']} K1d {launches['k1d']}; peak "
+          f"memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)", flush=True)
+    if dc["diverged"]:
+        raise AssertionError("bench_cg48_dc diverged")
+    _check("bench_cg48_dc true residual (complex128)", dc["true_res"], DC_TOL)
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"peak memory {peak / 1e9:.2f} GB >= 80 GB")
+    if launches["k1d"] == 0 or launches["k1"] == 0:
+        raise AssertionError(f"48³×96 launches {launches}")
+    # the kernels of this path against their plain versions at this size
+    # (Xh = 24, no power of two), on the operators' own channels: the
+    # float32-storage chain's hops and the exact operator's m_ch hops
+    psi = rng.random_spinor(torch.Generator(device=DEVICE).manual_seed(43),
+                            geom)
+    v, x = (to_channels(psi[p]) for p in (0, 1))
+    del psi
+    where = f"at {geom_dims}"
+    err = _compact_forms_check(
+        pb.sloppy, _compact_chain_forms(pb.sloppy, v.to(torch.float32),
+                                        x.to(torch.float32), None), where)
+    k = pb.exact.params.kappa
+    err.update(_compact_forms_check(
+        pb.exact, [(f"m_ch xpay parity {p}", "K1", p, v,
+                    dict(xpay_coef=-k, x_ch=x)) for p in (0, 1)], where))
+    del pb, v, x
+    return launches, rec, dc, peak, err
+
+
 def main():
     _import_port()
     import torch
@@ -992,10 +1494,19 @@ def main():
     mixed = phase_mixed(SLICE_GEOM)
     times, bounds, err_time = phase_bf16_timing(SLICE_GEOM, MSRC_TIME_N)
     k1d_paths, k2d_paths = phase_bf16_paths(CHECK_GEOM)
+    err_8a = phase_k1e_k3_kernels(CHECK_GEOM)
+    spin = phase_bf16_spinor(SLICE_GEOM, CHECK_GEOM)
+    cmix = phase_compact_mixed(SLICE_GEOM)
+    big, _, _, _, err_48 = phase_compact48(BIG_GEOM)
+    k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
+    k1d_8 = cmix["k1d"] + cmix["k1d_sloppy_run"]["k1d"] + big["k1d"]
     print(f"dslash_ch launches: CG path {k['launches']}, MG path "
-          f"{launches['dslash_ch']}, mixed path (double) {mixed['k1']}; "
-          f"bf16 (K1d): mixed path {mixed['k1d']}, bf16-tier paths "
-          f"{k1d_paths}; K2d: {k2d_paths}")
+          f"{launches['dslash_ch']}, mixed path (double) {mixed['k1']}, "
+          f"phase 8 {k1_8}; bf16 (K1d): mixed path {mixed['k1d']}, "
+          f"bf16-tier paths {k1d_paths}, phase 8 {k1d_8}; K2d: {k2d_paths}; "
+          f"K1e: bench_bf16_spinor {spin['k1e']}, compact sloppy "
+          f"{cmix['k1e']}; K3: bench_recon8 {spin['k3']}")
+    print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
     msrc16 = times[f"K2d n={MSRC_TIME_N} clover fwd + xpay"]
 
@@ -1007,20 +1518,31 @@ def main():
                 "library_ms": None}
     print(json.dumps({"kernels": [
         entry("dslash_ch", KERNEL_SOURCE, KERNEL_REPLACES,
-              k["launches"] + launches["dslash_ch"] + mixed["k1"],
-              max(max_abs, k["max_abs_err"]), k["ms"], k["plain_ms"],
-              k["bound"]),
+              k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8,
+              max(max_abs, k["max_abs_err"], err_48["K1"]), k["ms"],
+              k["plain_ms"], k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
               launches["dslash_ch_msrc"], k2["max_abs_err"], k2["ms"],
               k2["plain_ms"], k2["bound"]),
         entry("dslash_ch_bf16", BF16_KERNEL_SOURCE, BF16_KERNEL_REPLACES,
-              mixed["k1d"] + k1d_paths, max(err_16["k1d"], err_time["k1d"]),
+              mixed["k1d"] + k1d_paths + k1d_8,
+              max(err_16["k1d"], err_time["k1d"], err_8a["k1d"],
+                  cmix["err"]["K1d"], err_48["K1d"]),
               hop16["bf16"], hop16["plain"], bounds["K1d bare hop"]),
         entry("dslash_ch_msrc_bf16", BF16_KERNEL_SOURCE,
               BF16_MSRC_KERNEL_REPLACES, k2d_paths,
               max(err_16["k2d"], err_time["k2d"]),
               msrc16["bf16"], msrc16["plain"],
-              bounds[f"K2d n={MSRC_TIME_N} clover fwd + xpay"])]}))
+              bounds[f"K2d n={MSRC_TIME_N} clover fwd + xpay"]),
+        entry("dslash_ch_bf16s", BF16S_KERNEL_SOURCE, BF16S_KERNEL_REPLACES,
+              spin["k1e"] + cmix["k1e"],
+              max(err_8a["k1e"], spin["err"]["k1e"], cmix["err"]["K1e"]),
+              spin["times"]["K1e"],
+              spin["times"]["K1e plain"], spin["bounds"]["k1e"]),
+        entry("dslash_ch_r8", R8_KERNEL_SOURCE, R8_KERNEL_REPLACES,
+              spin["k3"], max(err_8a["k3"], spin["err"]["k3"]),
+              spin["times"]["K3"], spin["times"]["K3 plain"],
+              spin["bounds"]["k3"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -37,8 +37,16 @@ ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES,
                 # the bf16 operand tier (csrc/dslash_ch_bf16.cu)
                 "qkx_dslash_ch_f32_g16": _DSLASH_ARGTYPES,
+                "qkx_dslash_ch_f32_g16c32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f32_g16s16": _DSLASH_ARGTYPES,
-                "qkx_dslash_ch_msrc_f32_g16": _MSRC_ARGTYPES}
+                "qkx_dslash_ch_msrc_f32_g16": _MSRC_ARGTYPES,
+                # the bf16 spinor storage (csrc/dslash_ch_bf16s.cu)
+                "qkx_dslash_ch_f32_g16c32_o16": _DSLASH_ARGTYPES,
+                "qkx_dslash_ch_f32_g16c32_s16o16": _DSLASH_ARGTYPES,
+                "qkx_dslash_ch_f32_g16c32_x16": _DSLASH_ARGTYPES,
+                "qkx_dslash_ch_f32_g16c32_s16": _DSLASH_ARGTYPES,
+                # the recon-8 gauge (csrc/dslash_ch_r8.cu)
+                "qkx_dslash_ch_f32_r8": _DSLASH_ARGTYPES}
 
 
 def _sources() -> list[Path]:

@@ -1,5 +1,5 @@
-"""Solve-level benchmarks of the port: the twisted-clover CG solve and
-the MG-GCR-PC solve.
+"""Solve-level benchmarks of the port: the twisted-clover CG solve, the
+MG-GCR-PC solve, and the compact channel operator's paths.
 
 ``bench_cg`` times ``invert.invert`` on a random SU(3) gauge field and a
 point source: one cold solve, then one timed warm solve, with CG or one
@@ -9,24 +9,47 @@ times the multigrid setup and then one cold and one warm ``mg_solve``,
 and certifies the warm solution in complex128.  GFLOP/s counts one
 ``flops_per_mat`` per outer iteration, the JAX package's convention (the
 V-cycle's work is not counted).
+
+The compact operator (``compact.py``): ``bench_bf16_spinor`` (the hop
+with bf16 spinor storage against float32 storage, the bf16-storage CG
+floor and its mixed recovery), ``bench_compact_sloppy`` (the mixed CG of
+``bench_cg`` with the compact bf16 tier as its sloppy operator),
+``bench_compact`` (the bf16 tier's CG at an HBM-limited volume) and
+``bench_cg48_dc`` (that solve certified in complex128 by a
+defect-correction outer on the card); ``bench_recon8`` times the recon-8
+hop against recon-12.  Kernel times come from CUDA events on a CUDA
+device (``time_ms``); on the CPU the same functions run with the host
+clock, for rehearsal only.
 """
 
 from __future__ import annotations
 
+import functools
+import statistics
 import time
+import types
+from typing import NamedTuple
 
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch import fields
+from quda_qkxtm_multigrid_tpu_torch.compact import (
+    CompactDirac, compact_true_residual_ch, invert_compact,
+    invert_compact_full, make_compact)
 from quda_qkxtm_multigrid_tpu_torch.dirac import (
     Dirac, DiracParams, as_sloppy, make_dirac)
-from quda_qkxtm_multigrid_tpu_torch.invert import invert, true_residual
+from quda_qkxtm_multigrid_tpu_torch.invert import (
+    InvertResult, invert, true_residual)
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
     MGParams, MGPreconditioner, mg_solve, setup_mg)
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
+from quda_qkxtm_multigrid_tpu_torch.ops.dslash import (
+    WILSON_DSLASH_FLOPS_PER_SITE, double_gauge)
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    dslash_ch, dslash_ch_msrc)
+    dslash_ch, dslash_ch_msrc, from_channels, gauge_channels, to_channels)
+from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg, cg_mixed
+from quda_qkxtm_multigrid_tpu_torch.solvers.support import defect_correction
 from quda_qkxtm_multigrid_tpu_torch.utils import rng
 
 
@@ -38,26 +61,60 @@ def tmc_params(use_kernels: bool = True, bf16: bool = False) -> DiracParams:
                        csw=1.0, use_kernels=use_kernels, kernel_bf16=bf16)
 
 
-def make_problem(geom: Geometry, device="cuda", seed: int = 7,
-                 use_kernels: bool = True, dtype=torch.complex128,
-                 bf16: bool = False) -> tuple[Dirac, torch.Tensor]:
+def make_gauge_source(geom: Geometry, device="cuda", seed: int = 7,
+                      dtype=torch.complex128):
     """Random SU(3) gauge made in complex128 on ``device`` from ``seed``
-    and cast to ``dtype``, its twisted-clover operator in ``dtype`` (in
-    the bf16 operand tier with ``bf16``), and the point source at
-    (0,0,0,0), spin 0, colour 0.  The complex64 problem is the one the
-    JAX package's MG benchmark solves."""
+    and cast to ``dtype``, and the point source at (0,0,0,0), spin 0,
+    colour 0, in ``dtype``."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     u = rng.random_gauge(gen, geom, dtype=torch.complex128).to(dtype)
-    d = make_dirac(u, tmc_params(use_kernels, bf16), geom)
     b = fields.point_source(geom, (0, 0, 0, 0), 0, 0, dtype=dtype,
                             device=device)
-    return d, b
+    return u, b
+
+
+def make_problem(geom: Geometry, device="cuda", seed: int = 7,
+                 use_kernels: bool = True, dtype=torch.complex128,
+                 bf16: bool = False) -> tuple[Dirac, torch.Tensor]:
+    """The fields of ``make_gauge_source``, with the gauge's
+    twisted-clover operator in ``dtype`` (in the bf16 operand tier with
+    ``bf16``).  The complex64 problem is the one the JAX package's MG
+    benchmark solves."""
+    u, b = make_gauge_source(geom, device, seed, dtype)
+    return make_dirac(u, tmc_params(use_kernels, bf16), geom), b
 
 
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _peak(device: torch.device):
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+
+
+def _cold_warm(solve, d: Dirac, device: torch.device, label: str) -> dict:
+    """One cold and one timed warm ``solve()`` (an ``InvertResult``), with
+    the peak device memory over both: the record of ``bench_cg``."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    cold = solve()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = solve()
+    _sync(device)
+    secs = time.perf_counter() - t0
+    return {"iters": out.iters, "iters_cold": cold.iters, "secs": secs,
+            "true_res": out.true_res, "true_res_cold": cold.true_res,
+            "gflops": d.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
+            "solver": label,
+            "restarts": None if out.stats is None else out.stats.restarts,
+            "restarts_cold": None if cold.stats is None
+            else cold.stats.restarts,
+            "diverged": out.stats is not None and out.stats.diverged,
+            "peak_mem_bytes": _peak(device)}
 
 
 def bench_cg(geom: Geometry, tol: float = 1e-7, maxiter: int = 2000,
@@ -74,34 +131,19 @@ def bench_cg(geom: Geometry, tol: float = 1e-7, maxiter: int = 2000,
     ``flops_per_mat`` an iteration), ``diverged``, and the peak device
     memory over both solves (None on the CPU)."""
     d, b = problem if problem is not None else make_problem(geom)
-    dev = b.device
+    sloppies = ("bf16", "c64")
     if solver.endswith("-mixed") != (sloppy is not None):
         raise ValueError(f"sloppy={sloppy!r} with solver={solver!r}: a "
-                         "mixed solver takes 'bf16' or 'c64', another none")
-    if sloppy not in (None, "bf16", "c64"):
-        raise ValueError(f"sloppy={sloppy!r} not 'bf16' or 'c64'")
+                         f"mixed solver takes one of {sloppies}, another "
+                         "none")
+    if sloppy not in (None,) + sloppies:
+        raise ValueError(f"sloppy={sloppy!r} not one of {sloppies}")
     kw = dict(tol=tol, maxiter=maxiter, solver=solver)
     if sloppy == "bf16":
         kw["sloppy_dirac"] = as_sloppy(d, kernel_bf16=True)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    cold = invert(d, b, **kw)
-    _sync(dev)
-    t0 = time.perf_counter()
-    out = invert(d, b, **kw)
-    _sync(dev)
-    secs = time.perf_counter() - t0
     fused = "-fused" if d._has_fused_matpc else ""
-    return {"iters": out.iters, "iters_cold": cold.iters, "secs": secs,
-            "true_res": out.true_res, "true_res_cold": cold.true_res,
-            "gflops": d.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
-            "solver": solver + fused + (f"-{sloppy}" if sloppy else ""),
-            "restarts": None if out.stats is None else out.stats.restarts,
-            "restarts_cold": None if cold.stats is None
-            else cold.stats.restarts,
-            "diverged": out.stats is not None and out.stats.diverged,
-            "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
-                               if dev.type == "cuda" else None)}
+    return _cold_warm(lambda: invert(d, b, **kw), d, b.device,
+                      solver + fused + (f"-{sloppy}" if sloppy else ""))
 
 
 def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
@@ -162,6 +204,288 @@ def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
         "k1_launches_setup": k1_1 - k1_0, "k2_launches_setup": k2_1 - k2_0,
         "k1_launches_solve": k1_3 - k1_2, "k2_launches_solve": k2_3 - k2_2,
         "k1_launches_cold_solve": k1_2 - k1_1,
-        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
-                           if dev.type == "cuda" else None)}
+        "peak_mem_bytes": _peak(dev)}
     return record, mg
+
+
+# ---- the compact channel operator -----------------------------------------
+
+def time_ms(fn, device, n: int) -> float:
+    """Mean ms of ``n`` back-to-back calls of ``fn``: CUDA events on a
+    CUDA device, the host clock otherwise."""
+    if torch.device(device).type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def median_ms(fn, device, n: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of ``time_ms(fn, device, n)``, after one
+    warm-up call."""
+    fn()
+    _sync(torch.device(device))
+    return statistics.median(time_ms(fn, device, n) for _ in range(reps))
+
+
+def _operand_bytes(cd: CompactDirac) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (cd.g_ch, cd.cinv_ch, cd.cl_ch) if t is not None)
+
+
+def bench_bf16_spinor(geom: Geometry, cg_geom: Geometry | None = None,
+                      device="cuda", seed: int = 7) -> dict:
+    """The bf16 spinor storage (the JAX package's ``bench_bf16_spinor``):
+
+    1. the bare hop on the bf16 recon-12 gauge of parity 0 with float32
+       spinors (K1d) against bf16 spinors in and out (K1e) at ``geom``,
+       each the median of 5 runs of 20 launches (CUDA events);
+    2. at ``cg_geom`` (16³×32 by default), on the compact bf16 tier of a
+       random gauge and a random source: the floor of a CG on
+       M_pc†M_pc with bf16-storage intermediates (tol 1e-10, 400
+       iterations at most), and the mixed recovery to 1e-8 (``cg_mixed``,
+       ``inner_tol`` 1e-3, the bf16-storage chain inside).  The floor and
+       the recovery are measured against the same stored operator in
+       float64 (``CompactDirac.widened``), which is also the recovery's
+       outer: the card has native float64, where the JAX package's outer
+       was the float32-storage chain.
+
+    Returns the record: ms and GFLOP/s of both hops (1320 flop a site
+    over half the volume), the floor and its CG iterations, the mixed
+    solve's true residual, inner iterations, restarts and ``diverged``."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = rng.random_gauge(gen, geom)
+    g = gauge_channels(double_gauge(u, geom), 0, True, torch.bfloat16)
+    p32 = to_channels(rng.random_spinor(gen, geom)[1]).to(torch.float32)
+    p16 = p32.to(torch.bfloat16)
+    del u
+    flops = WILSON_DSLASH_FLOPS_PER_SITE * geom.half_volume
+    ms32 = median_ms(lambda: dslash_ch(g, p32, 0, geom, recon12=True),
+                     device)
+    ms16 = median_ms(lambda: dslash_ch(g, p16, 0, geom, recon12=True,
+                                       out_dtype=torch.bfloat16), device)
+    out = {"geom": list(geom.dims), "f32_spinor_ms": ms32,
+           "bf16_spinor_ms": ms16,
+           "f32_spinor_gflops": flops / ms32 / 1e6,
+           "bf16_spinor_gflops": flops / ms16 / 1e6}
+    del g, p32, p16
+
+    cgg = cg_geom if cg_geom is not None else Geometry(16, 16, 16, 32)
+    u2 = rng.random_gauge(gen, cgg)
+    cd = make_compact(u2, tmc_params(), cgg, torch.bfloat16)
+    exact = cd.widened(torch.float64)
+    del u2
+    b = rng.random_spinor(gen, cgg)
+    rhs = cd.matpc_ch(cd.prepare_ch(cd._to_ch(b[0]), cd._to_ch(b[1])),
+                      dagger=True)
+    rhs64 = rhs.to(torch.float64)
+    b2 = norm2(rhs64)
+
+    def rel(x):
+        r = rhs64 - exact.matpc_dagm_ch(x.to(torch.float64))
+        return float(torch.sqrt(norm2(r) / b2))
+
+    def sloppy(v):
+        return cd.matpc_dagm_ch(v, storage_dtype=torch.bfloat16)
+
+    floor = cg(sloppy, rhs, tol=1e-10, maxiter=400)
+    mixed = cg_mixed(exact.matpc_dagm_ch, sloppy, rhs64, tol=1e-8,
+                     maxiter=2000, inner_tol=1e-3, lo_dtype=torch.float32)
+    out.update({"cg_geom": list(cgg.dims),
+                "bf16_storage_cg_floor": rel(floor.x),
+                "bf16_storage_cg_iters": floor.iters,
+                "mixed_bf16_true_res": rel(mixed.x),
+                "mixed_bf16_iters": mixed.iters,
+                "mixed_bf16_restarts": mixed.stats.restarts,
+                "mixed_bf16_diverged": mixed.stats.diverged})
+    return out
+
+
+def compact_sloppy_solve(d: Dirac, cd: CompactDirac, b: torch.Tensor,
+                         tol: float = 1e-10, maxiter: int = 1000,
+                         inner_tol: float = 1e-2) -> InvertResult:
+    """The mixed CG of ``invert(d, b, solver="cg-mixed")`` with a compact
+    tier ``cd`` of the same gauge as its sloppy operator:
+    ``solvers.cg.cg_mixed`` with the outer matvec
+    ``d._fused_matpc_dagm_ch`` on the float64 channels of a complex128
+    fused operator ``d`` and the inner ``cd.matpc_dagm_ch``, whose
+    forward half stores its planes in bf16 (K1e) when ``cd`` is the bf16
+    tier.  Prepare, reconstruct and the true residual run on ``d``, as
+    in ``invert``.  ``maxiter`` caps the summed inner iterations."""
+    if not d._has_fused_matpc:
+        raise ValueError("the compact sloppy solve needs an outer operator "
+                         "with the fused chain (use_kernels, twisted or "
+                         "clover)")
+    src = d.prepare(b)
+    rhs = d.matpc(src, dagger=True)
+    storage = torch.bfloat16 if cd.g_ch.dtype == torch.bfloat16 else None
+    res = cg_mixed(d._fused_matpc_dagm_ch,
+                   functools.partial(cd.matpc_dagm_ch, storage_dtype=storage),
+                   to_channels(rhs), tol=tol, maxiter=maxiter,
+                   inner_tol=inner_tol, lo_dtype=torch.float32)
+    x = d.reconstruct(from_channels(res.x, (4, 3)).to(rhs.dtype), b)
+    _, rel = true_residual(d, x, b)
+    return InvertResult(x, res.iters, float(rel), res.stats)
+
+
+def bench_compact_sloppy(geom: Geometry, tol: float = 1e-10,
+                         maxiter: int = 2000, problem=None
+                         ) -> tuple[dict, CompactDirac]:
+    """``bench_cg(solver="cg-mixed")`` with the compact bf16 tier of the
+    problem's gauge (bf16 spinor storage in the inner chain) as the
+    sloppy operator, through ``compact_sloppy_solve``: the same record.
+    Returns the record and the compact operator."""
+    d, b = problem if problem is not None else make_problem(geom)
+    cd = make_compact(d.u, d.params, geom, torch.bfloat16)
+    rec = _cold_warm(lambda: compact_sloppy_solve(d, cd, b, tol, maxiter),
+                     d, b.device, "cg-mixed-compact-bf16")
+    return rec, cd
+
+
+def bench_recon8(geom: Geometry, device="cuda", seed: int = 7) -> dict:
+    """The recon-8 hop (K3) against the recon-12 hop (K1) in float32, on
+    parity 0 of a random gauge and spinor at ``geom``: the median ms of
+    5 runs of 20 launches each, GFLOP/s (1320 flop a site), and the
+    normwise difference of the two (float32 rounding of the decode)."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ud = double_gauge(rng.random_gauge(gen, geom), geom)
+    g12 = gauge_channels(ud, 0, True, torch.float32)
+    g8 = gauge_channels(ud, 0, False, torch.float32, recon8=True)
+    del ud
+    v = to_channels(rng.random_spinor(gen, geom)[1]).to(torch.float32)
+    r12 = lambda: dslash_ch(g12, v, 0, geom, recon12=True)
+    r8 = lambda: dslash_ch(g8, v, 0, geom, recon8=True)
+    ref = r12()
+    flops = WILSON_DSLASH_FLOPS_PER_SITE * geom.half_volume
+    ms8, ms12 = median_ms(r8, device), median_ms(r12, device)
+    return {"geom": list(geom.dims), "recon8_ms": ms8, "recon12_ms": ms12,
+            "recon8_gflops": flops / ms8 / 1e6,
+            "recon12_gflops": flops / ms12 / 1e6,
+            "recon8_vs_recon12": float((r8() - ref).norm() / ref.norm())}
+
+
+class CompactProblem(NamedTuple):
+    """The 48³×96 problem of ``bench_compact`` and ``bench_cg48_dc``."""
+    sloppy: CompactDirac    # bf16 tier (bf16 gauge, float32 A⁻¹)
+    exact: CompactDirac     # float64 channels without A⁻¹: m_ch only
+    b: torch.Tensor         # point source, complex128
+    build_secs: float       # the bf16 tier's build
+    exact_build_secs: float
+
+
+def make_compact_problem(geom: Geometry, device="cuda",
+                         seed: int = 7) -> CompactProblem:
+    """The gauge and source of ``make_gauge_source`` (complex128), the
+    compact bf16 tier of the twisted-clover operator on them and its
+    float64 channels for the full operator; the canonical gauge is freed
+    before returning."""
+    device = torch.device(device)
+    u, b = make_gauge_source(geom, device, seed)
+    _sync(device)
+    t0 = time.perf_counter()
+    sloppy = make_compact(u, tmc_params(), geom, torch.bfloat16)
+    _sync(device)
+    t1 = time.perf_counter()
+    exact = make_compact(u, tmc_params(), geom, torch.float64,
+                         inverse=False)
+    _sync(device)
+    t2 = time.perf_counter()
+    return CompactProblem(sloppy, exact, b, t1 - t0, t2 - t1)
+
+
+def bench_compact(geom: Geometry, tol: float = 1e-7, maxiter: int = 2000,
+                  problem: CompactProblem | None = None,
+                  device="cuda") -> dict:
+    """The compact bf16 tier's CG solve (the JAX package's
+    ``bench_compact``): one cold and one timed warm
+    ``invert_compact_full`` of the point source, float32 spinors.  The
+    record holds the build seconds, the operand GiB, the warm and cold
+    iterations, seconds, GFLOP/s (two ``flops_per_mat`` and the BLAS an
+    iteration, the JAX convention), the compact operator's own true
+    residual, the complex128 true residual against the exact operator
+    (float64 channels: the bf16 gauge shows there), and the peak device
+    memory."""
+    pb = problem if problem is not None else make_compact_problem(
+        geom, device)
+    cd, dev = pb.sloppy, pb.b.device
+    cold = invert_compact_full(cd, pb.b, tol=tol, maxiter=maxiter)
+    del cold
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = invert_compact_full(cd, pb.b, tol=tol, maxiter=maxiter)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    ex = pb.exact
+    _, rel = compact_true_residual_ch(
+        ex, ex._to_ch(out.x[0]), ex._to_ch(out.x[1]), ex._to_ch(pb.b[0]),
+        ex._to_ch(pb.b[1]))
+    flops = ((2 * cd.flops_per_mat() + 4 * 2 * 24 * geom.half_volume)
+             * out.iters)
+    return {"geom": list(geom.dims), "iters": out.iters, "secs": secs,
+            "gflops": flops / secs / 1e9, "true_res": out.true_res,
+            "true_res_exact": float(rel), "build_secs": pb.build_secs,
+            "operand_gib": _operand_bytes(cd) / 2**30,
+            "exact_operand_gib": _operand_bytes(ex) / 2**30,
+            "peak_mem_bytes": _peak(dev), "solver": "cg-compact-bf16"}
+
+
+def bench_cg48_dc(geom: Geometry, inner_tol: float = 1e-6,
+                  tol: float = 1e-9, maxiter: int = 2000,
+                  inner_maxiter: int = 600,
+                  problem: CompactProblem | None = None,
+                  device="cuda") -> dict:
+    """The compact solve certified in complex128 on the card: the
+    counterpart of the JAX package's ``bench_cg48_hostdc``, whose outer
+    ran on the host in complex128 (``solvers/host_dc.py``).  The outer is
+    ``solvers.support.defect_correction`` with the residual b − M x of
+    the exact operator in float64 channels on the card (complex128
+    arithmetic); the inner is ``invert_compact`` on the bf16 tier to
+    ``inner_tol`` (at most ``inner_maxiter`` iterations a restart).
+
+    The record holds the true residual, restarts, summed inner
+    iterations, ``diverged``, the seconds of the solve and of its outer
+    residuals, the build seconds and the peak device memory."""
+    pb = problem if problem is not None else make_compact_problem(
+        geom, device)
+    cd, ex, dev = pb.sloppy, pb.exact, pb.b.device
+    b_ch = torch.stack([ex._to_ch(pb.b[0]), ex._to_ch(pb.b[1])])
+    resid = {"secs": 0.0}
+
+    def matvec_hi(x):
+        _sync(dev)
+        t = time.perf_counter()
+        out = torch.stack(ex.m_ch(x[0], x[1]))
+        _sync(dev)
+        resid["secs"] += time.perf_counter() - t
+        return out
+
+    def solve_lo(r, cap):
+        (x_e, x_o), iters, _ = invert_compact(
+            cd, r[0], r[1], tol=inner_tol, maxiter=min(inner_maxiter, cap))
+        return types.SimpleNamespace(x=torch.stack([x_e, x_o]), iters=iters)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, r2, iters, stats = defect_correction(
+        matvec_hi, solve_lo, b_ch, torch.float32, tol, maxiter,
+        max_restarts=20, max_res_increase=1, max_res_increase_total=10)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    return {"geom": list(geom.dims),
+            "true_res": float(torch.sqrt(r2 / norm2(b_ch))),
+            "restarts": stats.restarts, "inner_iters": iters,
+            "diverged": stats.diverged, "secs": secs,
+            "resid_secs": resid["secs"], "build_secs": pb.build_secs,
+            "exact_build_secs": pb.exact_build_secs,
+            "peak_mem_bytes": _peak(dev),
+            "solver": "cg-compact-bf16 + float64 defect-correction outer"}

@@ -35,7 +35,8 @@
 // launch neither synchronises nor allocates: the caller owns every
 // buffer.  Returns cudaGetLastError() after the launch (0 on success).
 // The device code and the launcher are in dslash_ch.cuh; the bf16
-// operand tier of this kernel is dslash_ch_bf16.cu.
+// operand tier of this kernel is dslash_ch_bf16.cu, its bf16 spinor
+// storage dslash_ch_bf16s.cu and its recon-8 gauge dslash_ch_r8.cu.
 
 #include "dslash_ch.cuh"
 
@@ -46,7 +47,7 @@ extern "C" int qkx_dslash_ch_f32(const void* psi, const void* g,
                                  int twist, double ta, double tb, int clover,
                                  int xpay, double xc, int post, double pa,
                                  double pb, void* stream) {
-  return qkx::launch_dslash<float, float, float>(
+  return qkx::launch_dslash<float, float, float, float, float, float>(
       psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
       twist, ta, tb, clover, xpay, xc, post, pa, pb, stream);
 }
@@ -58,7 +59,8 @@ extern "C" int qkx_dslash_ch_f64(const void* psi, const void* g,
                                  int twist, double ta, double tb, int clover,
                                  int xpay, double xc, int post, double pa,
                                  double pb, void* stream) {
-  return qkx::launch_dslash<double, double, double>(
+  return qkx::launch_dslash<double, double, double, double, double,
+                                 double>(
       psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
       twist, ta, tb, clover, xpay, xc, post, pa, pb, stream);
 }

@@ -3,11 +3,18 @@
 // host-side launchers that the entry points of dslash_ch.cu,
 // dslash_ch_msrc.cu and dslash_ch_bf16.cu instantiate.
 //
-// Three types: R, the arithmetic and output type (float or double); G,
-// the storage type of the gauge and clover-inverse operands; S, that of
-// psi and x.  G and S are R itself, or __nv_bfloat16 with R = float (the
-// bf16 operand tier, dslash_ch_bf16.cu): every load converts to R, so
-// the arithmetic is the same code in every instance.
+// Six types: R, the arithmetic type (float or double), and one storage
+// type for each operand: G the gauge, C the clover inverse, S psi, X x,
+// O the outputs (out and out2).  Each is R itself, or __nv_bfloat16 with
+// R = float: the bf16 operand tier (dslash_ch_bf16.cu) and the bf16
+// spinor storage (dslash_ch_bf16s.cu).  Every load widens to R and every
+// store rounds once from R (a bf16 store to nearest even, as XLA's
+// convert), so the arithmetic is the same code in every instance.
+//
+// RECON is the gauge operand's form: 18 (full links, 144 channels), 12
+// (rows 0 and 1, row 2 = conj(r0 x r1) rebuilt in registers, 96
+// channels) or 8 (8 reals a link, decoded in registers, 64 channels;
+// dslash_ch_r8.cu).
 
 #pragma once
 
@@ -68,14 +75,15 @@ __host__ __device__ constexpr int gamma_phase(int mu, int s) {
                    : 0;
 }
 
-template <typename R, typename G = R, typename S = R>
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O>
 struct DslashArgs {
   const S* psi;   // [T, 24, Z, W], opposite parity
-  const G* g;     // [T, 96|144, Z, W], doubled links of the output parity
-  const G* cinv;  // [T, 144, Z, W] or null
-  const S* x;     // [T, 24, Z, W] or null
-  R* out;         // [T, 24, Z, W]
-  R* out2;        // [T, 24, Z, W] or null
+  const G* g;     // [T, 64|96|144, Z, W], doubled links of the output parity
+  const C* cinv;  // [T, 144, Z, W] or null
+  const X* x;     // [T, 24, Z, W] or null
+  O* out;         // [T, 24, Z, W]
+  O* out2;        // [T, 24, Z, W] or null
   int T, Z, W, Xh, parity;
   int twist;      // 1: b(1 + i a g5) with (ta, tb)
   R ta, tb;
@@ -99,11 +107,68 @@ __device__ __forceinline__ Cplx<R> load_c(const T* base, int ch, int64_t zw) {
           static_cast<R>(ld(base + (int64_t)(ch + 1) * zw))};
 }
 
-template <typename R>
-__device__ __forceinline__ void store_c(R* base, int ch, int64_t zw,
+// One real stored from the arithmetic type, rounded once.
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(double* p, double v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename O, typename R>
+__device__ __forceinline__ void store_c(O* base, int ch, int64_t zw,
                                         Cplx<R> v) {
-  base[(int64_t)ch * zw] = v.re;
-  base[(int64_t)(ch + 1) * zw] = v.im;
+  st(base + (int64_t)ch * zw, v.re);
+  st(base + (int64_t)(ch + 1) * zw, v.im);
+}
+
+__device__ __forceinline__ float max_r(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_r(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float sqrt_r(float v) { return sqrtf(v); }
+__device__ __forceinline__ double sqrt_r(double v) { return sqrt(v); }
+__device__ __forceinline__ void sincos_r(float v, float* s, float* c) {
+  sincosf(v, s, c);
+}
+__device__ __forceinline__ void sincos_r(double v, double* s, double* c) {
+  sincos(v, s, c);
+}
+
+// The SU(3) link from its 8-real encoding at channel base ch of gs:
+// [Re a2, Im a2, Re a3, Im a3, Re b1, Im b1, arg a1, arg c1] (rows a, b,
+// c).  |a1| and |c1| follow from the unit norm of row 0 and column 0;
+// b2, b3, c2, c3 from the unitarity of the rest (the JAX package's
+// _plane_body._mat8, term for term).  The decode divides by
+// |a2|^2 + |a3|^2 = 1 - |a1|^2, so a link with |a1| near 1 loses digits.
+template <typename R, typename G>
+__device__ __forceinline__ void decode_recon8(const G* gs, int ch,
+                                              int64_t zw, Cplx<R> (&u)[3][3]) {
+  R e[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = static_cast<R>(ld(gs + (int64_t)(ch + j) * zw));
+  const R a2r = e[0], a2i = e[1], a3r = e[2], a3i = e[3];
+  const R b1r = e[4], b1i = e[5];
+  const R n = a2r * a2r + a2i * a2i + a3r * a3r + a3i * a3i;
+  const R a1m2 = max_r(R(1) - n, R(0));
+  const R a1m = sqrt_r(a1m2);
+  const R c1m = sqrt_r(max_r(R(1) - a1m2 - (b1r * b1r + b1i * b1i), R(0)));
+  R s1, k1, s2, k2;
+  sincos_r(e[6], &s1, &k1);
+  sincos_r(e[7], &s2, &k2);
+  const R a1r = a1m * k1, a1i = a1m * s1;
+  const R c1r = c1m * k2, c1i = c1m * s2;
+  const R rn = R(1) / n;
+  const R tr = a1r * b1r + a1i * b1i;   // t = conj(a1) b1
+  const R ti = a1r * b1i - a1i * b1r;
+  const R b2r = -(tr * a2r - ti * a2i + (a3r * c1r - a3i * c1i)) * rn;
+  const R b2i = -(tr * a2i + ti * a2r - (a3r * c1i + a3i * c1r)) * rn;
+  const R b3r = -(tr * a3r - ti * a3i - (a2r * c1r - a2i * c1i)) * rn;
+  const R b3i = -(tr * a3i + ti * a3r + (a2r * c1i + a2i * c1r)) * rn;
+  const R c2r = (a3r * b1r - a3i * b1i) - (a1r * b3r - a1i * b3i);
+  const R c2i = -((a3r * b1i + a3i * b1r) - (a1r * b3i + a1i * b3r));
+  const R c3r = (a1r * b2r - a1i * b2i) - (a2r * b1r - a2i * b1i);
+  const R c3i = -((a1r * b2i + a1i * b2r) - (a2r * b1i + a2i * b1r));
+  u[0][0] = {a1r, a1i}; u[0][1] = {a2r, a2i}; u[0][2] = {a3r, a3i};
+  u[1][0] = {b1r, b1i}; u[1][1] = {b2r, b2i}; u[1][2] = {b3r, b3i};
+  u[2][0] = {c1r, c1i}; u[2][1] = {c2r, c2i}; u[2][2] = {c3r, c3i};
 }
 
 // v[kk] <- M v (dag = false) or M^dag v (dag = true) on the two chiral
@@ -134,12 +199,14 @@ __device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
 
 // soff: offset of one source's psi, x, out and out2 within a batch of
 // sources (0 for a single source); the gauge and clover are shared.
-template <typename R, typename G, typename S, bool DAG, bool RECON12>
-__device__ __forceinline__ void dslash_site(const DslashArgs<R, G, S>& a,
-                                            int t, int z, int w,
-                                            int64_t soff) {
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, int RECON>
+__device__ __forceinline__ void dslash_site(
+    const DslashArgs<R, G, C, S, X, O>& a, int t, int z, int w,
+    int64_t soff) {
+  constexpr bool RECON12 = RECON == 12;
   constexpr int NROWS = RECON12 ? 2 : 3;
-  constexpr int NG = NROWS * 48;
+  constexpr int NG = RECON == 8 ? 64 : NROWS * 48;
   const int64_t zw = (int64_t)a.Z * a.W;
   const int64_t site = (int64_t)z * a.W + w;
   const int y = w / a.Xh, k = w - y * a.Xh;
@@ -184,11 +251,15 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R, G, S>& a,
                                     load_c<R>(pn, (gamma_col(mu, s) * 3 + c) * 2, zw)));
 
       Cplx<R> u[3][3];
+      if constexpr (RECON == 8) {
+        decode_recon8<R>(gs, (mu * 2 + fb) * 8, zw, u);
+      } else {
 #pragma unroll
-      for (int r = 0; r < NROWS; ++r)
+        for (int r = 0; r < NROWS; ++r)
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          u[r][c] = load_c<R>(gs, (((mu * 2 + fb) * NROWS + r) * 3 + c) * 2, zw);
+          for (int c = 0; c < 3; ++c)
+            u[r][c] = load_c<R>(gs, (((mu * 2 + fb) * NROWS + r) * 3 + c) * 2, zw);
+      }
       if (RECON12) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
@@ -228,8 +299,8 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R, G, S>& a,
     chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, a.clover == 2,
                  hop, res);
   }
-  const S* xs = a.xpay ? a.x + soff + (int64_t)t * 24 * zw + site : nullptr;
-  R* os = a.out + soff + (int64_t)t * 24 * zw + site;
+  const X* xs = a.xpay ? a.x + soff + (int64_t)t * 24 * zw + site : nullptr;
+  O* os = a.out + soff + (int64_t)t * 24 * zw + site;
 #pragma unroll
   for (int kk = 0; kk < 12; ++kk) {
     Cplx<R> v = res[kk];
@@ -242,7 +313,7 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R, G, S>& a,
     store_c(os, 2 * kk, zw, v);
   }
   if (a.post) {
-    R* o2 = a.out2 + soff + (int64_t)t * 24 * zw + site;
+    O* o2 = a.out2 + soff + (int64_t)t * 24 * zw + site;
     Cplx<R> v2[12];
     if (a.post == 1) {
       chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, true, res, v2);
@@ -256,43 +327,47 @@ __device__ __forceinline__ void dslash_site(const DslashArgs<R, G, S>& a,
 }
 
 // One thread per output site: grid (ceil(W / blockDim.x), Z, T).
-template <typename R, typename G, typename S, bool DAG, bool RECON12>
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, int RECON>
 __global__ void __launch_bounds__(kThreads)
-    dslash_ch_kernel(const DslashArgs<R, G, S> a) {
+    dslash_ch_kernel(const DslashArgs<R, G, C, S, X, O> a) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= a.W) return;
-  dslash_site<R, G, S, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w, 0);
+  dslash_site<R, G, C, S, X, O, DAG, RECON>(a, (int)blockIdx.z,
+                                            (int)blockIdx.y, w, 0);
 }
 
 // n sources: grid (ceil(W / blockDim.x) * n, Z, T), blockIdx.x =
 // w_block * n + source (dslash_ch_msrc.cu says why).
-template <typename R, typename G, typename S, bool DAG, bool RECON12>
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, int RECON>
 __global__ void __launch_bounds__(kThreads)
-    dslash_ch_msrc_kernel(const DslashArgs<R, G, S> a, int n) {
+    dslash_ch_msrc_kernel(const DslashArgs<R, G, C, S, X, O> a, int n) {
   const int s = blockIdx.x % n;
   const int w = (blockIdx.x / n) * blockDim.x + threadIdx.x;
   if (w >= a.W) return;
   const int64_t per_source = (int64_t)a.T * 24 * a.Z * a.W;
-  dslash_site<R, G, S, DAG, RECON12>(a, (int)blockIdx.z, (int)blockIdx.y, w,
-                                     s * per_source);
+  dslash_site<R, G, C, S, X, O, DAG, RECON>(a, (int)blockIdx.z,
+                                            (int)blockIdx.y, w,
+                                            s * per_source);
 }
 
 // ---- host side ------------------------------------------------------
 
-template <typename R, typename G, typename S>
-DslashArgs<R, G, S> make_args(const void* psi, const void* g,
-                              const void* cinv, const void* x, void* out,
-                              void* out2, int T, int Z, int W, int Xh,
-                              int parity, int twist, double ta, double tb,
-                              int clover, int xpay, double xc, int post,
-                              double pa, double pb) {
-  DslashArgs<R, G, S> a;
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O>
+DslashArgs<R, G, C, S, X, O> make_args(
+    const void* psi, const void* g, const void* cinv, const void* x,
+    void* out, void* out2, int T, int Z, int W, int Xh, int parity,
+    int twist, double ta, double tb, int clover, int xpay, double xc,
+    int post, double pa, double pb) {
+  DslashArgs<R, G, C, S, X, O> a;
   a.psi = static_cast<const S*>(psi);
   a.g = static_cast<const G*>(g);
-  a.cinv = static_cast<const G*>(cinv);
-  a.x = static_cast<const S*>(x);
-  a.out = static_cast<R*>(out);
-  a.out2 = static_cast<R*>(out2);
+  a.cinv = static_cast<const C*>(cinv);
+  a.x = static_cast<const X*>(x);
+  a.out = static_cast<O*>(out);
+  a.out2 = static_cast<O*>(out2);
   a.T = T;
   a.Z = Z;
   a.W = W;
@@ -310,48 +385,84 @@ DslashArgs<R, G, S> make_args(const void* psi, const void* g,
   return a;
 }
 
-// Single-source launch; returns cudaGetLastError() (0 on success).
-template <typename R, typename G, typename S>
+// Single-source launch of one gauge form (RECON); returns
+// cudaGetLastError() (0 on success).
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, int RECON>
+int launch_dslash_recon(const void* psi, const void* g, const void* cinv,
+                        const void* x, void* out, void* out2, int T, int Z,
+                        int W, int Xh, int parity, int dagger, int twist,
+                        double ta, double tb, int clover, int xpay,
+                        double xc, int post, double pa, double pb,
+                        void* stream) {
+  const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, twist, ta, tb, clover,
+      xpay, xc, post, pa, pb);
+  const dim3 block(kThreads);
+  const dim3 grid((W + kThreads - 1) / kThreads, Z, T);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dagger)
+    dslash_ch_kernel<R, G, C, S, X, O, true, RECON><<<grid, block, 0, s>>>(a);
+  else
+    dslash_ch_kernel<R, G, C, S, X, O, false, RECON><<<grid, block, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Single-source launch, recon-12 or full links; returns
+// cudaGetLastError() (0 on success).
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O>
 int launch_dslash(const void* psi, const void* g, const void* cinv,
                   const void* x, void* out, void* out2, int T, int Z, int W,
                   int Xh, int parity, int dagger, int recon12, int twist,
                   double ta, double tb, int clover, int xpay, double xc,
                   int post, double pa, double pb, void* stream) {
-  const DslashArgs<R, G, S> a =
-      make_args<R, G, S>(psi, g, cinv, x, out, out2, T, Z, W, Xh, parity,
-                         twist, ta, tb, clover, xpay, xc, post, pa, pb);
-  const dim3 block(kThreads);
-  const dim3 grid((W + kThreads - 1) / kThreads, Z, T);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dagger) {
-    if (recon12) dslash_ch_kernel<R, G, S, true, true><<<grid, block, 0, s>>>(a);
-    else dslash_ch_kernel<R, G, S, true, false><<<grid, block, 0, s>>>(a);
-  } else {
-    if (recon12) dslash_ch_kernel<R, G, S, false, true><<<grid, block, 0, s>>>(a);
-    else dslash_ch_kernel<R, G, S, false, false><<<grid, block, 0, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (recon12)
+    return launch_dslash_recon<R, G, C, S, X, O, 12>(
+        psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, twist, ta,
+        tb, clover, xpay, xc, post, pa, pb, stream);
+  return launch_dslash_recon<R, G, C, S, X, O, 18>(
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, twist, ta, tb,
+      clover, xpay, xc, post, pa, pb, stream);
+}
+
+// Single-source launch of an instance built for recon-12 only (the
+// forms of the compact channel chains): any other gauge form returns
+// cudaErrorInvalidValue without launching.
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O>
+int launch_dslash_r12(const void* psi, const void* g, const void* cinv,
+                      const void* x, void* out, void* out2, int T, int Z,
+                      int W, int Xh, int parity, int dagger, int recon12,
+                      int twist, double ta, double tb, int clover, int xpay,
+                      double xc, int post, double pa, double pb,
+                      void* stream) {
+  if (!recon12) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dslash_recon<R, G, C, S, X, O, 12>(
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, twist, ta, tb,
+      clover, xpay, xc, post, pa, pb, stream);
 }
 
 // Multi-source launch (no second output); returns cudaGetLastError().
-template <typename R, typename G, typename S>
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O>
 int launch_dslash_msrc(const void* psi, const void* g, const void* cinv,
                        const void* x, void* out, int n, int T, int Z, int W,
                        int Xh, int parity, int dagger, int recon12,
                        int twist, double ta, double tb, int clover, int xpay,
                        double xc, void* stream) {
-  const DslashArgs<R, G, S> a =
-      make_args<R, G, S>(psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity,
-                         twist, ta, tb, clover, xpay, xc, 0, 0.0, 0.0);
+  const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
+      psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity, twist, ta, tb,
+      clover, xpay, xc, 0, 0.0, 0.0);
   const dim3 block(kThreads);
   const dim3 grid(((W + kThreads - 1) / kThreads) * n, Z, T);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dagger) {
-    if (recon12) dslash_ch_msrc_kernel<R, G, S, true, true><<<grid, block, 0, s>>>(a, n);
-    else dslash_ch_msrc_kernel<R, G, S, true, false><<<grid, block, 0, s>>>(a, n);
+    if (recon12) dslash_ch_msrc_kernel<R, G, C, S, X, O, true, 12><<<grid, block, 0, s>>>(a, n);
+    else dslash_ch_msrc_kernel<R, G, C, S, X, O, true, 18><<<grid, block, 0, s>>>(a, n);
   } else {
-    if (recon12) dslash_ch_msrc_kernel<R, G, S, false, true><<<grid, block, 0, s>>>(a, n);
-    else dslash_ch_msrc_kernel<R, G, S, false, false><<<grid, block, 0, s>>>(a, n);
+    if (recon12) dslash_ch_msrc_kernel<R, G, C, S, X, O, false, 12><<<grid, block, 0, s>>>(a, n);
+    else dslash_ch_msrc_kernel<R, G, C, S, X, O, false, 18><<<grid, block, 0, s>>>(a, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

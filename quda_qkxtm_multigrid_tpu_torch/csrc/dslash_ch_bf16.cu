@@ -15,10 +15,15 @@
 // widened to float on load (__bfloat162float, exact) and the arithmetic
 // and the outputs are float, so on identical bf16 operands the result
 // equals the float kernel's on the widened operands up to rounding order.
-// Three instances:
+// Four instances:
 //   qkx_dslash_ch_f32_g16      gauge and clover inverse bf16; psi, x,
 //                              out, out2 float; every epilogue (the fused
 //                              matpc chain of the sloppy operator);
+//   qkx_dslash_ch_f32_g16c32   gauge bf16, clover inverse float; psi, x,
+//                              out, out2 float; every epilogue, recon-12
+//                              only (the compact channel operator of the
+//                              bf16 tier, compact.py, keeps A^-1 in float:
+//                              its chain with float spinor storage);
 //   qkx_dslash_ch_f32_g16s16   gauge and psi bf16, out float, bare hop
 //                              (Dirac.dslash of the bf16 tier: prepare,
 //                              reconstruct, the full operator);
@@ -51,7 +56,20 @@ extern "C" int qkx_dslash_ch_f32_g16(const void* psi, const void* g,
                                      double tb, int clover, int xpay,
                                      double xc, int post, double pa,
                                      double pb, void* stream) {
-  return qkx::launch_dslash<float, bf16, float>(
+  return qkx::launch_dslash<float, bf16, bf16, float, float, float>(
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
+      twist, ta, tb, clover, xpay, xc, post, pa, pb, stream);
+}
+
+extern "C" int qkx_dslash_ch_f32_g16c32(const void* psi, const void* g,
+                                        const void* cinv, const void* x,
+                                        void* out, void* out2, int T, int Z,
+                                        int W, int Xh, int parity,
+                                        int dagger, int recon12, int twist,
+                                        double ta, double tb, int clover,
+                                        int xpay, double xc, int post,
+                                        double pa, double pb, void* stream) {
+  return qkx::launch_dslash_r12<float, bf16, float, float, float, float>(
       psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
       twist, ta, tb, clover, xpay, xc, post, pa, pb, stream);
 }
@@ -64,7 +82,7 @@ extern "C" int qkx_dslash_ch_f32_g16s16(const void* psi, const void* g,
                                         double ta, double tb, int clover,
                                         int xpay, double xc, int post,
                                         double pa, double pb, void* stream) {
-  return qkx::launch_dslash<float, bf16, bf16>(
+  return qkx::launch_dslash<float, bf16, bf16, bf16, bf16, float>(
       psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
       twist, ta, tb, clover, xpay, xc, post, pa, pb, stream);
 }
@@ -76,7 +94,7 @@ extern "C" int qkx_dslash_ch_msrc_f32_g16(const void* psi, const void* g,
                                           int dagger, int recon12, int twist,
                                           double ta, double tb, int clover,
                                           int xpay, double xc, void* stream) {
-  return qkx::launch_dslash_msrc<float, bf16, float>(
+  return qkx::launch_dslash_msrc<float, bf16, bf16, float, float, float>(
       psi, g, cinv, x, out, n, T, Z, W, Xh, parity, dagger, recon12, twist,
       ta, tb, clover, xpay, xc, stream);
 }

@@ -45,7 +45,7 @@ extern "C" int qkx_dslash_ch_msrc_f32(const void* psi, const void* g,
                                       int recon12, int twist, double ta,
                                       double tb, int clover, int xpay,
                                       double xc, void* stream) {
-  return qkx::launch_dslash_msrc<float, float, float>(
+  return qkx::launch_dslash_msrc<float, float, float, float, float, float>(
       psi, g, cinv, x, out, n, T, Z, W, Xh, parity, dagger, recon12, twist,
       ta, tb, clover, xpay, xc, stream);
 }

@@ -64,7 +64,11 @@ def _ch_clover_apply(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
     applied to a planar-channel spinor [..., T, 24, Z, W] (any leading
     batch axes); ``dag`` applies the conjugate transpose.  Used only for
     the leading A⁻¹† of the dagger ordering; every other application is
-    a kernel epilogue.  A bf16 matrix is widened to the spinor's dtype."""
+    a kernel epilogue.  A bf16 matrix is widened to the spinor's dtype.
+    A bf16 spinor (the bf16 spinor storage) is widened to float32 with
+    the matrix, and the result is float32, as the JAX package's."""
+    if v_ch.dtype == torch.bfloat16:
+        v_ch = v_ch.to(torch.float32)
     return _ch_matrix_apply(v_ch, _ch_clover_matrix(cinv_ch, v_ch.dtype),
                             dag)
 

@@ -5,7 +5,8 @@ source, run the Krylov solver, reconstruct the full-lattice solution,
 and report the true residual of the full operator in the source's
 precision.  Solvers: "cg" and its mixed-precision form "cg-mixed" on the
 normal equations M_pc† M_pc x_p = M_pc† src; "bicgstab" and
-"bicgstab-mixed" on M_pc x_p = src.
+"bicgstab-mixed" on M_pc x_p = src.  A ``compact.CompactDirac`` solves
+with "cg" only, through ``compact.invert_compact_full``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from quda_qkxtm_multigrid_tpu_torch.compact import (
+    CompactDirac, invert_compact_full)
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
@@ -54,7 +57,7 @@ def _default_sloppy(dirac: Dirac) -> Dirac:
                  u_doubled=cast(dirac.u_doubled))
 
 
-def invert(dirac: Dirac, b: torch.Tensor, tol: float = 1e-10,
+def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
            maxiter: int = 1000, solver: str = "cg",
            sloppy_dirac: Dirac | None = None,
            inner_tol: float = 1e-2) -> InvertResult:
@@ -63,6 +66,11 @@ def invert(dirac: Dirac, b: torch.Tensor, tol: float = 1e-10,
     ``sloppy_dirac`` (``_default_sloppy`` if None; the bf16 tier is
     ``as_sloppy(dirac, kernel_bf16=True)``) to ``inner_tol``, and
     ``maxiter`` caps the sum of their inner iterations.
+
+    A ``CompactDirac`` operator solves with "cg" only and no sloppy
+    operator (``compact.invert_compact_full``, the JAX package's
+    dispatch); anything else raises, and so does a ``CompactDirac`` as
+    the sloppy operator.
 
     When the operator has the fused kernel chain (``use_kernels`` with a
     twisted or clover kind, symmetric Schur form), the Krylov loops run
@@ -78,6 +86,16 @@ def invert(dirac: Dirac, b: torch.Tensor, tol: float = 1e-10,
     fields' precision."""
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; one of {SOLVERS}")
+    if isinstance(dirac, CompactDirac):
+        if solver != "cg":
+            raise ValueError(f"a CompactDirac solves with solver='cg' only, "
+                             f"not {solver!r}")
+        if sloppy_dirac is not None:
+            raise ValueError("a CompactDirac solve takes no sloppy operator")
+        return invert_compact_full(dirac, b, tol=tol, maxiter=maxiter)
+    if isinstance(sloppy_dirac, CompactDirac):
+        raise ValueError("a CompactDirac is no sloppy operator of invert: "
+                         "it solves on its own, with solver='cg'")
     mixed = solver.endswith("-mixed")
     if mixed and sloppy_dirac is None:
         sloppy_dirac = _default_sloppy(dirac)

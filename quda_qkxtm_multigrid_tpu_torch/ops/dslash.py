@@ -50,14 +50,20 @@ def wilson_mat(u, psi, kappa: float, geom: Geometry, dagger: bool = False):
     return psi - kappa * torch.stack([d_even, d_odd])
 
 
+def doubled_links(u, geom: Geometry, parity: int):
+    """One parity of ``double_gauge``: [4, 2, 3, 3, T, Z, W]."""
+    return torch.stack([
+        torch.stack([u[mu, parity],
+                     gather_neighbor(u[mu, 1 - parity], mu, False, parity,
+                                     geom)])
+        for mu in range(4)])
+
+
 def double_gauge(u, geom: Geometry):
     """ud[mu, parity, 0] = U_mu(x) and ud[mu, parity, 1] = U_mu(x-mu) for
     x of ``parity``: both hop directions addressable at the output site,
     so the hop reads no gathered links.  [4, 2, 2, 3, 3, T, Z, W]."""
-    return torch.stack([torch.stack([
-        torch.stack([u[mu, p],
-                     gather_neighbor(u[mu, 1 - p], mu, False, p, geom)])
-        for p in range(2)]) for mu in range(4)])
+    return torch.stack([doubled_links(u, geom, p) for p in range(2)], dim=1)
 
 
 def dslash_parity_doubled(ud, psi_opp, parity: int, geom: Geometry,

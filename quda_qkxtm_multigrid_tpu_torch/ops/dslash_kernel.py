@@ -32,15 +32,22 @@ The bf16 operand tier (the JAX package's ``bf16=True``, K1d and K2d)
 takes bfloat16 gauge and clover-inverse channels beside float32 spinors;
 the bare hop also takes a bfloat16 ψ (the form of ``Dirac.dslash`` under
 ``DiracParams.kernel_bf16``).  Every operand is widened to float32 and
-the output is float32.  The operand dtypes pick the kernel instance
-(``_kernel_form``); on a CUDA tensor a bf16 operand launches
-``csrc/dslash_ch_bf16.cu`` or raises, never the float32 kernel on
-widened copies.
+the output is float32.  The compact channel operator (``compact.py``)
+adds a bf16 gauge with a float32 clover inverse, and the bf16 spinor
+storage (the JAX package's ``out_dtype=jnp.bfloat16``, K1e): bfloat16
+ψ, x or output planes, float32 arithmetic, each output rounded once to
+bfloat16 (``out_dtype``).  ``recon8`` takes the 8-real gauge of
+``gauge_channels(recon8=True)`` [T, 64, Z, W] in float32 (K3).  The
+operand dtypes pick the kernel instance (``_kernel_form``, the table
+``_FORMS``); on a CUDA tensor a bf16 operand launches its instance in
+``csrc/dslash_ch_bf16.cu`` or ``csrc/dslash_ch_bf16s.cu`` or raises,
+never a float32 kernel on widened copies.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,8 +57,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops import gamma as _g
 from quda_qkxtm_multigrid_tpu_torch.ops.clover import clover_apply
 from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import su3_mul, su3_dag_mul
 
-_KERNEL_DTYPES = (torch.float32, torch.float64)
-_BF16 = torch.bfloat16
+_F32, _F64, _BF16 = torch.float32, torch.float64, torch.bfloat16
 _CLOVER_MODES = {None: 0, "fwd": 1, "dag": 2}
 
 
@@ -83,11 +89,25 @@ def cast_channels(ch: torch.Tensor, dtype: torch.dtype | None):
 
 
 def gauge_channels(ud: torch.Tensor, parity: int, recon12: bool,
-                   dtype: torch.dtype | None = None) -> torch.Tensor:
+                   dtype: torch.dtype | None = None,
+                   recon8: bool = False) -> torch.Tensor:
     """Doubled gauge [4,2,2,3,3,T,Z,W] → channel operand of one parity:
     [T, 96, Z, W] with rows 0 and 1 only (recon-12) or [T, 144, Z, W].
     ``dtype`` casts the real channels (default: the field's precision;
-    bfloat16 is the bf16 operand tier)."""
+    bfloat16 is the bf16 operand tier).  ``recon8`` gives the 8-real
+    encoding [T, 64, Z, W] instead, channel (mu*2 + fb)*8 + j over
+    [Re a2, Im a2, Re a3, Im a3, Re b1, Im b1, arg a1, arg c1] of the
+    link's rows a, b, c (the JAX package's ``gauge_channels(recon8=
+    True)``), computed in the field's precision and then cast."""
+    if recon8:
+        m = ud[:, parity]                    # [4, 2, 3, 3, T, Z, W]
+        a1, a2, a3 = m[:, :, 0, 0], m[:, :, 0, 1], m[:, :, 0, 2]
+        b1, c1 = m[:, :, 1, 0], m[:, :, 2, 0]
+        comps = torch.stack([a2.real, a2.imag, a3.real, a3.imag, b1.real,
+                             b1.imag, torch.angle(a1), torch.angle(c1)],
+                            dim=2)               # [4, 2, 8, T, Z, W]
+        ch = comps.reshape((64,) + comps.shape[3:]).movedim(0, 1)
+        return cast_channels(ch.contiguous(), dtype)
     g = ud[:, parity][:, :, :2] if recon12 else ud[:, parity]
     return cast_channels(to_channels(g), dtype)
 
@@ -128,9 +148,45 @@ def _proj_rank2(mu: int, plus: bool):
     return upper, recon
 
 
-def _links(g_ch: torch.Tensor, recon12: bool) -> torch.Tensor:
+def _decode_recon8(g_ch: torch.Tensor) -> torch.Tensor:
+    """8-real gauge channels [T, 64, Z, W] → complex links [4, 2, 3, 3,
+    T, Z, W]: the JAX package's ``_plane_body._mat8``, term for term (it
+    divides by |a2|² + |a3|² = 1 − |a1|²)."""
+    t, _, z, w = g_ch.shape
+    e = g_ch.movedim(1, 0).reshape(4, 2, 8, t, z, w)
+    a2r, a2i, a3r, a3i, b1r, b1i, th1, th2 = e.unbind(2)
+    n = a2r * a2r + a2i * a2i + a3r * a3r + a3i * a3i
+    a1m2 = torch.clamp(1.0 - n, min=0.0)
+    a1m = torch.sqrt(a1m2)
+    c1m = torch.sqrt(torch.clamp(1.0 - a1m2 - (b1r * b1r + b1i * b1i),
+                                 min=0.0))
+    a1r, a1i = a1m * torch.cos(th1), a1m * torch.sin(th1)
+    c1r, c1i = c1m * torch.cos(th2), c1m * torch.sin(th2)
+    rn = 1.0 / n
+    tr = a1r * b1r + a1i * b1i              # t = conj(a1) b1
+    ti = a1r * b1i - a1i * b1r
+    b2r = -(tr * a2r - ti * a2i + (a3r * c1r - a3i * c1i)) * rn
+    b2i = -(tr * a2i + ti * a2r - (a3r * c1i + a3i * c1r)) * rn
+    b3r = -(tr * a3r - ti * a3i - (a2r * c1r - a2i * c1i)) * rn
+    b3i = -(tr * a3i + ti * a3r + (a2r * c1i + a2i * c1r)) * rn
+    c2r = (a3r * b1r - a3i * b1i) - (a1r * b3r - a1i * b3i)
+    c2i = -((a3r * b1i + a3i * b1r) - (a1r * b3i + a1i * b3r))
+    c3r = (a1r * b2r - a1i * b2i) - (a2r * b1r - a2i * b1i)
+    c3i = -((a1r * b2i + a1i * b2r) - (a2r * b1i + a2i * b1r))
+    rows = [[(a1r, a1i), (a2r, a2i), (a3r, a3i)],
+            [(b1r, b1i), (b2r, b2i), (b3r, b3i)],
+            [(c1r, c1i), (c2r, c2i), (c3r, c3i)]]
+    return torch.stack([torch.stack([torch.complex(re, im) for re, im in r],
+                                    dim=2) for r in rows], dim=2)
+
+
+def _links(g_ch: torch.Tensor, recon12: bool,
+           recon8: bool = False) -> torch.Tensor:
     """Channel gauge of one parity → complex [4(mu), 2(fb), 3, 3, T, Z, W],
-    row 2 rebuilt as conj(r0 × r1) for recon-12."""
+    row 2 rebuilt as conj(r0 × r1) for recon-12, every row decoded for
+    recon-8."""
+    if recon8:
+        return _decode_recon8(g_ch)
     if not recon12:
         return from_channels(g_ch, (4, 2, 3, 3))
     g = from_channels(g_ch, (4, 2, 2, 3))
@@ -151,14 +207,25 @@ def _g5_rotate(v: torch.Tensor, a: float, b: float) -> torch.Tensor:
 def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
                         dagger: bool = False, recon12: bool = False,
                         twist=None, xpay_coef=None, x_ch=None, clover=None,
-                        cinv_ch=None, post_op=None):
+                        cinv_ch=None, post_op=None, out_dtype=None,
+                        recon8: bool = False):
     """Plain PyTorch version of ``dslash_ch``: channels → complex →
     rank-2 projected hop on the doubled links → epilogues → channels.
     bf16 operands are widened to float32 first, as the kernels (and the
-    JAX package's ``_kernel_v5._mk``) widen each load."""
+    JAX package's ``_kernel_v5._mk``) widen each load; a bfloat16
+    ``out_dtype`` rounds the float32 result once, at the end, as the
+    kernels' store does."""
     g_ch, psi_ch, cinv_ch = _widen(g_ch), _widen(psi_ch), _widen(cinv_ch)
+    x_ch = _widen(x_ch)
+    if out_dtype == _BF16:
+        res = dslash_ch_reference(g_ch, psi_ch, parity, geom, dagger,
+                                  recon12, twist, xpay_coef, x_ch, clover,
+                                  cinv_ch, post_op, recon8=recon8)
+        if post_op is None:
+            return res.to(_BF16)
+        return tuple(r.to(_BF16) for r in res)
     psi = from_channels(psi_ch, (4, 3))
-    u = _links(g_ch, recon12)
+    u = _links(g_ch, recon12, recon8)
     acc = [None] * 4
     for mu in range(4):
         for fb, (fwd, plus) in enumerate(((True, dagger),
@@ -190,47 +257,81 @@ def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
     return out, to_channels(res2)
 
 
-def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool) -> str:
-    """The kernel instance that the operand dtypes select, as the suffix
-    of its C entry point: "f32" or "f64" (every operand of one dtype),
-    "f32_g16" (bf16 gauge and clover inverse, float32 ψ and x: the fused
-    chain of the bf16 tier) or "f32_g16s16" (bf16 gauge and ψ, bare hop:
-    ``Dirac.dslash`` of the bf16 tier).  Raises on any other mix."""
-    pd, gd = psi_ch.dtype, g_ch.dtype
-    named = {"g_ch": g_ch, "cinv_ch": cinv_ch, "x_ch": x_ch}
-    if gd != _BF16:
-        if pd not in _KERNEL_DTYPES:
-            raise TypeError(f"psi_ch dtype {pd} not in {_KERNEL_DTYPES} "
-                            "or bfloat16")
-        want = {k: pd for k in named}
-        form = "f32" if pd == torch.float32 else "f64"
-    elif pd == torch.float32:
-        want = {"g_ch": _BF16, "cinv_ch": _BF16, "x_ch": torch.float32}
-        form = "f32_g16"
-    elif pd == _BF16:
-        if not bare:
-            raise TypeError("a bfloat16 psi_ch takes the bare hop only "
-                            "(no twist, clover, xpay or post_op)")
-        want = {"g_ch": _BF16}
-        form = "f32_g16s16"
-    else:
-        raise TypeError(f"psi_ch dtype {pd} with a bfloat16 gauge: "
-                        "float32 or bfloat16 only")
-    for name, t in named.items():
-        if t is not None and t.dtype != want[name]:
-            raise TypeError(f"{name} dtype {t.dtype} != {want[name]} with "
-                            f"psi_ch {pd} and g_ch {gd}")
-    return form
+class _Form(NamedTuple):
+    """One kernel instance: its C entry point ``qkx_dslash_ch_<name>``,
+    the dtypes of (gauge, clover inverse, ψ, x, out) it takes (None: the
+    operand must be absent), whether it takes the bare hop only, the
+    gauge forms it is built for (8, 12, 18) and the counter on
+    ``dslash_ch`` that its launches add to."""
+    name: str
+    dtypes: tuple
+    bare: bool
+    recons: tuple
+    counter: str
+
+
+_FORMS = (
+    # K1 (csrc/dslash_ch.cu)
+    _Form("f32", (_F32,) * 5, False, (12, 18), "launches"),
+    _Form("f64", (_F64,) * 5, False, (12, 18), "launches"),
+    # K1d, the bf16 operand tier (csrc/dslash_ch_bf16.cu)
+    _Form("f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False, (12, 18),
+          "launches_bf16"),
+    _Form("f32_g16c32", (_BF16, _F32, _F32, _F32, _F32), False, (12,),
+          "launches_bf16"),
+    _Form("f32_g16s16", (_BF16, None, _BF16, None, _F32), True, (12, 18),
+          "launches_bf16"),
+    # K1e, the bf16 spinor storage (csrc/dslash_ch_bf16s.cu)
+    _Form("f32_g16c32_o16", (_BF16, _F32, _F32, _F32, _BF16), False, (12,),
+          "launches_bf16s"),
+    _Form("f32_g16c32_s16o16", (_BF16, _F32, _BF16, _F32, _BF16), False,
+          (12,), "launches_bf16s"),
+    _Form("f32_g16c32_x16", (_BF16, _F32, _F32, _BF16, _F32), False, (12,),
+          "launches_bf16s"),
+    _Form("f32_g16c32_s16", (_BF16, _F32, _BF16, _F32, _F32), False, (12,),
+          "launches_bf16s"),
+    # K3, the recon-8 gauge (csrc/dslash_ch_r8.cu)
+    _Form("f32_r8", (_F32,) * 5, False, (8,), "launches_r8"),
+)
+_FORM_BY_NAME = {f.name: f for f in _FORMS}
+
+
+def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool,
+                 out_dtype=None, recon: int = 12) -> str:
+    """The kernel instance that the operand dtypes, ``out_dtype`` (None:
+    float64 for a float64 ψ, else float32) and the gauge form ``recon``
+    select, as the suffix of its C entry point: the first entry of
+    ``_FORMS`` whose dtypes the present operands have and that takes
+    this gauge form (and epilogues, for a bare-only instance).  Raises on
+    any other mix: no operand is ever upcast to reach a kernel."""
+    if out_dtype is None:
+        out_dtype = _F64 if psi_ch.dtype == _F64 else _F32
+    have = (g_ch.dtype, None if cinv_ch is None else cinv_ch.dtype,
+            psi_ch.dtype, None if x_ch is None else x_ch.dtype, out_dtype)
+    for form in _FORMS:
+        if recon not in form.recons or (form.bare and not bare):
+            continue
+        if all(h is None or h == w for h, w in zip(have, form.dtypes)):
+            return form.name
+    names = ("g_ch", "cinv_ch", "psi_ch", "x_ch", "out_dtype")
+    mix = ", ".join(f"{n} {h}" for n, h in zip(names, have) if h is not None)
+    raise TypeError(f"no kernel takes {mix} with recon-{recon}"
+                    f"{'' if bare else ' and epilogues'}; the forms are "
+                    f"{[f.name for f in _FORMS]}")
 
 
 def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
-                    clover, cinv_ch, post_op) -> str:
+                    clover, cinv_ch, post_op, out_dtype=None,
+                    recon8: bool = False) -> str:
     """Raise on anything the kernel (and its plain version) does not take;
     returns the kernel form (``_kernel_form``)."""
     shape = (geom.T, 24, geom.Z, geom.W)
     if tuple(psi_ch.shape) != shape:
         raise ValueError(f"psi_ch shape {tuple(psi_ch.shape)} != {shape}")
-    ng = 96 if recon12 else 144
+    if recon8 and recon12:
+        raise ValueError("recon8 and recon12 are two gauge forms: pick one")
+    recon = 8 if recon8 else (12 if recon12 else 18)
+    ng = {8: 64, 12: 96, 18: 144}[recon]
     want = {"g_ch": (g_ch, (geom.T, ng, geom.Z, geom.W))}
     if clover not in _CLOVER_MODES:
         raise ValueError(f"clover={clover!r} not one of None, 'fwd', 'dag'")
@@ -255,7 +356,7 @@ def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
     form = _kernel_form(
         g_ch, psi_ch, None if clover is None else cinv_ch, x_ch,
         bare=twist is None and clover is None and x_ch is None
-        and post_op is None)
+        and post_op is None, out_dtype=out_dtype, recon=recon)
     tensors = {"psi_ch": psi_ch, **{k: v[0] for k, v in want.items()}}
     for name, (t, shp) in want.items():
         if tuple(t.shape) != shp:
@@ -290,27 +391,32 @@ def _launch(lib, form: str, g_ch, psi_ch, out, out2, parity: int,
 
 def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
               recon12: bool = False, twist=None, xpay_coef=None, x_ch=None,
-              clover=None, cinv_ch=None, post_op=None):
+              clover=None, cinv_ch=None, post_op=None, out_dtype=None,
+              recon8: bool = False):
     """Fused Wilson hop with epilogues on channel operands (module
-    docstring).  Returns ``out`` or, with ``post_op``, ``(out, out2)``.
+    docstring).  Returns ``out`` or, with ``post_op``, ``(out, out2)``,
+    in ``out_dtype``: None for the arithmetic's dtype (float64 for a
+    float64 ψ, else float32), or bfloat16 for the bf16 spinor storage.
 
     A CUDA ``psi_ch`` launches the CUDA kernel that the operand dtypes
-    select on the current stream (``dslash_ch.launches`` counts the
-    float32 / float64 launches, K1; ``dslash_ch.launches_bf16`` those of
-    the bf16 tier, K1d); a CPU ``psi_ch`` runs ``dslash_ch_reference``.
+    select on the current stream (``_kernel_form``), and the launch adds
+    one to that kernel's counter: ``dslash_ch.launches`` (K1, float32 and
+    float64), ``.launches_bf16`` (K1d), ``.launches_bf16s`` (K1e) or
+    ``.launches_r8`` (K3).  A CPU ``psi_ch`` runs ``dslash_ch_reference``.
     Anything else raises."""
     form = _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef,
-                           x_ch, clover, cinv_ch, post_op)
+                           x_ch, clover, cinv_ch, post_op, out_dtype,
+                           recon8)
     if psi_ch.device.type == "cpu":
         return dslash_ch_reference(g_ch, psi_ch, parity, geom, dagger,
                                    recon12, twist, xpay_coef, x_ch, clover,
-                                   cinv_ch, post_op)
+                                   cinv_ch, post_op, out_dtype, recon8)
     if psi_ch.device.type != "cuda":
         raise ValueError(f"no dslash_ch for device {psi_ch.device}")
     from quda_qkxtm_multigrid_tpu_torch import _build
     lib = _build.load_library()
-    out_dtype = torch.float32 if form.startswith("f32") else torch.float64
-    out = torch.empty(psi_ch.shape, dtype=out_dtype, device=psi_ch.device)
+    out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
+                      device=psi_ch.device)
     out2 = torch.empty_like(out) if post_op is not None else None
     stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
     with torch.cuda.device(psi_ch.device):
@@ -320,15 +426,15 @@ def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
     if err != 0:
         raise RuntimeError(f"dslash_ch kernel launch failed "
                            f"(qkx_dslash_ch_{form}): CUDA error {err}")
-    if "g16" in form:
-        dslash_ch.launches_bf16 += 1
-    else:
-        dslash_ch.launches += 1
+    counter = _FORM_BY_NAME[form].counter
+    setattr(dslash_ch, counter, getattr(dslash_ch, counter) + 1)
     return out if out2 is None else (out, out2)
 
 
 dslash_ch.launches = 0
 dslash_ch.launches_bf16 = 0
+dslash_ch.launches_bf16s = 0
+dslash_ch.launches_r8 = 0
 
 
 def dslash_parity_kernel(ud, psi_opp, parity: int, geom: Geometry,
@@ -375,9 +481,14 @@ def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
                              f"{tuple(psi_ch_b.shape)}")
         if not x_ch.is_contiguous():
             raise ValueError("x_ch is not contiguous")
-    return _check_operands(g_ch, psi_ch_b[0], geom, recon12, twist,
+    form = _check_operands(g_ch, psi_ch_b[0], geom, recon12, twist,
                            xpay_coef, None if x_ch is None else x_ch[0],
                            clover, cinv_ch, None)
+    if form not in ("f32", "f32_g16"):
+        raise TypeError(f"the multi-source kernel has no {form} instance: "
+                        "float32 operands, or a bf16 gauge and clover "
+                        "inverse")
+    return form
 
 
 def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,

@@ -260,6 +260,7 @@ def test_params_from_jax_carries_the_bf16_flag(flds):
 def _ops(flds):
     _, ud, psi, x, cinv = flds
     return dict(g=dk.gauge_channels(T(ud), 0, True, BF16),
+                g18=dk.gauge_channels(T(ud), 0, False, BF16),
                 g32=dk.gauge_channels(T(ud), 0, True, F32),
                 ci=dk.clover_channels(T(cinv), 0, BF16),
                 ci32=dk.clover_channels(T(cinv), 0, F32),
@@ -277,6 +278,13 @@ FORMS = {   # name: (operands, keyword arguments, kernel form)
         ("g", "v"), dict(twist=(0.1, 0.9), post_op=("twist", 0.1, 0.9)),
         "f32_g16"),
     "g16s16 bare": (("g", "v16"), {}, "f32_g16s16"),
+    # the compact channel operator: bf16 gauge with a float32 A⁻¹ (K1d)
+    # and the bf16 spinor storage (K1e)
+    "g16c32 clover": (("g", "v"), dict(clover="fwd", cinv_ch="ci32"),
+                      "f32_g16c32"),
+    "g16s16 twist": (("g", "v16"), dict(twist=(0.1, 0.9)), "f32_g16c32_s16"),
+    "g16s16 xpay": (("g", "v16"), dict(xpay_coef=XC, x_ch="x"),
+                    "f32_g16c32_s16"),
 }
 
 
@@ -317,15 +325,20 @@ def test_dtype_forms_pick_the_entry_point(flds, name):
 
 BAD16 = {   # operand mixes the bf16 tier does not take
     "bf16 gauge, float64 psi": (("g", "v"), dict(v=torch.float64)),
-    "bf16 gauge, float32 clover": (("g", "v"),
-                                   dict(clover="fwd", cinv_ch="ci32")),
+    # the float32-A⁻¹ and bf16-ψ instances with epilogues are built for
+    # recon-12 only
+    "bf16 gauge, float32 clover": (("g18", "v"),
+                                   dict(clover="fwd", cinv_ch="ci32",
+                                        recon12=False)),
     "float32 gauge, bf16 clover": (("g32", "v"),
                                    dict(clover="fwd", cinv_ch="ci")),
-    "bf16 x": (("g", "v"), dict(xpay_coef=XC, x_ch="x16")),
+    "bf16 x": (("g", "v"), dict(clover="fwd", cinv_ch="ci", xpay_coef=XC,
+                                x_ch="x16")),
     "bf16 psi, float32 gauge": (("g32", "v16"), {}),
     "bf16 psi with clover": (("g", "v16"), dict(clover="fwd", cinv_ch="ci")),
-    "bf16 psi with twist": (("g", "v16"), dict(twist=(0.1, 0.9))),
-    "bf16 psi with xpay": (("g", "v16"), dict(xpay_coef=XC, x_ch="x")),
+    "bf16 psi with twist": (("g18", "v16"), dict(twist=(0.1, 0.9),
+                                                 recon12=False)),
+    "bf16 psi with xpay": (("g", "v16"), dict(xpay_coef=XC, x_ch="x16")),
 }
 
 
@@ -338,7 +351,7 @@ def test_bf16_rejects(flds, name):
     if cast is not None:
         v = v.to(cast)
     with pytest.raises(TypeError):
-        dk.dslash_ch(g, v, 0, GT, recon12=True, **kw)
+        dk.dslash_ch(g, v, 0, GT, **{"recon12": True, **kw})
 
 
 def test_msrc_forms(flds):
