@@ -56,7 +56,20 @@ and does not print its last line:
    the bf16 operand tier's, at 32³×64; (d) at 48³×96, the compact bf16
    tier's CG (``bench_compact``, tol 1e-6) and the same solve certified
    to 1e-9 in complex128 by a float64 defect-correction outer
-   (``bench_cg48_dc``), with the peak device memory.
+   (``bench_cg48_dc``), with the peak device memory;
+9. the t-sharded solve and its kernels K4 (the t-local hop) and K5 (its
+   interior / edge split): (a) at 16³×32 and 32³×64, on the slab of rank
+   1 of a four-way t split, its faces cut from the slabs of ranks 0
+   and 2 of one global field: every K4 form of the sharded
+   chain and of the sharded full operator against its plain version and
+   against K1 on the global field restricted to the slab, K5 with 24-
+   and 12-channel faces against K4 and its plain version; (b) at 32³×64
+   ``invert(mesh=…)`` on a ring of one rank over NCCL, with K4 and with
+   K5, against the unsharded CG (iterations, complex128 true residual,
+   solution, warm seconds, launch counts); (c) K4 and K5 against their
+   plain versions on (b)'s operands at T_loc = 64 (the chain's float32
+   forms, the float64 hop), then K4, K5, K1 and the plain versions timed
+   in one call at 32³×64, with the byte bounds.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero before printing any result.  The last line of its output is
@@ -71,6 +84,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -120,6 +134,10 @@ BF16S_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:512 "
                          "(out_dtype=bf16)")
 R8_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_r8.cu"
 R8_KERNEL_REPLACES = "quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:91"
+LOCAL_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_local.cu"
+LOCAL_KERNEL_REPLACES = "quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:768"
+OVERLAP_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:"
+                           "842, :902")
 
 BIG_GEOM = (48, 48, 48, 96)
 COMPACT_TOL, COMPACT_MAXITER = 1e-6, 600
@@ -132,6 +150,11 @@ BF16_OUT_LIMIT = 1e-4            # normwise, a bf16 output vs its plain version
 F32_SUM_BOUND = 2.0 ** -20       # float32 summation order, of the largest value
 DECODE_FLOPS = 480               # recon-8: ~60 flop a link, 8 links a site
 CARD_BYTES = 80e9
+
+SPLIT_NT, SPLIT_RANK = 4, 1      # 9a: the slab of rank 1 of a four-way split
+LOCAL_VS_K1 = {"float32": 1e-7, "float64": 1e-14}   # K4 vs K1, normwise
+OVERLAP_VS_K4 = 1e-7             # K5 vs K4, normwise, float32
+MESH_X_LIMIT = 1e-5              # sharded vs unsharded solution, normwise
 
 
 def _import_port():
@@ -216,9 +239,14 @@ def phase_card():
     print(f"kernel build {time.perf_counter() - t0:.1f} s (one nvcc per "
           f"source, in parallel) -> {libs[0].parent.relative_to(ROOT)}")
     for so in libs:
+        kernel = "?"
         for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {so.stem}:", line.strip())
+            entry = re.search(r"entry function '_ZN3qkx\d+(\w+?)I(\w*?)EEvNS",
+                              line)
+            if entry:   # the kernel and its mangled template arguments
+                kernel = f"{entry.group(1)}<{entry.group(2)}>"
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {so.stem} {kernel}:", line.strip())
     return smi
 
 
@@ -414,7 +442,7 @@ def phase_slice(geom_dims):
     bound = _bound(_nbytes(d._operands(torch.float32)["g"][pr], v32, v32),
                    HOP_FLOPS * sites)
     return {"launches": launches, "ms": tk, "plain_ms": tp,
-            "max_abs_err": max_abs, "bound": bound}
+            "max_abs_err": max_abs, "bound": bound, "secs": res["secs"]}
 
 
 def _msrc_cases(twist_a: float, twist_b: float, xc: float):
@@ -1481,6 +1509,345 @@ def phase_compact48(geom_dims):
     return launches, rec, dc, peak, err
 
 
+def _local_cases(twist_a: float, twist_b: float, xc: float):
+    """The forms of the t-local hop on the sharded path: (label, case,
+    tier): the sharded chain's hops in float32 and in the bf16 operand
+    tier (the forms of ``_msrc_cases``: the chain is the multi-source
+    one's, two hops a half), and the float64 bare hop of the sharded full
+    operator (prepare, reconstruct, the true residual)."""
+    chain = _msrc_cases(twist_a, twist_b, xc)
+    return ([(f"f32 {label}", c, "f32") for label, c in chain]
+            + [(f"bf16 {label}", c, "bf16") for label, c in chain]
+            + [(f"f64 hop parity {p} dagger {int(dg)}",
+                dict(parity=p, dagger=dg), "f64")
+               for p in (0, 1) for dg in (False, True)])
+
+
+def phase_local_kernels(dims_list):
+    """Phase 9a: at each size, on the slab of rank SPLIT_RANK of a
+    SPLIT_NT-way t split of one global field (its faces the neighbouring
+    slabs' edge planes, as that rank receives them): K4 in
+    every form against its plain version and against K1 (K1d) on the
+    global field restricted to the slab's rows; K5 with 24- and
+    12-channel faces against its plain version and against K4.  Returns
+    the largest absolute error of each kernel against its plain version,
+    {"k4": .., "k5": ..}."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, dslash_ch, dslash_ch_local,
+        dslash_ch_local_reference, dslash_ch_overlap, gauge_channels,
+        to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.halo import project_face
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
+    tiers = {"f32": (f32, f32), "bf16": (b16, f32), "f64": (f64, f64)}
+    counters = {"f32": "launches", "f64": "launches",
+                "bf16": "launches_bf16"}
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    cases = _local_cases(a, 1 / (1 + a * a), -kappa * kappa)
+    err = {"k4": 0.0, "k5": 0.0}
+    for dims in dims_list:
+        geom = Geometry(*dims)
+        tl = geom.T // SPLIT_NT
+        lo, hi = SPLIT_RANK * tl, (SPLIT_RANK + 1) * tl
+        gl = Geometry(geom.X, geom.Y, geom.Z, tl)
+        print(f"phase 9a: t-local hop K4 and its split K5 vs plain and vs "
+              f"K1 at {dims}, slab of rank {SPLIT_RANK} of {SPLIT_NT} "
+              f"(T_loc {tl})", flush=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(51)
+        u = rng.random_gauge(gen, geom)
+        _, cinv = make_clover_pair(u, geom, tmc_params())
+        ud = double_gauge(u, geom)
+        del u
+        psi = rng.random_spinor(gen, geom)
+        x = rng.random_spinor(gen, geom)
+        ops = {}
+        for label, c, tier in cases:
+            op, sp = tiers[tier]
+            p, dagger, xc = c["parity"], c.get("dagger", False), c.get("xpay")
+            if (op, p) not in ops:
+                ops[(op, p)] = (gauge_channels(ud, p, True, op),
+                                clover_channels(cinv, p, op))
+            g, ci = ops[(op, p)]
+            v = to_channels(psi[1 - p]).to(sp)
+            xv = to_channels(x[p]).to(sp)
+            kw = dict(dagger=dagger, recon12=True, twist=c.get("twist"),
+                      clover=c.get("clover"), xpay_coef=xc)
+            gs = g[lo:hi].contiguous()
+            cs = ci[lo:hi].contiguous() if "clover" in c else None
+            vs = v[lo:hi].contiguous()
+            f24 = (v[lo - 1:lo].contiguous(), v[hi:hi + 1].contiguous())
+            xs = xv[lo:hi].contiguous() if xc is not None else None
+            kw.update(cinv_ch=cs, x_ch=xs)
+            name = counters[tier]
+            before = getattr(dslash_ch_local, name)
+            got = dslash_ch_local(gs, vs, *f24, p, gl, **kw)
+            torch.cuda.synchronize()
+            if getattr(dslash_ch_local, name) != before + 1:
+                raise AssertionError(f"K4 {label}: dslash_ch_local.{name} "
+                                     "did not count the launch")
+            ref = dslash_ch_local_reference(gs, vs, *f24, p, gl, **kw)
+            err["k4"] = max(err["k4"], _compare(
+                got, ref, f"K4 {label}",
+                F64_LIMIT if sp == f64 else F32_LIMIT))
+            k1 = dslash_ch(g, v, p, geom, **dict(
+                kw, cinv_ch=ci if "clover" in c else None,
+                x_ch=xv if xc is not None else None))[lo:hi]
+            same = "bit for bit" if torch.equal(got, k1) else "not bit equal"
+            _check(f"  vs K1 on the slab's rows ({same})", _rel(got, k1),
+                   LOCAL_VS_K1[str(sp)[6:]])
+            if tier == "f64":
+                continue
+            for proj in (False, True):
+                fm, fp = f24
+                if proj:
+                    fm = project_face(fm, plus=not dagger)
+                    fp = project_face(fp, plus=dagger)
+                before = getattr(dslash_ch_overlap, name)
+                got5 = dslash_ch_overlap(gs, vs, fm, fp, p, gl,
+                                         faces_projected=proj, **kw)
+                torch.cuda.synchronize()
+                if getattr(dslash_ch_overlap, name) != before + 2:
+                    raise AssertionError(f"K5 {label}: dslash_ch_overlap."
+                                         f"{name} did not count its two "
+                                         "launches")
+                ref5 = dslash_ch_local_reference(gs, vs, fm, fp, p, gl,
+                                                 faces_projected=proj, **kw)
+                faces = f"{12 if proj else 24}-channel faces"
+                err["k5"] = max(err["k5"], _compare(
+                    got5, ref5, f"K5 {label}, {faces}", F32_LIMIT))
+                same = ("bit for bit" if torch.equal(got5, got)
+                        else "not bit equal")
+                _check(f"  vs K4 ({same})", _rel(got5, got), OVERLAP_VS_K4)
+        del ops, ud, cinv, psi, x
+    return err
+
+
+def phase_mesh_solve(geom_dims, unsharded_secs: float):
+    """Phase 9b: the unsharded CG at ``geom_dims`` for reference, then
+    ``benchmarks.bench_cg_mesh`` (a cold and a warm ``invert(mesh=…)``)
+    on a ring of one rank over NCCL, with K4 and with K5, each with the
+    launch counts read around it; then phase 9c on the same operator and
+    ring.  Returns the two runs' records, keyed by ``overlap``, and 9c's
+    times and bounds."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_cg_mesh, make_problem)
+    from quda_qkxtm_multigrid_tpu_torch.invert import invert
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_local, dslash_ch_overlap)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import init_ring
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 9b: t-sharded twisted-clover CG at {geom_dims} on a ring "
+          f"of one rank over NCCL, tol {SLICE_TOL}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, b = make_problem(geom, DEVICE, seed=7)
+    ref = invert(d, b, tol=SLICE_TOL, maxiter=SLICE_MAXITER)
+    print(f"  unsharded CG: {ref.iters} iterations, true_res "
+          f"{ref.true_res:.3e}; phase 4's warm solve {unsharded_secs:.4f} s",
+          flush=True)
+    # one host: NCCL's bootstrap over the loopback interface
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh = init_ring(1, 0, f"tcp://localhost:{port}", device=DEVICE)
+    runs = {}
+    try:
+        for overlap in (False, True):
+            dslash_ch.launches = 0
+            dslash_ch_local.launches = dslash_ch_overlap.launches = 0
+            rec, x = bench_cg_mesh(geom, mesh, overlap, tol=SLICE_TOL,
+                                   maxiter=SLICE_MAXITER, problem=(d, b))
+            rec.update(k4=dslash_ch_local.launches,
+                       k5=dslash_ch_overlap.launches, k1=dslash_ch.launches,
+                       x_rel=_rel(x, ref.x))
+            runs[overlap] = rec
+            del x
+            print(f"  {rec['solver']} ({'K5' if overlap else 'K4'}): iters "
+                  f"{rec['iters']} (cold {rec['iters_cold']}), warm secs "
+                  f"{rec['secs']:.4f} (unsharded, phase 4: "
+                  f"{unsharded_secs:.4f}), true_res {rec['true_res']:.3e} "
+                  f"(complex128; cold {rec['true_res_cold']:.3e}), solution "
+                  f"vs unsharded {rec['x_rel']:.3e}, peak memory "
+                  f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB, launches K4 "
+                  f"{rec['k4']} K5 {rec['k5']} K1 {rec['k1']}", flush=True)
+            for key in ("iters", "iters_cold"):
+                if abs(rec[key] - ref.iters) > 1:
+                    raise AssertionError(f"sharded {key} {rec[key]} not "
+                                         f"within 1 of {ref.iters}")
+            _check("sharded true residual (complex128)",
+                   max(rec["true_res"], rec["true_res_cold"]),
+                   TRUE_RES_LIMIT)
+            _check("sharded solution vs unsharded", rec["x_rel"],
+                   MESH_X_LIMIT)
+            # per solve: 4 chain hops an iteration (K4: one launch each,
+            # or K5: two, interior and edges) and 6 float64 K4 hops:
+            # prepare 1, rhs matpc† 2, reconstruct 1, true residual 2
+            n = rec["iters"] + rec["iters_cold"]
+            want = ((12, 8 * n) if overlap else (4 * n + 12, 0)) + (0,)
+            if (rec["k4"], rec["k5"], rec["k1"]) != want:
+                raise AssertionError(f"sharded launches K4 {rec['k4']} K5 "
+                                     f"{rec['k5']} K1 {rec['k1']} != {want}")
+        timing = phase_local_timing(geom, d, mesh)
+    finally:
+        dist.destroy_process_group()
+    return runs, timing
+
+
+def _main_path_local_checks(ds, mesh, gen):
+    """K4 and K5 against their plain versions at the shapes and on the
+    operands of the sharded path of 9b (``ds`` on ``mesh``, T_loc =
+    geom.T): the four float32 chain hops of the clover matpc halves (K5
+    with the projected faces it takes there), and the float64 bare K4 hop
+    of the complex128 stages, both parities, with and without dagger.
+    Returns the largest absolute errors {"k4": .., "k5": ..}."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_local, dslash_ch_local_reference, dslash_ch_overlap,
+        to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.halo import t_faces
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom, k = ds.geom, ds.params.kappa
+    print(f"  K4 / K5 vs plain on the sharded path's operands, T_loc "
+          f"{geom.T}", flush=True)
+    f32, f64 = torch.float32, torch.float64
+    ops = ds._operands(f32)
+    psi, x = rng.random_spinor(gen, geom), rng.random_spinor(gen, geom)
+    err = {"k4": 0.0, "k5": 0.0}
+    for label, c in _msrc_cases(0.0, 1.0, -k * k)[:4]:
+        p, dagger = c["parity"], c.get("dagger", False)
+        v = to_channels(psi[1 - p]).to(f32)
+        kw = dict(dagger=dagger, recon12=True, clover=c.get("clover"),
+                  cinv_ch=ops["ci"][p] if "clover" in c else None,
+                  xpay_coef=c.get("xpay"),
+                  x_ch=to_channels(x[p]).to(f32) if "xpay" in c else None)
+        f24 = t_faces(v, mesh)
+        f12 = t_faces(v, mesh, project=True, dagger=dagger)
+        g = ops["g"][p]
+        err["k4"] = max(err["k4"], _compare(
+            dslash_ch_local(g, v, *f24, p, geom, **kw),
+            dslash_ch_local_reference(g, v, *f24, p, geom, **kw),
+            f"K4 f32 {label}", F32_LIMIT))
+        err["k5"] = max(err["k5"], _compare(
+            dslash_ch_overlap(g, v, *f12, p, geom, faces_projected=True,
+                              **kw),
+            dslash_ch_local_reference(g, v, *f12, p, geom,
+                                      faces_projected=True, **kw),
+            f"K5 f32 {label}, 12-channel faces", F32_LIMIT))
+    g64 = ds._operands(f64, exact=True)["g"]
+    for p in (0, 1):
+        v = to_channels(psi[1 - p])
+        f24 = t_faces(v, mesh)
+        for dagger in (False, True):
+            err["k4"] = max(err["k4"], _compare(
+                dslash_ch_local(g64[p], v, *f24, p, geom, dagger,
+                                recon12=True),
+                dslash_ch_local_reference(g64[p], v, *f24, p, geom, dagger,
+                                          recon12=True),
+                f"K4 f64 hop parity {p} dagger {int(dagger)}", F64_LIMIT))
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_local_timing(geom, d, mesh):
+    """Phase 9c: K4 and K5 against their plain versions on the sharded
+    path's operands (``_main_path_local_checks``); then the bare float32
+    K4 hop, K5 (interior and edges, projected faces), K1 and the two
+    plain versions, timed in turns in one call (median of 5) at the size
+    of 9b, ring of one, with each kernel's output held against its plain
+    version's; then each hop with its exchange as the chain runs it, one
+    sharded matpc†matpc with each against the unsharded four-hop chain
+    and against the sharded chain's own form run unsharded (two matpc
+    halves through K1), and that chain's plain leading A⁻¹†.  Returns
+    the medians, the byte bounds of K4 and K5 and the largest absolute
+    errors against the plain versions."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.dirac import _ch_matrix_apply
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_local, dslash_ch_local_reference,
+        dslash_ch_overlap, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.halo import t_faces
+    from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+        halo_hop, shard_dirac)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    print(f"phase 9c: K4, K5, K1 and plain timed at {geom.dims}, ring of one "
+          f"(median of 5, in turns)", flush=True)
+    f32 = torch.float32
+    ds = shard_dirac(d, mesh)
+    gen = torch.Generator(device=DEVICE).manual_seed(53)
+    err = _main_path_local_checks(ds, mesh, gen)
+    pr = ds.params.matpc_parity
+    g = ds._operands(f32)["g"][pr]
+    v = to_channels(rng.random_spinor(gen, geom)[0]).to(f32)
+    f24 = t_faces(v, mesh)
+    fm, fp = t_faces(v, mesh, project=True)
+    hop = dict(recon12=True)
+    fns = {
+        "K4": lambda: dslash_ch_local(g, v, *f24, pr, geom, **hop),
+        "K5": lambda: dslash_ch_overlap(g, v, fm, fp, pr, geom,
+                                        faces_projected=True, **hop),
+        "K1": lambda: dslash_ch(g, v, pr, geom, **hop),
+        "K4 plain": lambda: dslash_ch_local_reference(g, v, *f24, pr, geom,
+                                                      **hop),
+        "K5 plain": lambda: dslash_ch_local_reference(
+            g, v, fm, fp, pr, geom, faces_projected=True, **hop),
+        "K4 hop with its exchange": lambda: halo_hop(mesh, False, g, v, pr,
+                                                     geom, **hop),
+        "K5 hop with its exchange": lambda: halo_hop(mesh, True, g, v, pr,
+                                                     geom, **hop),
+        "sharded matpc†matpc, K4": lambda: ds.matpc_ch(
+            ds.matpc_ch(v, False, False), True, False),
+        "sharded matpc†matpc, K5": lambda: ds.matpc_ch(
+            ds.matpc_ch(v, False, True), True, True),
+        "unsharded matpc†matpc, K1": lambda: d._fused_matpc_dagm_ch(v),
+        "unsharded, the sharded chain": lambda: d._fused_matpc_ch(
+            d._fused_matpc_ch(v, False), True),
+        "its plain A⁻¹† (kept matrices)": lambda: _ch_matrix_apply(
+            v, ds._clover_matrix(f32, pr), dag=True)}
+    n_runs = {k: (3 if "plain" in k else 10 if "matpc" in k else 20)
+              for k in fns}
+    out = {k: fns[k]() for k in ("K4", "K5", "K4 plain", "K5 plain")}
+    torch.cuda.synchronize()
+    for k in ("K4", "K5"):
+        err[k.lower()] = max(err[k.lower()], _compare(
+            out[k], out[f"{k} plain"], f"{k} bare hop (timed inputs)",
+            F32_LIMIT))
+    del out
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(5):
+        for k, fn in fns.items():
+            times[k].append(_time_ms(fn, n_runs[k]))
+    med = {k: statistics.median(t) for k, t in times.items()}
+    for k, t in med.items():
+        print(f"  {k:<28s} {t:.4f} ms", flush=True)
+    sites = geom.half_volume
+    bounds = {"K4": _bound(_nbytes(g, v, *f24, v), HOP_FLOPS * sites),
+              "K5": _bound(_nbytes(g, v, fm, fp, v), HOP_FLOPS * sites)}
+    for k, (ms, by) in bounds.items():
+        print(f"  {k} bound {ms:.4f} ms ({by}); kernel at "
+              f"{ms / med[k]:.2f} of it", flush=True)
+    return {"times": med, "bounds": bounds, "err": err}
+
+
 def main():
     _import_port()
     import torch
@@ -1498,6 +1865,10 @@ def main():
     spin = phase_bf16_spinor(SLICE_GEOM, CHECK_GEOM)
     cmix = phase_compact_mixed(SLICE_GEOM)
     big, _, _, _, err_48 = phase_compact48(BIG_GEOM)
+    err_9a = phase_local_kernels((CHECK_GEOM, SLICE_GEOM))
+    mesh_runs, t9 = phase_mesh_solve(SLICE_GEOM, k["secs"])
+    k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
+    k5 = mesh_runs[True]["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
     k1d_8 = cmix["k1d"] + cmix["k1d_sloppy_run"]["k1d"] + big["k1d"]
     print(f"dslash_ch launches: CG path {k['launches']}, MG path "
@@ -1505,7 +1876,8 @@ def main():
           f"phase 8 {k1_8}; bf16 (K1d): mixed path {mixed['k1d']}, "
           f"bf16-tier paths {k1d_paths}, phase 8 {k1d_8}; K2d: {k2d_paths}; "
           f"K1e: bench_bf16_spinor {spin['k1e']}, compact sloppy "
-          f"{cmix['k1e']}; K3: bench_recon8 {spin['k3']}")
+          f"{cmix['k1e']}; K3: bench_recon8 {spin['k3']}; K4: sharded "
+          f"path {k4}; K5: sharded path {k5}")
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
     msrc16 = times[f"K2d n={MSRC_TIME_N} clover fwd + xpay"]
@@ -1542,7 +1914,14 @@ def main():
         entry("dslash_ch_r8", R8_KERNEL_SOURCE, R8_KERNEL_REPLACES,
               spin["k3"], max(err_8a["k3"], spin["err"]["k3"]),
               spin["times"]["K3"], spin["times"]["K3 plain"],
-              spin["bounds"]["k3"])]}))
+              spin["bounds"]["k3"]),
+        entry("dslash_ch_local", LOCAL_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
+              k4, max(err_9a["k4"], t9["err"]["k4"]), t9["times"]["K4"],
+              t9["times"]["K4 plain"], t9["bounds"]["K4"]),
+        entry("dslash_ch_overlap", LOCAL_KERNEL_SOURCE,
+              OVERLAP_KERNEL_REPLACES, k5, max(err_9a["k5"], t9["err"]["k5"]),
+              t9["times"]["K5"], t9["times"]["K5 plain"],
+              t9["bounds"]["K5"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -32,6 +32,9 @@ _DSLASH_ARGTYPES = [_P] * 6 + [_I] * 8 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
 # (psi, g, cinv, x, out, n, T, Z, W, Xh, parity, dagger, recon12, twist,
 #  ta, tb, clover, xpay, xc, stream)
 _MSRC_ARGTYPES = [_P] * 5 + [_I] * 9 + [_D, _D, _I, _I, _D, _P]
+# (psi, g, cinv, x, out, face_m, face_p, face_ch, T, Z, W, Xh, parity, t0,
+#  tstep, nrows, dagger, recon12, twist, ta, tb, clover, xpay, xc, stream)
+_LOCAL_ARGTYPES = [_P] * 7 + [_I] * 12 + [_D, _D, _I, _I, _D, _P]
 ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f64": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES,
@@ -46,7 +49,12 @@ ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f32_g16c32_x16": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f32_g16c32_s16": _DSLASH_ARGTYPES,
                 # the recon-8 gauge (csrc/dslash_ch_r8.cu)
-                "qkx_dslash_ch_f32_r8": _DSLASH_ARGTYPES}
+                "qkx_dslash_ch_f32_r8": _DSLASH_ARGTYPES,
+                # the t-local hop of the sharded solve, K4 and K5
+                # (csrc/dslash_ch_local.cu)
+                "qkx_dslash_ch_local_f32": _LOCAL_ARGTYPES,
+                "qkx_dslash_ch_local_f64": _LOCAL_ARGTYPES,
+                "qkx_dslash_ch_local_f32_g16": _LOCAL_ARGTYPES}
 
 
 def _sources() -> list[Path]:

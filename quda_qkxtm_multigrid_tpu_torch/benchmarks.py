@@ -4,7 +4,8 @@ MG-GCR-PC solve, and the compact channel operator's paths.
 ``bench_cg`` times ``invert.invert`` on a random SU(3) gauge field and a
 point source: one cold solve, then one timed warm solve, with CG or one
 of the other solvers of ``invert`` (the mixed ones with a bf16 or a
-complex64 sloppy operator).  ``bench_mg``
+complex64 sloppy operator); ``bench_cg_mesh`` the same CG t-sharded on a
+ring of ranks.  ``bench_mg``
 times the multigrid setup and then one cold and one warm ``mg_solve``,
 and certifies the warm solution in complex128.  GFLOP/s counts one
 ``flops_per_mat`` per outer iteration, the JAX package's convention (the
@@ -48,6 +49,8 @@ from quda_qkxtm_multigrid_tpu_torch.ops.dslash import (
     WILSON_DSLASH_FLOPS_PER_SITE, double_gauge)
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     dslash_ch, dslash_ch_msrc, from_channels, gauge_channels, to_channels)
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh, shard_spinor
+from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import shard_dirac
 from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg, cg_mixed
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import defect_correction
 from quda_qkxtm_multigrid_tpu_torch.utils import rng
@@ -144,6 +147,28 @@ def bench_cg(geom: Geometry, tol: float = 1e-7, maxiter: int = 2000,
     fused = "-fused" if d._has_fused_matpc else ""
     return _cold_warm(lambda: invert(d, b, **kw), d, b.device,
                       solver + fused + (f"-{sloppy}" if sloppy else ""))
+
+
+def bench_cg_mesh(geom: Geometry, mesh: TMesh, overlap: bool = False,
+                  tol: float = 1e-7, maxiter: int = 2000,
+                  problem=None) -> tuple[dict, torch.Tensor]:
+    """``bench_cg`` for the t-sharded solve: the operator and source of
+    ``problem`` (made by ``make_problem`` on the mesh's device if not
+    given), cut to this rank's slab, solved cold and warm with
+    ``invert(mesh=mesh, overlap=overlap)``.  Returns the record (GFLOP/s
+    over the whole lattice; seconds on this rank's clock) and this
+    rank's slab of the warm solution."""
+    d, b = problem if problem is not None else make_problem(geom,
+                                                            mesh.device)
+    ds, bs = shard_dirac(d, mesh), shard_spinor(b, mesh)
+    last = {}
+
+    def solve():
+        last["out"] = invert(ds, bs, tol=tol, maxiter=maxiter, mesh=mesh,
+                             overlap=overlap)
+        return last["out"]
+    label = f"cg-sharded-nt{mesh.nt}" + ("-overlap" if overlap else "")
+    return _cold_warm(solve, ds, bs.device, label), last["out"].x
 
 
 def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,

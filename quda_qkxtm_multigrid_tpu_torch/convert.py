@@ -15,6 +15,9 @@ from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, DiracParams, make_dirac
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     BlockGeometry, Transfer, block_orthonormalize_flat, to_blocked_flat)
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh, t_slab
+from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+    ShardedDirac, shard_dirac)
 
 
 def spinor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -54,6 +57,20 @@ def dirac_from_numpy(u, params, geom: Geometry, clover=None,
         params = params_from_jax(params)
     return make_dirac(conv(u), params, geom, clover=conv(clover),
                       clover_inv=conv(clover_inv))
+
+
+def spinor_slab_from_numpy(a, mesh: TMesh) -> torch.Tensor:
+    """This rank's t-slab of a numpy field (any canonical layout, t the
+    axis −3) on the mesh's device."""
+    return t_slab(torch.tensor(np.asarray(a)), mesh)
+
+
+def sharded_dirac_from_numpy(u, params, geom: Geometry, mesh: TMesh,
+                             clover=None, clover_inv=None) -> ShardedDirac:
+    """``dirac_from_numpy`` on the whole lattice, on the mesh's device,
+    then this rank's slab of it (``parallel.sharded.shard_dirac``)."""
+    return shard_dirac(dirac_from_numpy(u, params, geom, clover, clover_inv,
+                                        device=mesh.device), mesh)
 
 
 def transfer_from_numpy(v, bg: BlockGeometry, dtype=torch.complex128,

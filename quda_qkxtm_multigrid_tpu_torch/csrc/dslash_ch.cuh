@@ -1,7 +1,8 @@
 // Device code of the fused Wilson hop (see dslash_ch.cu for what it
 // replaces and computes, the operand layout and what bounds it), and the
 // host-side launchers that the entry points of dslash_ch.cu,
-// dslash_ch_msrc.cu and dslash_ch_bf16.cu instantiate.
+// dslash_ch_msrc.cu, dslash_ch_bf16.cu, dslash_ch_bf16s.cu,
+// dslash_ch_r8.cu and dslash_ch_local.cu instantiate.
 //
 // Six types: R, the arithmetic type (float or double), and one storage
 // type for each operand: G the gauge, C the clover inverse, S psi, X x,
@@ -92,6 +93,20 @@ struct DslashArgs {
   R xc;
   int post;       // 0 none, 1 A^dag of the result, 2 b'(1 + i a' g5) with (pa, pb)
   R pa, pb;
+};
+
+// The t-local hop's own arguments (dslash_ch_local.cu, K4 and K5), a
+// second kernel parameter so that DslashArgs, and the code of every
+// other kernel, stay as they were.  t does not wrap there.  The launch
+// covers rows t0, t0 + tstep, ... (one per blockIdx.z).  The t-1
+// neighbour of row 0 and the t+1 neighbour of row T-1 are the planes
+// face_m and face_p (24 channels, or 12: the 2-spinor that the sender
+// already projected; TMODE 2 and 3 of dslash_site).
+template <typename S>
+struct LocalArgs {
+  const S* face_m;
+  const S* face_p;
+  int t0, tstep;
 };
 
 // One stored real, widened on load (bf16 -> float is exact).
@@ -199,11 +214,16 @@ __device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
 
 // soff: offset of one source's psi, x, out and out2 within a batch of
 // sources (0 for a single source); the gauge and clover are shared.
+// TMODE: how the t neighbours are found.  0: t wraps periodically
+// (K1, K2); the t-local hop, no wrap: 1 rows whose neighbours psi holds
+// (K5's interior); 2 rows -1 and T are the 24-channel faces of ``l``
+// (K4, K5's edges), a pointer swap and nothing else; 3 they are the
+// 12-channel projected faces (K5's edges; see LocalArgs).
 template <typename R, typename G, typename C, typename S, typename X,
-          typename O, bool DAG, int RECON>
+          typename O, bool DAG, int RECON, int TMODE = 0>
 __device__ __forceinline__ void dslash_site(
     const DslashArgs<R, G, C, S, X, O>& a, int t, int z, int w,
-    int64_t soff) {
+    int64_t soff, const LocalArgs<S>* l = nullptr) {
   constexpr bool RECON12 = RECON == 12;
   constexpr int NROWS = RECON12 ? 2 : 3;
   constexpr int NG = RECON == 8 ? 64 : NROWS * 48;
@@ -228,7 +248,10 @@ __device__ __forceinline__ void dslash_site(
       const int sgc = (fwd ? DAG : !DAG) ? 0 : 2;
       int tn = t, zn = z, wn = w;
       if (mu == 3) {
-        tn = fwd ? (t + 1 == a.T ? 0 : t + 1) : (t == 0 ? a.T - 1 : t - 1);
+        if constexpr (TMODE == 0)
+          tn = fwd ? (t + 1 == a.T ? 0 : t + 1) : (t == 0 ? a.T - 1 : t - 1);
+        else
+          tn = fwd ? t + 1 : t - 1;   // -1 and T: a face
       } else if (mu == 2) {
         zn = fwd ? (z + 1 == a.Z ? 0 : z + 1) : (z == 0 ? a.Z - 1 : z - 1);
       } else if (mu == 1) {
@@ -240,15 +263,29 @@ __device__ __forceinline__ void dslash_site(
         wn = s0 ? (k == 0 ? w + (a.Xh - 1) : w - 1) : w;
       }
       const S* pn = a.psi + soff + (int64_t)tn * 24 * zw + (int64_t)zn * a.W + wn;
+      bool projected = false;   // pn holds the 2-spinor hs itself
+      if constexpr (TMODE >= 2) {
+        if (mu == 3 && (fwd ? tn == a.T : tn < 0)) {
+          pn = (fwd ? l->face_p : l->face_m) + site;
+          projected = TMODE == 3;
+        }
+      }
 
       Cplx<R> hs[2][3];
+      if (projected) {
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
+        for (int s = 0; s < 2; ++s)
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          hs[s][c] = cadd(load_c<R>(pn, (s * 3 + c) * 2, zw),
-                          mul_phase(gamma_phase(mu, s) + sgc,
-                                    load_c<R>(pn, (gamma_col(mu, s) * 3 + c) * 2, zw)));
+          for (int c = 0; c < 3; ++c) hs[s][c] = load_c<R>(pn, (s * 3 + c) * 2, zw);
+      } else {
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            hs[s][c] = cadd(load_c<R>(pn, (s * 3 + c) * 2, zw),
+                            mul_phase(gamma_phase(mu, s) + sgc,
+                                      load_c<R>(pn, (gamma_col(mu, s) * 3 + c) * 2, zw)));
+      }
 
       Cplx<R> u[3][3];
       if constexpr (RECON == 8) {
@@ -350,6 +387,19 @@ __global__ void __launch_bounds__(kThreads)
   dslash_site<R, G, C, S, X, O, DAG, RECON>(a, (int)blockIdx.z,
                                             (int)blockIdx.y, w,
                                             s * per_source);
+}
+
+// The t-local hop (K4, K5; TMODE 1, 2 or 3): one thread per output site
+// of rows t0, t0 + tstep, ...: grid (ceil(W / blockDim.x), Z, rows).
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, int RECON, int TMODE>
+__global__ void __launch_bounds__(kThreads)
+    dslash_ch_local_kernel(const DslashArgs<R, G, C, S, X, O> a,
+                           const LocalArgs<S> l) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= a.W) return;
+  dslash_site<R, G, C, S, X, O, DAG, RECON, TMODE>(
+      a, l.t0 + (int)blockIdx.z * l.tstep, (int)blockIdx.y, w, 0, &l);
 }
 
 // ---- host side ------------------------------------------------------
@@ -464,6 +514,56 @@ int launch_dslash_msrc(const void* psi, const void* g, const void* cinv,
     if (recon12) dslash_ch_msrc_kernel<R, G, C, S, X, O, false, 12><<<grid, block, 0, s>>>(a, n);
     else dslash_ch_msrc_kernel<R, G, C, S, X, O, false, 18><<<grid, block, 0, s>>>(a, n);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The t-local hop's instance for the mode: 1 no faces, 2 faces of 24
+// channels, 3 of 12 (see dslash_site).
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG>
+void launch_local_mode(int mode, dim3 grid, dim3 block, cudaStream_t s,
+                       const DslashArgs<R, G, C, S, X, O>& a,
+                       const LocalArgs<S>& l) {
+  if (mode == 1)
+    dslash_ch_local_kernel<R, G, C, S, X, O, DAG, 12, 1><<<grid, block, 0, s>>>(a, l);
+  else if (mode == 2)
+    dslash_ch_local_kernel<R, G, C, S, X, O, DAG, 12, 2><<<grid, block, 0, s>>>(a, l);
+  else
+    dslash_ch_local_kernel<R, G, C, S, X, O, DAG, 12, 3><<<grid, block, 0, s>>>(a, l);
+}
+
+// The t-local hop (recon-12 only, no second output): ``nrows`` output
+// rows t0, t0 + tstep, ... of a block of T rows; faces as in LocalArgs,
+// both given or both null (then no output row may be 0 or T-1: K5's
+// interior).  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// without launching for another gauge form, no rows, one face alone or
+// a face of neither 24 nor 12 channels.
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O>
+int launch_dslash_local(const void* psi, const void* g, const void* cinv,
+                        const void* x, void* out, const void* face_m,
+                        const void* face_p, int face_ch, int T, int Z, int W,
+                        int Xh, int parity, int t0, int tstep, int nrows,
+                        int dagger, int recon12, int twist, double ta,
+                        double tb, int clover, int xpay, double xc,
+                        void* stream) {
+  const bool faces = face_m != nullptr;
+  if (!recon12 || nrows < 1 || faces != (face_p != nullptr) ||
+      (face_ch != 24 && face_ch != 12))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
+      psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity, twist, ta, tb,
+      clover, xpay, xc, 0, 0.0, 0.0);
+  const LocalArgs<S> l = {static_cast<const S*>(face_m),
+                          static_cast<const S*>(face_p), t0, tstep};
+  const dim3 block(kThreads);
+  const dim3 grid((W + kThreads - 1) / kThreads, Z, nrows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = !faces ? 1 : (face_ch == 24 ? 2 : 3);
+  if (dagger)
+    launch_local_mode<R, G, C, S, X, O, true>(mode, grid, block, s, a, l);
+  else
+    launch_local_mode<R, G, C, S, X, O, false>(mode, grid, block, s, a, l);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -173,13 +173,14 @@ class Dirac(nn.Module):
         self._ch_cache = {}     # .to() / .cuda(): rebuild on the new device
         return super()._apply(*args, **kwargs)
 
-    def _operands(self, dtype: torch.dtype) -> dict:
+    def _operands(self, dtype: torch.dtype, exact: bool = False) -> dict:
         """Channel operands of both parities for spinors of real
         ``dtype``: recon-12 gauge ``g`` [T,96,Z,W] and clover inverse
-        ``ci`` [T,144,Z,W], in ``dtype`` or, in the bf16 tier, in
-        bfloat16.  Built once per operand dtype (which names the tier)
-        and reused by every hop."""
-        op = torch.bfloat16 if self.params.kernel_bf16 else dtype
+        ``ci`` [T,144,Z,W], in ``dtype`` or, in the bf16 tier unless
+        ``exact``, in bfloat16.  Built once per operand dtype (which
+        names the tier) and reused by every hop."""
+        op = (torch.bfloat16 if self.params.kernel_bf16 and not exact
+              else dtype)
         if op not in self._ch_cache:
             ops = {"g": [gauge_channels(self.u_doubled, p, True, op)
                          for p in (0, 1)]}
@@ -193,9 +194,9 @@ class Dirac(nn.Module):
         """The clover inverse of ``parity`` as complex matrices
         (``_ch_clover_matrix``) for spinors of real ``dtype``, made from
         the channel operand once and kept: the leading A⁻¹† of the
-        multi-source dagger half reads it on every call (the multi-source
-        path runs on float32 spinors: one parity in complex64, 0.6 GB at
-        32³×64)."""
+        multi-source and of the sharded dagger half reads it on every
+        call (both run on float32 spinors: one parity in complex64, 0.6
+        GB at 32³×64)."""
         key = ("matrix", dtype, parity)
         if key not in self._ch_cache:
             self._ch_cache[key] = _ch_clover_matrix(
@@ -261,13 +262,14 @@ class Dirac(nn.Module):
                     clover="fwd", cinv_ch=ci[1 - pr])
             return hop(g[pr], t, pr, self.geom, recon12=True, clover="fwd",
                        cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch)
-        if hop is dslash_ch_msrc:
-            # every matvec of the multi-source CG: keep the matrices
+        if hop is dslash_ch:
+            t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
+        else:
+            # every matvec of the multi-source CG or of the sharded CG
+            # (its halo hop): keep the matrices
             t = _ch_matrix_apply(psi_ch,
                                  self._clover_matrix(psi_ch.dtype, pr),
                                  dag=True)
-        else:
-            t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
         t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, recon12=True,
                 clover="dag", cinv_ch=ci[1 - pr])
         return hop(g[pr], t, pr, self.geom, dagger=True, recon12=True,

@@ -6,7 +6,9 @@ and report the true residual of the full operator in the source's
 precision.  Solvers: "cg" and its mixed-precision form "cg-mixed" on the
 normal equations M_pc† M_pc x_p = M_pc† src; "bicgstab" and
 "bicgstab-mixed" on M_pc x_p = src.  A ``compact.CompactDirac`` solves
-with "cg" only, through ``compact.invert_compact_full``.
+with "cg" only, through ``compact.invert_compact_full``.  With ``mesh``
+the solve runs t-sharded, one rank's slab per process
+(``parallel.sharded``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     from_channels, to_channels)
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh
+from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import ShardedDirac
 from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import (
     bicgstab, bicgstab_mixed)
 from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg, cg_mixed
@@ -60,7 +64,8 @@ def _default_sloppy(dirac: Dirac) -> Dirac:
 def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
            maxiter: int = 1000, solver: str = "cg",
            sloppy_dirac: Dirac | None = None,
-           inner_tol: float = 1e-2) -> InvertResult:
+           inner_tol: float = 1e-2, mesh: TMesh | None = None,
+           overlap: bool = False) -> InvertResult:
     """Solve M x = b with ``solver`` (one of ``SOLVERS``) on the even-odd
     preconditioned system.  The mixed solvers run their inner solve on
     ``sloppy_dirac`` (``_default_sloppy`` if None; the bf16 tier is
@@ -83,9 +88,23 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
     outer matvec is float32 (its ``matpc_dagm``): the card has native
     float64, so the outer here certifies the tolerance in complex128.
     Source preparation, reconstruction and the true residual stay in the
-    fields' precision."""
+    fields' precision.
+
+    ``mesh`` runs the t-sharded solve (``_invert_sharded``): ``dirac`` is
+    this rank's ``parallel.sharded.shard_dirac`` on that mesh and ``b``
+    its ``shard_spinor``; the result holds this rank's slab of x and the
+    whole lattice's true residual.  ``overlap`` picks K5 for the chain's
+    hops instead of K4 (the JAX package's ``None``, read from its tuned
+    policy, has no counterpart: the choice is the caller's)."""
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; one of {SOLVERS}")
+    if isinstance(dirac, CompactDirac) and mesh is not None:
+        raise ValueError("a CompactDirac is the one-card path for volumes "
+                         "the card's memory limits; shard the full Dirac "
+                         "instead")
+    if mesh is not None or isinstance(dirac, ShardedDirac):
+        return _invert_sharded(dirac, b, tol, maxiter, solver,
+                               sloppy_dirac, mesh, overlap)
     if isinstance(dirac, CompactDirac):
         if solver != "cg":
             raise ValueError(f"a CompactDirac solves with solver='cg' only, "
@@ -130,6 +149,44 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
     return InvertResult(x, res.iters, float(rel), res.stats)
 
 
+def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,
+                    maxiter: int, solver: str, sloppy_dirac, mesh: TMesh,
+                    overlap: bool) -> InvertResult:
+    """The t-sharded solve (the JAX package's ``invert(mesh=…)``): CG on
+    the float32 sharded chain ``dirac.matpc_ch`` (four halo hops an
+    iteration, K4 or with ``overlap`` K5), its reductions summed over
+    the ring; prepare, the right-hand side's matpc†, reconstruct and the
+    true residual in the fields' precision through the slab's K4 hop
+    (float64 for complex128).  "cg" only."""
+    if solver != "cg":
+        raise ValueError(f"a sharded solve (mesh=...) runs solver='cg' "
+                         f"only, not {solver!r}")
+    if sloppy_dirac is not None:
+        raise ValueError("a sharded solve takes no sloppy operator")
+    if not isinstance(dirac, ShardedDirac):
+        raise ValueError("mesh= needs this rank's slab of the operator: "
+                         "parallel.sharded.shard_dirac(dirac, mesh)")
+    if mesh is not dirac.mesh:
+        raise ValueError("a ShardedDirac solves on its own mesh: pass "
+                         "mesh=dirac.mesh")
+    if not dirac.has_sharded_chain:
+        raise ValueError("the sharded solve needs the fused chain: "
+                         "use_kernels, the symmetric Schur form and a "
+                         "twisted or clover kind")
+    src = dirac.prepare(b)
+    rhs = dirac.matpc(src, dagger=True)
+
+    def matvec(v):
+        return dirac.matpc_ch(dirac.matpc_ch(v, False, overlap), True,
+                              overlap)
+
+    res = cg(matvec, to_channels(rhs).to(torch.float32), tol=tol,
+             maxiter=maxiter, allreduce=mesh.allreduce)
+    x = dirac.reconstruct(from_channels(res.x, (4, 3)).to(rhs.dtype), b)
+    _, rel = true_residual(dirac, x, b)
+    return InvertResult(x, res.iters, float(rel))
+
+
 def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
                 maxiter: int = 1000) -> InvertResult:
     """Solve M x_i = b_i for a batch bs [n, 2,4,3,T,Z,W] with one
@@ -140,7 +197,11 @@ def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
     fused kernel chain the CG runs on float32 channels [n, T, 24, Z, W]
     and each matvec is two multi-source matpc halves, i.e. four
     multi-source kernel launches (K2d in the bf16 tier).  ``true_res``
-    is the worst source's |M x_i − b_i| / |b_i|."""
+    is the worst source's |M x_i − b_i| / |b_i|.  A ``ShardedDirac``
+    raises: the multi-source CG has no sharded form yet."""
+    if isinstance(dirac, ShardedDirac):
+        raise ValueError("invert_msrc has no sharded form: its reductions "
+                         "would stay on this rank's slab")
     rhs = torch.stack([dirac.matpc(dirac.prepare(b), dagger=True)
                        for b in bs])
     if dirac._has_fused_matpc:
@@ -163,6 +224,11 @@ def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
 
 
 def true_residual(dirac: Dirac, x: torch.Tensor, b: torch.Tensor):
-    """(r, |r|/|b|) of the full operator, |r|/|b| as a 0-d tensor."""
+    """(r, |r|/|b|) of the full operator, |r|/|b| as a 0-d tensor; for a
+    ``ShardedDirac`` r is this rank's slab and the norms the whole
+    lattice's."""
     r = b - dirac.m(x)
+    if isinstance(dirac, ShardedDirac):
+        red = dirac.mesh.allreduce
+        return r, torch.sqrt(red(norm2(r)) / red(norm2(b)))
     return r, torch.sqrt(norm2(r) / norm2(b))

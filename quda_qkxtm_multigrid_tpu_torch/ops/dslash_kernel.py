@@ -42,11 +42,22 @@ operand dtypes pick the kernel instance (``_kernel_form``, the table
 ``_FORMS``); on a CUDA tensor a bf16 operand launches its instance in
 ``csrc/dslash_ch_bf16.cu`` or ``csrc/dslash_ch_bf16s.cu`` or raises,
 never a float32 kernel on widened copies.
+
+The t-sharded solve (``parallel/``) runs the t-local hop of
+``csrc/dslash_ch_local.cu``, the counterparts of the JAX package's
+``dslash_ch_pallas5_local`` (K4) and ``dslash_ch_pallas5_overlap_local``
+(K5): ``dslash_ch_local`` on a t-slab [T_loc, 24, Z, W] and the
+neighbour ranks' two planes, in one launch, and ``dslash_ch_overlap``,
+which launches the interior rows before the faces have to be there and
+the two edge rows after.  Same hop and epilogues (no ``post_op``), no
+wrap in t; recon-12, in float32, float64 (bare) or the bf16 operand
+tier; one plain version, ``dslash_ch_local_reference``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -125,10 +136,12 @@ def _widen(t):
     return t.to(torch.float32) if t is not None and t.dtype == _BF16 else t
 
 
+@functools.lru_cache(maxsize=None)
 def _proj_rank2(mu: int, plus: bool):
     """Rank-2 structure of 1 ± gamma_mu: the upper rows as (column, coef)
     lists and each lower row as (upper row, phase).  Every phase is one
-    of ±1, ±i."""
+    of ±1, ±i.  Computed once per (mu, plus): the hops' callers read it
+    on every call (do not modify the lists)."""
     P = _g.PROJ[mu, 1 if plus else 0]
     upper = [[(t, complex(P[s, t])) for t in range(4) if abs(P[s, t]) > 1e-12]
              for s in (0, 1)]
@@ -204,6 +217,50 @@ def _g5_rotate(v: torch.Tensor, a: float, b: float) -> torch.Tensor:
     return b * (v + (1j * a) * g5 * v)
 
 
+def _project(nb: torch.Tensor, mu: int, plus: bool) -> torch.Tensor:
+    """The upper two rows of (1 ± γ_mu) nb for a spinor nb [4, 3, ...]:
+    the 2-spinor [2, 3, ...] that the hop multiplies by the link."""
+    upper, _ = _proj_rank2(mu, plus)
+    return torch.stack([sum(coef * nb[t] for t, coef in upper[s])
+                        for s in (0, 1)])
+
+
+def _hop_plain(psi, u, parity: int, geom: Geometry, dagger: bool,
+               t_halves=None) -> torch.Tensor:
+    """The rank-2 projected hop of a complex spinor ψ [4, 3, T, Z, W] on
+    the links ``u`` [4, 2, 3, 3, T, Z, W] of ``_links``.  ``t_halves``
+    gives the projected t neighbours (``_project`` of ψ(x+t̂) and of
+    ψ(x−t̂), [2, 3, T, Z, W] each) of a block that does not wrap in t;
+    None wraps t periodically."""
+    acc = [None] * 4
+    for mu in range(4):
+        for fb, (fwd, plus) in enumerate(((True, dagger),
+                                          (False, not dagger))):
+            if mu == 3 and t_halves is not None:
+                h = t_halves[fb]
+            else:
+                h = _project(gather_neighbor(psi, mu, fwd, parity, geom), mu,
+                             plus)
+            _, recon = _proj_rank2(mu, plus)
+            uh = su3_mul(u[mu, 0], h) if fb == 0 else su3_dag_mul(u[mu, 1], h)
+            rows = [uh[0], uh[1], recon[0][1] * uh[recon[0][0]],
+                    recon[1][1] * uh[recon[1][0]]]
+            acc = [r if a is None else a + r for a, r in zip(acc, rows)]
+    return torch.stack(acc)
+
+
+def _epilogues(res, cinv_ch, clover, twist, xpay_coef, x_ch):
+    """The chiral clover (or twist), then xpay, on a hop result."""
+    if clover is not None:
+        res = clover_apply(from_channels(cinv_ch, (2, 6, 6)), res,
+                           dagger=clover == "dag")
+    if twist is not None:
+        res = _g5_rotate(res, *twist)
+    if xpay_coef is not None:
+        res = from_channels(x_ch, (4, 3)) + xpay_coef * res
+    return res
+
+
 def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
                         dagger: bool = False, recon12: bool = False,
                         twist=None, xpay_coef=None, x_ch=None, clover=None,
@@ -224,28 +281,9 @@ def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
         if post_op is None:
             return res.to(_BF16)
         return tuple(r.to(_BF16) for r in res)
-    psi = from_channels(psi_ch, (4, 3))
-    u = _links(g_ch, recon12, recon8)
-    acc = [None] * 4
-    for mu in range(4):
-        for fb, (fwd, plus) in enumerate(((True, dagger),
-                                          (False, not dagger))):
-            nb = gather_neighbor(psi, mu, fwd, parity, geom)
-            upper, recon = _proj_rank2(mu, plus)
-            h = torch.stack([sum(coef * nb[t] for t, coef in upper[s])
-                             for s in (0, 1)])
-            uh = su3_mul(u[mu, 0], h) if fb == 0 else su3_dag_mul(u[mu, 1], h)
-            rows = [uh[0], uh[1], recon[0][1] * uh[recon[0][0]],
-                    recon[1][1] * uh[recon[1][0]]]
-            acc = [r if a is None else a + r for a, r in zip(acc, rows)]
-    res = torch.stack(acc)
-    if clover is not None:
-        res = clover_apply(from_channels(cinv_ch, (2, 6, 6)), res,
-                           dagger=clover == "dag")
-    if twist is not None:
-        res = _g5_rotate(res, *twist)
-    if xpay_coef is not None:
-        res = from_channels(x_ch, (4, 3)) + xpay_coef * res
+    res = _hop_plain(from_channels(psi_ch, (4, 3)),
+                     _links(g_ch, recon12, recon8), parity, geom, dagger)
+    res = _epilogues(res, cinv_ch, clover, twist, xpay_coef, x_ch)
     out = to_channels(res)
     if post_op is None:
         return out
@@ -261,13 +299,16 @@ class _Form(NamedTuple):
     """One kernel instance: its C entry point ``qkx_dslash_ch_<name>``,
     the dtypes of (gauge, clover inverse, ψ, x, out) it takes (None: the
     operand must be absent), whether it takes the bare hop only, the
-    gauge forms it is built for (8, 12, 18) and the counter on
-    ``dslash_ch`` that its launches add to."""
+    gauge forms it is built for (8, 12, 18), the counter on its wrapper
+    that its launches add to, and the hop it is an instance of: "k1"
+    (``dslash_ch``) or "local" (the t-local hop of ``dslash_ch_local``
+    and ``dslash_ch_overlap``)."""
     name: str
     dtypes: tuple
     bare: bool
     recons: tuple
     counter: str
+    kernel: str = "k1"
 
 
 _FORMS = (
@@ -292,23 +333,32 @@ _FORMS = (
           "launches_bf16s"),
     # K3, the recon-8 gauge (csrc/dslash_ch_r8.cu)
     _Form("f32_r8", (_F32,) * 5, False, (8,), "launches_r8"),
+    # K4 and K5, the t-local hop of the sharded solve
+    # (csrc/dslash_ch_local.cu): the float32 chain, the float64 full
+    # operator (bare), the chain in the bf16 operand tier
+    _Form("local_f32", (_F32,) * 5, False, (12,), "launches", "local"),
+    _Form("local_f64", (_F64,) * 5, True, (12,), "launches", "local"),
+    _Form("local_f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False, (12,),
+          "launches_bf16", "local"),
 )
 _FORM_BY_NAME = {f.name: f for f in _FORMS}
 
 
 def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool,
-                 out_dtype=None, recon: int = 12) -> str:
-    """The kernel instance that the operand dtypes, ``out_dtype`` (None:
-    float64 for a float64 ψ, else float32) and the gauge form ``recon``
-    select, as the suffix of its C entry point: the first entry of
-    ``_FORMS`` whose dtypes the present operands have and that takes
-    this gauge form (and epilogues, for a bare-only instance).  Raises on
-    any other mix: no operand is ever upcast to reach a kernel."""
+                 out_dtype=None, recon: int = 12, kernel: str = "k1") -> str:
+    """The instance of hop ``kernel`` that the operand dtypes,
+    ``out_dtype`` (None: float64 for a float64 ψ, else float32) and the
+    gauge form ``recon`` select, as the suffix of its C entry point: the
+    first entry of ``_FORMS`` for that hop whose dtypes the present
+    operands have and that takes this gauge form (and epilogues, for a
+    bare-only instance).  Raises on any other mix: no operand is ever
+    upcast to reach a kernel."""
     if out_dtype is None:
         out_dtype = _F64 if psi_ch.dtype == _F64 else _F32
     have = (g_ch.dtype, None if cinv_ch is None else cinv_ch.dtype,
             psi_ch.dtype, None if x_ch is None else x_ch.dtype, out_dtype)
-    for form in _FORMS:
+    forms = [f for f in _FORMS if f.kernel == kernel]
+    for form in forms:
         if recon not in form.recons or (form.bare and not bare):
             continue
         if all(h is None or h == w for h, w in zip(have, form.dtypes)):
@@ -317,12 +367,12 @@ def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool,
     mix = ", ".join(f"{n} {h}" for n, h in zip(names, have) if h is not None)
     raise TypeError(f"no kernel takes {mix} with recon-{recon}"
                     f"{'' if bare else ' and epilogues'}; the forms are "
-                    f"{[f.name for f in _FORMS]}")
+                    f"{[f.name for f in forms]}")
 
 
 def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
                     clover, cinv_ch, post_op, out_dtype=None,
-                    recon8: bool = False) -> str:
+                    recon8: bool = False, kernel: str = "k1") -> str:
     """Raise on anything the kernel (and its plain version) does not take;
     returns the kernel form (``_kernel_form``)."""
     shape = (geom.T, 24, geom.Z, geom.W)
@@ -356,7 +406,8 @@ def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
     form = _kernel_form(
         g_ch, psi_ch, None if clover is None else cinv_ch, x_ch,
         bare=twist is None and clover is None and x_ch is None
-        and post_op is None, out_dtype=out_dtype, recon=recon)
+        and post_op is None, out_dtype=out_dtype, recon=recon,
+        kernel=kernel)
     tensors = {"psi_ch": psi_ch, **{k: v[0] for k, v in want.items()}}
     for name, (t, shp) in want.items():
         if tuple(t.shape) != shp:
@@ -536,3 +587,222 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
 
 dslash_ch_msrc.launches = 0
 dslash_ch_msrc.launches_bf16 = 0
+
+
+# ---- the t-local hop of the t-sharded solve (K4, K5) ----------------------
+
+def _t_halves(fwd_rows, bwd_rows, dagger: bool):
+    """The projected t neighbours of a block for ``_hop_plain``: from the
+    complex spinors ψ(x+t̂) and ψ(x−t̂) [4, 3, T, Z, W] of its rows."""
+    return _project(fwd_rows, 3, dagger), _project(bwd_rows, 3, not dagger)
+
+
+def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
+                              geom_local: Geometry, dagger: bool = False,
+                              recon12: bool = False, twist=None,
+                              xpay_coef=None, x_ch=None, clover=None,
+                              cinv_ch=None, faces_projected: bool = False):
+    """Plain PyTorch version of ``dslash_ch_local`` and, with the same
+    arguments, of ``dslash_ch_overlap``: the hop of the local rows ψ
+    [T, 24, Z, W], whose t−1 neighbour of row 0 is ``face_m`` and t+1
+    neighbour of row T−1 is ``face_p`` ([1, 24, Z, W], or the projected
+    2-spinors [1, 12, Z, W] of ``halo.project_face`` with
+    ``faces_projected``), no wrap in t; then the epilogues, x
+    [T, 24, Z, W].  bf16 operands are widened to float32."""
+    g_ch, psi_ch, cinv_ch = _widen(g_ch), _widen(psi_ch), _widen(cinv_ch)
+    psi = from_channels(psi_ch, (4, 3))
+
+    def face(f, plus):
+        if faces_projected:
+            return from_channels(f, (2, 3))
+        return _project(from_channels(f, (4, 3)), 3, plus)
+    up, down = _t_halves(psi[:, :, 1:], psi[:, :, :-1], dagger)
+    halves = (torch.cat([up, face(face_p, dagger)], dim=2),
+              torch.cat([face(face_m, not dagger), down], dim=2))
+    res = _hop_plain(psi, _links(g_ch, recon12), parity, geom_local, dagger,
+                     halves)
+    return to_channels(_epilogues(res, cinv_ch, clover, twist, xpay_coef,
+                                  _widen(x_ch)))
+
+
+def _launch_local(lib, form: str, g_ch, psi_ch, out, face_m, face_p,
+                  face_ch: int, rows, parity: int, geom: Geometry, dagger,
+                  twist, xpay_coef, x_ch, clover, cinv_ch,
+                  stream: int) -> int:
+    """Call the C entry point ``qkx_dslash_ch_<form>`` of the t-local hop
+    for the output ``rows`` = (t0, tstep, nrows), the faces of
+    ``face_ch`` channels (both None: no output row may read one).
+    Returns its CUDA error code."""
+    fn = getattr(lib, f"qkx_dslash_ch_{form}")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ta, tb = twist if twist is not None else (0.0, 0.0)
+    t0, tstep, nrows = rows
+    return fn(ptr(psi_ch), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
+              ptr(face_m), ptr(face_p), face_ch, geom.T, geom.Z, geom.W,
+              geom.Xh, parity, t0, tstep, nrows, int(dagger), 1,
+              int(twist is not None), ta, tb, _CLOVER_MODES[clover],
+              int(xpay_coef is not None),
+              0.0 if xpay_coef is None else xpay_coef,
+              ctypes.c_void_p(stream))
+
+
+def _k4_launches(g_ch, psi_ch, face_m, face_p, parity, geom, dagger, twist,
+                 xpay_coef, x_ch, clover, cinv_ch):
+    """K4's one launch (keywords of ``_launch_local``): every row, the
+    24-channel faces read in place."""
+    return [dict(g_ch=g_ch, psi_ch=psi_ch, face_m=face_m, face_p=face_p,
+                 face_ch=24, rows=(0, 1, geom.T), parity=parity, geom=geom,
+                 dagger=dagger, twist=twist, xpay_coef=xpay_coef, x_ch=x_ch,
+                 clover=clover, cinv_ch=cinv_ch)]
+
+
+def _k5_launches(g_ch, psi_ch, face_m, face_p, parity, geom, dagger, twist,
+                 xpay_coef, x_ch, clover, cinv_ch, faces_projected):
+    """K5's two launches: the interior rows 1..T−2 without faces, then
+    the edge rows 0 and T−1 with them."""
+    common = dict(g_ch=g_ch, psi_ch=psi_ch, parity=parity, geom=geom,
+                  dagger=dagger, twist=twist, xpay_coef=xpay_coef, x_ch=x_ch,
+                  clover=clover, cinv_ch=cinv_ch)
+    return [dict(common, face_m=None, face_p=None, face_ch=24,
+                 rows=(1, 1, geom.T - 2)),
+            dict(common, face_m=face_m, face_p=face_p,
+                 face_ch=12 if faces_projected else 24,
+                 rows=(0, geom.T - 1, 2))]
+
+
+def _run_launches(lib, form: str, out, launches, wait, stream: int,
+                  name: str):
+    """Make ``launches`` (keyword sets of ``_launch_local``) in order,
+    calling ``wait`` (if given) after the first; raise on a CUDA
+    error."""
+    for i, kw in enumerate(launches):
+        err = _launch_local(lib, form, out=out, stream=stream, **kw)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed "
+                               f"(qkx_dslash_ch_{form}): CUDA error {err}")
+        if i == 0 and wait is not None:
+            wait()
+
+
+def _run_local(wrapper, form, psi_ch, out, launches, wait=None):
+    """``_run_launches`` on ``psi_ch``'s card and current stream; each
+    launch adds one to ``wrapper``'s counter."""
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
+    with torch.cuda.device(psi_ch.device):
+        _run_launches(lib, form, out, launches, wait, stream,
+                      wrapper.__name__)
+    counter = _FORM_BY_NAME[form].counter
+    setattr(wrapper, counter, getattr(wrapper, counter) + len(launches))
+
+
+def _device_check(name: str, psi_ch):
+    if psi_ch.device.type != "cuda":
+        raise ValueError(f"no {name} for device {psi_ch.device}")
+
+
+def _check_faces(face_m, face_p, psi_ch, faces_projected: bool):
+    ch = 12 if faces_projected else 24
+    shape = (1, ch) + tuple(psi_ch.shape[2:])
+    for name, f in (("face_m", face_m), ("face_p", face_p)):
+        if tuple(f.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(f.shape)} != {shape}")
+        if f.dtype != psi_ch.dtype or f.device != psi_ch.device:
+            raise ValueError(f"{name} is {f.dtype} on {f.device}: the faces "
+                             f"are in ψ's storage, {psi_ch.dtype} on "
+                             f"{psi_ch.device}")
+        if not f.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity: int,
+                    geom_local: Geometry, dagger: bool = False,
+                    recon12: bool = False, twist=None, xpay_coef=None,
+                    x_ch=None, clover=None, cinv_ch=None):
+    """K4: the fused hop with epilogues on the local rows ψ
+    [T, 24, Z, W] of a t-slab, whose t−1 neighbour of row 0 is
+    ``face_m`` and t+1 neighbour of row T−1 is ``face_p`` ([1, 24, Z, W]
+    each, in ψ's dtype: the planes of the t−1 and t+1 ranks), out and x
+    [T, 24, Z, W]; gauge and clover inverse [T, C, Z, W] of the slab.
+    Recon-12, no second output; the slab's origin must be even (T even),
+    so the checkerboard phase is the global one.
+
+    A CUDA ψ makes one launch of ``csrc/dslash_ch_local.cu`` over every
+    row, the faces read where they lie (the instance from ``_FORMS``:
+    float32, float64 bare, or the bf16 operand tier), adding one to
+    ``dslash_ch_local.launches`` or ``.launches_bf16``; a CPU ψ runs
+    ``dslash_ch_local_reference``.  Anything else raises."""
+    form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
+                           xpay_coef, x_ch, clover, cinv_ch, None,
+                           kernel="local")
+    _check_faces(face_m, face_p, psi_ch, False)
+    if psi_ch.device.type == "cpu":
+        return dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p,
+                                         parity, geom_local, dagger, recon12,
+                                         twist, xpay_coef, x_ch, clover,
+                                         cinv_ch)
+    _device_check("dslash_ch_local", psi_ch)
+    out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
+                      device=psi_ch.device)
+    _run_local(dslash_ch_local, form, psi_ch, out, _k4_launches(
+        g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger, twist,
+        xpay_coef, x_ch, clover, cinv_ch))
+    return out
+
+
+dslash_ch_local.launches = 0
+dslash_ch_local.launches_bf16 = 0
+
+
+def dslash_ch_overlap(g_ch, psi_ch, face_m, face_p, parity: int,
+                      geom_local: Geometry, dagger: bool = False,
+                      recon12: bool = False, twist=None, xpay_coef=None,
+                      x_ch=None, clover=None, cinv_ch=None,
+                      faces_projected: bool = False, wait=None):
+    """K5: the t-local hop split into interior and edges, on the local
+    rows ψ [T, 24, Z, W], x [T, 24, Z, W], with the t−1 neighbour plane
+    of row 0 ``face_m`` and the t+1 neighbour plane of row T−1
+    ``face_p``: [1, 24, Z, W], or [1, 12, Z, W] spin-projected by the
+    sender (``faces_projected``, ``halo.project_face``), in ψ's dtype.
+
+    On a CUDA ψ one launch covers the interior rows 1..T−2, which need
+    no face; then ``wait`` (if given: the halo exchange's, so that the
+    faces are in flight during the interior launch) runs; then one launch
+    covers the two edge rows.  Each launch adds one to
+    ``dslash_ch_overlap.launches`` (``.launches_bf16`` in the bf16 operand
+    tier).  A CPU ψ waits, then runs ``dslash_ch_local_reference``.
+    For T ≤ 2 there is no interior: the faces must be unprojected, and
+    K4 runs (``dslash_ch_local``)."""
+    t = geom_local.T
+    if t <= 2:
+        if faces_projected:
+            raise ValueError("projected faces need T_loc > 2 (no "
+                             "interior/edge split at T_loc <= 2)")
+        if wait is not None:
+            wait()
+        return dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity,
+                               geom_local, dagger, recon12, twist,
+                               xpay_coef, x_ch, clover, cinv_ch)
+    form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
+                           xpay_coef, x_ch, clover, cinv_ch, None,
+                           kernel="local")
+    _check_faces(face_m, face_p, psi_ch, faces_projected)
+    if psi_ch.device.type == "cpu":
+        if wait is not None:
+            wait()
+        return dslash_ch_local_reference(
+            g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger,
+            recon12, twist, xpay_coef, x_ch, clover, cinv_ch,
+            faces_projected)
+    _device_check("dslash_ch_overlap", psi_ch)
+    out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
+                      device=psi_ch.device)
+    _run_local(dslash_ch_overlap, form, psi_ch, out, _k5_launches(
+        g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger, twist,
+        xpay_coef, x_ch, clover, cinv_ch, faces_projected), wait)
+    return out
+
+
+dslash_ch_overlap.launches = 0
+dslash_ch_overlap.launches_bf16 = 0

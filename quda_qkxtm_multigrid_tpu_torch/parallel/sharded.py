@@ -1,0 +1,130 @@
+"""The rank's t-slab of a Dirac operator: the counterpart of the JAX
+package's ``parallel.mesh.shard_dirac`` and ``Dirac._fused_matpc_ch_shmap``
+(``dirac.py:311-437``).
+
+``shard_dirac`` cuts the rank's slab out of an operator built on the
+whole lattice.  The doubled gauge and the clover terms are sliced, not
+rebuilt: the backward t-links of local row 0 belong to the previous rank
+and the clover leaves need the t±1 links, and ``double_gauge`` on a slab
+would wrap t inside it.
+
+A ``ShardedDirac`` is a ``Dirac`` on the local geometry (T_loc) whose hop
+``dslash`` is the t-local hop K4 on the channel field and its t-faces, in
+the field's precision (float64 for complex128: the counterpart of
+``Dirac.dslash`` through K1 f64), so ``m``, ``matpc``, ``prepare`` and
+``reconstruct`` are the full-lattice operator's on this slab.  Every
+parity-diagonal term is local.  ``matpc_ch`` is the sharded fused chain,
+two hops per application with a face exchange before each: K4, which
+reads the received faces in place, or with ``overlap`` K5, whose
+interior runs while the faces, spin-projected when T_loc > 2, are in
+flight.  The chain reads
+the operator's channel operands (bf16 in the bf16 operand tier); the
+hop of ``dslash`` reads them in the field's precision always.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
+from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
+from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+    dslash_ch_local, dslash_ch_overlap, from_channels, to_channels)
+from quda_qkxtm_multigrid_tpu_torch.parallel.halo import (
+    start_t_faces, t_faces)
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
+    TMesh, local_t, t_slab)
+
+
+def halo_hop(mesh: TMesh, overlap: bool, g_ch, psi_ch, parity: int,
+             geom: Geometry, dagger: bool = False, recon12: bool = False,
+             twist=None, xpay_coef=None, x_ch=None, clover=None,
+             cinv_ch=None):
+    """One sharded hop with ``dslash_ch``'s arguments on the local slab:
+    the face exchange, then K4, or with ``overlap`` K5 with the
+    exchange's wait between its interior and its edges (the faces
+    spin-projected when T_loc > 2)."""
+    kw = dict(dagger=dagger, recon12=recon12, twist=twist,
+              xpay_coef=xpay_coef, x_ch=x_ch, clover=clover, cinv_ch=cinv_ch)
+    if not overlap:
+        return dslash_ch_local(g_ch, psi_ch, *t_faces(psi_ch, mesh), parity,
+                               geom, **kw)
+    project = geom.T > 2
+    ex = start_t_faces(psi_ch, mesh, project=project, dagger=dagger)
+    return dslash_ch_overlap(g_ch, psi_ch, ex.face_m, ex.face_p, parity,
+                             geom, faces_projected=project, wait=ex.wait,
+                             **kw)
+
+
+class ShardedDirac(Dirac):
+    """This rank's slab of an operator on ``mesh`` (module docstring):
+    the fields of a ``Dirac`` on the local geometry, and the whole
+    lattice's ``global_geom``."""
+
+    def __init__(self, u, params, geom: Geometry, mesh: TMesh,
+                 global_geom: Geometry, clover=None, clover_inv=None,
+                 u_doubled=None):
+        super().__init__(u, params, geom, clover=clover,
+                         clover_inv=clover_inv, u_doubled=u_doubled)
+        self.mesh = mesh
+        self.global_geom = global_geom
+
+    @property
+    def _has_fused_matpc(self) -> bool:
+        # the unsharded chain would wrap t inside the slab: matpc and
+        # matpc_dagm compose through the halo hop of ``dslash``
+        return False
+
+    @property
+    def has_sharded_chain(self) -> bool:
+        """Whether ``matpc_ch`` applies: the conditions of the unsharded
+        fused chain (use_kernels, symmetric Schur form, a twisted or
+        clover kind)."""
+        return Dirac._has_fused_matpc.fget(self)
+
+    def dslash(self, psi_opp: torch.Tensor, parity: int,
+               dagger: bool = False) -> torch.Tensor:
+        psi_ch = to_channels(psi_opp)
+        g = self._operands(psi_ch.dtype, exact=True)["g"][parity]
+        out = dslash_ch_local(g, psi_ch, *t_faces(psi_ch, self.mesh),
+                              parity, self.geom, dagger, recon12=True)
+        return from_channels(out, (4, 3))
+
+    def matpc_ch(self, psi_ch: torch.Tensor, dagger: bool = False,
+                 overlap: bool = False) -> torch.Tensor:
+        """The sharded fused matpc (or matpc†) on this slab's channel
+        field [T_loc, 24, Z, W], the JAX package's chain: two halo hops
+        (K4, or K5 with ``overlap``), the dagger half after a plain A⁻¹†
+        or twist."""
+        if not self.has_sharded_chain:
+            raise ValueError("the sharded chain needs use_kernels, the "
+                             "symmetric Schur form and a twisted or clover "
+                             "kind")
+        hop = functools.partial(halo_hop, self.mesh, overlap)
+        return self._fused_matpc_ch(psi_ch, dagger, hop=hop)
+
+    def flops_per_mat(self) -> int:
+        """Analytic flops of one application of the whole lattice's
+        operator (every rank)."""
+        return super().flops_per_mat() * self.mesh.nt
+
+
+def shard_dirac(dirac: Dirac, mesh: TMesh) -> ShardedDirac:
+    """This rank's slab of an operator built on the whole lattice, on the
+    mesh's device (module docstring).  The doubled gauge is built on the
+    whole lattice first where the operator has none."""
+    geom = dirac.geom
+    t_loc = local_t(geom.T, mesh)
+    ud = dirac.u_doubled
+    if ud is None:
+        ud = _dsl.double_gauge(dirac.u, geom)
+
+    def cut(t):
+        return None if t is None else t_slab(t, mesh)
+    return ShardedDirac(cut(dirac.u), dirac.params,
+                        Geometry(geom.X, geom.Y, geom.Z, t_loc), mesh, geom,
+                        clover=cut(dirac.clover),
+                        clover_inv=cut(dirac.clover_inv), u_doubled=cut(ud))

@@ -28,28 +28,32 @@ class CGResult(NamedTuple):
 
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        tol: float = 1e-10, maxiter: int = 1000,
-       abs_b2: Optional[torch.Tensor] = None) -> CGResult:
+       abs_b2: Optional[torch.Tensor] = None,
+       allreduce: Optional[Callable] = None) -> CGResult:
     """Solve A x = b, A hermitian positive definite.
 
     Stops on |r|² ≤ tol²·|b|² or after ``maxiter`` iterations; ``iters``
-    counts the matvecs of the loop, as the JAX package counts them."""
+    counts the matvecs of the loop, as the JAX package counts them.
+    ``allreduce`` sums each local reduction over the ranks of a sharded
+    field (``parallel.mesh.TMesh.allreduce``); None leaves them local."""
+    red = (lambda v: v) if allreduce is None else allreduce
     if x0 is None:
         x = torch.zeros_like(b)
         r = b.clone()
     else:
         x = x0.clone()
         r = b - matvec(x0)
-    b2 = norm2(b) if abs_b2 is None else abs_b2
+    b2 = red(norm2(b)) if abs_b2 is None else abs_b2
     target = (tol * tol) * b2
-    r2 = norm2(r)
+    r2 = red(norm2(r))
     p = r.clone()
     k = 0
     while k < maxiter and bool(r2 > target):
         ap = matvec(p)
-        alpha = r2 / reDotProduct(p, ap)
+        alpha = r2 / red(reDotProduct(p, ap))
         axpy(alpha, p, x)
         axpy(-alpha, ap, r)
-        r2_new = norm2(r)
+        r2_new = red(norm2(r))
         xpay(r, r2_new / r2, p)
         r2 = r2_new
         k += 1

@@ -386,10 +386,10 @@ def test_bf16_kernels_match_reference_on_card():
     dev = _card()
     geom_j, geom = jlat.Geometry(8, 8, 8, 8), tlat.Geometry(8, 8, 8, 8)
     _, ud, psi, x, cinv = _fields(geom_j, 63)
-    g = [dk.gauge_channels(T(ud, dev), p, True, BF16) for p in (0, 1)]
-    ci = [dk.clover_channels(T(cinv, dev), p, BF16) for p in (0, 1)]
-    v = [dk.to_channels(T(psi[p], dev)).to(F32) for p in (0, 1)]
-    xs = [dk.to_channels(T(x[p], dev)).to(F32) for p in (0, 1)]
+    g = [dk.gauge_channels(T(ud, device=dev), p, True, BF16) for p in (0, 1)]
+    ci = [dk.clover_channels(T(cinv, device=dev), p, BF16) for p in (0, 1)]
+    v = [dk.to_channels(T(psi[p], device=dev)).to(F32) for p in (0, 1)]
+    xs = [dk.to_channels(T(x[p], device=dev)).to(F32) for p in (0, 1)]
     forms = [dict(parity=1, clover="fwd"),
              dict(parity=0, clover="fwd", xpay=True, post_op=("clover",)),
              dict(parity=1, dagger=True, clover="dag"),

@@ -311,8 +311,8 @@ def test_kernel_matches_reference_on_card():
             p = c["parity"]
             kw = {k: (v.to(dev) if torch.is_tensor(v) else v)
                   for k, v in _port_kwargs(c, x, cinv, dtype).items()}
-            g = dk.gauge_channels(T(ud, dev), p, c["recon12"], dtype)
-            v = dk.to_channels(T(psi[1 - p], dev)).to(dtype)
+            g = dk.gauge_channels(T(ud, device=dev), p, c["recon12"], dtype)
+            v = dk.to_channels(T(psi[1 - p], device=dev)).to(dtype)
             before = dk.dslash_ch.launches
             got = dk.dslash_ch(g, v, p, geom, **kw)
             assert dk.dslash_ch.launches == before + 1
@@ -336,10 +336,10 @@ def test_msrc_kernel_matches_reference_and_single_source_on_card():
     geom = tlat.Geometry(8, 8, 8, 8)
     dev = torch.device("cuda")
     f32 = torch.float32
-    g = [dk.gauge_channels(T(ud, dev), p, True, f32) for p in (0, 1)]
-    ci = [dk.clover_channels(T(cinv, dev), p, f32) for p in (0, 1)]
-    src = torch.stack([dk.to_channels(T(psi[p], dev)) for p in (0, 1, 0)])
-    xs = torch.stack([dk.to_channels(T(x[p], dev)) for p in (1, 0, 1)])
+    g = [dk.gauge_channels(T(ud, device=dev), p, True, f32) for p in (0, 1)]
+    ci = [dk.clover_channels(T(cinv, device=dev), p, f32) for p in (0, 1)]
+    src = torch.stack([dk.to_channels(T(psi[p], device=dev)) for p in (0, 1, 0)])
+    xs = torch.stack([dk.to_channels(T(x[p], device=dev)) for p in (1, 0, 1)])
     forms = [dict(parity=1, clover="fwd"),
              dict(parity=0, clover="fwd", xpay=True),
              dict(parity=1, dagger=True, clover="dag"),

@@ -41,6 +41,18 @@ def test_no_jax_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_no_jax_check_covers_the_sharded_path():
+    """``parallel/`` (the ring, the halo exchange, the slab operator) and
+    the ring tests' worker process are scanned like the rest of the
+    port."""
+    scanned = {p.relative_to(PKG).as_posix() for p in PORT_FILES
+               if PKG in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/halo.py",
+            "parallel/sharded.py"} <= scanned
+    worker = ROOT / "tests" / "_torch_mesh_worker.py"
+    assert not [m for m in _imported_modules(worker) if _forbidden(m)]
+
+
 def test_import_compiles_nothing(tmp_path):
     """Import every module of the port with a fake ``nvcc`` first on the
     PATH: it must not run, no ``triton`` may be imported and no library
@@ -83,14 +95,16 @@ def test_build_targets_hopper():
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
     assert {p.name for p in _build._sources()} >= {
         "dslash_ch.cu", "dslash_ch.cuh", "dslash_ch_msrc.cu",
-        "dslash_ch_bf16.cu"}
+        "dslash_ch_bf16.cu", "dslash_ch_local.cu"}
 
 
 @pytest.mark.parametrize("name,n_args,n_ptrs", [
     ("qkx_dslash_ch_f32", 23, 6), ("qkx_dslash_ch_f64", 23, 6),
     ("qkx_dslash_ch_msrc_f32", 20, 5), ("qkx_dslash_ch_f32_g16", 23, 6),
     ("qkx_dslash_ch_f32_g16s16", 23, 6),
-    ("qkx_dslash_ch_msrc_f32_g16", 20, 5)])
+    ("qkx_dslash_ch_msrc_f32_g16", 20, 5),
+    ("qkx_dslash_ch_local_f32", 25, 7), ("qkx_dslash_ch_local_f64", 25, 7),
+    ("qkx_dslash_ch_local_f32_g16", 25, 7)])
 def test_entry_points_pass_pointers_as_void_p(name, n_args, n_ptrs):
     argtypes = _build.ENTRY_POINTS[name]
     assert len(argtypes) == n_args
@@ -133,3 +147,20 @@ def test_msrc_kernel_refuses_other_devices():
     psi = torch.empty((2, 4, 24, 4, 8), device="meta")
     with pytest.raises(ValueError, match="no dslash_ch_msrc for device"):
         dslash_ch_msrc(g, psi, 0, geom, recon12=True)
+
+
+def test_local_kernels_refuse_other_devices():
+    """The t-local hop's wrappers (K4, K5) likewise: plain version on
+    the CPU, kernel on CUDA, anything else raises."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_local, dslash_ch_overlap)
+    geom = Geometry(4, 4, 4, 4)
+    g = torch.empty((4, 96, 4, 8), device="meta")
+    psi = torch.empty((4, 24, 4, 8), device="meta")
+    face = torch.empty((1, 24, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no dslash_ch_local for device"):
+        dslash_ch_local(g, psi, face, face, 0, geom, recon12=True)
+    with pytest.raises(ValueError, match="no dslash_ch_overlap for device"):
+        dslash_ch_overlap(g, psi, face, face, 0, geom, recon12=True)

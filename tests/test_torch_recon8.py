@@ -178,13 +178,13 @@ def test_recon8_kernel_matches_reference_on_card():
     geom = tlat.Geometry(8, 8, 8, 8)
     ud, psi, x, cinv = fl
     for name, (p, kw) in CASES.items():
-        o = dict(x=dk.to_channels(T(x[p], dev)).to(F32),
-                 ci=dk.clover_channels(T(cinv, dev), p, F32))
+        o = dict(x=dk.to_channels(T(x[p], device=dev)).to(F32),
+                 ci=dk.clover_channels(T(cinv, device=dev), p, F32))
         kw = {k: (o[w] if k in ("x_ch", "cinv_ch") else w)
               for k, w in kw.items()}
-        v = dk.to_channels(T(psi[1 - p], dev)).to(F32)
-        g8 = dk.gauge_channels(T(ud, dev), p, False, F32, recon8=True)
-        g12 = dk.gauge_channels(T(ud, dev), p, True, F32)
+        v = dk.to_channels(T(psi[1 - p], device=dev)).to(F32)
+        g8 = dk.gauge_channels(T(ud, device=dev), p, False, F32, recon8=True)
+        g12 = dk.gauge_channels(T(ud, device=dev), p, True, F32)
         before = dk.dslash_ch.launches_r8
         got = dk.dslash_ch(g8, v, p, geom, recon8=True, **kw)
         assert dk.dslash_ch.launches_r8 == before + 1, name
