@@ -20,29 +20,36 @@ and does not print its last line:
    then the kernel against its plain version at that size, for a bare
    float32 hop, the float32 matpc†matpc chain and a float64 hop, with
    their times (CUDA events, median of 5);
-5. the multi-source hop kernel against its plain version and against n
-   single-source launches at 16³×32 for n = 1, 3, 8 and every form the
-   multigrid setup uses; then timed at 32³×64 with n = 8 against its
-   plain version and 8 single-source launches;
+5. the multi-source hop kernel (K2) against its plain version and
+   against n single-source launches (largest difference printed; the
+   sum order is K1's, so 0) at 16³×32 for n = 1, 3, 8, 12, every form
+   the multigrid setup uses and both second outputs; then timed at
+   32³×64 with n = 8 and 12 against its plain version and n
+   single-source launches, with the second output, beside its byte
+   bound and the parent's time (K2_PARENT_MS);
 6. the MG-GCR-PC solve at 32³×64 on the complex64 operator (block 4⁴,
    nvec 24, even-odd smoother, GCR(5) outer, tol 1e-7): setup split
    into null vectors (through the multi-source kernel), orthonormalisation
    and coarse build; cold and warm solves; the complex128 true residual;
    the kernels' launch counts; restrict and prolong against complex128;
-   the V-cycle's share of a solve;
+   a second null-vector generation split into its parts, which must run
+   no batched plain A⁻¹†; the V-cycle's share of a solve;
 7. the bf16 operand tier (K1d, K2d) and the mixed-precision solve: K1d
    against its plain version at 16³×32 for every form of the bf16 chain
    and the bf16-ψ hop, and against the float32 kernel (the difference
-   must show the bf16 rounding); K2d against its plain version and n K1d
-   launches, n = 1, 3, 8; the mixed-precision CG at 32³×64 (complex128
+   must show the bf16 rounding); K2d as K2 in phase 5 against n K1d
+   launches; the mixed-precision CG at 32³×64 (complex128
    outer through K1's double instance, bf16 sloppy inner through K1d,
    tol 1e-10): restarts, inner iterations, time, the complex128 true
    residual, peak memory, launch counts; the same solve with the
    complex64 sloppy operator and with mixed BiCGstab; the split of a
    bf16 solve into inner and outer matvecs and complex128 stages; K1d
-   and K2d timed at 32³×64 against their plain versions and the float32
-   kernels (K2d also in the bare form); then a bf16-tier CG and a
-   multi-source solve on the bf16 tier at 16³×32;
+   timed at 32³×64 against its plain version and the float32 kernel,
+   K2d as K2 in phase 5 (and in the bare form beside K2); the
+   multi-source normal operator's four-hop chain against two matpc
+   halves in both tiers, and its dagger half in and out of the chain;
+   then a bf16-tier CG and a multi-source solve on the bf16 tier at
+   16³×32;
 8. the compact channel operator, the bf16 spinor storage (K1e) and the
    recon-8 gauge (K3): (a) at 16³×32 every K1e form against its plain
    version and against its float32-storage kernel (the difference must
@@ -69,7 +76,10 @@ and does not print its last line:
    solution, warm seconds, launch counts); (c) K4 and K5 against their
    plain versions on (b)'s operands at T_loc = 64 (the chain's float32
    forms, the float64 hop), then K4, K5, K1 and the plain versions timed
-   in one call at 32³×64, with the byte bounds.
+   in one call at 32³×64, with the byte bounds;
+10. the JAX package's stand-alone Pallas hops V1–V4 as instances of K1
+    (recon-18 and recon-12 float) and K1d (bf16-ψ ``g16s16``): against
+    their plain versions at 16³×32, timed at 32³×64 with their bounds.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero before printing any result.  The last line of its output is
@@ -102,9 +112,15 @@ SLICE_GEOM = (32, 32, 32, 64)
 SLICE_TOL, SLICE_MAXITER = 1e-7, 2000
 TRUE_RES_LIMIT = 5e-7
 JAX_RECORD_ITERS = 15   # the JAX package's cg32 record at this operator
-MSRC_NS = (1, 3, 8)     # batch widths of the multi-source kernel check
+MSRC_NS = (1, 3, 8, 12)  # batch widths of the multi-source kernel check
 MSRC_VS_K1_LIMIT = 1e-6  # multi-source kernel vs n single-source launches
 MSRC_TIME_N = 8         # the null-vector setup's batch width
+MSRC_TIME_NS = (8, 12)  # timed: the setup's batch, a source's 12 columns
+# K2 / K2d at 32³×64, n = 8, clover fwd + xpay, before the shared-memory
+# design (time_kernels.py on that tree, in turns with this one, NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md §6)
+K2_PARENT_MS, K2D_PARENT_MS = 2.8115, 2.8308
+PARENT_CALL = "the tree before the shared-memory design, time_kernels.py"
 MG_TOL, MG_BLOCK, MG_NVEC, MG_NKRYLOV = 1e-7, (4, 4, 4, 4), 24, 5
 MG_JAX_RECORD_ITERS = 15  # the JAX package's 32³×64 MG-GCR-PC record
 MG_ITERS_BAND = (10, 30)
@@ -138,6 +154,15 @@ LOCAL_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_local.cu"
 LOCAL_KERNEL_REPLACES = "quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:768"
 OVERLAP_KERNEL_REPLACES = ("quda_qkxtm_multigrid_tpu/ops/dslash_pallas5.py:"
                            "842, :902")
+# the stand-alone Pallas hops, each an instance of K1 / K1d (phase 10)
+V1_REPLACES = ("V1 quda_qkxtm_multigrid_tpu/ops/dslash_pallas.py:233, :247 "
+               "(recon-18)")
+V2_REPLACES = ("V2 quda_qkxtm_multigrid_tpu/ops/dslash_pallas2.py:264 "
+               "(recon-12), V3 attic/dslash_pallas3.py:247, V4 "
+               "attic/dslash_pallas4.py:303")
+V2_BF16_REPLACES = ("V2, V3, V4 with bf16=True: quda_qkxtm_multigrid_tpu/"
+                    "ops/dslash_pallas2.py:264, attic/dslash_pallas3.py:247, "
+                    "attic/dslash_pallas4.py:303")
 
 BIG_GEOM = (48, 48, 48, 96)
 COMPACT_TOL, COMPACT_MAXITER = 1e-6, 600
@@ -187,14 +212,24 @@ def _time_ms(fn, n: int) -> float:
 
 def _compare_timed(kernel, plain, n_kernel=20, n_plain=3, reps=5):
     """Median ms of ``kernel`` and of ``plain``, measured in turns."""
+    med = _turns({"plain": plain, "kernel": kernel},
+                 {"plain": n_plain, "kernel": n_kernel}, reps)
+    return med["kernel"], med["plain"]
+
+
+def _turns(fns: dict, n_runs: dict, reps: int = 5) -> dict:
+    """Median ms of each callable of ``fns`` over ``reps`` rounds, each
+    round timing every one in turn over ``n_runs[name]`` calls, after one
+    warm-up call of each."""
     import torch
-    kernel(), plain()
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    tk, tp = [], []
+    times = {k: [] for k in fns}
     for _ in range(reps):
-        tp.append(_time_ms(plain, n_plain))
-        tk.append(_time_ms(kernel, n_kernel))
-    return statistics.median(tk), statistics.median(tp)
+        for k, fn in fns.items():
+            times[k].append(_time_ms(fn, n_runs[k]))
+    return {k: statistics.median(t) for k, t in times.items()}
 
 
 def _bound(nbytes: int, flops: int):
@@ -461,101 +496,180 @@ def _msrc_cases(twist_a: float, twist_b: float, xc: float):
     ]
 
 
-def _msrc_kwargs(c, x_b, cinv, p):
-    import torch
-    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-        clover_channels)
+def _msrc_post_cases(twist_a: float, twist_b: float, xc: float):
+    """The multi-source hop's forms with a second output: the last hop of
+    the forward matpc in the normal operator's four-hop chain."""
+    return [
+        ("clover fwd + xpay + post clover",
+         dict(parity=0, clover="fwd", xpay=xc, post_op=("clover",))),
+        ("twist + xpay + post twist",
+         dict(parity=0, twist=(-twist_a, twist_b), xpay=xc,
+              post_op=("twist", twist_a, twist_b))),
+    ]
+
+
+def _msrc_kwargs(c, x_b, ci):
+    """Keyword arguments of ``dslash_ch_msrc`` for case ``c``, ``ci`` the
+    clover-inverse channels of the case's parity."""
     kw = dict(dagger=c.get("dagger", False), recon12=True,
-              twist=c.get("twist"))
+              twist=c.get("twist"), post_op=c.get("post_op"))
     if "xpay" in c:
         kw.update(xpay_coef=c["xpay"], x_ch=x_b)
     if "clover" in c:
-        kw.update(clover=c["clover"],
-                  cinv_ch=clover_channels(cinv, p, torch.float32))
+        kw.update(clover=c["clover"], cinv_ch=ci)
     return kw
 
 
-def phase_msrc(check_dims, time_dims, n_time: int):
-    """K2 against its plain version and against n K1 launches for every
-    form and n in MSRC_NS at ``check_dims``; then timed at ``time_dims``
-    with ``n_time`` sources.  Returns the largest absolute error and the
-    times."""
+def _msrc_vs_singles(tier: str, g, ci, psi_b, x_b, geom, cases,
+                     single_label: str) -> tuple[float, float]:
+    """Each multi-source case launched once at batch width n =
+    len(psi_b), counted on its tier's counter (``launches`` for K2,
+    ``launches_bf16`` for K2d), held against its plain version
+    (F32_LIMIT) and against n single-source launches of the same form
+    (MSRC_VS_K1_LIMIT; the largest absolute difference is printed, 0 when
+    the sum order is K1's).  ``g`` and ``ci`` are per parity.  Returns
+    the largest absolute error against plain and against the single
+    launches."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference)
+    counter = "launches" if tier == "K2" else "launches_bf16"
+    n = psi_b.shape[0]
+    err, diff = 0.0, 0.0
+    for label, c in cases:
+        p = c["parity"]
+        kw = _msrc_kwargs(c, x_b, ci[p])
+        before = getattr(dslash_ch_msrc, counter)
+        got = dslash_ch_msrc(g[p], psi_b, p, geom, **kw)
+        torch.cuda.synchronize()
+        if getattr(dslash_ch_msrc, counter) != before + 1:
+            raise AssertionError(f"dslash_ch_msrc did not count its {tier} "
+                                 "launch")
+        ref = dslash_ch_msrc_reference(g[p], psi_b, p, geom, **kw)
+        err = max(err, _compare(got, ref, f"{tier} n={n} {label}",
+                                F32_LIMIT))
+        kw1 = {k: v for k, v in kw.items() if k != "x_ch"}
+        singles = [dslash_ch(g[p], psi_b[i], p, geom,
+                             x_ch=None if x_b is None or "xpay" not in c
+                             else x_b[i], **kw1) for i in range(n)]
+        got = got if isinstance(got, tuple) else (got,)
+        singles = [s if isinstance(s, tuple) else (s,) for s in singles]
+        for j, out in enumerate(got):
+            one = torch.stack([s[j] for s in singles])
+            d = float((out - one).abs().max())
+            diff = max(diff, d)
+            _check(f"  out{j + 1} vs {n} {single_label} launches (largest "
+                   f"|difference| {d:.1e})", _rel(out, one),
+                   MSRC_VS_K1_LIMIT)
+    return err, diff
+
+
+def _msrc_fields(dims, n: int, seed: int, dtype):
+    """Gauge and clover-inverse channels of both parities in ``dtype``
+    (float32, or bfloat16 for K2d) and n float32 sources and x fields."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
     from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
     from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference, gauge_channels,
-        to_channels)
+        clover_channels, gauge_channels, to_channels)
     from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    geom = Geometry(*dims)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    u = rng.random_gauge(gen, geom)
+    _, cinv = make_clover_pair(u, geom, tmc_params())
+    ud = double_gauge(u, geom)
+    g = [gauge_channels(ud, p, True, dtype) for p in (0, 1)]
+    ci = [clover_channels(cinv, p, dtype) for p in (0, 1)]
+    del u, ud, cinv
+    psi = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
+                       for _ in range(n)]).to(torch.float32)
+    x = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
+                     for _ in range(n)]).to(torch.float32)
+    return geom, g, ci, psi, x
 
+
+def _msrc_timing(tier: str, geom, g, ci, psi_all, x_all, n_list,
+                 parent_ms: float) -> dict:
+    """The clover fwd + xpay form of ``tier`` at each n of ``n_list``,
+    timed in turns against its plain version and n single-source
+    launches, and with the second output (post clover); the byte bound
+    and the fraction of it.  Returns {n: {"ms", "post_ms", "plain_ms",
+    "singles_ms", "bound", "err"}}."""
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference)
+    out = {}
+    for n in n_list:
+        psi_b, x_b = psi_all[:n].contiguous(), x_all[:n].contiguous()
+        kw = dict(recon12=True, clover="fwd", cinv_ch=ci[0],
+                  xpay_coef=-0.115 ** 2, x_ch=x_b)
+        kw1 = {k: v for k, v in kw.items() if k != "x_ch"}
+        kern = lambda: dslash_ch_msrc(g[0], psi_b, 0, geom, **kw)
+        post = lambda: dslash_ch_msrc(g[0], psi_b, 0, geom,
+                                      post_op=("clover",), **kw)
+        plain = lambda: dslash_ch_msrc_reference(g[0], psi_b, 0, geom, **kw)
+        singles = lambda: [dslash_ch(g[0], psi_b[i], 0, geom, x_ch=x_b[i],
+                                     **kw1) for i in range(n)]
+        err = _compare(kern(), plain(), f"{tier} n={n} at {geom.dims}",
+                       F32_LIMIT)
+        med = _turns({"kernel": kern, "post": post, "singles": singles,
+                      "plain": plain},
+                     {"kernel": 10, "post": 10, "singles": 10, "plain": 1})
+        tk, t2, t1, tp = (med[k] for k in ("kernel", "post", "singles",
+                                           "plain"))
+        sites = geom.half_volume
+        bound = _bound(_nbytes(g[0], ci[0], psi_b, x_b, psi_b),
+                       n * (HOP_FLOPS + CLOVER_FLOPS + XPAY_FLOPS) * sites)
+        bound_post = _bound(_nbytes(g[0], ci[0], psi_b, x_b, psi_b, psi_b),
+                            n * (HOP_FLOPS + 2 * CLOVER_FLOPS + XPAY_FLOPS)
+                            * sites)
+        print(f"  {tier} n={n} clover fwd + xpay {tk:.4f} ms ({tk / n:.4f} "
+              f"ms a source; bound {bound[0]:.4f} ms, {bound[1]}; at "
+              f"{bound[0] / tk:.2f} of it)  with post clover {t2:.4f} ms "
+              f"(bound {bound_post[0]:.4f}, at {bound_post[0] / t2:.2f})  "
+              f"{n} single-source launches {t1:.4f} ms  plain {tp:.4f} ms",
+              flush=True)
+        if n == MSRC_TIME_N and parent_ms:
+            print(f"  {tier} n={n} clover fwd + xpay: {tk:.4f} ms against "
+                  f"the parent's {parent_ms:.4f} ms ({PARENT_CALL}; "
+                  f"{tk / parent_ms:.3f}x)", flush=True)
+        out[n] = {"ms": tk, "post_ms": t2, "plain_ms": tp, "singles_ms": t1,
+                  "bound": bound, "err": err}
+    return out
+
+
+def phase_msrc(check_dims, time_dims):
+    """K2 against its plain version and against n K1 launches for every
+    form, both second outputs and n in MSRC_NS at ``check_dims``; then
+    timed at ``time_dims`` for n in MSRC_TIME_NS.  Returns the largest
+    absolute error and the timing record of n = MSRC_TIME_N."""
+    import torch
     kappa = 0.115
     a = 2 * kappa * 0.05
-    cases = _msrc_cases(a, 1 / (1 + a * a), -kappa * kappa)
-
-    def fields(dims, n, seed):
-        geom = Geometry(*dims)
-        gen = torch.Generator(device=DEVICE).manual_seed(seed)
-        u = rng.random_gauge(gen, geom)
-        _, cinv = make_clover_pair(u, geom, tmc_params())
-        ud = double_gauge(u, geom)
-        g = [gauge_channels(ud, p, True, torch.float32) for p in (0, 1)]
-        del u, ud
-        psi = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
-                           for _ in range(n)]).to(torch.float32)
-        x = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
-                         for _ in range(n)]).to(torch.float32)
-        return geom, g, cinv, psi, x
-
-    print(f"phase 5: multi-source kernel vs plain and vs n single-source "
+    tw = (a, 1 / (1 + a * a), -kappa * kappa)
+    cases = _msrc_cases(*tw) + _msrc_post_cases(*tw)
+    print(f"phase 5: multi-source kernel (K2) vs plain and vs n K1 "
           f"launches at {check_dims}", flush=True)
-    max_abs = 0.0
-    geom, g, cinv, psi_all, x_all = fields(check_dims, max(MSRC_NS), 5)
+    geom, g, ci, psi_all, x_all = _msrc_fields(check_dims, max(MSRC_NS), 5,
+                                               torch.float32)
+    max_abs, diff = 0.0, 0.0
     for n in MSRC_NS:
-        psi_b, x_b = psi_all[:n].contiguous(), x_all[:n].contiguous()
-        for label, c in cases:
-            p = c["parity"]
-            kw = _msrc_kwargs(c, x_b, cinv, p)
-            before = dslash_ch_msrc.launches
-            got = dslash_ch_msrc(g[p], psi_b, p, geom, **kw)
-            torch.cuda.synchronize()
-            if dslash_ch_msrc.launches != before + 1:
-                raise AssertionError("dslash_ch_msrc did not count its launch")
-            ref = dslash_ch_msrc_reference(g[p], psi_b, p, geom, **kw)
-            max_abs = max(max_abs, _compare(got, ref, f"n={n} {label}",
-                                            F32_LIMIT))
-            kw1 = {k: v for k, v in kw.items() if k != "x_ch"}
-            singles = torch.stack([
-                dslash_ch(g[p], psi_b[i], p, geom,
-                          x_ch=None if "x_ch" not in kw else x_b[i], **kw1)
-                for i in range(n)])
-            _check(f"n={n} {label} vs {n} single-source launches",
-                   _rel(got, singles), MSRC_VS_K1_LIMIT)
-    del g, cinv, psi_all, x_all
-
-    print(f"  timed at {time_dims} with n={n_time} (clover fwd + xpay, the "
-          "second hop of the forward matpc)", flush=True)
-    geom, g, cinv, psi_b, x_b = fields(time_dims, n_time, 6)
-    c = dict(cases)["clover fwd + xpay"]
-    kw = _msrc_kwargs(c, x_b, cinv, 0)
-    kw1 = {k: v for k, v in kw.items() if k != "x_ch"}
-    k2 = lambda: dslash_ch_msrc(g[0], psi_b, 0, geom, **kw)
-    plain = lambda: dslash_ch_msrc_reference(g[0], psi_b, 0, geom, **kw)
-    k1s = lambda: [dslash_ch(g[0], psi_b[i], 0, geom, x_ch=x_b[i], **kw1)
-                   for i in range(n_time)]
-    max_abs = max(max_abs, _compare(k2(), plain(), f"n={n_time} at "
-                                    f"{time_dims}", F32_LIMIT))
-    tk, tp = _compare_timed(k2, plain, n_kernel=10, n_plain=1)
-    t1, _ = _compare_timed(k1s, plain, n_kernel=10, n_plain=1)
-    print(f"  multi-source kernel {tk:.4f} ms ({tk / n_time:.4f} ms a "
-          f"source)  {n_time} single-source launches {t1:.4f} ms  plain "
-          f"{tp:.4f} ms", flush=True)
-    bound = _bound(_nbytes(g[0], kw["cinv_ch"], psi_b, x_b, psi_b),
-                   n_time * (HOP_FLOPS + CLOVER_FLOPS + XPAY_FLOPS)
-                   * geom.half_volume)
-    return {"max_abs_err": max_abs, "ms": tk, "plain_ms": tp, "k1_ms": t1,
-            "bound": bound}
+        e, d = _msrc_vs_singles("K2", g, ci, psi_all[:n].contiguous(),
+                                x_all[:n].contiguous(), geom, cases, "K1")
+        max_abs, diff = max(max_abs, e), max(diff, d)
+    print(f"  K2 vs K1: largest |difference| over every form and n "
+          f"{diff:.1e}", flush=True)
+    del g, ci, psi_all, x_all
+    print(f"  timed at {time_dims} (clover fwd + xpay, the second hop of "
+          "the forward matpc; median of 5, in turns)", flush=True)
+    geom, g, ci, psi_all, x_all = _msrc_fields(time_dims, max(MSRC_TIME_NS),
+                                               6, torch.float32)
+    rec = _msrc_timing("K2", geom, g, ci, psi_all, x_all, MSRC_TIME_NS,
+                       K2_PARENT_MS)
+    k2 = dict(rec[MSRC_TIME_N])
+    k2["max_abs_err"] = max(max_abs, max(r["err"] for r in rec.values()))
+    return k2
 
 
 def phase_mg(geom_dims):
@@ -566,10 +680,13 @@ def phase_mg(geom_dims):
     V-cycle's share of a third solve.  Returns the kernel launch counts
     of the run and the benchmark's record."""
     import torch
+    from quda_qkxtm_multigrid_tpu_torch import dirac as dirac_module
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
         bench_mg, make_problem)
     from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
-    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import mg_solve
+    from quda_qkxtm_multigrid_tpu_torch.mg import multigrid as multigrid_module
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+        generate_null_vectors, mg_solve)
     from quda_qkxtm_multigrid_tpu_torch.mg.transfer import Transfer
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_msrc)
@@ -633,6 +750,45 @@ def phase_mg(geom_dims):
            _rel(tr.prolong(vc).to(torch.complex128),
                 t128.prolong(vc.to(torch.complex128))), MG_TRANSFER_LIMIT)
     del t128, f, vc
+
+    # where the null-vector phase's time goes: a second generation on
+    # the same operator and settings, split; its multi-source matvecs
+    # are the four-hop chain, so the batched plain A⁻¹† of a stand-alone
+    # multi-source dagger half (on kept matrices) may not run
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    nv_stats, batched = {}, []
+    matrix_apply = dirac_module._ch_matrix_apply
+
+    def spy(v_ch, m, dag=False):
+        if v_ch.dim() == 5:     # a batch of sources [n, T, 24, Z, W]
+            batched.append(v_ch.shape[0])
+        return matrix_apply(v_ch, m, dag)
+    dirac_module._ch_matrix_apply = spy
+    dslash_ch_msrc.launches = 0
+    try:
+        split = _split(
+            "a second null-vector generation",
+            [(d, "_fused_matpc_dagm_ch", "msrc matvecs (K2, four hops)"),
+             (multigrid_module, "block_orthonormalize_flat",
+              "orthonormalisation")] + [
+                (d, name, "complex64 stages (prepare, rhs, reconstruct, "
+                 "true residual)") for name in ("prepare", "matpc",
+                                                "reconstruct", "m")],
+            lambda: generate_null_vectors(d, tr.bg, gen, mg.params,
+                                          stats=nv_stats))
+    finally:
+        dirac_module._ch_matrix_apply = matrix_apply
+    msrc_second = dslash_ch_msrc.launches
+    print(f"  its multi-source CG iterations per batch "
+          f"{nv_stats['msrc_iters']}, K2 launches {msrc_second}, batched "
+          f"plain A⁻¹† applies {len(batched)}", flush=True)
+    if batched:
+        raise AssertionError("the multi-source path ran a batched plain "
+                             "A⁻¹†")
+    if msrc_second != 4 * sum(nv_stats["msrc_iters"]):
+        raise AssertionError(f"K2 launches {msrc_second} != 4 × "
+                             f"{sum(nv_stats['msrc_iters'])}")
+    rec["null_vector_split"] = split
 
     # the V-cycle's share of a warm solve (synchronised around each call)
     parts = {"vcycle": 0.0, "coarse_solve": 0.0}
@@ -703,8 +859,7 @@ def phase_bf16_kernels(check_dims):
     each kernel against its plain version, {"k1d": .., "k2d": ..}."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
-        dslash_ch_reference, to_channels)
+        dslash_ch, dslash_ch_reference, to_channels)
     from quda_qkxtm_multigrid_tpu_torch.utils import rng
 
     print(f"phase 7a: bf16 operand kernels vs plain and vs the float32 "
@@ -747,35 +902,21 @@ def phase_bf16_kernels(check_dims):
             raise AssertionError(f"bf16 {label}: {diff:.3e} against the "
                                  f"float32 kernel outside {BF16_BAND}")
 
-    msrc = _msrc_cases(a, 1 / (1 + a * a), -kappa * kappa)
+    tw = (a, 1 / (1 + a * a), -kappa * kappa)
+    msrc = _msrc_cases(*tw) + _msrc_post_cases(*tw)
     n_max = max(MSRC_NS)
     src = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
                        for _ in range(n_max)]).to(f32)
     xs = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
                       for _ in range(n_max)]).to(f32)
+    diff = 0.0
     for n in MSRC_NS:
-        psi_b, x_b = src[:n].contiguous(), xs[:n].contiguous()
-        for label, c in msrc:
-            p = c["parity"]
-            kw = _bf16_kwargs(c, ops[b16], x_b, p)
-            kw.pop("post_op")
-            before = dslash_ch_msrc.launches_bf16
-            got = dslash_ch_msrc(ops[b16]["g"][p], psi_b, p, geom, **kw)
-            torch.cuda.synchronize()
-            if dslash_ch_msrc.launches_bf16 != before + 1:
-                raise AssertionError("dslash_ch_msrc did not count its "
-                                     "bf16 launch")
-            ref = dslash_ch_msrc_reference(ops[b16]["g"][p], psi_b, p, geom,
-                                           **kw)
-            max_abs["k2d"] = max(max_abs["k2d"], _compare(
-                got, ref, f"bf16 n={n} {label}", F32_LIMIT))
-            kw1 = {k: v for k, v in kw.items() if k != "x_ch"}
-            singles = torch.stack([
-                dslash_ch(ops[b16]["g"][p], psi_b[i], p, geom,
-                          x_ch=None if "x_ch" not in kw else x_b[i], **kw1)
-                for i in range(n)])
-            _check(f"bf16 n={n} {label} vs {n} K1d launches",
-                   _rel(got, singles), MSRC_VS_K1_LIMIT)
+        e, d = _msrc_vs_singles("K2d", ops[b16]["g"], ops[b16]["ci"],
+                                src[:n].contiguous(), xs[:n].contiguous(),
+                                geom, msrc, "K1d")
+        max_abs["k2d"], diff = max(max_abs["k2d"], e), max(diff, d)
+    print(f"  K2d vs K1d: largest |difference| over every form and n "
+          f"{diff:.1e}", flush=True)
     return max_abs
 
 
@@ -884,20 +1025,22 @@ def _split(label: str, wrapped, run) -> dict:
 
 
 def phase_bf16_timing(geom_dims, n_time: int):
-    """K1d (bare hop, matpc†matpc chain) and K2d (n sources, clover fwd
-    + xpay) at ``geom_dims``, each timed in turns against its plain
-    version and against the float32 kernel of the same form, and the
-    multi-source matpc† half of both tiers.  Returns the medians, the
-    bounds and each kernel's largest absolute error against its plain
-    version here, {"k1d": .., "k2d": ..}."""
+    """K1d (bare hop, matpc†matpc chain) timed in turns against its plain
+    version and the float32 kernel; K2d (clover fwd + xpay) at each n of
+    MSRC_TIME_NS against its plain version, n K1d launches and with the
+    second output (``_msrc_timing``); the multi-source normal operator's
+    four-hop chain against two matpc halves in both tiers, and the dagger
+    half within the chain against the half alone.  Returns the K1d
+    medians and bounds, each kernel's largest absolute error against its
+    plain version here ({"k1d": .., "k2d": .., "chain bf16": ..,
+    "chain f32": ..}) and K2d's record at n_time."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_problem
     from quda_qkxtm_multigrid_tpu_torch.dirac import (
-        _ch_clover_apply, _ch_matrix_apply, as_sloppy)
+        _ch_matrix_apply, as_sloppy)
     from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
-        dslash_ch_reference, to_channels)
+        dslash_ch, dslash_ch_msrc, dslash_ch_reference, to_channels)
     from quda_qkxtm_multigrid_tpu_torch.utils import rng
 
     geom = Geometry(*geom_dims)
@@ -912,15 +1055,8 @@ def phase_bf16_timing(geom_dims, n_time: int):
     v = to_channels(rng.random_spinor(gen, geom, torch.complex64)[0])
     out = {}
 
-    def turns(name, fns, n_runs, reps=5):
-        for fn in fns.values():
-            fn()
-        torch.cuda.synchronize()
-        times = {k: [] for k in fns}
-        for _ in range(reps):
-            for k, fn in fns.items():
-                times[k].append(_time_ms(fn, n_runs[k]))
-        med = {k: statistics.median(t) for k, t in times.items()}
+    def turns(name, fns, n_runs):
+        med = _turns(fns, n_runs)
         print(f"  {name:<30s} " + "  ".join(f"{k} {t:.4f} ms"
                                             for k, t in med.items()),
               flush=True)
@@ -946,45 +1082,6 @@ def phase_bf16_timing(geom_dims, n_time: int):
         "plain": lambda: s._fused_matpc_dagm_ch(v, hop=dslash_ch_reference),
         "f32": lambda: d._fused_matpc_dagm_ch(v)},
         {"bf16": 10, "plain": 2, "f32": 10})
-    psi_b = torch.stack([to_channels(rng.random_spinor(
-        gen, geom, torch.complex64)[0]) for _ in range(n_time)])
-    x_b = torch.stack([to_channels(rng.random_spinor(
-        gen, geom, torch.complex64)[0]) for _ in range(n_time)])
-    kw = dict(recon12=True, clover="fwd", xpay_coef=-0.115 ** 2, x_ch=x_b)
-    err["k2d"] = _compare(
-        dslash_ch_msrc(o16["g"][0], psi_b, 0, geom, cinv_ch=o16["ci"][0],
-                       **kw),
-        dslash_ch_msrc_reference(o16["g"][0], psi_b, 0, geom,
-                                 cinv_ch=o16["ci"][0], **kw),
-        f"K2d n={n_time} at {geom_dims}", F32_LIMIT)
-    turns(f"K2d n={n_time} clover fwd + xpay", {
-        "bf16": lambda: dslash_ch_msrc(o16["g"][0], psi_b, 0, geom,
-                                       cinv_ch=o16["ci"][0], **kw),
-        "plain": lambda: dslash_ch_msrc_reference(
-            o16["g"][0], psi_b, 0, geom, cinv_ch=o16["ci"][0], **kw),
-        "f32": lambda: dslash_ch_msrc(o32["g"][0], psi_b, 0, geom,
-                                      cinv_ch=o32["ci"][0], **kw)},
-        {"bf16": 10, "plain": 1, "f32": 10})
-    # the bare form of the same batch: what the epilogue's loads cost
-    turns(f"K2d n={n_time} bare hop", {
-        "bf16": lambda: dslash_ch_msrc(o16["g"][0], psi_b, 0, geom,
-                                       recon12=True),
-        "f32": lambda: dslash_ch_msrc(o32["g"][0], psi_b, 0, geom,
-                                      recon12=True)},
-        {"bf16": 10, "f32": 10})
-    # the multi-source matpc† half of the solve: a plain A⁻¹† on the
-    # batch (its matrices kept on the operator), then two K2d launches
-    turns(f"msrc matpc† half n={n_time}", {
-        "bf16": lambda: s._fused_matpc_ch_msrc(psi_b, True),
-        "f32": lambda: d._fused_matpc_ch_msrc(psi_b, True)},
-        {"bf16": 5, "f32": 5})
-    # its leading A⁻¹† alone (bf16 tier): with the kept matrices, and with
-    # the matrices widened and rebuilt from the bf16 operand on each call
-    kept = s._clover_matrix(f32, pr)
-    turns(f"msrc leading A⁻¹† n={n_time}", {
-        "kept": lambda: _ch_matrix_apply(psi_b, kept, dag=True),
-        "rebuilt": lambda: _ch_clover_apply(psi_b, o16["ci"][pr], dag=True)},
-        {"kept": 5, "rebuilt": 5})
     sites = geom.half_volume
     # four hops: gauge of each parity twice, A⁻¹ three times (the post_op
     # reuses its load), spinors 2 + 4 + 2 + 3 times
@@ -995,16 +1092,67 @@ def phase_bf16_timing(geom_dims, n_time: int):
                                HOP_FLOPS * sites),
         "K1d matpc†matpc": _bound(
             chain_bytes, (4 * HOP_FLOPS + 4 * CLOVER_FLOPS + 2 * XPAY_FLOPS)
-            * sites),
-        f"K2d n={n_time} clover fwd + xpay": _bound(
-            _nbytes(o16["g"][0], o16["ci"][0], psi_b, x_b, psi_b),
-            n_time * (HOP_FLOPS + CLOVER_FLOPS + XPAY_FLOPS) * sites),
-        f"K2d n={n_time} bare hop": _bound(
-            _nbytes(o16["g"][0], psi_b, psi_b), n_time * HOP_FLOPS * sites)}
+            * sites)}
     for name, (ms, by) in bounds.items():
         print(f"  {name} bound {ms:.4f} ms ({by}); kernel at "
               f"{ms / out[name]['bf16']:.2f} of it", flush=True)
-    return out, bounds, err
+
+    # K2d at each timed width (and K2 on the same operator's float32
+    # channels beside it), then the multi-source normal operator
+    n_max = max(MSRC_TIME_NS)
+    psi_all = torch.stack([to_channels(rng.random_spinor(
+        gen, geom, torch.complex64)[0]) for _ in range(n_max)])
+    x_all = torch.stack([to_channels(rng.random_spinor(
+        gen, geom, torch.complex64)[0]) for _ in range(n_max)])
+    k2d = _msrc_timing("K2d", geom, o16["g"], o16["ci"], psi_all, x_all,
+                       MSRC_TIME_NS, K2D_PARENT_MS)
+    psi_b = psi_all[:n_time].contiguous()
+    turns(f"K2d n={n_time} bare hop", {
+        "bf16": lambda: dslash_ch_msrc(o16["g"][0], psi_b, 0, geom,
+                                       recon12=True),
+        "f32": lambda: dslash_ch_msrc(o32["g"][0], psi_b, 0, geom,
+                                      recon12=True)},
+        {"bf16": 10, "f32": 10})
+    # M_pc† M_pc on the batch: the path's four hops (the dagger half's
+    # A⁻¹† the second output of the forward half) against two matpc
+    # halves (the dagger half led by a plain A⁻¹†); then each dagger
+    # half alone: the chain's two hops on the forward half's outputs, and
+    # the stand-alone half with its plain A⁻¹†
+    for tier, op in (("bf16", s), ("f32", d)):
+        err[f"chain {tier}"] = _compare(
+            op._fused_matpc_dagm_ch(psi_b, hop=dslash_ch_msrc),
+            op._fused_matpc_ch_msrc(op._fused_matpc_ch_msrc(psi_b, False),
+                                    True),
+            f"msrc four-hop chain vs two halves ({tier}, n={n_time})",
+            F32_LIMIT)
+    g16, c16, k = o16["g"], o16["ci"], d.params.kappa
+    fwd = lambda: s._fused_matpc_ch_msrc(psi_b, False)
+    m, m_pre = dslash_ch_msrc(g16[pr], dslash_ch_msrc(
+        g16[1 - pr], psi_b, 1 - pr, geom, recon12=True, clover="fwd",
+        cinv_ch=c16[1 - pr]), pr, geom, recon12=True, clover="fwd",
+        cinv_ch=c16[pr], xpay_coef=-k * k, x_ch=psi_b, post_op=("clover",))
+    chain_half = lambda: dslash_ch_msrc(g16[pr], dslash_ch_msrc(
+        g16[1 - pr], m_pre, 1 - pr, geom, dagger=True, recon12=True,
+        clover="dag", cinv_ch=c16[1 - pr]), pr, geom, dagger=True,
+        recon12=True, xpay_coef=-k * k, x_ch=m)
+    turns(f"msrc matpc†matpc n={n_time}", {
+        "bf16 four hops": lambda: s._fused_matpc_dagm_ch(
+            psi_b, hop=dslash_ch_msrc),
+        "bf16 two halves": lambda: s._fused_matpc_ch_msrc(fwd(), True),
+        "f32 four hops": lambda: d._fused_matpc_dagm_ch(
+            psi_b, hop=dslash_ch_msrc),
+        "f32 two halves": lambda: d._fused_matpc_ch_msrc(
+            d._fused_matpc_ch_msrc(psi_b, False), True)},
+        {k_: 5 for k_ in ("bf16 four hops", "bf16 two halves",
+                          "f32 four hops", "f32 two halves")})
+    turns(f"msrc matpc† half n={n_time} (bf16)", {
+        "in the chain": chain_half,
+        "alone": lambda: s._fused_matpc_ch_msrc(m, True),
+        "its plain A⁻¹†": lambda: _ch_matrix_apply(
+            m, s._clover_matrix(f32, pr), dag=True)},
+        {"in the chain": 5, "alone": 5, "its plain A⁻¹†": 5})
+    err["k2d"] = max(r["err"] for r in k2d.values())
+    return out, bounds, err, k2d[n_time]
 
 
 def phase_bf16_paths(check_dims):
@@ -1848,6 +1996,96 @@ def phase_local_timing(geom, d, mesh):
     return {"times": med, "bounds": bounds, "err": err}
 
 
+def phase_v_kernels(check_dims, time_dims):
+    """Phase 10: the JAX package's stand-alone Pallas hops V1
+    (``dslash_parity_pallas``, 18-real links) and V2
+    (``dslash_parity_pallas2``: recon-12, and ``bf16=True``; V3 and V4
+    compute V2's hop) are K1's recon-18 and recon-12 float instances and
+    K1d's bf16-ψ instance ``g16s16``.  At ``check_dims``, both parities
+    and daggers: V1 and V2 through ``dslash_parity_kernel`` (complex64
+    in, complex64 out) and the bf16 forms through ``dslash_ch`` against
+    their plain versions, each launch counted; at ``time_dims`` the
+    bare hops timed in turns with their plain versions, beside their
+    byte bounds.  Returns {"v1": .., "v2": .., "v2 bf16": ..} of
+    (ms, plain ms, bound, largest absolute error), and the launches."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_reference, dslash_parity_kernel, from_channels,
+        gauge_channels, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    f32, b16, c64 = torch.float32, torch.bfloat16, torch.complex64
+
+    def fields(dims, seed):
+        geom = Geometry(*dims)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        ud = double_gauge(rng.random_gauge(gen, geom, dtype=c64), geom)
+        return geom, ud, rng.random_spinor(gen, geom, c64)
+
+    print(f"phase 10: V1 / V2 (and V3, V4) as K1 recon-18 / recon-12 and "
+          f"K1d g16s16, vs plain at {check_dims}", flush=True)
+    geom, ud, psi = fields(check_dims, 71)
+    err = {"v1": 0.0, "v2": 0.0, "v2 bf16": 0.0}
+    k1_0, k1d_0 = dslash_ch.launches, dslash_ch.launches_bf16
+    for p in (0, 1):
+        for dagger in (False, True):
+            for name, r12 in (("v1", False), ("v2", True)):
+                got = dslash_parity_kernel(ud, psi[1 - p], p, geom, dagger,
+                                           recon12=r12)
+                torch.cuda.synchronize()
+                ref = from_channels(dslash_ch_reference(
+                    gauge_channels(ud, p, r12, f32), to_channels(psi[1 - p]),
+                    p, geom, dagger, recon12=r12), (4, 3))
+                err[name] = max(err[name], _compare(
+                    got, ref, f"{name.upper()} (K1 recon-{12 if r12 else 18}"
+                    f") parity {p} dagger {int(dagger)}", F32_LIMIT))
+                g16 = gauge_channels(ud, p, r12, b16)
+                v16 = to_channels(psi[1 - p]).to(b16)
+                err["v2 bf16"] = max(err["v2 bf16"], _compare(
+                    dslash_ch(g16, v16, p, geom, dagger, recon12=r12),
+                    dslash_ch_reference(g16, v16, p, geom, dagger,
+                                        recon12=r12),
+                    f"V2 bf16 (K1d g16s16 recon-{12 if r12 else 18}) parity "
+                    f"{p} dagger {int(dagger)}", F32_LIMIT))
+    launches = (dslash_ch.launches - k1_0, dslash_ch.launches_bf16 - k1d_0)
+    if launches != (8, 8):
+        raise AssertionError(f"phase 10 launches K1 {launches[0]} K1d "
+                             f"{launches[1]} != 8, 8")
+    del ud, psi
+    print(f"  timed at {time_dims} (median of 5, in turns)", flush=True)
+    geom, ud, psi = fields(time_dims, 72)
+    v = to_channels(psi[1])
+    del psi
+    ops = {"v1": (gauge_channels(ud, 0, False, f32), v, False),
+           "v2": (gauge_channels(ud, 0, True, f32), v, True),
+           "v2 bf16": (gauge_channels(ud, 0, True, b16), v.to(b16), True),
+           "v2 bf16 recon-18": (gauge_channels(ud, 0, False, b16), v.to(b16),
+                                False)}
+    del ud
+    fns, n_runs = {}, {}
+    for name, (g, s, r12) in ops.items():
+        fns[name] = lambda g=g, s=s, r12=r12: dslash_ch(g, s, 0, geom,
+                                                         recon12=r12)
+        fns[f"{name} plain"] = (lambda g=g, s=s, r12=r12: dslash_ch_reference(
+            g, s, 0, geom, recon12=r12))
+        n_runs[name], n_runs[f"{name} plain"] = 20, 3
+        got, ref = fns[name](), fns[f"{name} plain"]()
+        err[name] = max(err.get(name, 0.0), _compare(
+            got, ref, f"{name} at {time_dims}", F32_LIMIT))
+    med = _turns(fns, n_runs)
+    out = {}
+    for name, (g, s, _) in ops.items():
+        bound = _bound(_nbytes(g, s) + s.numel() * 4,
+                       HOP_FLOPS * geom.half_volume)
+        print(f"  {name:<17s} {med[name]:.4f} ms (bound {bound[0]:.4f} ms, "
+              f"{bound[1]}; at {bound[0] / med[name]:.2f} of it; "
+              f"{med[name] / med['v2']:.3f}x the recon-12 hop)  plain "
+              f"{med[name + ' plain']:.4f} ms", flush=True)
+        out[name] = (med[name], med[f"{name} plain"], bound, err[name])
+    return out, launches
+
+
 def main():
     _import_port()
     import torch
@@ -1855,11 +2093,12 @@ def main():
     max_abs = phase_kernel_vs_plain(CHECK_GEOM)
     phase_identities(CHECK_GEOM)
     k = phase_slice(SLICE_GEOM)
-    k2 = phase_msrc(CHECK_GEOM, SLICE_GEOM, MSRC_TIME_N)
+    k2 = phase_msrc(CHECK_GEOM, SLICE_GEOM)
     launches, _ = phase_mg(SLICE_GEOM)
     err_16 = phase_bf16_kernels(CHECK_GEOM)
     mixed = phase_mixed(SLICE_GEOM)
-    times, bounds, err_time = phase_bf16_timing(SLICE_GEOM, MSRC_TIME_N)
+    times, bounds, err_time, k2d = phase_bf16_timing(SLICE_GEOM,
+                                                     MSRC_TIME_N)
     k1d_paths, k2d_paths = phase_bf16_paths(CHECK_GEOM)
     err_8a = phase_k1e_k3_kernels(CHECK_GEOM)
     spin = phase_bf16_spinor(SLICE_GEOM, CHECK_GEOM)
@@ -1867,6 +2106,7 @@ def main():
     big, _, _, _, err_48 = phase_compact48(BIG_GEOM)
     err_9a = phase_local_kernels((CHECK_GEOM, SLICE_GEOM))
     mesh_runs, t9 = phase_mesh_solve(SLICE_GEOM, k["secs"])
+    vk, _ = phase_v_kernels(CHECK_GEOM, SLICE_GEOM)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
     k5 = mesh_runs[True]["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
@@ -1880,7 +2120,6 @@ def main():
           f"path {k4}; K5: sharded path {k5}")
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
-    msrc16 = times[f"K2d n={MSRC_TIME_N} clover fwd + xpay"]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda", "source": source,
@@ -1889,23 +2128,25 @@ def main():
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": None}
     print(json.dumps({"kernels": [
-        entry("dslash_ch", KERNEL_SOURCE, KERNEL_REPLACES,
+        entry("dslash_ch", KERNEL_SOURCE,
+              f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
               k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8,
-              max(max_abs, k["max_abs_err"], err_48["K1"]), k["ms"],
-              k["plain_ms"], k["bound"]),
+              max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
+                  vk["v2"][3]), k["ms"], k["plain_ms"], k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
-              launches["dslash_ch_msrc"], k2["max_abs_err"], k2["ms"],
+              launches["dslash_ch_msrc"],
+              max(k2["max_abs_err"], err_time["chain f32"]), k2["ms"],
               k2["plain_ms"], k2["bound"]),
-        entry("dslash_ch_bf16", BF16_KERNEL_SOURCE, BF16_KERNEL_REPLACES,
+        entry("dslash_ch_bf16", BF16_KERNEL_SOURCE,
+              f"{BF16_KERNEL_REPLACES}; {V2_BF16_REPLACES}",
               mixed["k1d"] + k1d_paths + k1d_8,
               max(err_16["k1d"], err_time["k1d"], err_8a["k1d"],
-                  cmix["err"]["K1d"], err_48["K1d"]),
+                  cmix["err"]["K1d"], err_48["K1d"], vk["v2 bf16"][3]),
               hop16["bf16"], hop16["plain"], bounds["K1d bare hop"]),
         entry("dslash_ch_msrc_bf16", BF16_KERNEL_SOURCE,
               BF16_MSRC_KERNEL_REPLACES, k2d_paths,
-              max(err_16["k2d"], err_time["k2d"]),
-              msrc16["bf16"], msrc16["plain"],
-              bounds[f"K2d n={MSRC_TIME_N} clover fwd + xpay"]),
+              max(err_16["k2d"], err_time["k2d"], err_time["chain bf16"]),
+              k2d["ms"], k2d["plain_ms"], k2d["bound"]),
         entry("dslash_ch_bf16s", BF16S_KERNEL_SOURCE, BF16S_KERNEL_REPLACES,
               spin["k1e"] + cmix["k1e"],
               max(err_8a["k1e"], spin["err"]["k1e"], cmix["err"]["K1e"]),

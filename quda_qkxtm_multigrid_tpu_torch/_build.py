@@ -29,9 +29,9 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 # (psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
 #  twist, ta, tb, clover, xpay, xc, post, pa, pb, stream)
 _DSLASH_ARGTYPES = [_P] * 6 + [_I] * 8 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
-# (psi, g, cinv, x, out, n, T, Z, W, Xh, parity, dagger, recon12, twist,
-#  ta, tb, clover, xpay, xc, stream)
-_MSRC_ARGTYPES = [_P] * 5 + [_I] * 9 + [_D, _D, _I, _I, _D, _P]
+# (psi, g, cinv, x, out, out2, n, T, Z, W, Xh, parity, dagger, recon12,
+#  twist, ta, tb, clover, xpay, xc, post, pa, pb, stream)
+_MSRC_ARGTYPES = [_P] * 6 + [_I] * 9 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
 # (psi, g, cinv, x, out, face_m, face_p, face_ch, T, Z, W, Xh, parity, t0,
 #  tstep, nrows, dagger, recon12, twist, ta, tb, clover, xpay, xc, stream)
 _LOCAL_ARGTYPES = [_P] * 7 + [_I] * 12 + [_D, _D, _I, _I, _D, _P]

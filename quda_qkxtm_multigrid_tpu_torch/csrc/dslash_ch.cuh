@@ -95,6 +95,26 @@ struct DslashArgs {
   R pa, pb;
 };
 
+// The multi-source hop's tile (K2, K2d; dslash_ch_msrc.cu says why):
+// kMsrcTile<G> sites of w of one (t, z) row per block of kThreads
+// threads, kMsrcLanes<G> sources at a time; the block stages the tile's
+// gauge and clover inverse in shared memory, channel-major
+// [C][kMsrcTile<G>].  Chosen by measurement on an H100 (PERF.md, section 6):
+// 32 sites and 4 lanes with float operands, 64 and 2 with bf16 ones,
+// 30 KB of shared memory a block either way.
+template <typename G>
+constexpr int kMsrcTile = sizeof(G) == 2 ? 64 : 32;
+template <typename G>
+constexpr int kMsrcLanes = kThreads / kMsrcTile<G>;
+
+// One site's column of the staged operands: channel ch of the gauge at
+// g[ch * kMsrcTile<G>], of the clover inverse at c[ch * kMsrcTile<G>].
+template <typename G, typename C>
+struct TileOperands {
+  const G* g;
+  const C* c;
+};
+
 // The t-local hop's own arguments (dslash_ch_local.cu, K4 and K5), a
 // second kernel parameter so that DslashArgs, and the code of every
 // other kernel, stay as they were.  t does not wrap there.  The launch
@@ -219,11 +239,16 @@ __device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
 // (K5's interior); 2 rows -1 and T are the 24-channel faces of ``l``
 // (K4, K5's edges), a pointer swap and nothing else; 3 they are the
 // 12-channel projected faces (K5's edges; see LocalArgs).
+// TILE: where the links and the clover inverse are read, as a base
+// pointer and a channel stride.  false: in device memory, stride Z*W;
+// true: in the staged tile of shared memory (``tile``, K2 and K2d),
+// stride kMsrcTile<G>.  The arithmetic is the same code either way.
 template <typename R, typename G, typename C, typename S, typename X,
-          typename O, bool DAG, int RECON, int TMODE = 0>
+          typename O, bool DAG, int RECON, int TMODE = 0, bool TILE = false>
 __device__ __forceinline__ void dslash_site(
     const DslashArgs<R, G, C, S, X, O>& a, int t, int z, int w,
-    int64_t soff, const LocalArgs<S>* l = nullptr) {
+    int64_t soff, const LocalArgs<S>* l = nullptr,
+    TileOperands<G, C> tile = {}) {
   constexpr bool RECON12 = RECON == 12;
   constexpr int NROWS = RECON12 ? 2 : 3;
   constexpr int NG = RECON == 8 ? 64 : NROWS * 48;
@@ -231,7 +256,12 @@ __device__ __forceinline__ void dslash_site(
   const int64_t site = (int64_t)z * a.W + w;
   const int y = w / a.Xh, k = w - y * a.Xh;
   const bool s0 = ((t + z + y + a.parity) & 1) == 0;  // true x is even
-  const G* gs = a.g + (int64_t)t * NG * zw + site;
+  const int64_t ost = TILE ? (int64_t)kMsrcTile<G> : zw;  // operand channel stride
+  const G* gs;
+  if constexpr (TILE)
+    gs = tile.g;
+  else
+    gs = a.g + (int64_t)t * NG * zw + site;
 
   Cplx<R> acc[4][3];
 #pragma unroll
@@ -289,13 +319,13 @@ __device__ __forceinline__ void dslash_site(
 
       Cplx<R> u[3][3];
       if constexpr (RECON == 8) {
-        decode_recon8<R>(gs, (mu * 2 + fb) * 8, zw, u);
+        decode_recon8<R>(gs, (mu * 2 + fb) * 8, ost, u);
       } else {
 #pragma unroll
         for (int r = 0; r < NROWS; ++r)
 #pragma unroll
           for (int c = 0; c < 3; ++c)
-            u[r][c] = load_c<R>(gs, (((mu * 2 + fb) * NROWS + r) * 3 + c) * 2, zw);
+            u[r][c] = load_c<R>(gs, (((mu * 2 + fb) * NROWS + r) * 3 + c) * 2, ost);
       }
       if (RECON12) {
 #pragma unroll
@@ -330,11 +360,17 @@ __device__ __forceinline__ void dslash_site(
   Cplx<R> res[12];
 #pragma unroll
   for (int kk = 0; kk < 12; ++kk) res[kk] = acc[kk / 3][kk % 3];
+  // the site's clover inverse, where an epilogue reads it
+  auto cinv_at = [&]() -> const C* {
+    if constexpr (TILE)
+      return tile.c;
+    else
+      return a.cinv + (int64_t)t * 144 * zw + site;
+  };
   if (a.clover) {
     const Cplx<R> hop[12] = {res[0], res[1], res[2], res[3], res[4], res[5],
                              res[6], res[7], res[8], res[9], res[10], res[11]};
-    chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, a.clover == 2,
-                 hop, res);
+    chiral_apply(cinv_at(), ost, a.clover == 2, hop, res);
   }
   const X* xs = a.xpay ? a.x + soff + (int64_t)t * 24 * zw + site : nullptr;
   O* os = a.out + soff + (int64_t)t * 24 * zw + site;
@@ -353,7 +389,7 @@ __device__ __forceinline__ void dslash_site(
     O* o2 = a.out2 + soff + (int64_t)t * 24 * zw + site;
     Cplx<R> v2[12];
     if (a.post == 1) {
-      chiral_apply(a.cinv + (int64_t)t * 144 * zw + site, zw, true, res, v2);
+      chiral_apply(cinv_at(), ost, true, res, v2);
     } else {
 #pragma unroll
       for (int kk = 0; kk < 12; ++kk) v2[kk] = g5_rotate(res[kk], kk, a.pa, a.pb);
@@ -374,19 +410,83 @@ __global__ void __launch_bounds__(kThreads)
                                             (int)blockIdx.y, w, 0);
 }
 
-// n sources: grid (ceil(W / blockDim.x) * n, Z, T), blockIdx.x =
-// w_block * n + source (dslash_ch_msrc.cu says why).
+// 16 bytes from device memory to shared memory, cached in L2 only; the
+// copies of a thread land at cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Stage ``nch`` channel rows of one tile, row ch at src + ch * zw, into
+// dst[ch * TW + i] for i < width (the block's threads share the
+// work): 16-byte copies when every row is whole and 16-byte aligned,
+// otherwise one element at a time (the ragged last tile of a row, odd
+// W).  Waits for nothing: cp_async_wait_all and a barrier follow.
+template <int TW, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int nch,
+                                           int64_t zw, int width) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthr = blockDim.x * blockDim.y;
+  constexpr int per = 16 / sizeof(T);   // elements a 16-byte copy
+  const bool whole = width == TW &&
+                     (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
+                     (zw * (int64_t)sizeof(T)) % 16 == 0;
+  if (whole) {
+    constexpr int chunks = TW / per;
+    for (int i = tid; i < nch * chunks; i += nthr) {
+      const int ch = i / chunks, k = (i - ch * chunks) * per;
+      cp_async16(dst + ch * TW + k, src + ch * zw + k);
+    }
+  } else {
+    for (int i = tid; i < nch * TW; i += nthr) {
+      const int ch = i / TW, k = i - ch * TW;
+      if (k < width) dst[i] = src[ch * zw + k];
+    }
+  }
+}
+
+// n sources of one gauge field and clover inverse: grid (ceil(W / TW), Z,
+// T), block (TW, min(n, kMsrcLanes<G>)), TW = kMsrcTile<G>.  The block
+// stages its tile's gauge (and the clover inverse, where an epilogue
+// reads it) once, then each thread computes its site for sources
+// threadIdx.y, threadIdx.y + blockDim.y, ... with K1's device function,
+// reading the staged operands (dslash_ch_msrc.cu says why).
 template <typename R, typename G, typename C, typename S, typename X,
           typename O, bool DAG, int RECON>
 __global__ void __launch_bounds__(kThreads)
     dslash_ch_msrc_kernel(const DslashArgs<R, G, C, S, X, O> a, int n) {
-  const int s = blockIdx.x % n;
-  const int w = (blockIdx.x / n) * blockDim.x + threadIdx.x;
-  if (w >= a.W) return;
-  const int64_t per_source = (int64_t)a.T * 24 * a.Z * a.W;
-  dslash_site<R, G, C, S, X, O, DAG, RECON>(a, (int)blockIdx.z,
-                                            (int)blockIdx.y, w,
-                                            s * per_source);
+  constexpr int NG = RECON == 12 ? 96 : 144, TW = kMsrcTile<G>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  G* sg = reinterpret_cast<G*>(smem);
+  C* sc = reinterpret_cast<C*>(smem + NG * TW * sizeof(G));
+  const int t = blockIdx.z, z = blockIdx.y, w0 = blockIdx.x * TW;
+  const int64_t zw = (int64_t)a.Z * a.W;
+  const int64_t row = (int64_t)z * a.W + w0;
+  const int width = min(TW, a.W - w0);
+  stage_rows<TW>(sg, a.g + (int64_t)t * NG * zw + row, NG, zw, width);
+  if (a.clover || a.post == 1)
+    stage_rows<TW>(sc, a.cinv + (int64_t)t * 144 * zw + row, 144, zw, width);
+  cp_async_wait_all();
+  __syncthreads();
+  if ((int)threadIdx.x >= width) return;
+  const TileOperands<G, C> tile = {sg + threadIdx.x, sc + threadIdx.x};
+  const int64_t per_source = (int64_t)a.T * 24 * zw;
+#pragma unroll 1
+  for (int s = threadIdx.y; s < n; s += blockDim.y) {
+    // the staged operands do not change between sources; without this
+    // barrier the compiler keeps them in registers across the loop (168
+    // and 255 registers for the float instances), and the occupancy drops
+    asm volatile("" ::: "memory");
+    dslash_site<R, G, C, S, X, O, DAG, RECON, 0, true>(
+        a, t, z, w0 + (int)threadIdx.x, s * per_source, nullptr, tile);
+  }
 }
 
 // The t-local hop (K4, K5; TMODE 1, 2 or 3): one thread per output site
@@ -493,26 +593,44 @@ int launch_dslash_r12(const void* psi, const void* g, const void* cinv,
       clover, xpay, xc, post, pa, pb, stream);
 }
 
-// Multi-source launch (no second output); returns cudaGetLastError().
+// One instance of the multi-source kernel, with the shared memory its
+// staged operands take.
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, int RECON>
+void launch_msrc_instance(const DslashArgs<R, G, C, S, X, O>& a, int n,
+                          cudaStream_t s) {
+  constexpr int NG = RECON == 12 ? 96 : 144, TW = kMsrcTile<G>;
+  static_assert(TW * (NG * sizeof(G) + 144 * sizeof(C)) <= 48 * 1024,
+                "the staged tile must fit the default 48 KB of dynamic "
+                "shared memory (above it a launch needs an opt-in)");
+  const bool clover = a.clover || a.post == 1;
+  const size_t smem = TW * (NG * sizeof(G) + (clover ? 144 * sizeof(C) : 0));
+  const dim3 block(TW, n < kMsrcLanes<G> ? n : kMsrcLanes<G>);
+  const dim3 grid((a.W + TW - 1) / TW, a.Z, a.T);
+  dslash_ch_msrc_kernel<R, G, C, S, X, O, DAG, RECON><<<grid, block, smem, s>>>(a, n);
+}
+
+// Multi-source launch, recon-12 or full links, with K1's epilogues and
+// second output; returns cudaGetLastError() (0 on success).
 template <typename R, typename G, typename C, typename S, typename X,
           typename O>
 int launch_dslash_msrc(const void* psi, const void* g, const void* cinv,
-                       const void* x, void* out, int n, int T, int Z, int W,
-                       int Xh, int parity, int dagger, int recon12,
-                       int twist, double ta, double tb, int clover, int xpay,
-                       double xc, void* stream) {
+                       const void* x, void* out, void* out2, int n, int T,
+                       int Z, int W, int Xh, int parity, int dagger,
+                       int recon12, int twist, double ta, double tb,
+                       int clover, int xpay, double xc, int post, double pa,
+                       double pb, void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
-      psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity, twist, ta, tb,
-      clover, xpay, xc, 0, 0.0, 0.0);
-  const dim3 block(kThreads);
-  const dim3 grid(((W + kThreads - 1) / kThreads) * n, Z, T);
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, twist, ta, tb,
+      clover, xpay, xc, post, pa, pb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dagger) {
-    if (recon12) dslash_ch_msrc_kernel<R, G, C, S, X, O, true, 12><<<grid, block, 0, s>>>(a, n);
-    else dslash_ch_msrc_kernel<R, G, C, S, X, O, true, 18><<<grid, block, 0, s>>>(a, n);
+    if (recon12) launch_msrc_instance<R, G, C, S, X, O, true, 12>(a, n, s);
+    else launch_msrc_instance<R, G, C, S, X, O, true, 18>(a, n, s);
   } else {
-    if (recon12) dslash_ch_msrc_kernel<R, G, C, S, X, O, false, 12><<<grid, block, 0, s>>>(a, n);
-    else dslash_ch_msrc_kernel<R, G, C, S, X, O, false, 18><<<grid, block, 0, s>>>(a, n);
+    if (recon12) launch_msrc_instance<R, G, C, S, X, O, false, 12>(a, n, s);
+    else launch_msrc_instance<R, G, C, S, X, O, false, 18>(a, n, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

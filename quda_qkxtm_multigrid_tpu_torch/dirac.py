@@ -284,16 +284,20 @@ class Dirac(nn.Module):
     def _fused_matpc_ch_msrc(self, psi_ch_b: torch.Tensor, dagger: bool):
         """Multi-source fused matpc on float32 channels [n, T, 24, Z, W]:
         the same chain with the multi-source hop, which reads the gauge
-        and clover once for all n sources.  The dagger half's leading
-        A⁻¹† (or twist) runs batched before the first hop: the
-        multi-source kernel has no second output."""
+        and clover once for all n sources.  The dagger half alone runs
+        its leading A⁻¹† (or twist) batched before the first hop; the
+        normal operator's chain, ``_fused_matpc_dagm_ch(hop=
+        dslash_ch_msrc)``, takes it from the forward half's second
+        output instead."""
         return self._fused_matpc_ch(psi_ch_b, dagger, hop=dslash_ch_msrc)
 
     def _fused_matpc_dagm_ch(self, psi_ch: torch.Tensor, hop=dslash_ch):
         """matpc†·matpc as four fused hops: the leading A⁻¹† of the dagger
         half is the second output (``post_op``) of the forward half's
-        last hop.  ``hop`` is the hop function, ``dslash_ch`` unless a
-        caller times the chain on the plain ``dslash_ch_reference``."""
+        last hop.  ``hop`` is the hop function: ``dslash_ch``,
+        ``dslash_ch_msrc`` on a batch of sources [n, T, 24, Z, W], or
+        the plain ``dslash_ch_reference`` where a caller times the
+        chain."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
         ops = self._operands(psi_ch.dtype)

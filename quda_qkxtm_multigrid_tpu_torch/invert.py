@@ -22,7 +22,7 @@ from quda_qkxtm_multigrid_tpu_torch.compact import (
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    from_channels, to_channels)
+    dslash_ch_msrc, from_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import ShardedDirac
 from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import (
@@ -195,8 +195,11 @@ def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
     Source preparation, the M_pc† of the right-hand side, the
     reconstruction and the true residual run source by source.  On the
     fused kernel chain the CG runs on float32 channels [n, T, 24, Z, W]
-    and each matvec is two multi-source matpc halves, i.e. four
-    multi-source kernel launches (K2d in the bf16 tier).  ``true_res``
+    and each matvec is the four-hop M_pc† M_pc chain of
+    ``Dirac._fused_matpc_dagm_ch`` on the multi-source hop, i.e. four
+    multi-source kernel launches (K2d in the bf16 tier), the dagger
+    half's leading A⁻¹† the second output of the forward half's last
+    hop.  ``true_res``
     is the worst source's |M x_i − b_i| / |b_i|.  A ``ShardedDirac``
     raises: the multi-source CG has no sharded form yet."""
     if isinstance(dirac, ShardedDirac):
@@ -206,8 +209,7 @@ def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
                        for b in bs])
     if dirac._has_fused_matpc:
         def matvec_b(v_ch_b):
-            return dirac._fused_matpc_ch_msrc(
-                dirac._fused_matpc_ch_msrc(v_ch_b, False), True)
+            return dirac._fused_matpc_dagm_ch(v_ch_b, hop=dslash_ch_msrc)
 
         rhs_ch = torch.stack([to_channels(r) for r in rhs]).to(torch.float32)
         res = msrc_cg(matvec_b, rhs_ch, tol=tol, maxiter=maxiter)

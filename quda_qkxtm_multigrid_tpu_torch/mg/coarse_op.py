@@ -22,6 +22,7 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     BlockGeometry, Transfer, from_blocked_flat, to_blocked_flat)
+from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
 
 
 def _axis_of_mu(mu: int) -> int:
@@ -35,8 +36,10 @@ class CoarseOperator:
     y: torch.Tensor            # [8, cvol, dof, dof]
     bg: BlockGeometry
 
+    @full_float32()
     def apply(self, vc: torch.Tensor) -> torch.Tensor:
-        """vc [2, nvec, Tc,Zc,Yc,Xc] → D_c vc (same shape)."""
+        """vc [2, nvec, Tc,Zc,Yc,Xc] → D_c vc (same shape), its products
+        in full float32."""
         dof = self.bg.coarse_dof
         v = vc.reshape((dof,) + tuple(vc.shape[2:]))
         shifted = []

@@ -75,16 +75,18 @@ class MGParams:
             raise ValueError(
                 f"n_level={self.n_level}: only two-level MG is ported; three "
                 "and four levels (setup_coarse_level, CoarseTransfer) are "
-                "ROADMAP queue 1 item 12")
+                "the three- and four-level MG item of ROADMAP queue 1 "
+                "('MG, the rest')")
         if self.vec_dtype != "f32":
             raise ValueError(
                 f"vec_dtype={self.vec_dtype!r}: the bf16 null-vector tier is "
-                "ROADMAP queue 1 item 6b")
+                "the bf16 null-vector item of ROADMAP queue 1 ('MG, the "
+                "rest')")
         if self.solve_operator != "canonical":
             raise ValueError(
                 f"solve_operator={self.solve_operator!r}: the compact "
-                "operator is a 16 GB-HBM squeeze, not ported (ROADMAP queue "
-                "1 item 14)")
+                "operator is a 16 GB-HBM squeeze, not ported on purpose "
+                "(ROADMAP queue 1, 'Not ported on purpose')")
         if self.outer_solver not in ("gcr", "gcr-pc", "mr-richardson"):
             raise ValueError(f"unknown outer_solver {self.outer_solver!r}")
 

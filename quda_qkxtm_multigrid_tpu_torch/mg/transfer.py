@@ -14,9 +14,9 @@ Flat blocked layout, the one ``Transfer`` works in:
 stored complex, aggregate-major: [2(ch), Tc, Zc, Yc, Xc, nvec, bdof], the
 JAX package's planar (vr, vi) pair as one complex tensor, so that
 restrict and prolong are batched [nvec × bdof] matrix-vector products
-over the (chirality, aggregate) pairs, each one pass over V.  Float32 products run in full
-float32: TF32 stays off (``torch.backends.cuda.matmul.allow_tf32`` is
-False by default and nothing here turns it on).
+over the (chirality, aggregate) pairs, each one pass over V.  Float32
+products run in full float32 whatever the caller has set: each product
+runs under ``utils.precision.full_float32``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.lattice import (
     Geometry, spinor_from_lex_dof_leading, spinor_to_lex_dof_leading)
+from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +102,7 @@ def from_blocked_flat(flat: torch.Tensor, bg: BlockGeometry) -> torch.Tensor:
     return spinor_from_lex_dof_leading(lexd, g)
 
 
+@full_float32()
 def cholqr_pass(v: torch.Tensor) -> torch.Tensor:
     """One CholQR pass over an aggregate-major stack [..., n, d] of n
     vectors each: per batch row the Gram matrix G = L L† of the vectors,
@@ -138,6 +140,7 @@ class Transfer:
         bg = self.bg
         return self.v.reshape(2 * bg.coarse_volume, bg.nvec, bg.bdof)
 
+    @full_float32()
     def restrict_flat(self, flat: torch.Tensor) -> torch.Tensor:
         """A blocked fine field [2, Tc..Xc, bdof] → S = V† f per
         (chirality, aggregate): [2, Tc..Xc, nvec].  Computed as the row
@@ -155,6 +158,7 @@ class Transfer:
         s = self.restrict_flat(to_blocked_flat(psi, self.bg))
         return torch.movedim(s, -1, 1).contiguous()
 
+    @full_float32()
     def prolong(self, vc: torch.Tensor) -> torch.Tensor:
         """coarse [2, nvec, Tc,Zc,Yc,Xc] → fine [2,4,3,T,Z,W]."""
         bg = self.bg

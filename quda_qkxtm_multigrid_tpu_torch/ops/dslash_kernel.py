@@ -22,9 +22,9 @@ on a CPU tensor it runs ``dslash_ch_reference``.  There is no fallback
 between the two.
 
 ``dslash_ch_msrc`` is the multi-source form (K2, the counterpart of
-``dslash_ch_pallas5_msrc``): the same hop and epilogues, without
-``post_op``, over a batch ψ [n, T, 24, Z, W] that shares one gauge and
-one clover inverse, in float32.  On a CUDA tensor it launches
+``dslash_ch_pallas5_msrc``): the same hop and epilogues, ``post_op``
+included, over a batch ψ [n, T, 24, Z, W] that shares one gauge and one
+clover inverse, in float32.  On a CUDA tensor it launches
 ``csrc/dslash_ch_msrc.cu``; on a CPU tensor it runs
 ``dslash_ch_msrc_reference``.
 
@@ -421,6 +421,15 @@ def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
     return form
 
 
+def _post_args(post_op):
+    """The kernels' (post, pa, pb) for a ``post_op``: 0 none, 1 A⁻¹† of
+    the result, 2 the twist (a, b) of the result."""
+    post = {None: 0, "clover": 1, "twist": 2}[
+        None if post_op is None else post_op[0]]
+    pa, pb = (post_op[1], post_op[2]) if post == 2 else (0.0, 0.0)
+    return post, pa, pb
+
+
 def _launch(lib, form: str, g_ch, psi_ch, out, out2, parity: int,
             geom: Geometry, dagger, recon12, twist, xpay_coef, x_ch, clover,
             cinv_ch, post_op, stream: int) -> int:
@@ -429,9 +438,7 @@ def _launch(lib, form: str, g_ch, psi_ch, out, out2, parity: int,
     fn = getattr(lib, f"qkx_dslash_ch_{form}")
     ptr = lambda t: None if t is None else t.data_ptr()
     ta, tb = twist if twist is not None else (0.0, 0.0)
-    post = {None: 0, "clover": 1, "twist": 2}[
-        None if post_op is None else post_op[0]]
-    pa, pb = (post_op[1], post_op[2]) if post == 2 else (0.0, 0.0)
+    post, pa, pb = _post_args(post_op)
     return fn(ptr(psi_ch), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
               ptr(out2), geom.T, geom.Z, geom.W, geom.Xh, parity,
               int(dagger), int(recon12), int(twist is not None), ta, tb,
@@ -502,19 +509,21 @@ def dslash_parity_kernel(ud, psi_opp, parity: int, geom: Geometry,
 def dslash_ch_msrc_reference(g_ch, psi_ch_b, parity: int, geom: Geometry,
                              dagger: bool = False, recon12: bool = False,
                              twist=None, xpay_coef=None, x_ch=None,
-                             clover=None, cinv_ch=None):
+                             clover=None, cinv_ch=None, post_op=None):
     """Plain PyTorch version of ``dslash_ch_msrc``: ``dslash_ch_reference``
     on each source (bf16 operands widened to float32)."""
-    return torch.stack([
-        dslash_ch_reference(g_ch, psi_ch_b[i], parity, geom, dagger, recon12,
-                            twist, xpay_coef,
-                            None if x_ch is None else x_ch[i], clover,
-                            cinv_ch)
-        for i in range(psi_ch_b.shape[0])])
+    outs = [dslash_ch_reference(g_ch, psi_ch_b[i], parity, geom, dagger,
+                                recon12, twist, xpay_coef,
+                                None if x_ch is None else x_ch[i], clover,
+                                cinv_ch, post_op)
+            for i in range(psi_ch_b.shape[0])]
+    if post_op is None:
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))
 
 
 def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
-                         x_ch, clover, cinv_ch) -> str:
+                         x_ch, clover, cinv_ch, post_op=None) -> str:
     """Raise on anything the multi-source kernel does not take; returns
     the kernel form, "f32" or "f32_g16" (bf16 gauge and clover
     inverse)."""
@@ -534,7 +543,7 @@ def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
             raise ValueError("x_ch is not contiguous")
     form = _check_operands(g_ch, psi_ch_b[0], geom, recon12, twist,
                            xpay_coef, None if x_ch is None else x_ch[0],
-                           clover, cinv_ch, None)
+                           clover, cinv_ch, post_op)
     if form not in ("f32", "f32_g16"):
         raise TypeError(f"the multi-source kernel has no {form} instance: "
                         "float32 operands, or a bf16 gauge and clover "
@@ -544,9 +553,12 @@ def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
 
 def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
                    dagger: bool = False, recon12: bool = False, twist=None,
-                   xpay_coef=None, x_ch=None, clover=None, cinv_ch=None):
+                   xpay_coef=None, x_ch=None, clover=None, cinv_ch=None,
+                   post_op=None):
     """Fused Wilson hop with epilogues over a batch of sources
-    ψ [n, T, 24, Z, W] float32 (module docstring).
+    ψ [n, T, 24, Z, W] float32 (module docstring), ``post_op`` as in
+    ``dslash_ch``: returns ``out`` or ``(out, out2)``, [n, T, 24, Z, W]
+    each.
 
     A CUDA ``psi_ch_b`` launches the multi-source CUDA kernel once on
     the current stream, K2 or, with bf16 gauge and clover inverse, K2d
@@ -554,26 +566,28 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
     count the launches); a CPU ``psi_ch_b`` runs
     ``dslash_ch_msrc_reference``.  Anything else raises."""
     form = _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist,
-                                xpay_coef, x_ch, clover, cinv_ch)
+                                xpay_coef, x_ch, clover, cinv_ch, post_op)
     if psi_ch_b.device.type == "cpu":
         return dslash_ch_msrc_reference(g_ch, psi_ch_b, parity, geom, dagger,
                                         recon12, twist, xpay_coef, x_ch,
-                                        clover, cinv_ch)
+                                        clover, cinv_ch, post_op)
     if psi_ch_b.device.type != "cuda":
         raise ValueError(f"no dslash_ch_msrc for device {psi_ch_b.device}")
     from quda_qkxtm_multigrid_tpu_torch import _build
     lib = _build.load_library()
     out = torch.empty_like(psi_ch_b)
+    out2 = torch.empty_like(out) if post_op is not None else None
     ptr = lambda t: None if t is None else t.data_ptr()
     ta, tb = twist if twist is not None else (0.0, 0.0)
+    post, pa, pb = _post_args(post_op)
     stream = torch.cuda.current_stream(psi_ch_b.device).cuda_stream
     with torch.cuda.device(psi_ch_b.device):
         err = getattr(lib, f"qkx_dslash_ch_msrc_{form}")(
             ptr(psi_ch_b), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
-            psi_ch_b.shape[0], geom.T, geom.Z, geom.W, geom.Xh, parity,
-            int(dagger), int(recon12), int(twist is not None), ta, tb,
-            _CLOVER_MODES[clover], int(xpay_coef is not None),
-            0.0 if xpay_coef is None else xpay_coef,
+            ptr(out2), psi_ch_b.shape[0], geom.T, geom.Z, geom.W, geom.Xh,
+            parity, int(dagger), int(recon12), int(twist is not None), ta,
+            tb, _CLOVER_MODES[clover], int(xpay_coef is not None),
+            0.0 if xpay_coef is None else xpay_coef, post, pa, pb,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"dslash_ch_msrc kernel launch failed "
@@ -582,7 +596,7 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
         dslash_ch_msrc.launches_bf16 += 1
     else:
         dslash_ch_msrc.launches += 1
-    return out
+    return out if out2 is None else (out, out2)
 
 
 dslash_ch_msrc.launches = 0

@@ -1,1 +1,2 @@
-"""Utilities of the port: random fields."""
+"""Utilities of the port: random fields, null-vector files, full
+float32 products."""

@@ -18,7 +18,8 @@ from quda_qkxtm_multigrid_tpu_torch import _build
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "quda_qkxtm_multigrid_tpu_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "time_kernels.py"]
 
 
 def _imported_modules(path: Path):
@@ -100,9 +101,9 @@ def test_build_targets_hopper():
 
 @pytest.mark.parametrize("name,n_args,n_ptrs", [
     ("qkx_dslash_ch_f32", 23, 6), ("qkx_dslash_ch_f64", 23, 6),
-    ("qkx_dslash_ch_msrc_f32", 20, 5), ("qkx_dslash_ch_f32_g16", 23, 6),
+    ("qkx_dslash_ch_msrc_f32", 24, 6), ("qkx_dslash_ch_f32_g16", 23, 6),
     ("qkx_dslash_ch_f32_g16s16", 23, 6),
-    ("qkx_dslash_ch_msrc_f32_g16", 20, 5),
+    ("qkx_dslash_ch_msrc_f32_g16", 24, 6),
     ("qkx_dslash_ch_local_f32", 25, 7), ("qkx_dslash_ch_local_f64", 25, 7),
     ("qkx_dslash_ch_local_f32_g16", 25, 7)])
 def test_entry_points_pass_pointers_as_void_p(name, n_args, n_ptrs):

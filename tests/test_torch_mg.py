@@ -285,8 +285,9 @@ def test_vec_outfile_round_trip(tmp_path, flds):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(n_level=3), "item 12"), (dict(vec_dtype="bf16"), "item 6b"),
-    (dict(solve_operator="compact"), "item 14"),
+    (dict(n_level=3), "three- and four-level MG item"),
+    (dict(vec_dtype="bf16"), "bf16 null-vector item"),
+    (dict(solve_operator="compact"), "not ported on purpose"),
     (dict(outer_solver="cg"), "outer_solver")])
 def test_mg_params_refuse_what_is_not_ported(kw, match):
     with pytest.raises(ValueError, match=match):
