@@ -79,7 +79,29 @@ and does not print its last line:
    in one call at 32³×64, with the byte bounds;
 10. the JAX package's stand-alone Pallas hops V1–V4 as instances of K1
     (recon-18 and recon-12 float) and K1d (bf16-ψ ``g16s16``): against
-    their plain versions at 16³×32, timed at 32³×64 with their bounds.
+    their plain versions at 16³×32, timed at 32³×64 with their bounds;
+11. the 2pt workflow (``workflows.run_twop``) at 32³×64 on the complex64
+    gauge of seed 7 with the antiperiodic t boundary: the plaquette; the
+    CG path, each flavour's twelve smeared columns as one multi-source
+    solve through K2 (n = 12), with the iterations, each column's true
+    residual certified by the plain complex128 operator, the seconds of
+    each stage (APE, smearing, solve, rotation, contraction), the
+    launches and the peak memory; the antiperiodic instances of K1
+    float32 and K2 (n = 12) that the path launches, each hop of its
+    four-hop chain on the path's operands and smeared sources, against
+    their plain versions; the same 24 columns as single ``invert``
+    solves through K1; the MG path with the pair of preconditioners
+    (setup split, outer iterations, certified residuals, the pion
+    against the CG path); the pion's sanity; ``cli.main(["twop", …])``
+    at 8³×16 into a temporary directory, in single precision and in
+    double (the complex128 route through K1's float64 instance).
+
+Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
+at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
+K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
+a two-way split), each against its plain version and against the
+recon-18 form on the same links; then the fused matpc†matpc on that
+gauge against the plain complex128 composition.
 
 Without a CUDA device, or without the port's package beside it, it exits
 non-zero before printing any result.  The last line of its output is
@@ -180,6 +202,20 @@ SPLIT_NT, SPLIT_RANK = 4, 1      # 9a: the slab of rank 1 of a four-way split
 LOCAL_VS_K1 = {"float32": 1e-7, "float64": 1e-14}   # K4 vs K1, normwise
 OVERLAP_VS_K4 = 1e-7             # K5 vs K4, normwise, float32
 MESH_X_LIMIT = 1e-5              # sharded vs unsharded solution, normwise
+
+# phase 2b, the antiperiodic t boundary: a kernel against its plain
+# version, and against the recon-18 form on the same links (bf16 links:
+# recon-12 rebuilds row 2 from rounded rows, recon-18 stores it rounded)
+TBC_LIMIT = {"float32": 1e-7, "float64": 1e-13}
+TBC_VS_R18 = {"float32": 1e-6, "float64": 1e-13, "bfloat16": 2e-2}
+TBC_MSRC_NS = (1, 3, 12)
+
+# phase 11, the 2pt workflow (the CLI's APE and Gauss defaults)
+TWOP_TOL, TWOP_SOURCE = 1e-7, (0, 0, 0, 0)
+TWOP_VS_SINGLES = 1e-5   # a column: multi-source vs single solve, normwise
+TWOP_MG_PION = 1e-4      # the pion: MG pair vs CG, normwise
+TWOP_PION_IMAG = 1e-5    # max |Im C(t)| / max |Re C(t)|, zero-momentum pion
+CLI_GEOM = (8, 8, 8, 16)
 
 
 def _import_port():
@@ -400,6 +436,251 @@ def phase_identities(geom_dims):
         raise AssertionError("phase 3 did not launch the kernel")
 
 
+def _tbc_k1(ud, cinv, psi, x, geom, err):
+    """Phase 2b's K1 (float32, float64) and K1d (and V2, V2 bf16) forms:
+    each recon-12 form with the boundary's sign against its plain version
+    and against the recon-18 form of its tier on the same links."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, dslash_ch, dslash_ch_reference, gauge_channels,
+        to_channels)
+    f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    cases = [(lbl, c) for lbl, c in _hop_cases(a, 1 / (1 + a * a),
+                                               -kappa * kappa) if c["recon12"]]
+    v2 = [(f"bf16-psi hop parity {p} dagger {int(dg)} (V2 bf16)",
+           dict(parity=p, dagger=dg, psi16=True))
+          for p in (0, 1) for dg in (False, True)]
+    for op, name in ((f32, "k1"), (f64, "k1"), (b16, "k1d")):
+        sp = f64 if op == f64 else f32
+        g12 = [gauge_channels(ud, p, True, op) for p in (0, 1)]
+        g18 = [gauge_channels(ud, p, False, op) for p in (0, 1)]
+        ops = {"ci": [clover_channels(cinv, p, op) for p in (0, 1)]}
+        tier = {f32: "K1 f32", f64: "K1 f64", b16: "K1d"}[op]
+        for label, c in cases + (v2 if op == b16 else []):
+            p = c["parity"]
+            v = to_channels(psi[1 - p]).to(sp)
+            v = v.to(b16) if c.get("psi16") else v
+            kw = _bf16_kwargs(c, ops, to_channels(x[p]).to(sp), p)
+            got = dslash_ch(g12[p], v, p, geom, antiperiodic=True, **kw)
+            torch.cuda.synchronize()
+            ref = dslash_ch_reference(g12[p], v, p, geom, antiperiodic=True,
+                                      **kw)
+            err[name] = max(err[name], _compare(
+                got, ref, f"{tier} {label}", TBC_LIMIT[str(sp)[6:]]))
+            r18 = dslash_ch(g18[p], v, p, geom, **dict(kw, recon12=False))
+            _compare(got, r18, "  vs recon-18 on the same links",
+                     TBC_VS_R18[str(op)[6:]])
+
+
+def _tbc_k1e(ud, cinv, psi, x, geom, err):
+    """Phase 2b's K1e forms (and K1d's float32-A⁻¹ form) with the sign:
+    against the plain version (a bf16 output through
+    ``_bf16_ulp_check``) and against K1's recon-18 form on the widened
+    operands."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, dslash_ch, dslash_ch_reference, gauge_channels,
+        to_channels)
+    f32, b16 = torch.float32, torch.bfloat16
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    g16 = [gauge_channels(ud, p, True, b16) for p in (0, 1)]
+    g18 = [gauge_channels(ud, p, False, b16).to(f32) for p in (0, 1)]
+    ci = [clover_channels(cinv, p, f32) for p in (0, 1)]
+    for label, c, kern in _k1e_cases(a, 1 / (1 + a * a), -kappa * kappa):
+        p = c["parity"]
+        v = to_channels(psi[1 - p]).to(f32)
+        xv = to_channels(x[p]).to(f32)
+        kw = dict(dagger=c.get("dagger", False), recon12=True,
+                  twist=c.get("twist"),
+                  out_dtype=b16 if c.get("out16") else None)
+        if "xpay" in c:
+            kw.update(xpay_coef=c["xpay"],
+                      x_ch=xv.to(b16) if c.get("x16") else xv)
+        if "clover" in c:
+            kw.update(clover=c["clover"], cinv_ch=ci[p])
+        v_in = v.to(b16) if c.get("psi16") else v
+        got = dslash_ch(g16[p], v_in, p, geom, antiperiodic=True, **kw)
+        torch.cuda.synchronize()
+        ref = dslash_ch_reference(g16[p], v_in, p, geom, antiperiodic=True,
+                                  **kw)
+        tag = f"{'K1e' if kern == 'k1e' else 'K1d'} {label}"
+        if got.dtype == b16:
+            err[kern] = max(err[kern], _bf16_ulp_check(tag, got, ref))
+        else:
+            err[kern] = max(err[kern], _compare(got, ref, tag,
+                                                TBC_LIMIT["float32"]))
+        wide = dict(kw, recon12=False, out_dtype=None)
+        if "xpay" in c:
+            wide["x_ch"] = kw["x_ch"].to(f32)
+        r18 = dslash_ch(g18[p], v_in.to(f32), p, geom, **wide)
+        _compare(got.to(f32), r18, "  vs K1 recon-18 on the same links",
+                 TBC_VS_R18["bfloat16"])
+
+
+def _tbc_k2(ud, cinv, gen, geom, err):
+    """Phase 2b's K2 and K2d: every form, both second outputs, n in
+    TBC_MSRC_NS, with the sign, against the plain version and n K1 (K1d)
+    launches; at the largest n, clover fwd + xpay + post clover against
+    the recon-18 form of the same tier."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, dslash_ch_msrc, gauge_channels, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    f32, b16 = torch.float32, torch.bfloat16
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    tw = (a, 1 / (1 + a * a), -kappa * kappa)
+    cases = _msrc_cases(*tw) + _msrc_post_cases(*tw)
+    n = max(TBC_MSRC_NS)
+    src = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
+                       for _ in range(n)]).to(f32)
+    xs = torch.stack([to_channels(rng.random_spinor(gen, geom)[0])
+                      for _ in range(n)]).to(f32)
+    for tier, op, single in (("K2", f32, "K1"), ("K2d", b16, "K1d")):
+        g = [gauge_channels(ud, p, True, op) for p in (0, 1)]
+        ci = [clover_channels(cinv, p, op) for p in (0, 1)]
+        for k in TBC_MSRC_NS:
+            e, d = _msrc_vs_singles(tier, g, ci, src[:k].contiguous(),
+                                    xs[:k].contiguous(), geom, cases,
+                                    single, antiperiodic=True,
+                                    plain_limit=TBC_LIMIT["float32"])
+            err[tier.lower()] = max(err[tier.lower()], e)
+        kw = dict(clover="fwd", cinv_ch=ci[0], xpay_coef=tw[2], x_ch=xs,
+                  post_op=("clover",))
+        got = dslash_ch_msrc(g[0], src, 0, geom, recon12=True,
+                             antiperiodic=True, **kw)
+        r18 = dslash_ch_msrc(gauge_channels(ud, 0, False, op), src, 0, geom,
+                             **kw)
+        _compare(got, r18, f"{tier} n={n} clover fwd + xpay + post clover "
+                 "vs recon-18", TBC_VS_R18[str(op)[6:]])
+
+
+def _tbc_local(ud, cinv, psi, x, geom, err):
+    """Phase 2b's K4 and K5: on the slabs of both ranks of a two-way t
+    split (rank 0 holds global row 0, rank 1 row T−1), every form of the
+    sharded path with the slab's boundary rows, against the plain
+    version and against K1 with the sign on the slab's rows; K5 with 24-
+    and 12-channel faces against its plain version and against K4."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, dslash_ch, dslash_ch_local,
+        dslash_ch_local_reference, dslash_ch_overlap, gauge_channels,
+        to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.halo import project_face
+    f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
+    tiers = {"f32": (f32, f32), "bf16": (b16, f32), "f64": (f64, f64)}
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    tl = geom.T // 2
+    gl = Geometry(geom.X, geom.Y, geom.Z, tl)
+    ops = {}
+    for label, c, tier in _local_cases(a, 1 / (1 + a * a), -kappa * kappa):
+        op, sp = tiers[tier]
+        p, dagger, xc = c["parity"], c.get("dagger", False), c.get("xpay")
+        if (op, p) not in ops:
+            ops[(op, p)] = (gauge_channels(ud, p, True, op),
+                            clover_channels(cinv, p, op))
+        g, ci = ops[(op, p)]
+        v = to_channels(psi[1 - p]).to(sp)
+        xv = to_channels(x[p]).to(sp)
+        kw = dict(dagger=dagger, recon12=True, twist=c.get("twist"),
+                  clover=c.get("clover"), xpay_coef=xc)
+        k1 = dslash_ch(g, v, p, geom, antiperiodic=True, **dict(
+            kw, cinv_ch=ci if "clover" in c else None,
+            x_ch=xv if xc is not None else None))
+        for rank in (0, 1):
+            lo, hi = rank * tl, (rank + 1) * tl
+            rows = (-lo, geom.T - 1 - lo)
+            kw.update(cinv_ch=ci[lo:hi].contiguous() if "clover" in c
+                      else None,
+                      x_ch=xv[lo:hi].contiguous() if xc is not None else None)
+            gs, vs = g[lo:hi].contiguous(), v[lo:hi].contiguous()
+            f24 = (v[(lo - 1) % geom.T][None].contiguous(),
+                   v[hi % geom.T][None].contiguous())
+            got = dslash_ch_local(gs, vs, *f24, p, gl, t_boundary=rows, **kw)
+            torch.cuda.synchronize()
+            ref = dslash_ch_local_reference(gs, vs, *f24, p, gl,
+                                            t_boundary=rows, **kw)
+            err["k4"] = max(err["k4"], _compare(
+                got, ref, f"K4 rank {rank} of 2 {label}",
+                TBC_LIMIT[str(sp)[6:]]))
+            same = ("bit for bit" if torch.equal(got, k1[lo:hi])
+                    else "not bit equal")
+            _check(f"  vs K1 on the slab's rows ({same})",
+                   _rel(got, k1[lo:hi]), LOCAL_VS_K1[str(sp)[6:]])
+            if tier == "f64":
+                continue
+            for proj in (False, True):
+                fm, fp = f24
+                if proj:
+                    fm = project_face(fm, plus=not dagger)
+                    fp = project_face(fp, plus=dagger)
+                got5 = dslash_ch_overlap(gs, vs, fm, fp, p, gl,
+                                         faces_projected=proj,
+                                         t_boundary=rows, **kw)
+                torch.cuda.synchronize()
+                ref5 = dslash_ch_local_reference(
+                    gs, vs, fm, fp, p, gl, faces_projected=proj,
+                    t_boundary=rows, **kw)
+                err["k5"] = max(err["k5"], _compare(
+                    got5, ref5, f"K5 rank {rank} {label}, "
+                    f"{12 if proj else 24}-channel faces",
+                    TBC_LIMIT[str(sp)[6:]]))
+                _check("  vs K4", _rel(got5, got), OVERLAP_VS_K4)
+
+
+def phase_tbc(geom_dims):
+    """Phase 2b: the antiperiodic t boundary (``apply_t_boundary``) on a
+    random gauge at ``geom_dims``, read back by ``antiperiodic_t``,
+    through every recon-12 form of K1 (float32, float64, and V2), K1d
+    (and V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5: each
+    against its plain version and against the recon-18 form on the same
+    links, which carries the sign itself.  Then the fused matpc†matpc on
+    that gauge against the plain complex128 composition.  Returns the
+    largest absolute error of each kernel against its plain version and
+    the launches the phase made."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.dirac import make_dirac
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        antiperiodic_t, from_channels, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.ops.gauge import apply_t_boundary
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 2b: the antiperiodic t boundary through every recon-12 "
+          f"form at {geom_dims}", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    u = apply_t_boundary(rng.random_gauge(gen, geom), geom)
+    ud = double_gauge(u, geom)
+    if not antiperiodic_t(ud):
+        raise AssertionError("antiperiodic_t did not read the boundary")
+    _, cinv = make_clover_pair(u, geom, tmc_params())
+    psi = rng.random_spinor(gen, geom)
+    x = rng.random_spinor(gen, geom)
+    err = dict.fromkeys(("k1", "k1d", "k1e", "k2", "k2d", "k4", "k5"), 0.0)
+    _tbc_k1(ud, cinv, psi, x, geom, err)
+    _tbc_k1e(ud, cinv, psi, x, geom, err)
+    _tbc_k2(ud, cinv, gen, geom, err)
+    _tbc_local(ud, cinv, psi, x, geom, err)
+    del ud, cinv
+    d = make_dirac(u, tmc_params(use_kernels=True), geom)
+    plain = make_dirac(u, tmc_params(use_kernels=False), geom,
+                       clover=d.clover, clover_inv=d.clover_inv)
+    v = psi[0]
+    fused = from_channels(d._fused_matpc_dagm_ch(to_channels(v)), (4, 3))
+    _check("fused matpc†matpc vs plain composition (complex128)",
+           _rel(fused, plain.matpc(plain.matpc(v), dagger=True)), F64_LIMIT)
+    return err
+
+
 def phase_slice(geom_dims):
     import torch
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
@@ -508,11 +789,12 @@ def _msrc_post_cases(twist_a: float, twist_b: float, xc: float):
     ]
 
 
-def _msrc_kwargs(c, x_b, ci):
+def _msrc_kwargs(c, x_b, ci, antiperiodic: bool = False):
     """Keyword arguments of ``dslash_ch_msrc`` for case ``c``, ``ci`` the
     clover-inverse channels of the case's parity."""
     kw = dict(dagger=c.get("dagger", False), recon12=True,
-              twist=c.get("twist"), post_op=c.get("post_op"))
+              twist=c.get("twist"), post_op=c.get("post_op"),
+              antiperiodic=antiperiodic)
     if "xpay" in c:
         kw.update(xpay_coef=c["xpay"], x_ch=x_b)
     if "clover" in c:
@@ -521,15 +803,17 @@ def _msrc_kwargs(c, x_b, ci):
 
 
 def _msrc_vs_singles(tier: str, g, ci, psi_b, x_b, geom, cases,
-                     single_label: str) -> tuple[float, float]:
+                     single_label: str, antiperiodic: bool = False,
+                     plain_limit: float = F32_LIMIT) -> tuple[float, float]:
     """Each multi-source case launched once at batch width n =
     len(psi_b), counted on its tier's counter (``launches`` for K2,
     ``launches_bf16`` for K2d), held against its plain version
-    (F32_LIMIT) and against n single-source launches of the same form
-    (MSRC_VS_K1_LIMIT; the largest absolute difference is printed, 0 when
-    the sum order is K1's).  ``g`` and ``ci`` are per parity.  Returns
-    the largest absolute error against plain and against the single
-    launches."""
+    (``plain_limit``) and against n single-source launches of the same
+    form (MSRC_VS_K1_LIMIT; the largest absolute difference is printed,
+    0 when the sum order is K1's).  ``g`` and ``ci`` are per parity;
+    ``antiperiodic``: the gauge carries the antiperiodic t boundary.
+    Returns the largest absolute error against plain and against the
+    single launches."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference)
@@ -538,7 +822,7 @@ def _msrc_vs_singles(tier: str, g, ci, psi_b, x_b, geom, cases,
     err, diff = 0.0, 0.0
     for label, c in cases:
         p = c["parity"]
-        kw = _msrc_kwargs(c, x_b, ci[p])
+        kw = _msrc_kwargs(c, x_b, ci[p], antiperiodic)
         before = getattr(dslash_ch_msrc, counter)
         got = dslash_ch_msrc(g[p], psi_b, p, geom, **kw)
         torch.cuda.synchronize()
@@ -547,7 +831,7 @@ def _msrc_vs_singles(tier: str, g, ci, psi_b, x_b, geom, cases,
                                  "launch")
         ref = dslash_ch_msrc_reference(g[p], psi_b, p, geom, **kw)
         err = max(err, _compare(got, ref, f"{tier} n={n} {label}",
-                                F32_LIMIT))
+                                plain_limit))
         kw1 = {k: v for k, v in kw.items() if k != "x_ch"}
         singles = [dslash_ch(g[p], psi_b[i], p, geom,
                              x_ch=None if x_b is None or "xpay" not in c
@@ -2086,12 +2370,275 @@ def phase_v_kernels(check_dims, time_dims):
     return out, launches
 
 
+def _certify(u, flavor: int, geom, sources, xs) -> list:
+    """Each column's |b − M x| / |b| of the plain complex128 operator of
+    the same links and flavour (full links, no recon-12 and no boundary
+    sign of the kernels): the solution the workflow kept, certified
+    independently of the hops that solved it."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.dirac import make_dirac
+    from quda_qkxtm_multigrid_tpu_torch.invert import true_residual
+    c128 = torch.complex128
+    d = make_dirac(u.to(c128), dataclasses.replace(
+        tmc_params(use_kernels=False), flavor=flavor), geom)
+    res = [float(true_residual(d, x.to(c128), b.to(c128))[1])
+           for b, x in zip(sources, xs)]
+    del d
+    return res
+
+
+def _twop_kernel_checks(u, geom, sources) -> dict:
+    """Phase 11's kernel instances at the path's own shapes and inputs:
+    the antiperiodic instances of K1 float32 recon-12 and of K2 at
+    n = 12 that the 2pt solves launch, on the operator's channel
+    operands, with the twelve smeared sources as the spinors: each hop
+    of the four-hop chain (K1 also the bare hop of prepare, reconstruct
+    and the true residual) against its plain version.  Returns the
+    largest absolute error of each kernel."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import workflows as wf
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
+        dslash_ch_reference, to_channels)
+    f32 = torch.float32
+    d = wf.make_operator(u, tmc_params(), geom)
+    kw = d._hop_kw()
+    if not (d._has_fused_matpc and kw["antiperiodic"]):
+        raise AssertionError("the 2pt operator is not the fused chain on "
+                             "the antiperiodic gauge")
+    ops = d._operands(f32)
+    g, ci = ops["g"], ops["ci"]
+    pr, xc = d.params.matpc_parity, -d.params.kappa ** 2
+    psi = torch.stack([to_channels(b[0]) for b in sources]).to(f32)
+    xs = torch.stack([to_channels(b[1]) for b in sources]).to(f32)
+    # (label, parity, keywords, with x): the chain's hops in its order
+    forms = [("clover fwd", 1 - pr, dict(clover="fwd", cinv_ch=ci[1 - pr]),
+              False),
+             ("clover fwd + xpay + post clover", pr,
+              dict(clover="fwd", cinv_ch=ci[pr], xpay_coef=xc,
+                   post_op=("clover",)), True),
+             ("dagger clover dag", 1 - pr,
+              dict(dagger=True, clover="dag", cinv_ch=ci[1 - pr]), False),
+             ("dagger xpay", pr, dict(dagger=True, xpay_coef=xc), True)]
+    err = {"k1": 0.0, "k2": 0.0}
+    for label, p, form, with_x in forms + [
+            (f"bare hop parity {p}", p, {}, False) for p in (0, 1)]:
+        kernels = [("K1", dslash_ch, dslash_ch_reference, psi[0], xs[0])]
+        if not label.startswith("bare"):
+            kernels.append(("K2", dslash_ch_msrc, dslash_ch_msrc_reference,
+                            psi, xs))
+        for name, hop, plain, v, x in kernels:
+            args = dict(form, **kw)
+            if with_x:
+                args["x_ch"] = x
+            got = hop(g[p], v, p, geom, **args)
+            torch.cuda.synchronize()
+            ref = plain(g[p], v, p, geom, **args)
+            n = f" n={v.shape[0]}" if name == "K2" else ""
+            err[name.lower()] = max(err[name.lower()], _compare(
+                got, ref, f"{name} antiperiodic{n} {label}",
+                TBC_LIMIT["float32"]))
+            del got, ref
+    del d, ops, g, ci, psi, xs
+    return err
+
+
+def _pion(out, moms_zero: int):
+    """The pion (pseudoscalar) of both flavour orderings at zero momentum
+    [2, T]."""
+    return out["mesons"][0, :, :, moms_zero]
+
+
+def phase_twop(geom_dims, cli_dims):
+    """Phase 11: the 2pt workflow (``workflows.run_twop``) at
+    ``geom_dims`` on the complex64 gauge of seed 7 with the antiperiodic
+    boundary (``apply_t_boundary``), APE 20 × 0.5 and Gauss 50 × 4.0.
+    The CG path: the twelve columns of each flavour as one multi-source
+    solve through K2 (n = 12), each column certified in complex128; the
+    same 24 columns as single ``invert`` solves through K1; the MG path
+    with the pair of preconditioners (one set of null vectors, a coarse
+    build a flavour); the pion's sanity; the CLI at ``cli_dims`` in
+    process, in single and in double precision.  Returns the K1 and K2
+    launches of the path and the kernels' largest absolute errors
+    against their plain versions at the path's shapes."""
+    import tempfile
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import cli
+    from quda_qkxtm_multigrid_tpu_torch import workflows as wf
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        make_gauge_source, tmc_params)
+    from quda_qkxtm_multigrid_tpu_torch.invert import invert
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import MGParams
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc)
+    from quda_qkxtm_multigrid_tpu_torch.ops.gauge import (
+        apply_t_boundary, plaquette)
+
+    t_phase = time.perf_counter()
+    geom = Geometry(*geom_dims)
+    print(f"phase 11: the 2pt workflow at {geom_dims}, twisted-clover "
+          f"complex64, antiperiodic in t, tol {TWOP_TOL}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    u, _ = make_gauge_source(geom, DEVICE, seed=7, dtype=torch.complex64)
+    u = apply_t_boundary(u, geom)
+    tot, sp, tm = plaquette(u, geom)
+    print(f"  plaquette: total={float(tot):.8f} spatial={float(sp):.8f} "
+          f"temporal={float(tm):.8f}", flush=True)
+    p = tmc_params()
+    args = dict(kappa=p.kappa, mu=p.mu, csw=p.csw, source=TWOP_SOURCE,
+                tol=TWOP_TOL, maxiter=SLICE_MAXITER)
+
+    # the CG path: one multi-source solve a flavour through K2
+    torch.cuda.reset_peak_memory_stats()
+    dslash_ch.launches = dslash_ch_msrc.launches = 0
+    st = {}
+    t0 = time.perf_counter()
+    out = wf.run_twop(u, geom, stats=st, **args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1, k2 = dslash_ch.launches, dslash_ch_msrc.launches
+    peak = torch.cuda.max_memory_allocated()
+    iters = {f: st[f]["iters"] for f in ("up", "dn")}
+    solve_secs = st["secs"]["solve"]
+    print(f"  run_twop {secs:.3f} s; stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in st["secs"].items()), flush=True)
+    print(f"  msrc CG iterations up {iters['up']} dn {iters['dn']}; "
+          f"K2 launches {k2} (4 an iteration), K1 launches {k1}; peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    if k2 != 4 * (iters["up"] + iters["dn"]) or k1 == 0:
+        raise AssertionError(f"K2 launches {k2} != 4 × the iterations, or "
+                             f"K1 launches {k1}")
+    worst = 0.0
+    for flavor, name in ((+1, "up"), (-1, "dn")):
+        res = _certify(u, flavor, geom, st["sources"], st[name]["x"])
+        worst = max(worst, max(res))
+        print(f"  {name}: solver's worst true_res (complex64) "
+              f"{st[name]['true_res']:.3e}; complex128 per column "
+              + " ".join(f"{r:.2e}" for r in res), flush=True)
+    _check("worst column's true residual (complex128)", worst,
+           TRUE_RES_LIMIT)
+    zero = [i for i, m in enumerate(out["moms"]) if not any(m)][0]
+    pion = _pion(out, zero)
+    re, im = pion.real, pion.imag
+    print("  pion C(t), zero momentum, up, t = 0..8: " + " ".join(
+        f"{float(c):.4e}" for c in re[0, :9]), flush=True)
+    # far from the source the float32 correlator falls below the
+    # smallest normal float (C(T/2) ~ 1e-42 at this mass): non-negative
+    # there, positive near the source
+    if not (bool((re >= 0).all()) and bool((re[:, 1] > 0).all())
+            and bool((re[:, 1] < re[:, 0]).all())
+            and float(im.abs().max() / re.abs().max()) < TWOP_PION_IMAG):
+        raise AssertionError("the pion at zero momentum is not real and "
+                             "positive with C(1) < C(0)")
+    mes_cg = out["mesons"].clone()
+
+    # the kernels' antiperiodic instances at the path's shapes, then the
+    # same 24 columns as single solves through K1
+    sources = st["sources"]
+    msrc_x = {f: st[f]["x"] for f in ("up", "dn")}
+    del out, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = _twop_kernel_checks(u, geom, sources)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst_diff, t_single = 0.0, 0.0
+    dslash_ch.launches = dslash_ch_msrc.launches = 0
+    for flavor, name in ((+1, "up"), (-1, "dn")):
+        d = wf.make_operator(u, dataclasses.replace(p, flavor=flavor), geom)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs = [invert(d, b, tol=TWOP_TOL, maxiter=SLICE_MAXITER).x
+              for b in sources]
+        torch.cuda.synchronize()
+        t_single += time.perf_counter() - t0
+        worst_diff = max(worst_diff, max(
+            _rel(a, b) for a, b in zip(xs, msrc_x[name])))
+        del d, xs
+    k1_single = dslash_ch.launches
+    print(f"  24 single invert solves through K1 {t_single:.3f} s "
+          f"({k1_single} K1 launches) against the two multi-source solves' "
+          f"{solve_secs:.3f} s", flush=True)
+    _check("columns, multi-source vs single solves", worst_diff,
+           TWOP_VS_SINGLES)
+    del sources, msrc_x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the MG path: the pair of preconditioners
+    mgp = MGParams(block=MG_BLOCK, nvec=MG_NVEC, smoother_pc=True,
+                   outer_solver="gcr-pc")
+    st = {}
+    dslash_ch.launches = dslash_ch_msrc.launches = 0
+    t0 = time.perf_counter()
+    out = wf.run_twop(u, geom, mg_params=mgp, stats=st, **args)
+    torch.cuda.synchronize()
+    mg_secs = time.perf_counter() - t0
+    mg_k1, mg_k2 = dslash_ch.launches, dslash_ch_msrc.launches
+    print(f"  MG path: K1 launches {mg_k1}, K2 launches {mg_k2} (null "
+          f"vectors)", flush=True)
+    if not (mg_k1 and mg_k2):
+        raise AssertionError("the MG path launched no K1 or no K2")
+    setup = st["mg_setup"]
+    print(f"  MG run_twop {mg_secs:.3f} s; stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in st["secs"].items()), flush=True)
+    print(f"  setup_mg_pair: null vectors {setup[0]['null_vector_secs']:.3f}"
+          f" s (msrc iterations {setup[0]['msrc_iters']}), orthonormalisation"
+          f" {setup[0]['ortho_secs']:.3f} s, coarse builds "
+          f"{setup[0]['coarse_build_secs']:.3f} + "
+          f"{setup[1]['coarse_build_secs']:.3f} s", flush=True)
+    mg_worst = max(max(st[f]["true_res"]) for f in ("up", "dn"))
+    print(f"  24 MG-GCR-PC solves: {st['secs']['solve']:.3f} s, outer "
+          f"iterations up {st['up']['iters']} dn {st['dn']['iters']}; worst "
+          f"true_res (complex64) {mg_worst:.3e}", flush=True)
+    cert = max(max(_certify(u, fl, geom, st["sources"], st[f]["x"]))
+               for fl, f in ((+1, "up"), (-1, "dn")))
+    _check("MG worst column's true residual (complex128)", cert,
+           TRUE_RES_LIMIT)
+    _check("pion, MG vs CG (relative)",
+           _rel(_pion(out, zero), _pion({"mesons": mes_cg}, zero)),
+           TWOP_MG_PION)
+    del out, st, mes_cg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI, in process: single precision (K2, K1 float32), and double
+    # (K1's float64 and float32 instances, a mixed CG a column)
+    cli_k1 = 0
+    for precision, tol in (("single", TWOP_TOL), ("double", 1e-10)):
+        dslash_ch.launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            stem = str(Path(tmp) / "twop")
+            cli.main(["twop", "--xdim", str(cli_dims[0]), "--ydim",
+                      str(cli_dims[1]), "--zdim", str(cli_dims[2]),
+                      "--tdim", str(cli_dims[3]), "--kappa", str(p.kappa),
+                      "--mu", str(p.mu), "--csw", str(p.csw), "--tol",
+                      str(tol), "--seed", "7", "--device", DEVICE,
+                      "--precision", precision, "--output", stem])
+            written = sorted(f.name for f in Path(tmp).iterdir())
+        cli_k1 += dslash_ch.launches
+        print(f"  cli twop --precision {precision} at {cli_dims} wrote "
+              f"{written}; K1 launches {dslash_ch.launches}", flush=True)
+        if not (dslash_ch.launches
+                and any(w.startswith("twop_mesons") for w in written)):
+            raise AssertionError(f"the CLI ({precision}) launched no K1 or "
+                                 "wrote no meson file")
+    print(f"  phase 11 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"k1": k1 + k1_single + mg_k1 + cli_k1, "k2": k2 + mg_k2,
+            "err": err}
+
+
 def main():
     _import_port()
     import torch
     phase_card()
     max_abs = phase_kernel_vs_plain(CHECK_GEOM)
     phase_identities(CHECK_GEOM)
+    tbc = phase_tbc(CHECK_GEOM)
     k = phase_slice(SLICE_GEOM)
     k2 = phase_msrc(CHECK_GEOM, SLICE_GEOM)
     launches, _ = phase_mg(SLICE_GEOM)
@@ -2107,6 +2654,7 @@ def main():
     err_9a = phase_local_kernels((CHECK_GEOM, SLICE_GEOM))
     mesh_runs, t9 = phase_mesh_solve(SLICE_GEOM, k["secs"])
     vk, _ = phase_v_kernels(CHECK_GEOM, SLICE_GEOM)
+    twop = phase_twop(SLICE_GEOM, CLI_GEOM)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
     k5 = mesh_runs[True]["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
@@ -2117,7 +2665,8 @@ def main():
           f"bf16-tier paths {k1d_paths}, phase 8 {k1d_8}; K2d: {k2d_paths}; "
           f"K1e: bench_bf16_spinor {spin['k1e']}, compact sloppy "
           f"{cmix['k1e']}; K3: bench_recon8 {spin['k3']}; K4: sharded "
-          f"path {k4}; K5: sharded path {k5}")
+          f"path {k4}; K5: sharded path {k5}; 2pt path: K1 {twop['k1']}, "
+          f"K2 {twop['k2']}")
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
 
@@ -2130,26 +2679,33 @@ def main():
     print(json.dumps({"kernels": [
         entry("dslash_ch", KERNEL_SOURCE,
               f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
-              k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8,
+              k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8
+              + twop["k1"],
               max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
-                  vk["v2"][3]), k["ms"], k["plain_ms"], k["bound"]),
+                  vk["v2"][3], tbc["k1"], twop["err"]["k1"]), k["ms"],
+              k["plain_ms"],
+              k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
-              launches["dslash_ch_msrc"],
-              max(k2["max_abs_err"], err_time["chain f32"]), k2["ms"],
-              k2["plain_ms"], k2["bound"]),
+              launches["dslash_ch_msrc"] + twop["k2"],
+              max(k2["max_abs_err"], err_time["chain f32"], tbc["k2"],
+                  twop["err"]["k2"]),
+              k2["ms"], k2["plain_ms"], k2["bound"]),
         entry("dslash_ch_bf16", BF16_KERNEL_SOURCE,
               f"{BF16_KERNEL_REPLACES}; {V2_BF16_REPLACES}",
               mixed["k1d"] + k1d_paths + k1d_8,
               max(err_16["k1d"], err_time["k1d"], err_8a["k1d"],
-                  cmix["err"]["K1d"], err_48["K1d"], vk["v2 bf16"][3]),
+                  cmix["err"]["K1d"], err_48["K1d"], vk["v2 bf16"][3],
+                  tbc["k1d"]),
               hop16["bf16"], hop16["plain"], bounds["K1d bare hop"]),
         entry("dslash_ch_msrc_bf16", BF16_KERNEL_SOURCE,
               BF16_MSRC_KERNEL_REPLACES, k2d_paths,
-              max(err_16["k2d"], err_time["k2d"], err_time["chain bf16"]),
+              max(err_16["k2d"], err_time["k2d"], err_time["chain bf16"],
+                  tbc["k2d"]),
               k2d["ms"], k2d["plain_ms"], k2d["bound"]),
         entry("dslash_ch_bf16s", BF16S_KERNEL_SOURCE, BF16S_KERNEL_REPLACES,
               spin["k1e"] + cmix["k1e"],
-              max(err_8a["k1e"], spin["err"]["k1e"], cmix["err"]["K1e"]),
+              max(err_8a["k1e"], spin["err"]["k1e"], cmix["err"]["K1e"],
+                  tbc["k1e"]),
               spin["times"]["K1e"],
               spin["times"]["K1e plain"], spin["bounds"]["k1e"]),
         entry("dslash_ch_r8", R8_KERNEL_SOURCE, R8_KERNEL_REPLACES,
@@ -2157,10 +2713,12 @@ def main():
               spin["times"]["K3"], spin["times"]["K3 plain"],
               spin["bounds"]["k3"]),
         entry("dslash_ch_local", LOCAL_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
-              k4, max(err_9a["k4"], t9["err"]["k4"]), t9["times"]["K4"],
+              k4, max(err_9a["k4"], t9["err"]["k4"], tbc["k4"]),
+              t9["times"]["K4"],
               t9["times"]["K4 plain"], t9["bounds"]["K4"]),
         entry("dslash_ch_overlap", LOCAL_KERNEL_SOURCE,
-              OVERLAP_KERNEL_REPLACES, k5, max(err_9a["k5"], t9["err"]["k5"]),
+              OVERLAP_KERNEL_REPLACES, k5,
+              max(err_9a["k5"], t9["err"]["k5"], tbc["k5"]),
               t9["times"]["K5"], t9["times"]["K5 plain"],
               t9["bounds"]["K5"])]}))
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,9 @@ _DSLASH_ARGTYPES = [_P] * 6 + [_I] * 8 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
 #  twist, ta, tb, clover, xpay, xc, post, pa, pb, stream)
 _MSRC_ARGTYPES = [_P] * 6 + [_I] * 9 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
 # (psi, g, cinv, x, out, face_m, face_p, face_ch, T, Z, W, Xh, parity, t0,
-#  tstep, nrows, dagger, recon12, twist, ta, tb, clover, xpay, xc, stream)
-_LOCAL_ARGTYPES = [_P] * 7 + [_I] * 12 + [_D, _D, _I, _I, _D, _P]
+#  tstep, nrows, t_first, t_last, dagger, recon12, twist, ta, tb, clover,
+#  xpay, xc, stream)
+_LOCAL_ARGTYPES = [_P] * 7 + [_I] * 14 + [_D, _D, _I, _I, _D, _P]
 ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f64": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES,

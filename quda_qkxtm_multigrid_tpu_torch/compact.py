@@ -49,7 +49,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops.clover import (
     CLOVER_APPLY_FLOPS_PER_SITE, FMUNU_PAIRS, _clover_parity,
     _field_strength_plane)
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    cast_channels, dslash_ch, from_channels, to_channels)
+    antiperiodic_t, cast_channels, dslash_ch, from_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import mat6_inv_blocks
 from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
 
@@ -70,10 +70,14 @@ class CompactDirac(nn.Module):
     _has_fused_matpc = False
 
     def __init__(self, g_ch: torch.Tensor, cinv_ch, cl_ch,
-                 params: DiracParams, geom: Geometry):
+                 params: DiracParams, geom: Geometry,
+                 antiperiodic: bool = False):
         super().__init__()
         self.params = params
         self.geom = geom
+        # the gauge's t boundary, which recon-12 drops (make_compact
+        # reads it from the links)
+        self.antiperiodic = antiperiodic
         self.register_buffer("g_ch", g_ch)
         self.register_buffer("cinv_ch", cinv_ch)
         self.register_buffer("cl_ch", cl_ch)
@@ -112,12 +116,12 @@ class CompactDirac(nn.Module):
                             cast(self.cl_ch),
                             dataclasses.replace(self.params,
                                                 kernel_bf16=False),
-                            self.geom)
+                            self.geom, self.antiperiodic)
 
     # ---- fused hot path (the chain of Dirac._fused_matpc_*_ch) ----------
     def _hop(self, parity: int, psi_ch, **kw):
         return dslash_ch(self.g_ch[parity], psi_ch, parity, self.geom,
-                         recon12=True, **kw)
+                         recon12=True, antiperiodic=self.antiperiodic, **kw)
 
     def _cinv(self, parity: int) -> torch.Tensor:
         if self.cinv_ch is None:
@@ -293,7 +297,9 @@ def make_compact(u: torch.Tensor, params: DiracParams, geom: Geometry,
     ``u`` and one parity's temporaries are alive beside the channels.
     ``inverse=False`` leaves out A⁻¹ (``cinv_ch`` None): an operator for
     ``m_ch`` / ``mdag_ch`` only, such as a defect-correction outer's
-    residual."""
+    residual.  The t boundary is read from each parity's links before
+    they lose row 2 (``antiperiodic_t``; a gauge that is neither
+    periodic nor antiperiodic raises)."""
     if dtype not in CHANNEL_DTYPES:
         raise ValueError(f"channel dtype {dtype} not in {CHANNEL_DTYPES}")
     params = dataclasses.replace(params, use_kernels=True,
@@ -301,11 +307,18 @@ def make_compact(u: torch.Tensor, params: DiracParams, geom: Geometry,
     t_, z_, w_ = geom.lat_shape
     dev = u.device
     g = torch.empty((2, t_, 96, z_, w_), dtype=dtype, device=dev)
+    bc = set()
     for p in (0, 1):
-        g[p] = cast_channels(
-            to_channels(_dsl.doubled_links(u, geom, p)[:, :, :2]), dtype)
+        links = _dsl.doubled_links(u, geom, p)
+        bc.add(antiperiodic_t(links))
+        g[p] = cast_channels(to_channels(links[:, :, :2]), dtype)
+        del links
+    antiperiodic = bc.pop()
+    if bc:
+        raise ValueError("the two parities' t links disagree on the t "
+                         "boundary")
     if not params.has_clover:
-        return CompactDirac(g, None, None, params, geom)
+        return CompactDirac(g, None, None, params, geom, antiperiodic)
     cinv_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
     cl = torch.empty((2, t_, 144, z_, w_), dtype=dtype, device=dev)
     cinv = (torch.empty((2, t_, 144, z_, w_), dtype=cinv_dtype, device=dev)
@@ -326,7 +339,7 @@ def make_compact(u: torch.Tensor, params: DiracParams, geom: Geometry,
                     _twisted_inverse(clov[..., t0:t0 + tb, :, :], params)),
                     cinv_dtype)
         del clov
-    return CompactDirac(g, cinv, cl, params, geom)
+    return CompactDirac(g, cinv, cl, params, geom, antiperiodic)
 
 
 def invert_compact(cd: CompactDirac, b_e, b_o, tol: float = 1e-7,

@@ -16,6 +16,18 @@
 // (rows 0 and 1, row 2 = conj(r0 x r1) rebuilt in registers, 96
 // channels) or 8 (8 reals a link, decoded in registers, 64 channels;
 // dslash_ch_r8.cu).
+//
+// The antiperiodic t boundary: the gauge carries it as a -1 on the t
+// links of global row T-1 (the forward links stored there and the
+// backward links stored at row 0).  Recon-12 rebuilds row 2 as
+// conj(r0 x r1), which is +row 2 for -U as well, so where the caller
+// sets the bit kAntiperiodicT of ``parity`` the launchers pick the
+// recon-12 instance with APBC = true, whose dslash_site negates the
+// rebuilt row 2 of exactly those links; the periodic instances
+// (APBC = false) compile to the code they had without it.  The recon-18
+// forms read the sign with the links and ignore the bit; the recon-8
+// form refuses such a gauge in its wrapper.  The reference keeps the
+// same phase beside its reconstruct-12.
 
 #pragma once
 
@@ -27,6 +39,11 @@
 namespace qkx {
 
 constexpr int kThreads = 128;
+
+// A bit of DslashArgs::parity above the output parity (bit 0): the gauge
+// carries the antiperiodic t boundary (see the top of this file).  Bit 0
+// alone decides the checkerboard phase; the launchers read this bit.
+constexpr int kAntiperiodicT = 2;
 
 template <typename R>
 struct Cplx {
@@ -85,7 +102,8 @@ struct DslashArgs {
   const X* x;     // [T, 24, Z, W] or null
   O* out;         // [T, 24, Z, W]
   O* out2;        // [T, 24, Z, W] or null
-  int T, Z, W, Xh, parity;
+  int T, Z, W, Xh;
+  int parity;     // bit 0 the output parity; kAntiperiodicT
   int twist;      // 1: b(1 + i a g5) with (ta, tb)
   R ta, tb;
   int clover;     // 0 none, 1 A (fwd), 2 A^dag (dag)
@@ -127,6 +145,13 @@ struct LocalArgs {
   const S* face_m;
   const S* face_p;
   int t0, tstep;
+};
+
+// The rows of a launch's block that hold global rows 0 and T-1 (outside
+// [0, T) where a slab holds neither): their backward and forward t links
+// carry the antiperiodic boundary's sign (the APBC instances' argument).
+struct TRows {
+  int first, last;
 };
 
 // One stored real, widened on load (bf16 -> float is exact).
@@ -243,12 +268,19 @@ __device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
 // pointer and a channel stride.  false: in device memory, stride Z*W;
 // true: in the staged tile of shared memory (``tile``, K2 and K2d),
 // stride kMsrcTile<G>.  The arithmetic is the same code either way.
+// APBC: negate the rebuilt row 2 of the boundary's t links (recon-12,
+// see the top of this file), whose rows the one TRows of ``rows`` gives.
+// The periodic instances take no such argument: their parameter list,
+// and so their code, is the one the hop had before the flag (one more
+// parameter, even unused, moved the registers of the t-local face
+// instances; PERF.md section 6).
 template <typename R, typename G, typename C, typename S, typename X,
-          typename O, bool DAG, int RECON, int TMODE = 0, bool TILE = false>
+          typename O, bool DAG, int RECON, int TMODE = 0, bool TILE = false,
+          bool APBC = false, typename... Rows>
 __device__ __forceinline__ void dslash_site(
     const DslashArgs<R, G, C, S, X, O>& a, int t, int z, int w,
     int64_t soff, const LocalArgs<S>* l = nullptr,
-    TileOperands<G, C> tile = {}) {
+    TileOperands<G, C> tile = {}, Rows... rows) {
   constexpr bool RECON12 = RECON == 12;
   constexpr int NROWS = RECON12 ? 2 : 3;
   constexpr int NG = RECON == 8 ? 64 : NROWS * 48;
@@ -335,6 +367,14 @@ __device__ __forceinline__ void dslash_site(
           const Cplx<R> q = cmul(u[0][c2], u[1][c1]);
           u[2][c] = {p.re - q.re, q.im - p.im};  // conj(p - q)
         }
+        // the boundary's -1
+        if constexpr (APBC) {
+          const TRows b{rows...};
+          if (mu == 3 && t == (fwd ? b.last : b.first)) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) u[2][c] = {-u[2][c].re, -u[2][c].im};
+          }
+        }
       }
 
 #pragma unroll
@@ -401,13 +441,18 @@ __device__ __forceinline__ void dslash_site(
 
 // One thread per output site: grid (ceil(W / blockDim.x), Z, T).
 template <typename R, typename G, typename C, typename S, typename X,
-          typename O, bool DAG, int RECON>
+          typename O, bool DAG, int RECON, bool APBC>
 __global__ void __launch_bounds__(kThreads)
     dslash_ch_kernel(const DslashArgs<R, G, C, S, X, O> a) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= a.W) return;
-  dslash_site<R, G, C, S, X, O, DAG, RECON>(a, (int)blockIdx.z,
-                                            (int)blockIdx.y, w, 0);
+  if constexpr (APBC)
+    dslash_site<R, G, C, S, X, O, DAG, RECON, 0, false, true>(
+        a, (int)blockIdx.z, (int)blockIdx.y, w, 0, nullptr, {},
+        TRows{0, a.T - 1});
+  else
+    dslash_site<R, G, C, S, X, O, DAG, RECON>(a, (int)blockIdx.z,
+                                              (int)blockIdx.y, w, 0);
 }
 
 // 16 bytes from device memory to shared memory, cached in L2 only; the
@@ -459,7 +504,7 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int nch,
 // threadIdx.y, threadIdx.y + blockDim.y, ... with K1's device function,
 // reading the staged operands (dslash_ch_msrc.cu says why).
 template <typename R, typename G, typename C, typename S, typename X,
-          typename O, bool DAG, int RECON>
+          typename O, bool DAG, int RECON, bool APBC>
 __global__ void __launch_bounds__(kThreads)
     dslash_ch_msrc_kernel(const DslashArgs<R, G, C, S, X, O> a, int n) {
   constexpr int NG = RECON == 12 ? 96 : 144, TW = kMsrcTile<G>;
@@ -484,8 +529,13 @@ __global__ void __launch_bounds__(kThreads)
     // barrier the compiler keeps them in registers across the loop (168
     // and 255 registers for the float instances), and the occupancy drops
     asm volatile("" ::: "memory");
-    dslash_site<R, G, C, S, X, O, DAG, RECON, 0, true>(
-        a, t, z, w0 + (int)threadIdx.x, s * per_source, nullptr, tile);
+    if constexpr (APBC)
+      dslash_site<R, G, C, S, X, O, DAG, RECON, 0, true, true>(
+          a, t, z, w0 + (int)threadIdx.x, s * per_source, nullptr, tile,
+          TRows{0, a.T - 1});
+    else
+      dslash_site<R, G, C, S, X, O, DAG, RECON, 0, true>(
+          a, t, z, w0 + (int)threadIdx.x, s * per_source, nullptr, tile);
   }
 }
 
@@ -500,6 +550,21 @@ __global__ void __launch_bounds__(kThreads)
   if (w >= a.W) return;
   dslash_site<R, G, C, S, X, O, DAG, RECON, TMODE>(
       a, l.t0 + (int)blockIdx.z * l.tstep, (int)blockIdx.y, w, 0, &l);
+}
+
+// The t-local hop with the antiperiodic t boundary's sign, the slab's
+// boundary rows in a third parameter (a kernel of its own, so that the
+// periodic one keeps its parameter list).
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, int RECON, int TMODE>
+__global__ void __launch_bounds__(kThreads)
+    dslash_ch_local_apbc_kernel(const DslashArgs<R, G, C, S, X, O> a,
+                                const LocalArgs<S> l, const TRows rows) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= a.W) return;
+  dslash_site<R, G, C, S, X, O, DAG, RECON, TMODE, false, true>(
+      a, l.t0 + (int)blockIdx.z * l.tstep, (int)blockIdx.y, w, 0, &l, {},
+      rows);
 }
 
 // ---- host side ------------------------------------------------------
@@ -535,8 +600,22 @@ DslashArgs<R, G, C, S, X, O> make_args(
   return a;
 }
 
-// Single-source launch of one gauge form (RECON); returns
-// cudaGetLastError() (0 on success).
+// One single-source instance, dagger or not.
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, int RECON, bool APBC>
+void launch_single(const DslashArgs<R, G, C, S, X, O>& a, int dagger,
+                   cudaStream_t s) {
+  const dim3 block(kThreads);
+  const dim3 grid((a.W + kThreads - 1) / kThreads, a.Z, a.T);
+  if (dagger)
+    dslash_ch_kernel<R, G, C, S, X, O, true, RECON, APBC><<<grid, block, 0, s>>>(a);
+  else
+    dslash_ch_kernel<R, G, C, S, X, O, false, RECON, APBC><<<grid, block, 0, s>>>(a);
+}
+
+// Single-source launch of one gauge form (RECON; recon-12 with the
+// antiperiodic bit takes the APBC instance); returns cudaGetLastError()
+// (0 on success).
 template <typename R, typename G, typename C, typename S, typename X,
           typename O, int RECON>
 int launch_dslash_recon(const void* psi, const void* g, const void* cinv,
@@ -548,13 +627,11 @@ int launch_dslash_recon(const void* psi, const void* g, const void* cinv,
   const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
       psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, twist, ta, tb, clover,
       xpay, xc, post, pa, pb);
-  const dim3 block(kThreads);
-  const dim3 grid((W + kThreads - 1) / kThreads, Z, T);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dagger)
-    dslash_ch_kernel<R, G, C, S, X, O, true, RECON><<<grid, block, 0, s>>>(a);
+  if (RECON == 12 && (parity & kAntiperiodicT))
+    launch_single<R, G, C, S, X, O, RECON, RECON == 12>(a, dagger, s);
   else
-    dslash_ch_kernel<R, G, C, S, X, O, false, RECON><<<grid, block, 0, s>>>(a);
+    launch_single<R, G, C, S, X, O, RECON, false>(a, dagger, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,7 +673,7 @@ int launch_dslash_r12(const void* psi, const void* g, const void* cinv,
 // One instance of the multi-source kernel, with the shared memory its
 // staged operands take.
 template <typename R, typename G, typename C, typename S, typename X,
-          typename O, bool DAG, int RECON>
+          typename O, bool DAG, int RECON, bool APBC>
 void launch_msrc_instance(const DslashArgs<R, G, C, S, X, O>& a, int n,
                           cudaStream_t s) {
   constexpr int NG = RECON == 12 ? 96 : 144, TW = kMsrcTile<G>;
@@ -607,7 +684,7 @@ void launch_msrc_instance(const DslashArgs<R, G, C, S, X, O>& a, int n,
   const size_t smem = TW * (NG * sizeof(G) + (clover ? 144 * sizeof(C) : 0));
   const dim3 block(TW, n < kMsrcLanes<G> ? n : kMsrcLanes<G>);
   const dim3 grid((a.W + TW - 1) / TW, a.Z, a.T);
-  dslash_ch_msrc_kernel<R, G, C, S, X, O, DAG, RECON><<<grid, block, smem, s>>>(a, n);
+  dslash_ch_msrc_kernel<R, G, C, S, X, O, DAG, RECON, APBC><<<grid, block, smem, s>>>(a, n);
 }
 
 // Multi-source launch, recon-12 or full links, with K1's epilogues and
@@ -625,12 +702,15 @@ int launch_dslash_msrc(const void* psi, const void* g, const void* cinv,
       psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, twist, ta, tb,
       clover, xpay, xc, post, pa, pb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ap = recon12 && (parity & kAntiperiodicT);
   if (dagger) {
-    if (recon12) launch_msrc_instance<R, G, C, S, X, O, true, 12>(a, n, s);
-    else launch_msrc_instance<R, G, C, S, X, O, true, 18>(a, n, s);
+    if (ap) launch_msrc_instance<R, G, C, S, X, O, true, 12, true>(a, n, s);
+    else if (recon12) launch_msrc_instance<R, G, C, S, X, O, true, 12, false>(a, n, s);
+    else launch_msrc_instance<R, G, C, S, X, O, true, 18, false>(a, n, s);
   } else {
-    if (recon12) launch_msrc_instance<R, G, C, S, X, O, false, 12>(a, n, s);
-    else launch_msrc_instance<R, G, C, S, X, O, false, 18>(a, n, s);
+    if (ap) launch_msrc_instance<R, G, C, S, X, O, false, 12, true>(a, n, s);
+    else if (recon12) launch_msrc_instance<R, G, C, S, X, O, false, 12, false>(a, n, s);
+    else launch_msrc_instance<R, G, C, S, X, O, false, 18, false>(a, n, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -638,33 +718,45 @@ int launch_dslash_msrc(const void* psi, const void* g, const void* cinv,
 // The t-local hop's instance for the mode: 1 no faces, 2 faces of 24
 // channels, 3 of 12 (see dslash_site).
 template <typename R, typename G, typename C, typename S, typename X,
-          typename O, bool DAG>
-void launch_local_mode(int mode, dim3 grid, dim3 block, cudaStream_t s,
-                       const DslashArgs<R, G, C, S, X, O>& a,
-                       const LocalArgs<S>& l) {
-  if (mode == 1)
-    dslash_ch_local_kernel<R, G, C, S, X, O, DAG, 12, 1><<<grid, block, 0, s>>>(a, l);
-  else if (mode == 2)
-    dslash_ch_local_kernel<R, G, C, S, X, O, DAG, 12, 2><<<grid, block, 0, s>>>(a, l);
+          typename O, bool DAG, int TMODE>
+void launch_local_instance(bool apbc, dim3 grid, dim3 block, cudaStream_t s,
+                           const DslashArgs<R, G, C, S, X, O>& a,
+                           const LocalArgs<S>& l, TRows rows) {
+  if (apbc)
+    dslash_ch_local_apbc_kernel<R, G, C, S, X, O, DAG, 12, TMODE><<<grid, block, 0, s>>>(a, l, rows);
   else
-    dslash_ch_local_kernel<R, G, C, S, X, O, DAG, 12, 3><<<grid, block, 0, s>>>(a, l);
+    dslash_ch_local_kernel<R, G, C, S, X, O, DAG, 12, TMODE><<<grid, block, 0, s>>>(a, l);
+}
+
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG>
+void launch_local_mode(int mode, bool apbc, dim3 grid, dim3 block,
+                       cudaStream_t s, const DslashArgs<R, G, C, S, X, O>& a,
+                       const LocalArgs<S>& l, TRows rows) {
+  if (mode == 1)
+    launch_local_instance<R, G, C, S, X, O, DAG, 1>(apbc, grid, block, s, a, l, rows);
+  else if (mode == 2)
+    launch_local_instance<R, G, C, S, X, O, DAG, 2>(apbc, grid, block, s, a, l, rows);
+  else
+    launch_local_instance<R, G, C, S, X, O, DAG, 3>(apbc, grid, block, s, a, l, rows);
 }
 
 // The t-local hop (recon-12 only, no second output): ``nrows`` output
 // rows t0, t0 + tstep, ... of a block of T rows; faces as in LocalArgs,
 // both given or both null (then no output row may be 0 or T-1: K5's
-// interior).  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// without launching for another gauge form, no rows, one face alone or
-// a face of neither 24 nor 12 channels.
+// interior); t_first, t_last as in TRows.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue without launching for
+// another gauge form, no rows, one face alone or a face of neither 24
+// nor 12 channels.
 template <typename R, typename G, typename C, typename S, typename X,
           typename O>
 int launch_dslash_local(const void* psi, const void* g, const void* cinv,
                         const void* x, void* out, const void* face_m,
                         const void* face_p, int face_ch, int T, int Z, int W,
                         int Xh, int parity, int t0, int tstep, int nrows,
-                        int dagger, int recon12, int twist, double ta,
-                        double tb, int clover, int xpay, double xc,
-                        void* stream) {
+                        int t_first, int t_last, int dagger, int recon12,
+                        int twist, double ta, double tb, int clover,
+                        int xpay, double xc, void* stream) {
   const bool faces = face_m != nullptr;
   if (!recon12 || nrows < 1 || faces != (face_p != nullptr) ||
       (face_ch != 24 && face_ch != 12))
@@ -674,14 +766,16 @@ int launch_dslash_local(const void* psi, const void* g, const void* cinv,
       clover, xpay, xc, 0, 0.0, 0.0);
   const LocalArgs<S> l = {static_cast<const S*>(face_m),
                           static_cast<const S*>(face_p), t0, tstep};
+  const TRows rows = {t_first, t_last};
   const dim3 block(kThreads);
   const dim3 grid((W + kThreads - 1) / kThreads, Z, nrows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int mode = !faces ? 1 : (face_ch == 24 ? 2 : 3);
+  const bool ap = (parity & kAntiperiodicT) != 0;
   if (dagger)
-    launch_local_mode<R, G, C, S, X, O, true>(mode, grid, block, s, a, l);
+    launch_local_mode<R, G, C, S, X, O, true>(mode, ap, grid, block, s, a, l, rows);
   else
-    launch_local_mode<R, G, C, S, X, O, false>(mode, grid, block, s, a, l);
+    launch_local_mode<R, G, C, S, X, O, false>(mode, ap, grid, block, s, a, l, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,6 +45,9 @@
 // edge rows (t0 = 0, tstep = T_loc - 1) take one launch.  The exchange
 // itself is NCCL's, on its own stream, outside the kernel.
 //
+// The antiperiodic t boundary (dslash_ch.cuh): bit kAntiperiodicT of
+// parity, and t_first / t_last, the local rows of global rows 0 and T-1.
+//
 // Host side: a plain C interface for ctypes (no PyTorch headers).  Every
 // pointer is a device pointer, or null where the epilogue or the face is
 // off; the stream is PyTorch's current stream.  Returns
@@ -59,32 +62,35 @@ extern "C" int qkx_dslash_ch_local_f32(
     const void* psi, const void* g, const void* cinv, const void* x,
     void* out, const void* face_m, const void* face_p, int face_ch, int T,
     int Z, int W, int Xh, int parity, int t0, int tstep, int nrows,
-    int dagger, int recon12, int twist, double ta, double tb, int clover,
-    int xpay, double xc, void* stream) {
+    int t_first, int t_last, int dagger, int recon12, int twist, double ta,
+    double tb, int clover, int xpay, double xc, void* stream) {
   return qkx::launch_dslash_local<float, float, float, float, float, float>(
       psi, g, cinv, x, out, face_m, face_p, face_ch, T, Z, W, Xh, parity, t0,
-      tstep, nrows, dagger, recon12, twist, ta, tb, clover, xpay, xc, stream);
+      tstep, nrows, t_first, t_last, dagger, recon12, twist, ta, tb, clover,
+      xpay, xc, stream);
 }
 
 extern "C" int qkx_dslash_ch_local_f64(
     const void* psi, const void* g, const void* cinv, const void* x,
     void* out, const void* face_m, const void* face_p, int face_ch, int T,
     int Z, int W, int Xh, int parity, int t0, int tstep, int nrows,
-    int dagger, int recon12, int twist, double ta, double tb, int clover,
-    int xpay, double xc, void* stream) {
+    int t_first, int t_last, int dagger, int recon12, int twist, double ta,
+    double tb, int clover, int xpay, double xc, void* stream) {
   return qkx::launch_dslash_local<double, double, double, double, double,
                                   double>(
       psi, g, cinv, x, out, face_m, face_p, face_ch, T, Z, W, Xh, parity, t0,
-      tstep, nrows, dagger, recon12, twist, ta, tb, clover, xpay, xc, stream);
+      tstep, nrows, t_first, t_last, dagger, recon12, twist, ta, tb, clover,
+      xpay, xc, stream);
 }
 
 extern "C" int qkx_dslash_ch_local_f32_g16(
     const void* psi, const void* g, const void* cinv, const void* x,
     void* out, const void* face_m, const void* face_p, int face_ch, int T,
     int Z, int W, int Xh, int parity, int t0, int tstep, int nrows,
-    int dagger, int recon12, int twist, double ta, double tb, int clover,
-    int xpay, double xc, void* stream) {
+    int t_first, int t_last, int dagger, int recon12, int twist, double ta,
+    double tb, int clover, int xpay, double xc, void* stream) {
   return qkx::launch_dslash_local<float, bf16, bf16, float, float, float>(
       psi, g, cinv, x, out, face_m, face_p, face_ch, T, Z, W, Xh, parity, t0,
-      tstep, nrows, dagger, recon12, twist, ta, tb, clover, xpay, xc, stream);
+      tstep, nrows, t_first, t_last, dagger, recon12, twist, ta, tb, clover,
+      xpay, xc, stream);
 }

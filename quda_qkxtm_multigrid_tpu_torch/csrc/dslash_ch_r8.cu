@@ -19,6 +19,9 @@
 // rest from unitarity, which divides by |a2|^2 + |a3|^2 = 1 - |a1|^2.  So
 // a link whose |a1| is near 1 loses digits, in the TPU kernel alike.
 // Built without --use_fast_math: sqrtf and sincosf are the precise ones.
+// The decode assumes SU(3) links, so a gauge with the antiperiodic t
+// boundary's -1 has no recon-8 form: the wrapper (ops/dslash_kernel.py)
+// and the encoder refuse it, and this kernel ignores the boundary bit.
 //
 // Bound: device-memory bytes.  The bare hop reads 256 B of gauge a site
 // (384 with recon-12) and 96 + 96 B of spinor: 448 B against K1's 576,

@@ -24,6 +24,13 @@ Schur operators run as chains of fused hops on planar-channel fields
 [T, 24, Z, W] (the ``_..._ch`` methods).  The channel chain computes in
 the precision of the field it is given.
 
+The fused chain reads the gauge in recon-12 form, which loses the −1
+that the antiperiodic t boundary puts on the last t row's links
+(``ops.gauge.apply_t_boundary``): ``_operands`` reads the boundary from
+the doubled links (``ops.dslash_kernel.antiperiodic_t``, which raises on
+a gauge that is neither periodic nor antiperiodic) and every recon-12
+hop restores the sign, so the fused operator is the plain one.
+
 ``kernel_bf16`` is the bf16 operand tier (the JAX package's
 ``pallas_bf16``, "the 'half' analogue"): the chain reads bfloat16 gauge
 and clover-inverse channels and keeps float32 spinors, and ``dslash``
@@ -43,8 +50,8 @@ from quda_qkxtm_multigrid_tpu_torch.ops import clover as _cl
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops import twist as _twist
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    cast_channels, clover_channels, dslash_ch, dslash_ch_msrc,
-    from_channels, gauge_channels, to_channels)
+    antiperiodic_t, cast_channels, clover_channels, dslash_ch,
+    dslash_ch_msrc, from_channels, gauge_channels, to_channels)
 
 
 def _ch_clover_matrix(cinv_ch: torch.Tensor,
@@ -165,6 +172,7 @@ class Dirac(nn.Module):
         self.register_buffer("clover_inv", clover_inv)
         self.register_buffer("u_doubled", u_doubled)
         self._ch_cache = {}
+        self._antiperiodic = None   # the t boundary, read at first use
 
     def forward(self, psi: torch.Tensor) -> torch.Tensor:
         return self.m(psi)
@@ -173,12 +181,26 @@ class Dirac(nn.Module):
         self._ch_cache = {}     # .to() / .cuda(): rebuild on the new device
         return super()._apply(*args, **kwargs)
 
+    @property
+    def antiperiodic(self) -> bool:
+        """Whether the gauge carries the antiperiodic t boundary, read
+        from the doubled links once (``antiperiodic_t``)."""
+        if self._antiperiodic is None:
+            self._antiperiodic = antiperiodic_t(self.u_doubled)
+        return self._antiperiodic
+
+    def _hop_kw(self) -> dict:
+        """The gauge keywords of every hop on the channel operands:
+        recon-12, and the t boundary that its row 2 carried."""
+        return dict(recon12=True, antiperiodic=self.antiperiodic)
+
     def _operands(self, dtype: torch.dtype, exact: bool = False) -> dict:
         """Channel operands of both parities for spinors of real
         ``dtype``: recon-12 gauge ``g`` [T,96,Z,W] and clover inverse
         ``ci`` [T,144,Z,W], in ``dtype`` or, in the bf16 tier unless
-        ``exact``, in bfloat16.  Built once per operand dtype (which
-        names the tier) and reused by every hop."""
+        ``exact``, in bfloat16 (each hop on them takes ``_hop_kw``).
+        Built once per operand dtype (which names the tier) and reused
+        by every hop."""
         op = (torch.bfloat16 if self.params.kernel_bf16 and not exact
               else dtype)
         if op not in self._ch_cache:
@@ -219,9 +241,9 @@ class Dirac(nn.Module):
                 # the bf16-ψ hop of dslash_parity_pallas5: float32 out,
                 # so the result is complex64
                 psi_ch = cast_channels(psi_ch, torch.bfloat16)
-            g = self._operands(psi_ch.dtype)["g"][parity]
-            out = dslash_ch(g, psi_ch, parity, self.geom, dagger,
-                            recon12=True)
+            ops = self._operands(psi_ch.dtype)
+            out = dslash_ch(ops["g"][parity], psi_ch, parity, self.geom,
+                            dagger, **self._hop_kw())
             return from_channels(out, (4, 3))
         return _dsl.dslash_parity(self.u, psi_opp, parity, self.geom, dagger)
 
@@ -232,21 +254,21 @@ class Dirac(nn.Module):
         ``dslash_ch`` or, on a batch of sources, ``dslash_ch_msrc``."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
-        g = self._operands(psi_ch.dtype)["g"]
+        ops = self._operands(psi_ch.dtype)
+        g, kw = ops["g"], self._hop_kw()
         a = 2.0 * p.kappa * p.mu * p.flavor
         if dagger:
             a = -a
         tw = (-a, 1.0 / (1.0 + a * a))
         if not dagger:
-            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, recon12=True,
-                    twist=tw)
-            return hop(g[pr], t, pr, self.geom, recon12=True, twist=tw,
-                       xpay_coef=-(k * k), x_ch=psi_ch)
+            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, twist=tw, **kw)
+            return hop(g[pr], t, pr, self.geom, twist=tw,
+                       xpay_coef=-(k * k), x_ch=psi_ch, **kw)
         t = _ch_twist(psi_ch, tw[0], tw[1])
-        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, recon12=True,
-                twist=tw)
-        return hop(g[pr], t, pr, self.geom, dagger=True, recon12=True,
-                   xpay_coef=-(k * k), x_ch=psi_ch)
+        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, twist=tw,
+                **kw)
+        return hop(g[pr], t, pr, self.geom, dagger=True,
+                   xpay_coef=-(k * k), x_ch=psi_ch, **kw)
 
     def _matpc_clover_ch(self, psi_ch: torch.Tensor, dagger: bool,
                          hop=dslash_ch):
@@ -256,12 +278,12 @@ class Dirac(nn.Module):
         p = self.params
         pr, k = p.matpc_parity, p.kappa
         ops = self._operands(psi_ch.dtype)
-        g, ci = ops["g"], ops["ci"]
+        g, ci, kw = ops["g"], ops["ci"], self._hop_kw()
         if not dagger:
-            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, recon12=True,
-                    clover="fwd", cinv_ch=ci[1 - pr])
-            return hop(g[pr], t, pr, self.geom, recon12=True, clover="fwd",
-                       cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch)
+            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, clover="fwd",
+                    cinv_ch=ci[1 - pr], **kw)
+            return hop(g[pr], t, pr, self.geom, clover="fwd",
+                       cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch, **kw)
         if hop is dslash_ch:
             t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
         else:
@@ -270,10 +292,10 @@ class Dirac(nn.Module):
             t = _ch_matrix_apply(psi_ch,
                                  self._clover_matrix(psi_ch.dtype, pr),
                                  dag=True)
-        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, recon12=True,
-                clover="dag", cinv_ch=ci[1 - pr])
-        return hop(g[pr], t, pr, self.geom, dagger=True, recon12=True,
-                   xpay_coef=-(k * k), x_ch=psi_ch)
+        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, clover="dag",
+                cinv_ch=ci[1 - pr], **kw)
+        return hop(g[pr], t, pr, self.geom, dagger=True,
+                   xpay_coef=-(k * k), x_ch=psi_ch, **kw)
 
     def _fused_matpc_ch(self, psi_ch: torch.Tensor, dagger: bool,
                         hop=dslash_ch):
@@ -301,8 +323,7 @@ class Dirac(nn.Module):
         p = self.params
         pr, k = p.matpc_parity, p.kappa
         ops = self._operands(psi_ch.dtype)
-        g = ops["g"]
-        kw = dict(recon12=True)
+        g, kw = ops["g"], self._hop_kw()
         if p.has_clover:
             ci = ops["ci"]
             t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, clover="fwd",
@@ -451,8 +472,10 @@ def as_sloppy(dirac: Dirac, **param_overrides) -> Dirac:
     inverse of both parities: ~1 GB at 32³×64).  The counterpart of the
     JAX package's ``dirac.as_sloppy``."""
     params = dataclasses.replace(dirac.params, **param_overrides)
-    return Dirac(dirac.u, params, dirac.geom, clover=dirac.clover,
-                 clover_inv=dirac.clover_inv, u_doubled=dirac.u_doubled)
+    out = Dirac(dirac.u, params, dirac.geom, clover=dirac.clover,
+                clover_inv=dirac.clover_inv, u_doubled=dirac.u_doubled)
+    out._antiperiodic = dirac._antiperiodic     # the same links
+    return out
 
 
 def make_dirac(u: torch.Tensor, params: DiracParams, geom: Geometry,

@@ -176,6 +176,19 @@ def spinor_from_lex_dof_leading(full: torch.Tensor,
         *lead, 2, 4, 3, *geom.lat_shape)
 
 
+def gauge_from_lex(full: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """lexicographic [4, T, Z, Y, X, 3, 3] (mu in x, y, z, t order) →
+    canonical [4, 2, 3, 3, T, Z, W]."""
+    pairs = full.reshape(4, geom.T, geom.Z, geom.Y, geom.Xh, 2, 3, 3)
+    r = _row_parity(geom, full.device).reshape(
+        1, geom.T, geom.Z, geom.Y, 1, 1, 1)
+    even = torch.where(r, pairs[..., 1, :, :], pairs[..., 0, :, :])
+    odd = torch.where(r, pairs[..., 0, :, :], pairs[..., 1, :, :])
+    split = torch.stack([even, odd], dim=1)      # [4,2,T,Z,Y,Xh,3,3]
+    return split.movedim((6, 7), (2, 3)).reshape(
+        (4, 2, 3, 3) + geom.lat_shape).contiguous()
+
+
 def site_index(geom: Geometry, coords):
     """(x,y,z,t) → (parity, t, z, w) canonical indices."""
     x, y, z, t = coords

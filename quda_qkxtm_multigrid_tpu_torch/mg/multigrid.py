@@ -254,6 +254,26 @@ def _null_vectors_for(dirac: Dirac, bg: BlockGeometry, gen, params: MGParams,
     return v
 
 
+def _preconditioner(transfer: Transfer, dirac: Dirac, params: MGParams,
+                    stats: dict) -> MGPreconditioner:
+    """The preconditioner of ``dirac`` on the null vectors of
+    ``transfer``: the coarse operator built (and timed into ``stats``)
+    from the delta-scaled operator, and the smoother's operator."""
+    d_coarse = _delta_scaled(dirac, params.delta_mu_coarse,
+                             params.delta_kappa_coarse,
+                             params.delta_csw_coarse)
+    t0 = time.perf_counter()
+    coarse = _build_level1(transfer, d_coarse)
+    _sync(coarse.y)
+    stats["coarse_build_secs"] = time.perf_counter() - t0
+    dirac_pr = _delta_scaled(dirac, params.delta_mu_pr,
+                             params.delta_kappa_pr, params.delta_csw_pr)
+    return MGPreconditioner(transfer=transfer, coarse=coarse, dirac=dirac,
+                            params=params,
+                            dirac_pr=None if dirac_pr is dirac else dirac_pr,
+                            setup_stats=stats)
+
+
 def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
              null_vectors=None) -> MGPreconditioner:
     """Build the two-level MG preconditioner.  ``gen`` draws the setup
@@ -268,20 +288,25 @@ def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
     else:
         v = block_orthonormalize_flat(torch.stack(
             [to_blocked_flat(x, bg) for x in null_vectors]))
-    transfer = Transfer(v=v, bg=bg)
-    d_coarse = _delta_scaled(dirac, params.delta_mu_coarse,
-                             params.delta_kappa_coarse,
-                             params.delta_csw_coarse)
-    t0 = time.perf_counter()
-    coarse = _build_level1(transfer, d_coarse)
-    _sync(coarse.y)
-    stats["coarse_build_secs"] = time.perf_counter() - t0
-    dirac_pr = _delta_scaled(dirac, params.delta_mu_pr,
-                             params.delta_kappa_pr, params.delta_csw_pr)
-    return MGPreconditioner(transfer=transfer, coarse=coarse, dirac=dirac,
-                            params=params,
-                            dirac_pr=None if dirac_pr is dirac else dirac_pr,
-                            setup_stats=stats)
+    return _preconditioner(Transfer(v=v, bg=bg), dirac, params, stats)
+
+
+def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
+                  gen: torch.Generator) -> tuple:
+    """The two MG preconditioners of a twisted-mass workflow, one per
+    twist sign, sharing one set of null vectors (generated on
+    ``dirac_up``): the JAX package's ``setup_mg_pair`` (the reference's
+    preconditionerUP / DN).  The coarse operator is built for each
+    flavour, which carries its twist sign to the coarse level.  Each
+    preconditioner's ``setup_stats`` holds the shared null-vector
+    seconds and its own ``coarse_build_secs``."""
+    bx, by, bz, bt = params.block
+    bg = BlockGeometry(dirac_up.geom, bx, by, bz, bt, params.nvec)
+    shared = {}
+    transfer = Transfer(v=_null_vectors_for(dirac_up, bg, gen, params,
+                                            shared), bg=bg)
+    return tuple(_preconditioner(transfer, d, params, dict(shared))
+                 for d in (dirac_up, dirac_dn))
 
 
 def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,

@@ -52,6 +52,17 @@ which launches the interior rows before the faces have to be there and
 the two edge rows after.  Same hop and epilogues (no ``post_op``), no
 wrap in t; recon-12, in float32, float64 (bare) or the bf16 operand
 tier; one plain version, ``dslash_ch_local_reference``.
+
+The antiperiodic t boundary: a gauge that carries it (the t links of
+the last global t row multiplied by −1, the JAX package's
+``apply_t_boundary``) loses the sign in recon-12, which rebuilds row 2
+as conj(r0 × r1).  ``antiperiodic_t`` reads the boundary from the
+doubled links; the recon-12 hops then take ``antiperiodic=True`` (the
+t-local hops ``t_boundary``, the slab's rows of global t = 0 and T−1)
+and negate the rebuilt row 2 of those links, in the kernels
+(``csrc/dslash_ch.cuh``) and in their plain versions alike.  The
+recon-18 forms read the sign with the links; recon-8 refuses such a
+gauge.
 """
 
 from __future__ import annotations
@@ -70,6 +81,13 @@ from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import su3_mul, su3_dag_mul
 
 _F32, _F64, _BF16 = torch.float32, torch.float64, torch.bfloat16
 _CLOVER_MODES = {None: 0, "fwd": 1, "dag": 2}
+# a bit of the kernels' parity argument: the gauge carries the
+# antiperiodic t boundary (kAntiperiodicT of csrc/dslash_ch.cuh)
+_ANTIPERIODIC_T = 2
+# how far a stored row 2 may lie from conj(r0 × r1) (``antiperiodic_t``):
+# a link farther from SU(3) gives recon-12 another operator than its
+# full links, beyond single-precision storage
+_SU3_TOL = {torch.complex64: 1e-5, torch.complex128: 1e-6}
 
 
 def to_channels(x: torch.Tensor) -> torch.Tensor:
@@ -109,9 +127,13 @@ def gauge_channels(ud: torch.Tensor, parity: int, recon12: bool,
     encoding [T, 64, Z, W] instead, channel (mu*2 + fb)*8 + j over
     [Re a2, Im a2, Re a3, Im a3, Re b1, Im b1, arg a1, arg c1] of the
     link's rows a, b, c (the JAX package's ``gauge_channels(recon8=
-    True)``), computed in the field's precision and then cast."""
+    True)``), computed in the field's precision and then cast; an
+    antiperiodic gauge (``antiperiodic_t``) raises there."""
     if recon8:
         m = ud[:, parity]                    # [4, 2, 3, 3, T, Z, W]
+        if antiperiodic_t(m):
+            raise ValueError("recon-8 assumes SU(3) links: it has no form "
+                             "for the antiperiodic t boundary's −1")
         a1, a2, a3 = m[:, :, 0, 0], m[:, :, 0, 1], m[:, :, 0, 2]
         b1, c1 = m[:, :, 1, 0], m[:, :, 2, 0]
         comps = torch.stack([a2.real, a2.imag, a3.real, a3.imag, b1.real,
@@ -121,6 +143,61 @@ def gauge_channels(ud: torch.Tensor, parity: int, recon12: bool,
         return cast_channels(ch.contiguous(), dtype)
     g = ud[:, parity][:, :, :2] if recon12 else ud[:, parity]
     return cast_channels(to_channels(g), dtype)
+
+
+def _row2(m: torch.Tensor) -> torch.Tensor:
+    """conj(r0 × r1) of links [3, 3, ...] (rows first): the row 2 that
+    recon-12 rebuilds, [3, ...]."""
+    r0, r1 = m[0], m[1]
+    return torch.stack([r0[(c + 1) % 3] * r1[(c + 2) % 3]
+                        - r0[(c + 2) % 3] * r1[(c + 1) % 3]
+                        for c in range(3)]).conj()
+
+
+def antiperiodic_t(ud: torch.Tensor) -> bool:
+    """Whether doubled links of the whole lattice (``ops.dslash.
+    double_gauge`` [4, 2, 2, 3, 3, T, Z, W], or one parity's
+    ``doubled_links`` [4, 2, 3, 3, T, Z, W]) carry the antiperiodic t
+    boundary, from each stored row 2 against the conj(r0 × r1) that
+    recon-12 rebuilds.  All agree: False (periodic).  Only the forward t
+    links of row T−1 and the backward t links of row 0 are its negative,
+    every one of them: True.  Anything else (a link off SU(3), or
+    another phase) raises ``ValueError``: recon-12 would give another
+    operator than the links.  One read of the result on the host."""
+    if ud.dim() == 7:
+        ud = ud[:, None]
+    tol = _SU3_TOL.get(ud.dtype)
+    if tol is None:
+        raise TypeError(f"doubled links of dtype {ud.dtype}: complex64 or "
+                        "complex128")
+    t_last = ud.shape[-3] - 1
+    off, plus, minus = [], [], []
+    for mu in range(4):
+        for p in range(ud.shape[1]):
+            for fb in (0, 1):
+                m = ud[mu, p, fb]
+                r2 = _row2(m)
+                diff = (m[2] - r2).abs().amax(dim=0)        # [T, Z, W]
+                if mu < 3:
+                    off.append(diff.amax())
+                    continue
+                row = t_last if fb == 0 else 0
+                rest = torch.cat([diff[:row], diff[row + 1:]])
+                off.append(rest.amax())
+                plus.append(diff[row].amax())
+                minus.append((m[2, :, row] + r2[:, row]).abs().amax())
+    worst, d_plus, d_minus = (float(torch.stack(v).amax())
+                              for v in (off, plus, minus))
+    if worst <= tol and d_plus <= tol:
+        return False
+    if worst <= tol and d_minus <= tol:
+        return True
+    raise ValueError(
+        f"the gauge is neither periodic nor antiperiodic in t on SU(3) "
+        f"links: row 2 differs from conj(r0 × r1) by {worst:.2e} off the "
+        f"boundary and by {d_plus:.2e} (periodic) / {d_minus:.2e} "
+        f"(antiperiodic) on it, tolerance {tol:.0e}; recon-12 would "
+        f"apply another operator")
 
 
 def clover_channels(clover_field: torch.Tensor, parity: int,
@@ -193,20 +270,25 @@ def _decode_recon8(g_ch: torch.Tensor) -> torch.Tensor:
                                     dim=2) for r in rows], dim=2)
 
 
-def _links(g_ch: torch.Tensor, recon12: bool,
-           recon8: bool = False) -> torch.Tensor:
+def _links(g_ch: torch.Tensor, recon12: bool, recon8: bool = False,
+           t_boundary=None) -> torch.Tensor:
     """Channel gauge of one parity → complex [4(mu), 2(fb), 3, 3, T, Z, W],
     row 2 rebuilt as conj(r0 × r1) for recon-12, every row decoded for
-    recon-8."""
+    recon-8.  ``t_boundary`` (recon-12): the rows (t_first, t_last) of
+    global t = 0 and T−1, whose backward / forward t links carry the
+    antiperiodic −1 (a row outside the block: none there); None:
+    periodic."""
     if recon8:
         return _decode_recon8(g_ch)
     if not recon12:
         return from_channels(g_ch, (4, 2, 3, 3))
     g = from_channels(g_ch, (4, 2, 2, 3))
-    r0, r1 = g[:, :, 0], g[:, :, 1]
-    r2 = torch.stack([r0[:, :, (c + 1) % 3] * r1[:, :, (c + 2) % 3]
-                      - r0[:, :, (c + 2) % 3] * r1[:, :, (c + 1) % 3]
-                      for c in range(3)], dim=2).conj()
+    r2 = _row2(g.movedim((2, 3), (0, 1)))          # [3, 4, 2, T, Z, W]
+    r2 = r2.movedim(0, 2).contiguous()             # [4, 2, 3, T, Z, W]
+    if t_boundary is not None:
+        for fb, row in ((1, t_boundary[0]), (0, t_boundary[1])):
+            if 0 <= row < r2.shape[-3]:
+                r2[3, fb, :, row] = -r2[3, fb, :, row]
     return torch.cat([g, r2[:, :, None]], dim=2)
 
 
@@ -265,7 +347,7 @@ def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
                         dagger: bool = False, recon12: bool = False,
                         twist=None, xpay_coef=None, x_ch=None, clover=None,
                         cinv_ch=None, post_op=None, out_dtype=None,
-                        recon8: bool = False):
+                        recon8: bool = False, antiperiodic: bool = False):
     """Plain PyTorch version of ``dslash_ch``: channels → complex →
     rank-2 projected hop on the doubled links → epilogues → channels.
     bf16 operands are widened to float32 first, as the kernels (and the
@@ -277,12 +359,15 @@ def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
     if out_dtype == _BF16:
         res = dslash_ch_reference(g_ch, psi_ch, parity, geom, dagger,
                                   recon12, twist, xpay_coef, x_ch, clover,
-                                  cinv_ch, post_op, recon8=recon8)
+                                  cinv_ch, post_op, recon8=recon8,
+                                  antiperiodic=antiperiodic)
         if post_op is None:
             return res.to(_BF16)
         return tuple(r.to(_BF16) for r in res)
+    rows = (0, geom.T - 1) if antiperiodic else None
     res = _hop_plain(from_channels(psi_ch, (4, 3)),
-                     _links(g_ch, recon12, recon8), parity, geom, dagger)
+                     _links(g_ch, recon12, recon8, rows), parity, geom,
+                     dagger)
     res = _epilogues(res, cinv_ch, clover, twist, xpay_coef, x_ch)
     out = to_channels(res)
     if post_op is None:
@@ -372,7 +457,8 @@ def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool,
 
 def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
                     clover, cinv_ch, post_op, out_dtype=None,
-                    recon8: bool = False, kernel: str = "k1") -> str:
+                    recon8: bool = False, kernel: str = "k1",
+                    antiperiodic: bool = False) -> str:
     """Raise on anything the kernel (and its plain version) does not take;
     returns the kernel form (``_kernel_form``)."""
     shape = (geom.T, 24, geom.Z, geom.W)
@@ -380,6 +466,9 @@ def _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef, x_ch,
         raise ValueError(f"psi_ch shape {tuple(psi_ch.shape)} != {shape}")
     if recon8 and recon12:
         raise ValueError("recon8 and recon12 are two gauge forms: pick one")
+    if recon8 and antiperiodic:
+        raise ValueError("recon-8 assumes SU(3) links: it has no form for "
+                         "the antiperiodic t boundary's −1")
     recon = 8 if recon8 else (12 if recon12 else 18)
     ng = {8: 64, 12: 96, 18: 144}[recon]
     want = {"g_ch": (g_ch, (geom.T, ng, geom.Z, geom.W))}
@@ -430,9 +519,15 @@ def _post_args(post_op):
     return post, pa, pb
 
 
+def _parity_arg(parity: int, antiperiodic: bool) -> int:
+    """The kernels' parity argument: the output parity, with the bit
+    ``_ANTIPERIODIC_T`` for a gauge with the antiperiodic t boundary."""
+    return parity | (_ANTIPERIODIC_T if antiperiodic else 0)
+
+
 def _launch(lib, form: str, g_ch, psi_ch, out, out2, parity: int,
             geom: Geometry, dagger, recon12, twist, xpay_coef, x_ch, clover,
-            cinv_ch, post_op, stream: int) -> int:
+            cinv_ch, post_op, stream: int, antiperiodic: bool = False) -> int:
     """Call the C entry point ``qkx_dslash_ch_<form>`` of the kernel;
     returns its CUDA error code."""
     fn = getattr(lib, f"qkx_dslash_ch_{form}")
@@ -440,7 +535,8 @@ def _launch(lib, form: str, g_ch, psi_ch, out, out2, parity: int,
     ta, tb = twist if twist is not None else (0.0, 0.0)
     post, pa, pb = _post_args(post_op)
     return fn(ptr(psi_ch), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
-              ptr(out2), geom.T, geom.Z, geom.W, geom.Xh, parity,
+              ptr(out2), geom.T, geom.Z, geom.W, geom.Xh,
+              _parity_arg(parity, antiperiodic),
               int(dagger), int(recon12), int(twist is not None), ta, tb,
               _CLOVER_MODES[clover], int(xpay_coef is not None),
               0.0 if xpay_coef is None else xpay_coef, post, pa, pb,
@@ -450,11 +546,13 @@ def _launch(lib, form: str, g_ch, psi_ch, out, out2, parity: int,
 def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
               recon12: bool = False, twist=None, xpay_coef=None, x_ch=None,
               clover=None, cinv_ch=None, post_op=None, out_dtype=None,
-              recon8: bool = False):
+              recon8: bool = False, antiperiodic: bool = False):
     """Fused Wilson hop with epilogues on channel operands (module
     docstring).  Returns ``out`` or, with ``post_op``, ``(out, out2)``,
     in ``out_dtype``: None for the arithmetic's dtype (float64 for a
     float64 ψ, else float32), or bfloat16 for the bf16 spinor storage.
+    ``antiperiodic``: the gauge carries the antiperiodic t boundary
+    (``antiperiodic_t``; recon-8 refuses it).
 
     A CUDA ``psi_ch`` launches the CUDA kernel that the operand dtypes
     select on the current stream (``_kernel_form``), and the launch adds
@@ -464,11 +562,12 @@ def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
     Anything else raises."""
     form = _check_operands(g_ch, psi_ch, geom, recon12, twist, xpay_coef,
                            x_ch, clover, cinv_ch, post_op, out_dtype,
-                           recon8)
+                           recon8, antiperiodic=antiperiodic)
     if psi_ch.device.type == "cpu":
         return dslash_ch_reference(g_ch, psi_ch, parity, geom, dagger,
                                    recon12, twist, xpay_coef, x_ch, clover,
-                                   cinv_ch, post_op, out_dtype, recon8)
+                                   cinv_ch, post_op, out_dtype, recon8,
+                                   antiperiodic)
     if psi_ch.device.type != "cuda":
         raise ValueError(f"no dslash_ch for device {psi_ch.device}")
     from quda_qkxtm_multigrid_tpu_torch import _build
@@ -480,7 +579,7 @@ def dslash_ch(g_ch, psi_ch, parity: int, geom: Geometry, dagger: bool = False,
     with torch.cuda.device(psi_ch.device):
         err = _launch(lib, form, g_ch, psi_ch, out, out2, parity, geom,
                       dagger, recon12, twist, xpay_coef, x_ch, clover,
-                      cinv_ch, post_op, stream)
+                      cinv_ch, post_op, stream, antiperiodic)
     if err != 0:
         raise RuntimeError(f"dslash_ch kernel launch failed "
                            f"(qkx_dslash_ch_{form}): CUDA error {err}")
@@ -509,13 +608,14 @@ def dslash_parity_kernel(ud, psi_opp, parity: int, geom: Geometry,
 def dslash_ch_msrc_reference(g_ch, psi_ch_b, parity: int, geom: Geometry,
                              dagger: bool = False, recon12: bool = False,
                              twist=None, xpay_coef=None, x_ch=None,
-                             clover=None, cinv_ch=None, post_op=None):
+                             clover=None, cinv_ch=None, post_op=None,
+                             antiperiodic: bool = False):
     """Plain PyTorch version of ``dslash_ch_msrc``: ``dslash_ch_reference``
     on each source (bf16 operands widened to float32)."""
     outs = [dslash_ch_reference(g_ch, psi_ch_b[i], parity, geom, dagger,
                                 recon12, twist, xpay_coef,
                                 None if x_ch is None else x_ch[i], clover,
-                                cinv_ch, post_op)
+                                cinv_ch, post_op, antiperiodic=antiperiodic)
             for i in range(psi_ch_b.shape[0])]
     if post_op is None:
         return torch.stack(outs)
@@ -554,7 +654,7 @@ def _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist, xpay_coef,
 def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
                    dagger: bool = False, recon12: bool = False, twist=None,
                    xpay_coef=None, x_ch=None, clover=None, cinv_ch=None,
-                   post_op=None):
+                   post_op=None, antiperiodic: bool = False):
     """Fused Wilson hop with epilogues over a batch of sources
     ψ [n, T, 24, Z, W] float32 (module docstring), ``post_op`` as in
     ``dslash_ch``: returns ``out`` or ``(out, out2)``, [n, T, 24, Z, W]
@@ -564,13 +664,15 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
     the current stream, K2 or, with bf16 gauge and clover inverse, K2d
     (``dslash_ch_msrc.launches`` and ``dslash_ch_msrc.launches_bf16``
     count the launches); a CPU ``psi_ch_b`` runs
-    ``dslash_ch_msrc_reference``.  Anything else raises."""
+    ``dslash_ch_msrc_reference``.  Anything else raises.
+    ``antiperiodic`` as in ``dslash_ch``."""
     form = _check_msrc_operands(g_ch, psi_ch_b, geom, recon12, twist,
                                 xpay_coef, x_ch, clover, cinv_ch, post_op)
     if psi_ch_b.device.type == "cpu":
         return dslash_ch_msrc_reference(g_ch, psi_ch_b, parity, geom, dagger,
                                         recon12, twist, xpay_coef, x_ch,
-                                        clover, cinv_ch, post_op)
+                                        clover, cinv_ch, post_op,
+                                        antiperiodic)
     if psi_ch_b.device.type != "cuda":
         raise ValueError(f"no dslash_ch_msrc for device {psi_ch_b.device}")
     from quda_qkxtm_multigrid_tpu_torch import _build
@@ -585,7 +687,8 @@ def dslash_ch_msrc(g_ch, psi_ch_b, parity: int, geom: Geometry,
         err = getattr(lib, f"qkx_dslash_ch_msrc_{form}")(
             ptr(psi_ch_b), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
             ptr(out2), psi_ch_b.shape[0], geom.T, geom.Z, geom.W, geom.Xh,
-            parity, int(dagger), int(recon12), int(twist is not None), ta,
+            _parity_arg(parity, antiperiodic), int(dagger), int(recon12),
+            int(twist is not None), ta,
             tb, _CLOVER_MODES[clover], int(xpay_coef is not None),
             0.0 if xpay_coef is None else xpay_coef, post, pa, pb,
             ctypes.c_void_p(stream))
@@ -615,14 +718,16 @@ def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
                               geom_local: Geometry, dagger: bool = False,
                               recon12: bool = False, twist=None,
                               xpay_coef=None, x_ch=None, clover=None,
-                              cinv_ch=None, faces_projected: bool = False):
+                              cinv_ch=None, faces_projected: bool = False,
+                              t_boundary=None):
     """Plain PyTorch version of ``dslash_ch_local`` and, with the same
     arguments, of ``dslash_ch_overlap``: the hop of the local rows ψ
     [T, 24, Z, W], whose t−1 neighbour of row 0 is ``face_m`` and t+1
     neighbour of row T−1 is ``face_p`` ([1, 24, Z, W], or the projected
     2-spinors [1, 12, Z, W] of ``halo.project_face`` with
     ``faces_projected``), no wrap in t; then the epilogues, x
-    [T, 24, Z, W].  bf16 operands are widened to float32."""
+    [T, 24, Z, W].  bf16 operands are widened to float32.
+    ``t_boundary`` as in ``dslash_ch_local``."""
     g_ch, psi_ch, cinv_ch = _widen(g_ch), _widen(psi_ch), _widen(cinv_ch)
     psi = from_channels(psi_ch, (4, 3))
 
@@ -633,27 +738,31 @@ def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
     up, down = _t_halves(psi[:, :, 1:], psi[:, :, :-1], dagger)
     halves = (torch.cat([up, face(face_p, dagger)], dim=2),
               torch.cat([face(face_m, not dagger), down], dim=2))
-    res = _hop_plain(psi, _links(g_ch, recon12), parity, geom_local, dagger,
-                     halves)
+    res = _hop_plain(psi, _links(g_ch, recon12, t_boundary=t_boundary),
+                     parity, geom_local, dagger, halves)
     return to_channels(_epilogues(res, cinv_ch, clover, twist, xpay_coef,
                                   _widen(x_ch)))
 
 
 def _launch_local(lib, form: str, g_ch, psi_ch, out, face_m, face_p,
                   face_ch: int, rows, parity: int, geom: Geometry, dagger,
-                  twist, xpay_coef, x_ch, clover, cinv_ch,
+                  twist, xpay_coef, x_ch, clover, cinv_ch, t_boundary,
                   stream: int) -> int:
     """Call the C entry point ``qkx_dslash_ch_<form>`` of the t-local hop
     for the output ``rows`` = (t0, tstep, nrows), the faces of
-    ``face_ch`` channels (both None: no output row may read one).
-    Returns its CUDA error code."""
+    ``face_ch`` channels (both None: no output row may read one) and
+    ``t_boundary`` as in ``dslash_ch_local``.  Returns its CUDA error
+    code."""
     fn = getattr(lib, f"qkx_dslash_ch_{form}")
     ptr = lambda t: None if t is None else t.data_ptr()
     ta, tb = twist if twist is not None else (0.0, 0.0)
     t0, tstep, nrows = rows
+    # periodic: rows no launch has, and the bit clear
+    t_first, t_last = (-1, -1) if t_boundary is None else t_boundary
     return fn(ptr(psi_ch), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
               ptr(face_m), ptr(face_p), face_ch, geom.T, geom.Z, geom.W,
-              geom.Xh, parity, t0, tstep, nrows, int(dagger), 1,
+              geom.Xh, _parity_arg(parity, t_boundary is not None), t0,
+              tstep, nrows, t_first, t_last, int(dagger), 1,
               int(twist is not None), ta, tb, _CLOVER_MODES[clover],
               int(xpay_coef is not None),
               0.0 if xpay_coef is None else xpay_coef,
@@ -685,12 +794,13 @@ def _k5_launches(g_ch, psi_ch, face_m, face_p, parity, geom, dagger, twist,
 
 
 def _run_launches(lib, form: str, out, launches, wait, stream: int,
-                  name: str):
+                  name: str, t_boundary=None):
     """Make ``launches`` (keyword sets of ``_launch_local``) in order,
     calling ``wait`` (if given) after the first; raise on a CUDA
     error."""
     for i, kw in enumerate(launches):
-        err = _launch_local(lib, form, out=out, stream=stream, **kw)
+        err = _launch_local(lib, form, out=out, stream=stream,
+                            t_boundary=t_boundary, **kw)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed "
                                f"(qkx_dslash_ch_{form}): CUDA error {err}")
@@ -698,7 +808,8 @@ def _run_launches(lib, form: str, out, launches, wait, stream: int,
             wait()
 
 
-def _run_local(wrapper, form, psi_ch, out, launches, wait=None):
+def _run_local(wrapper, form, psi_ch, out, launches, wait=None,
+               t_boundary=None):
     """``_run_launches`` on ``psi_ch``'s card and current stream; each
     launch adds one to ``wrapper``'s counter."""
     from quda_qkxtm_multigrid_tpu_torch import _build
@@ -706,7 +817,7 @@ def _run_local(wrapper, form, psi_ch, out, launches, wait=None):
     stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
     with torch.cuda.device(psi_ch.device):
         _run_launches(lib, form, out, launches, wait, stream,
-                      wrapper.__name__)
+                      wrapper.__name__, t_boundary)
     counter = _FORM_BY_NAME[form].counter
     setattr(wrapper, counter, getattr(wrapper, counter) + len(launches))
 
@@ -733,14 +844,18 @@ def _check_faces(face_m, face_p, psi_ch, faces_projected: bool):
 def dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity: int,
                     geom_local: Geometry, dagger: bool = False,
                     recon12: bool = False, twist=None, xpay_coef=None,
-                    x_ch=None, clover=None, cinv_ch=None):
+                    x_ch=None, clover=None, cinv_ch=None, t_boundary=None):
     """K4: the fused hop with epilogues on the local rows ψ
     [T, 24, Z, W] of a t-slab, whose t−1 neighbour of row 0 is
     ``face_m`` and t+1 neighbour of row T−1 is ``face_p`` ([1, 24, Z, W]
     each, in ψ's dtype: the planes of the t−1 and t+1 ranks), out and x
     [T, 24, Z, W]; gauge and clover inverse [T, C, Z, W] of the slab.
     Recon-12, no second output; the slab's origin must be even (T even),
-    so the checkerboard phase is the global one.
+    so the checkerboard phase is the global one.  ``t_boundary``: None
+    for a periodic gauge; for one with the antiperiodic t boundary
+    (``antiperiodic_t`` of the whole lattice's links), the local rows
+    (t_first, t_last) of global t = 0 and T−1, which may lie outside the
+    slab (``sharded.ShardedDirac`` gives them).
 
     A CUDA ψ makes one launch of ``csrc/dslash_ch_local.cu`` over every
     row, the faces read where they lie (the instance from ``_FORMS``:
@@ -755,13 +870,13 @@ def dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity: int,
         return dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p,
                                          parity, geom_local, dagger, recon12,
                                          twist, xpay_coef, x_ch, clover,
-                                         cinv_ch)
+                                         cinv_ch, t_boundary=t_boundary)
     _device_check("dslash_ch_local", psi_ch)
     out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
                       device=psi_ch.device)
     _run_local(dslash_ch_local, form, psi_ch, out, _k4_launches(
         g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger, twist,
-        xpay_coef, x_ch, clover, cinv_ch))
+        xpay_coef, x_ch, clover, cinv_ch), t_boundary=t_boundary)
     return out
 
 
@@ -773,7 +888,8 @@ def dslash_ch_overlap(g_ch, psi_ch, face_m, face_p, parity: int,
                       geom_local: Geometry, dagger: bool = False,
                       recon12: bool = False, twist=None, xpay_coef=None,
                       x_ch=None, clover=None, cinv_ch=None,
-                      faces_projected: bool = False, wait=None):
+                      faces_projected: bool = False, wait=None,
+                      t_boundary=None):
     """K5: the t-local hop split into interior and edges, on the local
     rows ψ [T, 24, Z, W], x [T, 24, Z, W], with the t−1 neighbour plane
     of row 0 ``face_m`` and the t+1 neighbour plane of row T−1
@@ -787,7 +903,7 @@ def dslash_ch_overlap(g_ch, psi_ch, face_m, face_p, parity: int,
     ``dslash_ch_overlap.launches`` (``.launches_bf16`` in the bf16 operand
     tier).  A CPU ψ waits, then runs ``dslash_ch_local_reference``.
     For T ≤ 2 there is no interior: the faces must be unprojected, and
-    K4 runs (``dslash_ch_local``)."""
+    K4 runs (``dslash_ch_local``).  ``t_boundary`` as there."""
     t = geom_local.T
     if t <= 2:
         if faces_projected:
@@ -797,7 +913,7 @@ def dslash_ch_overlap(g_ch, psi_ch, face_m, face_p, parity: int,
             wait()
         return dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity,
                                geom_local, dagger, recon12, twist,
-                               xpay_coef, x_ch, clover, cinv_ch)
+                               xpay_coef, x_ch, clover, cinv_ch, t_boundary)
     form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
                            xpay_coef, x_ch, clover, cinv_ch, None,
                            kernel="local")
@@ -808,13 +924,14 @@ def dslash_ch_overlap(g_ch, psi_ch, face_m, face_p, parity: int,
         return dslash_ch_local_reference(
             g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger,
             recon12, twist, xpay_coef, x_ch, clover, cinv_ch,
-            faces_projected)
+            faces_projected, t_boundary)
     _device_check("dslash_ch_overlap", psi_ch)
     out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
                       device=psi_ch.device)
     _run_local(dslash_ch_overlap, form, psi_ch, out, _k5_launches(
         g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger, twist,
-        xpay_coef, x_ch, clover, cinv_ch, faces_projected), wait)
+        xpay_coef, x_ch, clover, cinv_ch, faces_projected), wait,
+        t_boundary)
     return out
 
 

@@ -1,0 +1,106 @@
+"""Link smearing (APE) and Gaussian quark-field smearing: the
+counterpart of the JAX package's ``ops/smear.py`` (``stout_smear_step``
+and ``covdev_apply`` come with the 3pt, ROADMAP queue 1).
+
+  APE    U' = Proj_SU3[(1−α) U_mu + α/(2(d−1)) Σ staples], spatial
+         staples only by default (the reference's ``gauge_ape.cu``);
+  Gauss  ψ' = (ψ + α H ψ)/(1 + 6α), H ψ(x) = Σ_{i=x,y,z} U_i(x) ψ(x+i)
+         + U_i†(x−i) ψ(x−i), iterated n times over APE-smeared links
+         (the reference's ``Gauss_core_Kepler.h``).
+
+Plain PyTorch on the canonical layout, the JAX package's arithmetic in
+the same order; ``gaussian_smear`` takes any leading batch axes (the 12
+spin-colour sources of a propagator at once).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, gather_neighbor
+from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import (
+    mat_dag, mat_mul, su3_dag_mul, su3_mul)
+from quda_qkxtm_multigrid_tpu_torch.utils.rng import su3_project_leading
+
+
+def _staple_sum(u: torch.Tensor, mu: int, geom: Geometry, dirs):
+    """Sum of the upper and lower staples of U_mu over nu in ``dirs``, per
+    parity [2, 3, 3, T, Z, W]:
+    upper U_nu(x) U_mu(x+nu) U_nu†(x+mu), lower U_nu†(x−nu) U_mu(x−nu)
+    U_nu(x−nu+mu)."""
+    per_par = []
+    for p in (0, 1):
+        q = 1 - p
+        acc = None
+        for nu in dirs:
+            if nu == mu:
+                continue
+            up = mat_mul(mat_mul(u[nu, p],
+                                 gather_neighbor(u[mu, q], nu, True, p, geom)),
+                         mat_dag(gather_neighbor(u[nu, q], mu, True, p, geom)))
+            u_nu_b = gather_neighbor(u[nu, q], nu, False, p, geom)
+            u_mu_b = gather_neighbor(u[mu, q], nu, False, p, geom)
+            u_nu_bm = gather_neighbor(
+                gather_neighbor(u[nu, p], mu, True, q, geom), nu, False, p,
+                geom)
+            low = mat_mul(mat_mul(mat_dag(u_nu_b), u_mu_b), u_nu_bm)
+            s = up + low
+            acc = s if acc is None else acc + s
+        per_par.append(acc)
+    return torch.stack(per_par)
+
+
+def _project_links(m: torch.Tensor) -> torch.Tensor:
+    """SU(3)-project links [2, 3, 3, T, Z, W]."""
+    return torch.stack([su3_project_leading(m[p]) for p in range(2)])
+
+
+def ape_smear_step(u: torch.Tensor, geom: Geometry, alpha: float,
+                   spatial_only: bool = True) -> torch.Tensor:
+    """One APE step (the t links untouched when ``spatial_only``, the
+    smeared gauge that the Gaussian smearing reads)."""
+    dirs = (0, 1, 2) if spatial_only else (0, 1, 2, 3)
+    coeff = alpha / (2.0 * (len(dirs) - 1))
+    out = u.clone()
+    for mu in dirs:
+        st = _staple_sum(u, mu, geom, dirs)
+        out[mu] = _project_links((1.0 - alpha) * u[mu] + coeff * st)
+    return out
+
+
+def ape_smear(u: torch.Tensor, geom: Geometry, alpha: float, n_steps: int,
+              spatial_only: bool = True) -> torch.Tensor:
+    """``n_steps`` APE steps."""
+    for _ in range(n_steps):
+        u = ape_smear_step(u, geom, alpha, spatial_only)
+    return u
+
+
+def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry):
+    """H v over the spatial directions for v [..., 2, 4, 3, T, Z, W];
+    ``u_bwd[p][i]`` = U_i(x−i) at the sites x of parity p."""
+    outs = []
+    for p in (0, 1):
+        src = v.select(-6, 1 - p)
+        acc = None
+        for i in (0, 1, 2):
+            fwd = gather_neighbor(src, i, True, p, geom)
+            bwd = gather_neighbor(src, i, False, p, geom)
+            term = su3_mul(u[i, p], fwd) + su3_dag_mul(u_bwd[p][i], bwd)
+            acc = term if acc is None else acc + term
+        outs.append(acc)
+    return torch.stack(outs, dim=-6)
+
+
+def gaussian_smear(psi: torch.Tensor, u_smeared: torch.Tensor,
+                   geom: Geometry, alpha: float, n: int) -> torch.Tensor:
+    """``n`` iterations of ψ ← (ψ + α H ψ)/(1 + 6α) over the (APE-)
+    smeared links, on a full field [..., 2, 4, 3, T, Z, W]; leading axes
+    batch sources.  The backward links are gathered once for all
+    iterations."""
+    norm = 1.0 / (1.0 + 6.0 * alpha)
+    u_bwd = [[gather_neighbor(u_smeared[i, 1 - p], i, False, p, geom)
+              for i in (0, 1, 2)] for p in (0, 1)]
+    for _ in range(n):
+        psi = norm * (psi + alpha * _gauss_hop(psi, u_smeared, u_bwd, geom))
+    return psi

@@ -20,6 +20,12 @@ interior runs while the faces, spin-projected when T_loc > 2, are in
 flight.  The chain reads
 the operator's channel operands (bf16 in the bf16 operand tier); the
 hop of ``dslash`` reads them in the field's precision always.
+
+The t boundary is read from the whole lattice's links before the cut
+(``ops.dslash_kernel.antiperiodic_t``): a slab alone cannot tell it.
+With the antiperiodic boundary, the slab's hops take the local rows of
+global t = 0 and T−1 (``ShardedDirac.t_rows``) and restore the sign
+that recon-12 drops there.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    dslash_ch_local, dslash_ch_overlap, from_channels, to_channels)
+    antiperiodic_t, dslash_ch_local, dslash_ch_overlap, from_channels,
+    to_channels)
 from quda_qkxtm_multigrid_tpu_torch.parallel.halo import (
     start_t_faces, t_faces)
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
@@ -42,13 +49,15 @@ from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
 def halo_hop(mesh: TMesh, overlap: bool, g_ch, psi_ch, parity: int,
              geom: Geometry, dagger: bool = False, recon12: bool = False,
              twist=None, xpay_coef=None, x_ch=None, clover=None,
-             cinv_ch=None):
-    """One sharded hop with ``dslash_ch``'s arguments on the local slab:
-    the face exchange, then K4, or with ``overlap`` K5 with the
+             cinv_ch=None, t_boundary=None):
+    """One sharded hop with ``dslash_ch_local``'s arguments on the local
+    slab: the face exchange, then K4, or with ``overlap`` K5 with the
     exchange's wait between its interior and its edges (the faces
-    spin-projected when T_loc > 2)."""
+    spin-projected when T_loc > 2).  ``t_boundary``: None (periodic), or
+    the slab's rows of global t = 0 and T−1 (``ShardedDirac.t_rows``)."""
     kw = dict(dagger=dagger, recon12=recon12, twist=twist,
-              xpay_coef=xpay_coef, x_ch=x_ch, clover=clover, cinv_ch=cinv_ch)
+              xpay_coef=xpay_coef, x_ch=x_ch, clover=clover, cinv_ch=cinv_ch,
+              t_boundary=t_boundary)
     if not overlap:
         return dslash_ch_local(g_ch, psi_ch, *t_faces(psi_ch, mesh), parity,
                                geom, **kw)
@@ -66,11 +75,25 @@ class ShardedDirac(Dirac):
 
     def __init__(self, u, params, geom: Geometry, mesh: TMesh,
                  global_geom: Geometry, clover=None, clover_inv=None,
-                 u_doubled=None):
+                 u_doubled=None, antiperiodic: bool = False):
         super().__init__(u, params, geom, clover=clover,
                          clover_inv=clover_inv, u_doubled=u_doubled)
         self.mesh = mesh
         self.global_geom = global_geom
+        self._antiperiodic = antiperiodic   # the whole lattice's boundary
+
+    @property
+    def t_rows(self) -> tuple:
+        """The local rows of global t = 0 and T−1 (outside [0, T_loc)
+        on a rank that holds neither)."""
+        t0 = self.mesh.rank * self.geom.T
+        return (-t0, self.global_geom.T - 1 - t0)
+
+    def _hop_kw(self) -> dict:
+        """The gauge keywords of every halo hop: recon-12, and the rows
+        whose t links carry the boundary's sign (None if periodic)."""
+        return dict(recon12=True,
+                    t_boundary=self.t_rows if self.antiperiodic else None)
 
     @property
     def _has_fused_matpc(self) -> bool:
@@ -88,9 +111,9 @@ class ShardedDirac(Dirac):
     def dslash(self, psi_opp: torch.Tensor, parity: int,
                dagger: bool = False) -> torch.Tensor:
         psi_ch = to_channels(psi_opp)
-        g = self._operands(psi_ch.dtype, exact=True)["g"][parity]
-        out = dslash_ch_local(g, psi_ch, *t_faces(psi_ch, self.mesh),
-                              parity, self.geom, dagger, recon12=True)
+        ops = self._operands(psi_ch.dtype, exact=True)
+        out = halo_hop(self.mesh, False, ops["g"][parity], psi_ch, parity,
+                       self.geom, dagger, **self._hop_kw())
         return from_channels(out, (4, 3))
 
     def matpc_ch(self, psi_ch: torch.Tensor, dagger: bool = False,
@@ -115,16 +138,19 @@ class ShardedDirac(Dirac):
 def shard_dirac(dirac: Dirac, mesh: TMesh) -> ShardedDirac:
     """This rank's slab of an operator built on the whole lattice, on the
     mesh's device (module docstring).  The doubled gauge is built on the
-    whole lattice first where the operator has none."""
+    whole lattice first where the operator has none, and the t boundary
+    read from it."""
     geom = dirac.geom
     t_loc = local_t(geom.T, mesh)
     ud = dirac.u_doubled
     if ud is None:
         ud = _dsl.double_gauge(dirac.u, geom)
+    antiperiodic = antiperiodic_t(ud)
 
     def cut(t):
         return None if t is None else t_slab(t, mesh)
     return ShardedDirac(cut(dirac.u), dirac.params,
                         Geometry(geom.X, geom.Y, geom.Z, t_loc), mesh, geom,
                         clover=cut(dirac.clover),
-                        clover_inv=cut(dirac.clover_inv), u_doubled=cut(ud))
+                        clover_inv=cut(dirac.clover_inv), u_doubled=cut(ud),
+                        antiperiodic=antiperiodic)

@@ -54,6 +54,19 @@ def test_no_jax_check_covers_the_sharded_path():
     assert not [m for m in _imported_modules(worker) if _forbidden(m)]
 
 
+def test_no_jax_check_covers_the_2pt_slice():
+    """The 2pt workflow's modules (the gauge observables, the smearing,
+    the propagators, the contractions, the workflow, the CLI and its
+    readers and writers) are scanned like the rest of the port; they keep
+    their own copies of the JAX package's numpy-only I/O."""
+    scanned = {p.relative_to(PKG).as_posix() for p in PORT_FILES
+               if PKG in p.parents}
+    assert {"ops/gauge.py", "ops/smear.py", "physics/__init__.py",
+            "physics/propagator.py", "physics/contract.py", "workflows.py",
+            "cli.py", "io/__init__.py", "io/lime.py",
+            "io/hdf5.py"} <= scanned
+
+
 def test_import_compiles_nothing(tmp_path):
     """Import every module of the port with a fake ``nvcc`` first on the
     PATH: it must not run, no ``triton`` may be imported and no library
@@ -104,8 +117,8 @@ def test_build_targets_hopper():
     ("qkx_dslash_ch_msrc_f32", 24, 6), ("qkx_dslash_ch_f32_g16", 23, 6),
     ("qkx_dslash_ch_f32_g16s16", 23, 6),
     ("qkx_dslash_ch_msrc_f32_g16", 24, 6),
-    ("qkx_dslash_ch_local_f32", 25, 7), ("qkx_dslash_ch_local_f64", 25, 7),
-    ("qkx_dslash_ch_local_f32_g16", 25, 7)])
+    ("qkx_dslash_ch_local_f32", 27, 7), ("qkx_dslash_ch_local_f64", 27, 7),
+    ("qkx_dslash_ch_local_f32_g16", 27, 7)])
 def test_entry_points_pass_pointers_as_void_p(name, n_args, n_ptrs):
     argtypes = _build.ENTRY_POINTS[name]
     assert len(argtypes) == n_args

@@ -295,7 +295,8 @@ def test_k4_launch_plan_reads_from_row_one(flds):
     assert a[1:3] == (g.data_ptr(), ci.data_ptr()) and a[4] == out.data_ptr()
     assert a[5:8] == (fm.data_ptr(), fp.data_ptr(), 24)
     assert a[8:16] == (TL, GT.Z, GT.W, GT.Xh, 0, 0, 1, TL)
-    assert a[16:19] == (0, 1, 0) and a[21:23] == (1, 1)
+    assert a[16:18] == (-1, -1)          # periodic: no boundary rows
+    assert a[18:21] == (0, 1, 0) and a[23:25] == (1, 1)
 
 
 def test_k5_launch_plan_waits_between_interior_and_edges(flds):
@@ -317,8 +318,8 @@ def test_k5_launch_plan_waits_between_interior_and_edges(flds):
     assert interior[13:16] == (1, 1, TL - 2)
     assert edges[5:8] == (fm.data_ptr(), fp.data_ptr(), 12)
     assert edges[13:16] == (0, TL - 1, 2)
-    assert interior[16] == edges[16] == 1                 # dagger
-    assert interior[19:21] == edges[19:21] == (A_TW, B_TW)
+    assert interior[18] == edges[18] == 1                 # dagger
+    assert interior[21:23] == edges[21:23] == (A_TW, B_TW)
 
 
 def test_wrappers_count_no_launch_on_the_cpu(flds):

@@ -13,7 +13,8 @@ turns on the same card.  Every process builds its checkout's kernels
 median of 5 runs of 20 launches (10 for the multi-source forms).  The
 forms use only the wrappers every version of the port has had since
 the t-sharded slice; a form a checkout lacks (the multi-source
-``post_op``) is left out of its column.  The summary gives each form's
+``post_op``, the antiperiodic t boundary's sign) is left out of its
+column.  The summary gives each form's
 mean time per root, the ratio of each root to the first, and the
 ``ptxas`` registers and spill stores of every kernel instance.  With
 ``--mg`` each process then runs ``benchmarks.bench_mg`` with the
@@ -114,7 +115,59 @@ def _forms(torch, dims) -> dict:
                                       **k))
         forms[f"K2 n={n} bare hop"] = (
             lambda p=psi_b: dk.dslash_ch_msrc(g[f32, 12], p, 0, geom, **hop))
+    if "antiperiodic" in inspect.signature(dk.dslash_ch).parameters:
+        forms.update(_antiperiodic_forms(dk, geom, g, ci, v, v64, v16, vb,
+                                         xb, fm, fp, clov))
     return forms
+
+
+def _antiperiodic_forms(dk, geom, g, ci, v, v64, v16, vb, xb, fm, fp,
+                        clov) -> dict:
+    """The recon-12 forms again with the antiperiodic t boundary's sign
+    (the kernels' work does not depend on the links' values, so the
+    periodic fields serve), for a checkout that has it."""
+    import torch
+    f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
+    ap = dict(recon12=True, antiperiodic=True)
+    rows = (0, geom.T - 1)
+    n = max(N_TIME)
+    forms = {
+        "K1 f32 hop, antiperiodic": lambda: dk.dslash_ch(
+            g[f32, 12], v, 0, geom, **ap),
+        "K1 f32 clover fwd + xpay + post, antiperiodic": lambda: dk.dslash_ch(
+            g[f32, 12], v, 0, geom, post_op=("clover",),
+            **dict(clov(f32), antiperiodic=True)),
+        "K1 f64 hop, antiperiodic": lambda: dk.dslash_ch(
+            g[f64, 12], v64, 0, geom, **ap),
+        "K1d clover fwd + xpay + post, antiperiodic": lambda: dk.dslash_ch(
+            g[b16, 12], v, 0, geom, post_op=("clover",),
+            **dict(clov(b16), antiperiodic=True)),
+        "K1e s16o16 hop, antiperiodic": lambda: dk.dslash_ch(
+            g[b16, 12], v16, 0, geom, out_dtype=b16, **ap),
+        "K4 hop, antiperiodic": lambda: dk.dslash_ch_local(
+            g[f32, 12], v, v[-1:], v[:1], 0, geom, recon12=True,
+            t_boundary=rows),
+        "K5 hop, antiperiodic": lambda: dk.dslash_ch_overlap(
+            g[f32, 12], v, fm, fp, 0, geom, faces_projected=True,
+            recon12=True, t_boundary=rows)}
+    for tier, dt in (("K2", f32), ("K2d", b16)):
+        kw = dict(clov(dt), x_ch=xb[:n].contiguous(), antiperiodic=True)
+        forms[f"{tier} n={n} clover fwd + xpay + post, antiperiodic"] = (
+            lambda g_=g[dt, 12], p=vb[:n].contiguous(), k=kw:
+            dk.dslash_ch_msrc(g_, p, 0, geom, post_op=("clover",), **k))
+    return forms
+
+
+def _periodic_name(args: str) -> str:
+    """A kernel instance's mangled template arguments, with the trailing
+    boundary flag of the hops (``APBC``, after the gauge form and the t
+    mode) folded in: the periodic instance keeps the name it had before
+    the flag, so two trees compare row by row; the antiperiodic one is
+    marked."""
+    m = re.fullmatch(r"(.*Li(?:8|12|18)E(?:Li\dE)?)Lb([01])E", args)
+    if not m:
+        return args
+    return m.group(1) + (", antiperiodic" if m.group(2) == "1" else "")
 
 
 def _registers(lib_dir: Path) -> dict:
@@ -124,7 +177,8 @@ def _registers(lib_dir: Path) -> dict:
         for line in log.read_text().splitlines():
             m = re.search(r"entry function '_ZN3qkx\d+(\w+?)I(\w*?)EEvNS", line)
             if m:
-                kernel = f"{log.stem}:{m.group(1)}<{m.group(2)}>"
+                args = _periodic_name(m.group(2))
+                kernel = f"{log.stem}:{m.group(1)}<{args}>"
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 out[kernel] = int(m.group(1))
