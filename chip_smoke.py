@@ -96,6 +96,23 @@ and does not print its last line:
     at 8³×16 into a temporary directory, in single precision and in
     double (the complex128 route through K1's float64 instance).
 
+12. the 3pt and the loops at 32³×64 on phase 11's gauge, propagators,
+    smeared links and MG pair: (a) ``run_threep`` at t_sink = 12
+    (G4, proton, both parts) on the CG path, each part's twelve
+    sequential columns one multi-source solve through K2 (n = 12),
+    every column certified by the plain complex128 operator of the
+    opposite flavour, K1 / K2 against plain on the path's operands;
+    (b) the same with the MG pair, its columns certified and against
+    (a)'s, each insertion type against (a) at the insertion times where
+    the sequential propagator is resolved;
+    (c) ``run_loops`` (12 noise vectors at tol 1e-2, 2 HP/LP pairs at
+    1e-7; K1), the HP solves certified in complex128, the partner's
+    ``m`` through K1 against plain; (d) ``run_loops_wexact`` in
+    complex128 through K1's float64 instance (Chebyshev-filtered
+    Lanczos, 16 modes), the Ritz residuals, the deflated CG against the
+    undeflated; (e) ``cli threep`` and ``cli loops`` at 8³×16.  Each
+    stage's seconds, launches and peak memory.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -217,6 +234,20 @@ TWOP_MG_PION = 1e-4      # the pion: MG pair vs CG, normwise
 TWOP_PION_IMAG = 1e-5    # max |Im C(t)| / max |Re C(t)|, zero-momentum pion
 CLI_GEOM = (8, 8, 8, 16)
 
+# phase 12, the 3pt and the loops on phase 11's gauge and propagators
+THREEP_TSINK, THREEP_PROJ = 12, "G4"      # the CLI's default projector
+THREEP_MG_VS_CG = 1e-4   # each insertion type, MG vs CG (JAX test_threep_mg)
+# ... on the insertion times whose sequential propagator keeps at least
+# this share of its largest timeslice norm: there the solves' error, ~tol
+# of the largest, stays a tenth of the limit.  Towards the source the 3pt
+# of a hot gauge is set by that error (phase 12b prints it at every t).
+THREEP_RESOLVED = 10 * TWOP_TOL / THREEP_MG_VS_CG
+LOOPS_NSTOCH, LOOPS_TOL_LP, LOOPS_NHP = 12, 1e-2, 2
+PARTNER_M_LIMIT = 1e-6   # the partner's m through K1 against plain c128
+WEXACT = dict(nev=16, ncv=40, lanczos_tol=1e-8, n_stoch=4, tol=1e-9,
+              cheb_degree=20)
+RITZ_LIMIT = 1e-7
+
 
 def _import_port():
     sys.path.insert(0, str(ROOT))
@@ -229,6 +260,14 @@ def _import_port():
 
 def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
+
+
+def _rel64(a, b) -> float:
+    """``_rel`` in double precision: a float32 norm squares entries that
+    underflow there (the 3pt at t_sink = 12 is ~1e-36)."""
+    import torch
+    dt = torch.complex128 if a.is_complex() else torch.float64
+    return _rel(a.to(dt), b.to(dt))
 
 
 def _check(label: str, value: float, limit: float):
@@ -2388,14 +2427,16 @@ def _certify(u, flavor: int, geom, sources, xs) -> list:
     return res
 
 
-def _twop_kernel_checks(u, geom, sources) -> dict:
-    """Phase 11's kernel instances at the path's own shapes and inputs:
-    the antiperiodic instances of K1 float32 recon-12 and of K2 at
-    n = 12 that the 2pt solves launch, on the operator's channel
-    operands, with the twelve smeared sources as the spinors: each hop
-    of the four-hop chain (K1 also the bare hop of prepare, reconstruct
-    and the true residual) against its plain version.  Returns the
-    largest absolute error of each kernel."""
+def _twop_kernel_checks(u, geom, sources, flavor: int = +1,
+                        label: str = "") -> dict:
+    """Phase 11's (and 12's) kernel instances at the path's own shapes
+    and inputs: the antiperiodic instances of K1 float32 recon-12 and of
+    K2 at n = 12 that the workflow's solves launch, on the channel
+    operands of the operator of ``flavor``, with the twelve smeared
+    sources as the spinors: each hop of the four-hop chain (K1 also the
+    bare hop of prepare, reconstruct and the true residual) against its
+    plain version.  Returns the largest absolute error of each
+    kernel."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch import workflows as wf
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
@@ -2403,11 +2444,12 @@ def _twop_kernel_checks(u, geom, sources) -> dict:
         dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
         dslash_ch_reference, to_channels)
     f32 = torch.float32
-    d = wf.make_operator(u, tmc_params(), geom)
+    d = wf.make_operator(u, dataclasses.replace(tmc_params(), flavor=flavor),
+                         geom)
     kw = d._hop_kw()
     if not (d._has_fused_matpc and kw["antiperiodic"]):
-        raise AssertionError("the 2pt operator is not the fused chain on "
-                             "the antiperiodic gauge")
+        raise AssertionError("the workflow's operator is not the fused "
+                             "chain on the antiperiodic gauge")
     ops = d._operands(f32)
     g, ci = ops["g"], ops["ci"]
     pr, xc = d.params.matpc_parity, -d.params.kappa ** 2
@@ -2423,10 +2465,10 @@ def _twop_kernel_checks(u, geom, sources) -> dict:
               dict(dagger=True, clover="dag", cinv_ch=ci[1 - pr]), False),
              ("dagger xpay", pr, dict(dagger=True, xpay_coef=xc), True)]
     err = {"k1": 0.0, "k2": 0.0}
-    for label, p, form, with_x in forms + [
+    for form_label, p, form, with_x in forms + [
             (f"bare hop parity {p}", p, {}, False) for p in (0, 1)]:
         kernels = [("K1", dslash_ch, dslash_ch_reference, psi[0], xs[0])]
-        if not label.startswith("bare"):
+        if not form_label.startswith("bare"):
             kernels.append(("K2", dslash_ch_msrc, dslash_ch_msrc_reference,
                             psi, xs))
         for name, hop, plain, v, x in kernels:
@@ -2438,7 +2480,7 @@ def _twop_kernel_checks(u, geom, sources) -> dict:
             ref = plain(g[p], v, p, geom, **args)
             n = f" n={v.shape[0]}" if name == "K2" else ""
             err[name.lower()] = max(err[name.lower()], _compare(
-                got, ref, f"{name} antiperiodic{n} {label}",
+                got, ref, f"{label}{name} antiperiodic{n} {form_label}",
                 TBC_LIMIT["float32"]))
             del got, ref
     del d, ops, g, ci, psi, xs
@@ -2535,6 +2577,8 @@ def phase_twop(geom_dims, cli_dims):
         raise AssertionError("the pion at zero momentum is not real and "
                              "positive with C(1) < C(0)")
     mes_cg = out["mesons"].clone()
+    # phase 12 starts from the CG path's propagators and smeared links
+    threep_in = {k: out[k] for k in ("prop_up", "prop_dn", "u_ape")}
 
     # the kernels' antiperiodic instances at the path's shapes, then the
     # same 24 columns as single solves through K1
@@ -2602,6 +2646,7 @@ def phase_twop(geom_dims, cli_dims):
     _check("pion, MG vs CG (relative)",
            _rel(_pion(out, zero), _pion({"mesons": mes_cg}, zero)),
            TWOP_MG_PION)
+    threep_in["mg_pair"] = out["mg_pair"]
     del out, st, mes_cg
     gc.collect()
     torch.cuda.empty_cache()
@@ -2629,13 +2674,245 @@ def phase_twop(geom_dims, cli_dims):
                                  "wrote no meson file")
     print(f"  phase 11 {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"k1": k1 + k1_single + mg_k1 + cli_k1, "k2": k2 + mg_k2,
-            "err": err}
+            "err": err, "u": u, "threep_in": threep_in}
+
+
+def _loops_finite(loops: dict, label: str):
+    import torch
+    bad = [k for k, v in loops.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"{label}: non-finite loop types {bad}")
+
+
+def phase_threep_loops(twop, geom_dims, cli_dims):
+    """Phase 12: the 3pt and the loops at ``geom_dims`` on phase 11's
+    gauge, propagators, smeared links and MG pair.  (a) ``run_threep``
+    at t_sink = 12, G4, proton, both parts, on the CG path (each part's
+    12 sequential columns one multi-source solve through K2), each
+    column certified by the plain complex128 operator of the opposite
+    flavour, and K1 / K2 at the path's operands against plain; (b) the
+    same with the MG pair: its columns certified and against (a)'s, each
+    insertion type against (a) at the insertion times where the
+    sequential propagator is resolved (``THREEP_RESOLVED``); (c)
+    ``run_loops`` (12 noise
+    vectors at tol 1e-2, 2 HP/LP pairs at 1e-7; the solves through K1),
+    each HP solve certified in complex128, the partner's ``m`` through K1
+    against the plain complex128 one; (d) ``run_loops_wexact`` in
+    complex128 through K1's float64 instance (Chebyshev-filtered
+    Lanczos, nev 16, ncv 40), the Ritz residuals and the deflated CG
+    against the undeflated one; (e) ``cli threep`` and ``cli loops`` at
+    ``cli_dims``.  Returns the K1 and K2 launches of (a)–(e) and the
+    kernels' largest absolute errors at the 3pt's operands."""
+    import tempfile
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import cli
+    from quda_qkxtm_multigrid_tpu_torch import workflows as wf
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams, make_dirac
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc)
+    from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+    from quda_qkxtm_multigrid_tpu_torch.solvers.eigen import deflate_guess
+    from quda_qkxtm_multigrid_tpu_torch.utils.rng import z4_source
+
+    t_phase = time.perf_counter()
+    geom = Geometry(*geom_dims)
+    u, inp = twop["u"], twop["threep_in"]
+    p = tmc_params()
+    phys = dict(kappa=p.kappa, mu=p.mu, csw=p.csw)
+    c128 = torch.complex128
+    print(f"phase 12: the 3pt and the loops at {geom_dims} on phase 11's "
+          f"gauge and propagators", flush=True)
+    launches = {"k1": 0, "k2": 0}
+
+    def run(label, fn):
+        """``fn()`` with the K1 / K2 counts set to 0 before it and read
+        after it, its seconds and its peak memory printed."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dslash_ch.launches = dslash_ch_msrc.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k2 = dslash_ch.launches, dslash_ch_msrc.launches
+        launches["k1"] += k1
+        launches["k2"] += k2
+        print(f"  {label}: {secs:.3f} s, K1 launches {k1}, K2 launches "
+              f"{k2}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        return out, k1, k2
+
+    # (a) the 3pt on the CG path
+    kw = dict(prop_up=inp["prop_up"], prop_dn=inp["prop_dn"],
+              u_ape=inp["u_ape"], tsink=THREEP_TSINK, source=TWOP_SOURCE,
+              projectors=(THREEP_PROJ,), tol=TWOP_TOL,
+              maxiter=SLICE_MAXITER, **phys)
+    st = {}
+    cg_out, _, k2 = run("run_threep (CG path)",
+                        lambda: wf.run_threep(u, geom, stats=st, **kw))
+    print("  stages (s): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in st["secs"].items()),
+          flush=True)
+    parts = [st[(THREEP_PROJ, part)] for part in (1, 2)]
+    iters = [pt["iters"] for pt in parts]
+    print(f"  msrc CG iterations part1 {iters[0]} part2 {iters[1]}; "
+          f"K2 launches {k2} (4 an iteration)", flush=True)
+    if k2 != 4 * sum(iters):
+        raise AssertionError(f"K2 launches {k2} != 4 × {sum(iters)}")
+    worst = 0.0
+    for part, pt in zip((1, 2), parts):
+        res = _certify(u, pt["flavor"], geom, pt["sources"], pt["x"])
+        worst = max(worst, max(res))
+        print(f"  part{part} (flavour {pt['flavor']:+d}): solver's worst "
+              f"true_res (complex64) {pt['true_res']:.3e}; complex128 per "
+              "column " + " ".join(f"{r:.2e}" for r in res), flush=True)
+    _check("3pt: worst sequential column (complex128)", worst,
+           TRUE_RES_LIMIT)
+    err = _twop_kernel_checks(u, geom, parts[0]["sources"],
+                              flavor=parts[0]["flavor"], label="3pt ")
+    thrp_cg = cg_out["thrp"][THREEP_PROJ]
+    for part, types in thrp_cg.items():
+        for t, v in types.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"3pt {part} {t} is not finite")
+    ul = thrp_cg["part1"]["ultra_local"]
+    print("  part1 ultra-local (complex128), op 0, zero momentum, t = "
+          "0..12: " + " ".join(f"{float(c.real):.4e}" for c in ul[0, :13, 3]),
+          flush=True)
+    x_cg = {part: pt["x"] for part, pt in zip((1, 2), parts)}
+    del st, parts, cg_out
+
+    # (b) the 3pt with the MG pair
+    st = {}
+    mg_out, _, _ = run("run_threep (MG pair)", lambda: wf.run_threep(
+        u, geom, mg_pair=inp["mg_pair"], stats=st, **kw))
+    resolved = {}
+    for part in (1, 2):
+        pt = st[(THREEP_PROJ, part)]
+        res = _certify(u, pt["flavor"], geom, pt["sources"], pt["x"])
+        print(f"  MG part{part}: outer iterations {pt['iters']}", flush=True)
+        _check(f"3pt MG part{part}: worst column (complex128)", max(res),
+               TRUE_RES_LIMIT)
+        _check(f"3pt MG part{part}: columns vs CG",
+               max(_rel(a, b) for a, b in zip(pt["x"], x_cg[part])),
+               TWOP_VS_SINGLES)
+        norm_t = torch.linalg.vector_norm(
+            x_cg[part].movedim(-3, 0).reshape(geom.T, -1), dim=1)
+        resolved[f"part{part}"] = [
+            i for i in range(geom.T)
+            if float(norm_t[i]) >= THREEP_RESOLVED * float(norm_t.max())]
+        print(f"  part{part}: sequential propagator's timeslice norm / its "
+              "largest, t = 0..t_sink: " + " ".join(
+                  f"{float(n / norm_t.max()):.1e}"
+                  for n in norm_t[:THREEP_TSINK + 1])
+              + f"; resolved t {resolved[f'part{part}']}", flush=True)
+    for part, types in mg_out["thrp"][THREEP_PROJ].items():
+        ts = resolved[part]
+        for t, v in types.items():
+            ref = thrp_cg[part][t]
+            print(f"  3pt {part} {t}, MG vs CG at every t {_rel64(v, ref):.3e}"
+                  "; t = 0..t_sink " + " ".join(
+                      f"{_rel64(v[..., i, :], ref[..., i, :]):.1e}"
+                      for i in range(THREEP_TSINK + 1)), flush=True)
+            _check(f"3pt {part} {t}, MG vs CG (resolved t)",
+                   _rel64(v[..., ts, :], ref[..., ts, :]), THREEP_MG_VS_CG)
+    del st, mg_out, thrp_cg, kw, inp, twop["threep_in"], x_cg
+
+    # (c) the loops, complex64, through K1
+    st = {}
+    loops, _, _ = run("run_loops", lambda: wf.run_loops(
+        u, geom, n_stoch=LOOPS_NSTOCH,
+        gen=torch.Generator(DEVICE).manual_seed(7), tol=TWOP_TOL,
+        tol_lp=LOOPS_TOL_LP, n_hp=LOOPS_NHP, maxiter=SLICE_MAXITER,
+        stats=st, **phys))
+    print("  stages (s): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in st["secs"].items()),
+          flush=True)
+    _loops_finite(loops, "run_loops")
+    res = _certify(u, +1, geom, [h[0] for h in st["hp"]],
+                   [h[1] for h in st["hp"]])
+    print(f"  HP solves: iterations {[h[3] for h in st['hp']]}, complex128 "
+          + " ".join(f"{r:.2e}" for r in res), flush=True)
+    _check("loops: worst HP solve (complex128)", max(res), TRUE_RES_LIMIT)
+    x = st["hp"][0][1]
+    got = st["partner"].m(x)
+    plain = make_dirac(u.to(c128), DiracParams(kind="clover", kappa=p.kappa,
+                                               csw=p.csw), geom)
+    _check("loops: partner m through K1 vs plain c128",
+           _rel64(got, plain.m(x.to(c128))), PARTNER_M_LIMIT)
+    del st, loops, x, got, plain
+
+    # (d) the deflated loops, complex128, through K1's float64 instance
+    u128 = u.to(c128)
+    st = {}
+    (wex, eig), _, _ = run("run_loops_wexact (complex128)",
+                           lambda: wf.run_loops_wexact(
+                               u128, geom, gen=torch.Generator(
+                                   DEVICE).manual_seed(8),
+                               maxiter=SLICE_MAXITER, stats=st, **WEXACT,
+                               **phys))
+    es = st["eig"]
+    print(f"  Lanczos: Chebyshev degree {WEXACT['cheb_degree']} on "
+          f"[{es['bounds'][0]:.6f}, {es['bounds'][1]:.6f}], "
+          f"{es['restarts']} restarts, {es['matvecs']} matvecs, "
+          f"{es['secs']:.3f} s; stages (s): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in st["secs"].items()), flush=True)
+    print("  eigenvalues " + " ".join(f"{float(v):.8f}" for v in eig.evals)
+          + f"; deflated CG iterations {st['cg_iters']}", flush=True)
+    _check("Lanczos: worst Ritz residual (complex128)",
+           float(eig.resid.max()), RITZ_LIMIT)
+    if not bool((eig.evals > 0).all()):
+        raise AssertionError("an eigenvalue of M_pc†M_pc is not positive")
+    _loops_finite(wex, "run_loops_wexact")
+    d = wf.make_operator(u128, tmc_params(), geom)
+    xi = z4_source(torch.Generator(DEVICE).manual_seed(9), geom, c128)
+    b = d.matpc(d.prepare(xi), dagger=True)
+    tol = WEXACT["tol"]
+    plain_cg = cg(d.matpc_dagm, b, tol=tol, maxiter=SLICE_MAXITER)
+    defl = cg(d.matpc_dagm, b, x0=deflate_guess(eig.evecs, eig.evals, b),
+              tol=tol, maxiter=SLICE_MAXITER)
+    print(f"  CG at tol {tol} on one source: undeflated {plain_cg.iters}, "
+          f"deflated {defl.iters} iterations", flush=True)
+    if defl.iters > plain_cg.iters:
+        raise AssertionError("the deflated CG took more iterations")
+    del st, wex, eig, d, xi, b, plain_cg, defl, u128
+
+    # (e) the CLI in process, single precision
+    def cli_run():
+        written = []
+        args = ["--xdim", str(cli_dims[0]), "--ydim", str(cli_dims[1]),
+                "--zdim", str(cli_dims[2]), "--tdim", str(cli_dims[3]),
+                "--kappa", str(p.kappa), "--mu", str(p.mu), "--csw",
+                str(p.csw), "--tol", str(TWOP_TOL), "--seed", "7",
+                "--device", DEVICE]
+        with tempfile.TemporaryDirectory() as tmp:
+            cli.main(["threep", *args, "--tsink", str(cli_dims[3] // 4),
+                      "--output", str(Path(tmp) / "thrp")])
+            cli.main(["loops", *args, "--tol-LP", str(LOOPS_TOL_LP),
+                      "--nHP", "1", "--output", str(Path(tmp) / "loops")])
+            written = sorted(f.name for f in Path(tmp).iterdir())
+        return written
+    written, k1, k2 = run(f"cli threep and loops at {cli_dims}", cli_run)
+    print(f"  wrote {written}", flush=True)
+    if not (k1 and k2 and any("thrp" in w for w in written)
+            and any(w.startswith("loops") for w in written)):
+        raise AssertionError("the CLI launched no K1 or K2, or wrote no 3pt "
+                             "or loop file")
+    print(f"  phase 12 {time.perf_counter() - t_phase:.1f} s; K1 launches "
+          f"{launches['k1']}, K2 launches {launches['k2']}", flush=True)
+    if not (launches["k1"] and launches["k2"]):
+        raise AssertionError("phase 12 launched no K1 or no K2")
+    return {**launches, "err": err}
 
 
 def main():
     _import_port()
     import torch
-    phase_card()
+    card = phase_card()
     max_abs = phase_kernel_vs_plain(CHECK_GEOM)
     phase_identities(CHECK_GEOM)
     tbc = phase_tbc(CHECK_GEOM)
@@ -2655,6 +2932,8 @@ def main():
     mesh_runs, t9 = phase_mesh_solve(SLICE_GEOM, k["secs"])
     vk, _ = phase_v_kernels(CHECK_GEOM, SLICE_GEOM)
     twop = phase_twop(SLICE_GEOM, CLI_GEOM)
+    thrp = phase_threep_loops(twop, SLICE_GEOM, CLI_GEOM)
+    del twop["u"]
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
     k5 = mesh_runs[True]["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
@@ -2666,7 +2945,9 @@ def main():
           f"K1e: bench_bf16_spinor {spin['k1e']}, compact sloppy "
           f"{cmix['k1e']}; K3: bench_recon8 {spin['k3']}; K4: sharded "
           f"path {k4}; K5: sharded path {k5}; 2pt path: K1 {twop['k1']}, "
-          f"K2 {twop['k2']}")
+          f"K2 {twop['k2']}; 3pt and loops: K1 {thrp['k1']}, K2 "
+          f"{thrp['k2']}")
+    print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
 
@@ -2680,15 +2961,16 @@ def main():
         entry("dslash_ch", KERNEL_SOURCE,
               f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
               k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8
-              + twop["k1"],
+              + twop["k1"] + thrp["k1"],
               max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
-                  vk["v2"][3], tbc["k1"], twop["err"]["k1"]), k["ms"],
+                  vk["v2"][3], tbc["k1"], twop["err"]["k1"],
+                  thrp["err"]["k1"]), k["ms"],
               k["plain_ms"],
               k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
-              launches["dslash_ch_msrc"] + twop["k2"],
+              launches["dslash_ch_msrc"] + twop["k2"] + thrp["k2"],
               max(k2["max_abs_err"], err_time["chain f32"], tbc["k2"],
-                  twop["err"]["k2"]),
+                  twop["err"]["k2"], thrp["err"]["k2"]),
               k2["ms"], k2["plain_ms"], k2["bound"]),
         entry("dslash_ch_bf16", BF16_KERNEL_SOURCE,
               f"{BF16_KERNEL_REPLACES}; {V2_BF16_REPLACES}",

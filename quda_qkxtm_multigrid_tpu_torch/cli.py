@@ -1,9 +1,13 @@
-"""Command-line physics executable: the counterpart of the JAX package's
-``cli.py`` (the reference's ``CalcMG_2pt3pt_EvenOdd``), its flag names
-included.
+"""Command-line physics executables: the counterpart of the JAX
+package's ``cli.py`` (the reference's ``CalcMG_2pt3pt_EvenOdd`` and
+``CalcMG_Loops_w_oneD_TSM_EvenOdd``), its flag names included.
 
     python -m quda_qkxtm_multigrid_tpu_torch.cli twop --xdim 32 --ydim 32 \\
         --zdim 32 --tdim 64 --kappa 0.115 --mu 0.05 --csw 1.0 --src 0,0,0,0
+    python -m quda_qkxtm_multigrid_tpu_torch.cli threep ... --tsink 12 \\
+        --proj G4
+    python -m quda_qkxtm_multigrid_tpu_torch.cli loops ... --nstoch 12 \\
+        --tol-LP 1e-2 --nHP 2
 
 Runs on the card unless ``--device cpu``.  Without ``--conf`` the gauge
 is the port's random SU(3) field from ``--seed``; either way the
@@ -11,15 +15,20 @@ antiperiodic t boundary is folded into the links (``apply_t_boundary``)
 and the plaquette is printed.  ``--precision single`` (the default)
 runs the fused float32 kernels on the card, ``double`` the complex128
 operator through K1's float64 instance, a mixed CG a column
-(``workflows.make_operator``, ``workflows.forward_prop``).  The correlators go to HDF5
-where h5py is installed, else to ASCII ``<output>_{mesons,baryons}.dat``.
-``threep`` and ``loops`` are ROADMAP queue 1, items 3 and 4.
+(``workflows.make_operator``, ``workflows.forward_prop``).  ``threep``
+runs the 2pt first (its propagators, smeared links and MG pair) and
+then ``run_threep`` at ``--tsink``; ``loops`` runs ``run_loops`` on Z4
+noise from a generator seeded ``--seed``.  The results go to HDF5 where
+h5py is installed, else to ASCII: ``<output>_{mesons,baryons}.dat``,
+``<output>_<proj>_<part>.thrp.<type>.dat``,
+``<output>_<loop type>.loop``.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 
@@ -132,13 +141,66 @@ def _write_twop(args, out, src):
         print(f"wrote {args.output}_mesons.dat, {args.output}_baryons.dat")
 
 
+def _write_threep(args, res, src):
+    from quda_qkxtm_multigrid_tpu_torch.io import hdf5 as h5w
+    host = {proj: {part: {t: a.cpu().numpy() for t, a in types.items()}
+                   for part, types in parts.items()}
+            for proj, parts in res["thrp"].items()}
+    try:
+        for proj, parts in host.items():
+            for part, types in parts.items():
+                for ttype, arr in types.items():
+                    h5w.write_threep_hdf5(
+                        f"{args.output}_thrp.h5", arr, res["moms"],
+                        args.traj, src, args.tsink, proj, f"{ttype}_{part}",
+                        "proton")
+        print(f"wrote {args.output}_thrp.h5")
+    except ImportError:
+        for proj, parts in host.items():
+            for part, types in parts.items():
+                paths = h5w.write_threep_ascii(
+                    f"{args.output}_{proj}_{part}", types, res["moms"],
+                    t_src=src[3], tsink=args.tsink)
+                print("wrote " + ", ".join(paths))
+
+
+def _write_loops(args, out):
+    """The FFT grid's entries at the momenta of ``--Q-sq``."""
+    from quda_qkxtm_multigrid_tpu_torch.io import hdf5 as h5w
+    from quda_qkxtm_multigrid_tpu_torch.physics.contract import momentum_list
+    moms = momentum_list(args.q_sq)
+    sel = {}
+    for name, arr in out.items():
+        a = arr.cpu().numpy()
+        sel[name] = np.stack([a[..., pz, py, px] for (px, py, pz) in moms],
+                             axis=-1)
+    try:
+        h5w.write_loops_hdf5(f"{args.output}_loops.h5", sel, moms,
+                             args.traj, args.nstoch)
+        print(f"wrote {args.output}_loops.h5")
+    except ImportError:
+        paths = h5w.write_loops_ascii(args.output, sel, moms)
+        print("wrote " + ", ".join(paths))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="quda_qkxtm_multigrid_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("twop")
-    _common(sp)
-    sp.add_argument("--src", type=str, default="0,0,0,0",
-                    help="source position x,y,z,t")
+    for name in ("twop", "threep", "loops"):
+        sp = sub.add_parser(name)
+        _common(sp)
+        if name in ("twop", "threep"):
+            sp.add_argument("--src", type=str, default="0,0,0,0",
+                            help="source position x,y,z,t")
+        if name == "threep":
+            sp.add_argument("--tsink", type=int, required=True)
+            sp.add_argument("--proj", type=str, default="G4",
+                            help="comma list of G4,G5G123,G5G1,G5G2,G5G3")
+        if name == "loops":
+            sp.add_argument("--nstoch", type=int, default=12)
+            sp.add_argument("--tol-LP", dest="tol_lp", type=float,
+                            default=None)
+            sp.add_argument("--nHP", dest="n_hp", type=int, default=0)
     args = parser.parse_args(argv)
 
     from quda_qkxtm_multigrid_tpu_torch import workflows as wf
@@ -146,8 +208,17 @@ def main(argv=None):
 
     dtype = (torch.complex128 if args.precision == "double"
              else torch.complex64)
+    device = torch.device(args.device)
     geom = Geometry(args.xdim, args.ydim, args.zdim, args.tdim)
-    u = load_gauge(args, geom, dtype, torch.device(args.device))
+    u = load_gauge(args, geom, dtype, device)
+    if args.cmd == "loops":
+        out = wf.run_loops(u, geom, args.kappa, args.mu, args.csw,
+                           n_stoch=args.nstoch,
+                           gen=torch.Generator(device).manual_seed(args.seed),
+                           tol=args.tol, maxiter=args.maxiter,
+                           tol_lp=args.tol_lp, n_hp=args.n_hp)
+        _write_loops(args, out)
+        return out
     src = tuple(int(v) for v in args.src.split(","))
     out = wf.run_twop(u, geom, args.kappa, args.mu, args.csw, source=src,
                       q_sq_max=args.q_sq, ape_alpha=args.alphaAPE,
@@ -155,8 +226,18 @@ def main(argv=None):
                       gauss_n=args.nsmearGauss, tol=args.tol,
                       maxiter=args.maxiter, verbose=True,
                       mg_params=_mg_params(args))
-    _write_twop(args, out, src)
-    return out
+    if args.cmd == "twop":
+        _write_twop(args, out, src)
+        return out
+    res = wf.run_threep(u, geom, args.kappa, args.mu, args.csw,
+                        prop_up=out["prop_up"], prop_dn=out["prop_dn"],
+                        u_ape=out["u_ape"], tsink=args.tsink, source=src,
+                        projectors=tuple(args.proj.split(",")),
+                        q_sq_max=args.q_sq, gauss_alpha=args.alphaGauss,
+                        gauss_n=args.nsmearGauss, tol=args.tol,
+                        maxiter=args.maxiter, mg_pair=out["mg_pair"])
+    _write_threep(args, res, src)
+    return res
 
 
 if __name__ == "__main__":

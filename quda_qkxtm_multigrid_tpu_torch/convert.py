@@ -31,6 +31,20 @@ def spinor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().resolve_conj().cpu().numpy()
 
 
+def eigenpairs_from_numpy(evals, evecs, resid=None, device="cuda"):
+    """The port's ``solvers.eigen.EigResult`` from the JAX package's
+    eigenpairs as numpy (``evecs`` [nev, ...field]), on ``device``."""
+    from quda_qkxtm_multigrid_tpu_torch.solvers.eigen import EigResult
+    vals = torch.tensor(np.asarray(evals), device=device)
+    vecs = torch.tensor(np.asarray(evecs), device=device)
+    res = (torch.zeros_like(vals) if resid is None or np.size(resid) == 0
+           else torch.tensor(np.asarray(resid), device=device))
+    if vecs.shape[0] != vals.shape[0]:
+        raise ValueError(f"{vals.shape[0]} eigenvalues for "
+                         f"{vecs.shape[0]} eigenvectors")
+    return EigResult(evals=vals, evecs=vecs, resid=res)
+
+
 def params_from_jax(p) -> DiracParams:
     """The port's ``DiracParams`` for a JAX package ``DiracParams`` (read
     by attribute; this module does not import it): ``use_pallas`` maps

@@ -200,17 +200,21 @@ class Dirac(nn.Module):
         ``ci`` [T,144,Z,W], in ``dtype`` or, in the bf16 tier unless
         ``exact``, in bfloat16 (each hop on them takes ``_hop_kw``).
         Built once per operand dtype (which names the tier) and reused
-        by every hop."""
+        by every hop; an operator without ``clover_inv`` (the loops'
+        untwisted partner, ``physics.loops``) builds the gauge channels
+        only, and one that shares its cache with another adds what it
+        lacks."""
         op = (torch.bfloat16 if self.params.kernel_bf16 and not exact
               else dtype)
-        if op not in self._ch_cache:
-            ops = {"g": [gauge_channels(self.u_doubled, p, True, op)
-                         for p in (0, 1)]}
-            if self.params.has_clover:
-                ops["ci"] = [clover_channels(self.clover_inv, p, op)
-                             for p in (0, 1)]
-            self._ch_cache[op] = ops
-        return self._ch_cache[op]
+        ops = self._ch_cache.setdefault(op, {})
+        if "g" not in ops:
+            ops["g"] = [gauge_channels(self.u_doubled, p, True, op)
+                        for p in (0, 1)]
+        if (self.params.has_clover and self.clover_inv is not None
+                and "ci" not in ops):
+            ops["ci"] = [clover_channels(self.clover_inv, p, op)
+                         for p in (0, 1)]
+        return ops
 
     def _clover_matrix(self, dtype: torch.dtype, parity: int):
         """The clover inverse of ``parity`` as complex matrices
@@ -396,6 +400,7 @@ class Dirac(nn.Module):
         p = self.params
         return (p.use_kernels and self.u_doubled is not None
                 and not p.asymmetric
+                and (self.clover_inv is not None or not p.has_clover)
                 and p.kind in ("twisted-mass", "clover", "twisted-clover"))
 
     # ---- even-odd preconditioned operator ----------------------------

@@ -96,19 +96,25 @@ class Geometry:
 
 
 def gather_neighbor(f: torch.Tensor, mu: int, forward: bool, parity: int,
-                    geom: Geometry) -> torch.Tensor:
+                    geom: Geometry, t0: int | None = None) -> torch.Tensor:
     """Gather f(x ± mu) for every site x of ``parity``.
 
     ``f`` lives on the opposite parity, any leading axes, trailing axes
     [T, Z, W].  Returns the same shape, aligned with sites of ``parity``.
+    ``t0``: ``f`` holds only the timeslice t0 (trailing [1, Z, W]); the
+    spatial directions only.
     """
     if mu == 3:
+        if t0 is not None:
+            raise ValueError("a single timeslice has no t neighbour")
         return torch.roll(f, -1 if forward else 1, dims=-3)
     if mu == 2:
         return torch.roll(f, -1 if forward else 1, dims=-2)
     if mu == 1:                      # y: a roll by Xh of the merged axis
         return torch.roll(f, -geom.Xh if forward else geom.Xh, dims=-1)
     s0, k_first, k_last = geom._x_mask_tensors(parity, f.device)
+    if t0 is not None:
+        s0 = s0[t0:t0 + 1]
     if forward:
         # true x even (s0): +x neighbour at the same k; odd: k+1 (wraps)
         fwd_odd = torch.where(k_last, torch.roll(f, geom.Xh - 1, dims=-1),
@@ -123,10 +129,38 @@ def gather_neighbor(f: torch.Tensor, mu: int, forward: bool, parity: int,
 def _row_parity(geom: Geometry, device) -> torch.Tensor:
     """(t+z+y) % 2 as a [T, Z, Y, 1] bool tensor: which slot of an x pair
     holds the even site."""
-    t = torch.arange(geom.T, device=device).reshape(-1, 1, 1, 1)
-    z = torch.arange(geom.Z, device=device).reshape(1, -1, 1, 1)
-    y = torch.arange(geom.Y, device=device).reshape(1, 1, -1, 1)
+    return _row_parity_dims(geom.T, geom.Z, geom.Y, device)
+
+
+def _row_parity_dims(T: int, Z: int, Y: int, device) -> torch.Tensor:
+    t = torch.arange(T, device=device).reshape(-1, 1, 1, 1)
+    z = torch.arange(Z, device=device).reshape(1, -1, 1, 1)
+    y = torch.arange(Y, device=device).reshape(1, 1, -1, 1)
     return (t + z + y) % 2 == 1
+
+
+def _split_parity_sites(full: torch.Tensor) -> torch.Tensor:
+    """[T, Z, Y, X, ...] → [2, T, Z, Y, X/2, ...] (even, odd)."""
+    T, Z, Y, X = full.shape[:4]
+    trailing = tuple(full.shape[4:])
+    pairs = full.reshape(T, Z, Y, X // 2, 2, *trailing)
+    r = _row_parity_dims(T, Z, Y, full.device).reshape(
+        (T, Z, Y, 1) + (1,) * len(trailing))
+    even = torch.where(r, pairs[:, :, :, :, 1], pairs[:, :, :, :, 0])
+    odd = torch.where(r, pairs[:, :, :, :, 0], pairs[:, :, :, :, 1])
+    return torch.stack([even, odd])
+
+
+def _join_parity_sites(split: torch.Tensor) -> torch.Tensor:
+    """[2, T, Z, Y, X/2, ...] → [T, Z, Y, X, ...]."""
+    _, T, Z, Y, Xh = split.shape[:5]
+    trailing = tuple(split.shape[5:])
+    r = _row_parity_dims(T, Z, Y, split.device).reshape(
+        (T, Z, Y, 1) + (1,) * len(trailing))
+    even, odd = split[0], split[1]
+    pairs = torch.stack([torch.where(r, odd, even),
+                         torch.where(r, even, odd)], dim=4)
+    return pairs.reshape(T, Z, Y, 2 * Xh, *trailing)
 
 
 def spinor_to_lex(psi: torch.Tensor, geom: Geometry) -> torch.Tensor:

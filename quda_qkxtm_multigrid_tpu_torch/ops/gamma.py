@@ -31,6 +31,16 @@ PROJ = np.stack(
     [np.stack([IDENTITY - GAMMA[mu], IDENTITY + GAMMA[mu]]) for mu in range(4)]
 )
 
+# The 16-element basis of the contractions: index g holds the product
+# gamma_1^a gamma_2^b gamma_3^c gamma_4^d with bits (a, b, c, d) of g.
+GAMMA_BASIS = np.zeros((16, 4, 4), dtype=np.complex128)
+for _g in range(16):
+    _m = IDENTITY
+    for _mu in range(4):
+        if (_g >> _mu) & 1:
+            _m = _m @ GAMMA[_mu]
+    GAMMA_BASIS[_g] = _m
+
 
 def apply_gamma5(psi: torch.Tensor) -> torch.Tensor:
     """gamma5 psi for a canonical spinor [..., 4, 3, T, Z, W] (spin at

@@ -27,6 +27,21 @@ def su3_dag_mul(u, psi):
     return torch.stack(cols, dim=-4)
 
 
+def su3_conj_mul(u, psi):
+    """out[..., s, a] = sum_b conj(u[a,b]) psi[..., s, b] (U* v)."""
+    cols = [u[a, 0].conj() * psi[..., 0, :, :, :]
+            + u[a, 1].conj() * psi[..., 1, :, :, :]
+            + u[a, 2].conj() * psi[..., 2, :, :, :] for a in range(3)]
+    return torch.stack(cols, dim=-4)
+
+
+def su3_transp_mul(u, psi):
+    """out[..., s, a] = sum_b u[b,a] psi[..., s, b] (Uᵀ v)."""
+    cols = [u[0, a] * psi[..., 0, :, :, :] + u[1, a] * psi[..., 1, :, :, :]
+            + u[2, a] * psi[..., 2, :, :, :] for a in range(3)]
+    return torch.stack(cols, dim=-4)
+
+
 def mat_mul(a, b):
     """3x3 (leading axes) matrix product: [3,3,...] x [3,3,...]."""
     return torch.stack([torch.stack(

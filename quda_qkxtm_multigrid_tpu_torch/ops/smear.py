@@ -1,16 +1,22 @@
-"""Link smearing (APE) and Gaussian quark-field smearing: the
-counterpart of the JAX package's ``ops/smear.py`` (``stout_smear_step``
-and ``covdev_apply`` come with the 3pt, ROADMAP queue 1).
+"""Link smearing (APE, stout), Gaussian quark-field smearing and the
+covariant shift: the counterpart of the JAX package's ``ops/smear.py``.
 
   APE    U' = Proj_SU3[(1−α) U_mu + α/(2(d−1)) Σ staples], spatial
          staples only by default (the reference's ``gauge_ape.cu``);
+  stout  U' = exp(Q) U, Q the traceless anti-hermitian part of
+         ρ Σ staples U† (8-term Taylor exponential);
   Gauss  ψ' = (ψ + α H ψ)/(1 + 6α), H ψ(x) = Σ_{i=x,y,z} U_i(x) ψ(x+i)
          + U_i†(x−i) ψ(x−i), iterated n times over APE-smeared links
-         (the reference's ``Gauss_core_Kepler.h``).
+         (the reference's ``Gauss_core_Kepler.h``);
+  covdev U_mu(x) ψ(x+mu) forward, U_mu†(x−mu) ψ(x−mu) backward (the
+         reference's ``covDev.cu``, the loops' derivative insertions).
 
 Plain PyTorch on the canonical layout, the JAX package's arithmetic in
 the same order; ``gaussian_smear`` takes any leading batch axes (the 12
-spin-colour sources of a propagator at once).
+spin-colour sources of a propagator at once) and, with ``t0``, a field
+of one timeslice: H is spatial, so smearing the timeslice alone gives
+the numbers of the whole field's smearing there (the 3pt smears its
+sink timeslice that way).
 """
 
 from __future__ import annotations
@@ -76,7 +82,33 @@ def ape_smear(u: torch.Tensor, geom: Geometry, alpha: float, n_steps: int,
     return u
 
 
-def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry):
+def stout_smear_step(u: torch.Tensor, geom: Geometry, rho: float,
+                     spatial_only: bool = True) -> torch.Tensor:
+    """One stout step U' = exp(Q) U, Q the traceless anti-hermitian part
+    of ρ Σ staples U† (the reference's ``gauge_stout.cu``), the
+    exponential by its 8-term Taylor series."""
+    dirs = (0, 1, 2) if spatial_only else (0, 1, 2, 3)
+    out = u.clone()
+    eye = torch.eye(3, dtype=u.dtype, device=u.device).reshape(
+        3, 3, 1, 1, 1)
+    for mu in dirs:
+        st = _staple_sum(u, mu, geom, dirs)
+        new = []
+        for p in (0, 1):
+            omega = rho * mat_mul(st[p], mat_dag(u[mu, p]))
+            q = 0.5 * (omega - mat_dag(omega))
+            q = q - ((q[0, 0] + q[1, 1] + q[2, 2]) / 3.0) * eye
+            acc = term = eye.expand(q.shape)
+            for k in range(1, 9):
+                term = mat_mul(term, q) / k
+                acc = acc + term
+            new.append(mat_mul(acc, u[mu, p]))
+        out[mu] = torch.stack(new)
+    return out
+
+
+def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry,
+               t0):
     """H v over the spatial directions for v [..., 2, 4, 3, T, Z, W];
     ``u_bwd[p][i]`` = U_i(x−i) at the sites x of parity p."""
     outs = []
@@ -84,8 +116,8 @@ def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry):
         src = v.select(-6, 1 - p)
         acc = None
         for i in (0, 1, 2):
-            fwd = gather_neighbor(src, i, True, p, geom)
-            bwd = gather_neighbor(src, i, False, p, geom)
+            fwd = gather_neighbor(src, i, True, p, geom, t0)
+            bwd = gather_neighbor(src, i, False, p, geom, t0)
             term = su3_mul(u[i, p], fwd) + su3_dag_mul(u_bwd[p][i], bwd)
             acc = term if acc is None else acc + term
         outs.append(acc)
@@ -93,14 +125,37 @@ def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry):
 
 
 def gaussian_smear(psi: torch.Tensor, u_smeared: torch.Tensor,
-                   geom: Geometry, alpha: float, n: int) -> torch.Tensor:
+                   geom: Geometry, alpha: float, n: int,
+                   t0: int | None = None) -> torch.Tensor:
     """``n`` iterations of ψ ← (ψ + α H ψ)/(1 + 6α) over the (APE-)
     smeared links, on a full field [..., 2, 4, 3, T, Z, W]; leading axes
-    batch sources.  The backward links are gathered once for all
-    iterations."""
+    batch sources.  With ``t0``, ``psi`` is the timeslice t0 alone
+    [..., 2, 4, 3, 1, Z, W] (``u_smeared`` stays the whole gauge).  The
+    backward links are gathered once for all iterations."""
     norm = 1.0 / (1.0 + 6.0 * alpha)
-    u_bwd = [[gather_neighbor(u_smeared[i, 1 - p], i, False, p, geom)
+    if t0 is not None:
+        u_smeared = u_smeared[..., t0:t0 + 1, :, :]
+    u_bwd = [[gather_neighbor(u_smeared[i, 1 - p], i, False, p, geom, t0)
               for i in (0, 1, 2)] for p in (0, 1)]
     for _ in range(n):
-        psi = norm * (psi + alpha * _gauss_hop(psi, u_smeared, u_bwd, geom))
+        psi = norm * (psi + alpha * _gauss_hop(psi, u_smeared, u_bwd, geom,
+                                               t0))
     return psi
+
+
+def covdev_apply(u: torch.Tensor, psi: torch.Tensor, mu: int,
+                 forward: bool, geom: Geometry) -> torch.Tensor:
+    """Gauge-covariant shift of a full spinor field [2, 4, 3, T, Z, W]:
+    U_mu(x) ψ(x+mu) forward, U_mu†(x−mu) ψ(x−mu) backward (the
+    reference's ``covDev.cu``)."""
+    outs = []
+    for p in (0, 1):
+        src = psi[1 - p]
+        if forward:
+            outs.append(su3_mul(u[mu, p],
+                                gather_neighbor(src, mu, True, p, geom)))
+        else:
+            u_b = gather_neighbor(u[mu, 1 - p], mu, False, p, geom)
+            outs.append(su3_dag_mul(
+                u_b, gather_neighbor(src, mu, False, p, geom)))
+    return torch.stack(outs)

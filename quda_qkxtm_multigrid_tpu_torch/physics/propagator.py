@@ -67,8 +67,10 @@ def propagator_gamma5_dag(prop: torch.Tensor) -> torch.Tensor:
 
 
 def smear_propagator(prop: torch.Tensor, u_smeared: torch.Tensor,
-                     geom: Geometry, alpha: float, n: int) -> torch.Tensor:
-    """Gaussian-smear the sink of all 12 columns at once."""
+                     geom: Geometry, alpha: float, n: int,
+                     t0: int | None = None) -> torch.Tensor:
+    """Gaussian-smear the sink of all 12 columns at once (with ``t0``:
+    ``prop`` is the timeslice t0 alone, ``gaussian_smear``'s)."""
     p = prop.permute(2, 4, 0, 1, 3, 5, 6, 7)   # [src_s, src_c, 2, 4, 3, ...]
-    p = gaussian_smear(p, u_smeared, geom, alpha, n)
+    p = gaussian_smear(p, u_smeared, geom, alpha, n, t0)
     return p.permute(2, 3, 0, 4, 1, 5, 6, 7)

@@ -1,8 +1,8 @@
 """Random fields from an explicit ``torch.Generator``.
 
 Same distributions as the JAX package's ``utils/rng.py``: Gaussian
-complex entries, and SU(3) links by Gram-Schmidt on rows 0 and 1 with
-row 2 = conj(r0 × r1).  The bits differ from JAX's; the parity tests
+complex entries, SU(3) links by Gram-Schmidt on rows 0 and 1 with
+row 2 = conj(r0 × r1), and Z4 noise {1, i, −1, −i}.  The bits differ from JAX's; the parity tests
 make their inputs with numpy instead.  The generator must live on the
 device the field is made on.
 """
@@ -53,3 +53,23 @@ def random_gauge(gen: torch.Generator, geom: Geometry,
     """Random SU(3) gauge field [4, 2, 3, 3, T, Z, W]."""
     u = random_su3(gen, (4, 2) + geom.lat_shape, dtype)
     return u.movedim((0, 1), (2, 3)).contiguous()
+
+
+def unit_gauge(geom: Geometry, dtype=torch.complex128,
+               device="cuda") -> torch.Tensor:
+    """The unit gauge [4, 2, 3, 3, T, Z, W] (on the card unless
+    ``device`` says otherwise)."""
+    eye = torch.eye(3, dtype=dtype, device=device).reshape(1, 1, 3, 3, 1, 1,
+                                                          1)
+    return eye.expand((4, 2, 3, 3) + geom.lat_shape).contiguous()
+
+
+def z4_source(gen: torch.Generator, geom: Geometry,
+              dtype=torch.complex128) -> torch.Tensor:
+    """Z4 stochastic volume source [2, 4, 3, T, Z, W], entries in
+    {1, i, −1, −i} (the reference's Z4 generator), on the generator's
+    device."""
+    k = torch.randint(0, 4, (2, 4, 3) + geom.lat_shape, generator=gen,
+                      device=gen.device)
+    table = torch.tensor([1, 1j, -1, -1j], dtype=dtype, device=gen.device)
+    return table[k]

@@ -1,7 +1,10 @@
-"""The 2pt workflow: the counterpart of the JAX package's
-``workflows.py`` (``run_twop``, the 2pt part of the reference's
-``calcMG_threepTwop_EvenOdd``).  ``run_threep`` and the loops are
-ROADMAP queue 1, item 3.
+"""The physics workflows: the counterpart of the JAX package's
+``workflows.py``, the reference's drivers:
+
+  run_twop          the 2pt part of ``calcMG_threepTwop_EvenOdd``
+  run_threep        its fixed-sink 3pt part
+  run_loops         ``calcMG_loop_wOneD_TSM_EvenOdd`` (TSM loops)
+  run_loops_wexact  ``calcMG_loop_wOneD_TSM_wExact`` (deflated loops)
 
 A source gives twelve Gaussian-smeared point sources (APE-smeared
 links), one solve each for both twist flavours, the twisted → physical
@@ -9,7 +12,12 @@ rotation, and the meson and baryon contractions, projected onto the
 momenta or kept in position space.  On the fused operator the twelve
 columns of a flavour are one multi-source solve (``invert_msrc``: the
 kernel K2 at n = 12 in the four-hop chain); an MG pair
-(``mg_params``) solves them column by column with MG-GCR.
+(``mg_params``) solves them column by column with MG-GCR.  The 3pt's
+twelve sequential columns of a (projector, part) go the same way, with
+the opposite flavour.  The loops solve one Z4 source at a time
+(``invert``: K1's chain) and contract it with the untwisted partner
+(``physics.loops``); the deflated loops run thick-restart Lanczos
+(``solvers.eigen``) on the operator's normal form.
 
 Operators (``make_operator``), the port's own rule: a gauge on the card
 takes the fused chain (the CUDA kernels) in its own precision; a
@@ -25,6 +33,7 @@ rule for a 16 GB TPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -36,10 +45,17 @@ from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams, make_dirac
 from quda_qkxtm_multigrid_tpu_torch.invert import (
     invert, invert_msrc, true_residual)
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+from quda_qkxtm_multigrid_tpu_torch.ops.gamma import apply_gamma5
 from quda_qkxtm_multigrid_tpu_torch.ops.smear import ape_smear, gaussian_smear
 from quda_qkxtm_multigrid_tpu_torch.physics import contract as con
+from quda_qkxtm_multigrid_tpu_torch.physics import loops as lp
+from quda_qkxtm_multigrid_tpu_torch.physics import threept as tp
 from quda_qkxtm_multigrid_tpu_torch.physics.propagator import (
-    assemble_prop, rotate_to_physical)
+    assemble_prop, rotate_to_physical, smear_propagator)
+from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+from quda_qkxtm_multigrid_tpu_torch.solvers.eigen import (
+    deflate_guess, lanczos, project_out, spectrum_bounds)
+from quda_qkxtm_multigrid_tpu_torch.utils.rng import z4_source
 
 # Test hooks: None decides from the field (``_use_kernels``,
 # ``_use_compact``); True / False forces the route, so the CPU tests
@@ -101,6 +117,34 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _stage_clock(device, secs: dict):
+    """A function ``lap(name)`` that adds the host seconds since the last
+    lap (the device synchronised) to ``secs[name]``."""
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        _sync(device)
+        now = time.perf_counter()
+        secs[name] = secs.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+    return lap
+
+
+def _check_space(corr_space: str):
+    if corr_space not in ("momentum", "position"):
+        raise ValueError(f"corr_space {corr_space!r}: 'momentum' or "
+                         "'position'")
+
+
+def _solver(dirac) -> str:
+    """``invert``'s solver for a column: CG, or the mixed CG on the
+    complex128 fused chain (its float64 outer loop certifies the
+    tolerance; the plain "cg" runs the chain in float32)."""
+    fused = getattr(dirac, "_has_fused_matpc", False)
+    return ("cg-mixed" if fused and _op_dtype(dirac) == torch.complex128
+            else "cg")
+
+
 def smeared_sources(u_ape: torch.Tensor, geom: Geometry, coords,
                     alpha: float, nsmear: int, dtype) -> torch.Tensor:
     """The twelve Gaussian-smeared point sources of ``coords``
@@ -159,9 +203,8 @@ def forward_prop(dirac, u_ape, geom: Geometry, coords, alpha: float = 4.0,
     if sources is None:
         sources = smeared_sources(u_ape, geom, coords, alpha, nsmear,
                                   _op_dtype(dirac))
-    fused = getattr(dirac, "_has_fused_matpc", False)
-    double = _op_dtype(dirac) == torch.complex128
-    if columns is None and solve_fn is None and fused and not double:
+    if columns is None and solve_fn is None and _solver(dirac) == "cg" \
+            and getattr(dirac, "_has_fused_matpc", False):
         xs, res, iters = _solve_columns_msrc(dirac, sources, tol, maxiter)
         if verbose:
             print(f"  12-column msrc solve: {iters} iterations, "
@@ -176,7 +219,7 @@ def forward_prop(dirac, u_ape, geom: Geometry, coords, alpha: float = 4.0,
             continue
         if solve_fn is None:
             out = invert(dirac, b, tol=tol, maxiter=maxiter,
-                         solver="cg-mixed" if fused and double else "cg")
+                         solver=_solver(dirac))
             x, res = out.x, out.true_res
             iters.append(out.iters)
         else:
@@ -238,19 +281,10 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     smeared ``sources`` and the MG setup split."""
     if mesh is not None:
         raise ValueError(MESH_REFUSAL)
-    if corr_space not in ("momentum", "position"):
-        raise ValueError(f"corr_space {corr_space!r}: 'momentum' or "
-                         "'position'")
+    _check_space(corr_space)
     dev = u.device
     secs = {}
-    clock = [time.perf_counter()]
-
-    def lap(name):
-        _sync(dev)
-        now = time.perf_counter()
-        secs[name] = secs.get(name, 0.0) + now - clock[0]
-        clock[0] = now
-
+    lap = _stage_clock(dev, secs)
     kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
     u_ape = ape_smear(u, geom, ape_alpha, ape_n)
     lap("ape")
@@ -299,3 +333,313 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     return {"mesons": mes, "baryons": bar, "moms": moms,
             "prop_up": props["up"], "prop_dn": props["dn"], "u_ape": u_ape,
             "mg_pair": mg_pair, "corr_space": corr_space}
+
+
+def _sink_timeslice(prop, u_ape, geom: Geometry, t: int, alpha: float,
+                    n: int):
+    """The sink-smeared propagator's timeslice t in lexicographic order
+    [4, 4, 3, 3, Z, Y, X], smearing that timeslice alone (the Gaussian
+    hop is spatial)."""
+    p_t = smear_propagator(prop[..., t:t + 1, :, :], u_ape, geom, alpha, n,
+                           t0=t)
+    return tp.timeslice_to_lex(p_t[..., 0, :, :], geom, t)
+
+
+def _pow2_scale(t: torch.Tensor) -> float:
+    """The power of two that brings ``t``'s largest entry to [1, 2):
+    multiplying by it is exact, and every solve and smearing step is
+    linear, so scaling a source and unscaling the solution changes no
+    bit of the result unless the unscaled one had underflowed."""
+    m = float(t.abs().max())
+    if m == 0.0 or not math.isfinite(m):
+        return 1.0
+    return 2.0 ** -math.floor(math.log2(m))
+
+
+def _seq_sources(seq, u_ape, geom: Geometry, t: int, alpha: float,
+                 n: int) -> torch.Tensor:
+    """The twelve solves' sources of a sequential source [4(q), 3(s), 4,
+    3, Z, Y, X]: γ5, Gaussian smearing of the sink timeslice alone, and
+    the full fields [12, 2, 4, 3, T, Z, W], zero off the timeslice."""
+    ts = tp.timeslice_sources(seq, geom, t).reshape(
+        (12, 2, 4, 3, 1, geom.Z, geom.W))
+    ts = gaussian_smear(apply_gamma5(ts), u_ape, geom, alpha, n, t0=t)
+    full = torch.zeros((12, 2, 4, 3) + geom.lat_shape, dtype=ts.dtype,
+                       device=ts.device)
+    full[..., t:t + 1, :, :] = ts
+    return full
+
+
+def run_threep(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
+               csw: float, prop_up: torch.Tensor, prop_dn: torch.Tensor,
+               u_ape: torch.Tensor, tsink: int, source=(0, 0, 0, 0),
+               projectors=("G4",), particle: int = tp.PROTON,
+               q_sq_max: int = 1, gauss_alpha: float = 4.0,
+               gauss_n: int = 50, tol: float = 1e-8, maxiter: int = 1000,
+               mg_pair=None, mesh=None, corr_space: str = "momentum",
+               stats: Optional[dict] = None) -> dict:
+    """Fixed-sink 3pt workflow for one sink time on ``run_twop``'s
+    propagators (physical basis) and APE-smeared links: for each
+    projector and flavour part the sequential source, its twelve
+    columns solved with the opposite twist (``forward_prop``: on the
+    complex64 fused chain one multi-source solve through K2; with
+    ``mg_pair``, ``run_twop``'s pair, the opposite flavour's MG-GCR a
+    column), and the fixSink contractions against ``prop_up`` (both
+    parts, as the JAX package), projected with e^{+ip·x}.  Returns
+    {"thrp": {proj: {"part1" | "part2": {"ultra_local" [16, T, nmom],
+    "noether" [4, T, nmom], "oneD" [16, 4, T, nmom]}}}, "moms",
+    "corr_space"} ([..., T, Z, Y, X] in position space), complex128
+    whatever the fields' precision: the sequential source is solved and
+    contracted as a power-of-two multiple (``_pow2_scale``), whose scale
+    comes off in complex128 (a complex64 3pt at t_sink = 12 on a hot
+    32³×64 gauge, ~1e-36, would fall below float32's normal range).
+
+    One operator a flavour serves every projector.  ``mesh`` raises (no
+    meshed workflow yet).  ``stats``, if given, receives the host
+    seconds of each stage (``secs``: smear, seq_source, operators,
+    solve, fixsink; the device synchronised) and, under ``(projector,
+    part)``, the solve's ``forward_prop`` stats with its ``sources`` and
+    ``flavor`` (the sources and solutions of the scaled sequential
+    source, and its ``scale``)."""
+    if mesh is not None:
+        raise ValueError(MESH_REFUSAL)
+    _check_space(corr_space)
+    dev = u.device
+    secs = {}
+    lap = _stage_clock(dev, secs)
+    kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
+    moms = con.momentum_list(q_sq_max)
+    sink = {name: _sink_timeslice(p, u_ape, geom, tsink, gauss_alpha,
+                                  gauss_n)
+            for name, p in (("up", prop_up), ("dn", prop_dn))}
+    lap("smear")
+
+    def project(c, scale):
+        lex = con.corr_to_lex(c, geom)
+        if corr_space == "momentum":
+            lex = con.momentum_project_dyn(lex, geom, -moms, source)
+        return lex.to(torch.complex128) / scale
+
+    ops, results = {}, {}
+    for proj_name in projectors:
+        proj = tp.projector(proj_name, particle)
+        results[proj_name] = {}
+        for partflag in (1, 2):
+            seq = (tp.seq_source_part1(sink["up"], sink["dn"], proj)
+                   if partflag == 1 else tp.seq_source_part2(sink["up"],
+                                                             proj))
+            lap("seq_source")
+            # a sequential source is ~|S(t_sink)|², whose |r|² far from
+            # the source underflows float32: smear, solve and contract a
+            # power-of-two multiple (the reference scales by 1e10) and
+            # take the scale off in complex128, where the 3pt (~1e-36 at
+            # t_sink = 12 on a hot 32³×64 gauge) keeps its digits
+            scale = _pow2_scale(seq)
+            bs = _seq_sources(seq * scale, u_ape, geom, tsink, gauss_alpha,
+                              gauss_n)
+            del seq
+            lap("smear")
+            # the opposite twist: part 1 of the proton solves with the
+            # minus flavour
+            flavor = -particle if partflag == 1 else +particle
+            if mg_pair is not None:
+                mg = mg_pair[0 if flavor > 0 else 1]
+                d, solve_fn = mg.dirac, mg_solve_fn(mg, tol=tol)
+            else:
+                if flavor not in ops:
+                    ops[flavor] = make_operator(u, DiracParams(
+                        kind=kind, kappa=kappa, mu=mu, csw=csw,
+                        flavor=flavor), geom)
+                    lap("operators")
+                d, solve_fn = ops[flavor], None
+            st = {} if stats is not None else None
+            seqprop = forward_prop(d, u_ape, geom, source, tol=tol,
+                                   maxiter=maxiter, solve_fn=solve_fn,
+                                   sources=bs, stats=st)
+            lap("solve")
+            loc, noe, oned = tp.fixsink_all(seqprop, prop_up, u, geom,
+                                            particle, partflag)
+            del seqprop
+            results[proj_name][f"part{partflag}"] = {
+                "ultra_local": project(loc, scale),
+                "noether": project(noe, scale), "oneD": project(oned, scale)}
+            del loc, noe, oned
+            lap("fixsink")
+            if stats is not None:
+                stats[(proj_name, partflag)] = dict(st, sources=bs,
+                                                    flavor=flavor,
+                                                    scale=scale)
+            del bs
+    if stats is not None:
+        stats["secs"] = secs
+    return {"thrp": results, "moms": moms, "corr_space": corr_space}
+
+
+# the reference's loop types (qudaQKXTM_Kepler_utils.h) and the
+# LoopResult fields that hold them
+LOOP_NAMES = {"Scalar": "std", "dOp": "gen", "LpsDw": "der_std",
+              "LpsDwCv": "der_gen", "Loops": "cons_std",
+              "LoopsCv": "cons_gen"}
+
+
+def _finalize_loops(first, n_first: float, second, n_second: float) -> dict:
+    """{type: fft_project(first / n_first + second / n_second)}, the
+    second term left out where ``second`` is None."""
+    out = {}
+    for name, field in LOOP_NAMES.items():
+        a = getattr(first, field) / n_first
+        if second is not None:
+            a = a + getattr(second, field) / n_second
+        out[name] = con.fft_project(a)
+    return out
+
+
+def _loop_partner(d, u: torch.Tensor, geom: Geometry):
+    if isinstance(d, CompactDirac):
+        return lp.plain_partner_from_gauge(u, d.params, geom)
+    return lp.plain_wilson_partner(d)
+
+
+def run_loops(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
+              csw: float, n_stoch: int, gen: torch.Generator,
+              tol: float = 1e-8, maxiter: int = 1000,
+              tol_lp: Optional[float] = None, n_hp: int = 0, mesh=None,
+              stats: Optional[dict] = None) -> dict:
+    """Stochastic disconnected loops with the truncated solver method:
+    ``n_stoch`` solves to ``tol_lp`` (default ``tol``) plus ``n_hp``
+    pairs of solves of one source each, to ``tol`` and to ``tol_lp``,
+    whose difference corrects the bias.  Z4 sources from ``gen`` (a
+    generator on ``u``'s device), one a sample or a pair.  Returns
+    {loop type: its FFT over space} of the mean sample (``LOOP_NAMES``).
+
+    The solve operator is ``make_operator``'s (a ``CompactDirac`` takes
+    ``plain_partner_from_gauge``); each solve is one ``invert`` (CG, the
+    mixed CG on the complex128 fused chain).  ``mesh`` raises.
+    ``stats``, if given, receives the seconds of each stage (``secs``:
+    operators, solve, one_end, finalize) and, under ``hp``, each pair's
+    (source, high-precision solution, its true residual, iterations),
+    and the ``partner``."""
+    if mesh is not None:
+        raise ValueError(MESH_REFUSAL)
+    dev = u.device
+    secs = {}
+    lap = _stage_clock(dev, secs)
+    kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
+    d = make_operator(u, DiracParams(kind=kind, kappa=kappa, mu=mu, csw=csw),
+                      geom)
+    plain = _loop_partner(d, u, geom)
+    lap("operators")
+    solve_tol = tol_lp if tol_lp is not None else tol
+
+    def sample(xi, stol, smax):
+        out = invert(d, xi, tol=stol, maxiter=smax, solver=_solver(d))
+        lap("solve")
+        res = lp.one_end_trick(out.x, plain, geom)
+        lap("one_end")
+        return out, res
+
+    acc = None
+    for _ in range(n_stoch):
+        _, res = sample(z4_source(gen, geom, u.dtype), solve_tol, maxiter)
+        acc = lp.add_loops(acc, res)
+    corr, hp = None, []
+    for _ in range(n_hp):
+        # TSM bias correction: the same noise, solved twice
+        xi = z4_source(gen, geom, u.dtype)
+        hi_out, hi = sample(xi, tol, 4 * maxiter)
+        _, lo = sample(xi, solve_tol, maxiter)
+        corr = lp.add_loops(corr, lp.add_loops(hi, lo, -1.0))
+        if stats is not None:
+            hp.append((xi, hi_out.x, hi_out.true_res, hi_out.iters))
+        del hi, lo, hi_out
+    out = _finalize_loops(acc, n_stoch, corr, max(n_hp, 1))
+    lap("finalize")
+    if stats is not None:
+        stats.update(secs=secs, hp=hp, partner=plain)
+    return out
+
+
+def run_loops_wexact(u: torch.Tensor, geom: Geometry, kappa: float,
+                     mu: float, csw: float, nev: int, n_stoch: int,
+                     gen: torch.Generator, tol: float = 1e-8,
+                     maxiter: int = 1000, ncv: Optional[int] = None,
+                     lanczos_tol: float = 1e-6, full_op: bool = False,
+                     cheb_degree: int = 0, mesh=None,
+                     stats: Optional[dict] = None):
+    """Disconnected loops with exact low-mode deflation (the reference's
+    ``calcMG_loop_wOneD_TSM_wExact``): thick-restart Lanczos for the
+    ``nev`` lowest modes of the normal operator, each mode's exact
+    contribution through the one-end trick, and ``n_stoch`` Z4 samples
+    from ``gen`` of the remainder with the sources projected out of the
+    deflation space.  ``full_op=False``: the even-odd M_pc†M_pc
+    (``matpc_dagm``), the remainder by CG with ``deflate_guess`` as its
+    start; ``full_op=True``: the full M†M on full fields.  The CG runs
+    on the operator in its own precision (on the complex128 fused chain
+    K1's float64 instance).  Returns (loops, ``EigResult``).
+
+    ``cheb_degree`` > 0 runs Lanczos on the Chebyshev filter of that
+    degree (the reference's polynomial acceleration; the JAX package
+    has none), its interval from ``solvers.eigen.spectrum_bounds``: one
+    unfiltered cycle of ``ncv`` steps.  Lanczos (and the bounds' cycle)
+    draw their start vectors from ``gen`` first.  ``stats``, if given,
+    receives the Lanczos ``stats`` (``eig``, with ``bounds``), the CG
+    iterations of each sample (``cg_iters``) and the seconds of each
+    stage (``secs``: operators, lanczos, exact, stochastic,
+    finalize)."""
+    if mesh is not None:
+        raise ValueError(MESH_REFUSAL)
+    dev = u.device
+    secs = {}
+    lap = _stage_clock(dev, secs)
+    kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
+    d = make_operator(u, DiracParams(kind=kind, kappa=kappa, mu=mu, csw=csw),
+                      geom)
+    plain = _loop_partner(d, u, geom)
+    lap("operators")
+    example = fields.zeros_spinor(geom, dtype=u.dtype, device=dev)
+    normal_op = d.mdagm if full_op else d.matpc_dagm
+    if not full_op:
+        example = example[0]
+    eig_stats, cheb = {}, None
+    if cheb_degree > 0:
+        bounds = spectrum_bounds(normal_op, example, nev,
+                                 steps=ncv or 2 * nev + 8, gen=gen)
+        cheb = bounds + (cheb_degree,)
+        eig_stats["bounds"] = bounds
+    eig = lanczos(normal_op, example, nev=nev, ncv=ncv, tol=lanczos_tol,
+                  gen=gen, stats=eig_stats, chebyshev=cheb)
+    lap("lanczos")
+    acc = None
+    for vec, lam in zip(eig.evecs, eig.evals):
+        # M⁻¹ v = M† (M†M)⁻¹ v = M† v / λ for a mode of the normal
+        # operator; the even-odd mode embeds through reconstruct
+        if full_op:
+            x = d.mdag(vec) / lam.to(vec.dtype)
+        else:
+            x_pc = d.matpc(vec, dagger=True) / lam.to(vec.dtype)
+            x = d.reconstruct(x_pc, torch.stack([vec, torch.zeros_like(vec)]))
+        acc = lp.add_loops(acc, lp.one_end_trick(x, plain, geom))
+    lap("exact")
+    stoch, iters = None, []
+    for _ in range(n_stoch):
+        xi = z4_source(gen, geom, u.dtype)
+        if full_op:
+            sol = cg(d.mdagm, d.mdag(project_out(eig.evecs, xi)), tol=tol,
+                     maxiter=maxiter)
+            x = sol.x
+        else:
+            src = project_out(eig.evecs, d.prepare(xi))
+            rhs = d.matpc(src, dagger=True)
+            sol = cg(d.matpc_dagm, rhs,
+                     x0=deflate_guess(eig.evecs, eig.evals, rhs), tol=tol,
+                     maxiter=maxiter)
+            x = d.reconstruct(sol.x, xi)
+        iters.append(sol.iters)
+        stoch = lp.add_loops(stoch, lp.one_end_trick(x, plain, geom))
+    lap("stochastic")
+    out = _finalize_loops(acc, 1.0, stoch if n_stoch > 0 else None,
+                          max(n_stoch, 1))
+    lap("finalize")
+    if stats is not None:
+        stats.update(eig=eig_stats, cg_iters=iters, secs=secs)
+    return out, eig
