@@ -248,6 +248,20 @@ WEXACT = dict(nev=16, ncv=40, lanczos_tol=1e-8, n_stoch=4, tol=1e-9,
               cheb_degree=20)
 RITZ_LIMIT = 1e-7
 
+# phase 13, the production multigrid
+GALERKIN_LIMIT = 1e-5        # D_c w vs R D P w, complex64, normwise
+BF16_TRANSFER_LIMIT = 1e-5   # bf16 V restrict / prolong vs complex128
+MG24_JAX_ITERS = 20          # the JAX mg24 record, GCR(10)
+LIGHT_GEOM, LIGHT_PROBE_GEOM = (24, 24, 24, 48), (16, 16, 16, 32)
+LIGHT_MU = 0.003
+FALSE_CONVERGENCE_RATIO = 10.0   # MG: complex128 / its own residual
+# the JAX light-mass records (BENCH_SESSION.jsonl:12, 14): iterations and
+# residuals only
+LIGHT_JAX = {"ladder": "κ 0.125: 18, 0.15: 29, 0.18: 72, 0.21: 1477",
+             "cg": "1740 iterations, 1.05e-5",
+             "mg_": "500 iterations (its cap), 8.60e-7",
+             "mg_dmu_": "500 iterations (its cap), 8.45e-7"}
+
 
 def _import_port():
     sys.path.insert(0, str(ROOT))
@@ -1137,7 +1151,7 @@ def phase_mg(geom_dims):
           f"{total:.4f} s): V-cycles {parts['vcycle']:.4f} s, of which "
           f"coarse GCR {parts['coarse_solve']:.4f} s; outer GCR and "
           f"residuals {total - parts['vcycle']:.4f} s", flush=True)
-    rec["split"] = {"total": total, **parts}
+    rec["split"] = {"total": total, "iters": out.iters, **parts}
     return launches, rec
 
 
@@ -2433,23 +2447,33 @@ def _twop_kernel_checks(u, geom, sources, flavor: int = +1,
     and inputs: the antiperiodic instances of K1 float32 recon-12 and of
     K2 at n = 12 that the workflow's solves launch, on the channel
     operands of the operator of ``flavor``, with the twelve smeared
-    sources as the spinors: each hop of the four-hop chain (K1 also the
-    bare hop of prepare, reconstruct and the true residual) against its
-    plain version.  Returns the largest absolute error of each
-    kernel."""
-    import torch
+    sources as the spinors (``_chain_kernel_checks``).  Returns the
+    largest absolute error of each kernel."""
     from quda_qkxtm_multigrid_tpu_torch import workflows as wf
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    d = wf.make_operator(u, dataclasses.replace(tmc_params(), flavor=flavor),
+                         geom)
+    if not (d._has_fused_matpc and d._hop_kw()["antiperiodic"]):
+        raise AssertionError("the workflow's operator is not the fused "
+                             "chain on the antiperiodic gauge")
+    return _chain_kernel_checks(d, geom, sources, label)
+
+
+def _chain_kernel_checks(d, geom, sources, label: str = "") -> dict:
+    """K1 float32 recon-12 and K2 at n = len(sources) on the channel
+    operands of the fused operator ``d`` (in its boundary's instance),
+    with ``sources`` [n, 2,4,3,T,Z,W] as the spinors: each hop of the
+    four-hop chain (K1 also the bare hop of prepare, reconstruct and the
+    true residual) against its plain version, normwise to
+    ``TBC_LIMIT["float32"]``.  Returns the largest absolute error of each
+    kernel."""
+    import torch
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
         dslash_ch_reference, to_channels)
     f32 = torch.float32
-    d = wf.make_operator(u, dataclasses.replace(tmc_params(), flavor=flavor),
-                         geom)
     kw = d._hop_kw()
-    if not (d._has_fused_matpc and kw["antiperiodic"]):
-        raise AssertionError("the workflow's operator is not the fused "
-                             "chain on the antiperiodic gauge")
+    bc = " antiperiodic" if kw["antiperiodic"] else ""
     ops = d._operands(f32)
     g, ci = ops["g"], ops["ci"]
     pr, xc = d.params.matpc_parity, -d.params.kappa ** 2
@@ -2480,10 +2504,10 @@ def _twop_kernel_checks(u, geom, sources, flavor: int = +1,
             ref = plain(g[p], v, p, geom, **args)
             n = f" n={v.shape[0]}" if name == "K2" else ""
             err[name.lower()] = max(err[name.lower()], _compare(
-                got, ref, f"{label}{name} antiperiodic{n} {form_label}",
+                got, ref, f"{label}{name}{bc}{n} {form_label}",
                 TBC_LIMIT["float32"]))
             del got, ref
-    del d, ops, g, ci, psi, xs
+    del ops, g, ci, psi, xs
     return err
 
 
@@ -2908,6 +2932,261 @@ def phase_threep_loops(twop, geom_dims, cli_dims):
         raise AssertionError("phase 12 launched no K1 or no K2")
     return {**launches, "err": err}
 
+def _galerkin(transfer, fine_apply, coarse_apply, gen, label: str):
+    """D_c w against R (D P w) on a random complex64 coarse field w,
+    normwise to ``GALERKIN_LIMIT``."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.utils.rng import normal_complex
+    bg = transfer.bg
+    w = normal_complex(gen, (bg.fine_ns, bg.nvec) + tuple(bg.coarse_shape),
+                       torch.complex64)
+    _check(label, _rel(coarse_apply(w),
+                       transfer.restrict(fine_apply(transfer.prolong(w)))),
+           GALERKIN_LIMIT)
+
+
+def _vcycle_ms(mg, b, reps: int = 3) -> float:
+    """ms of one V-cycle of ``mg`` on the field ``b`` (host clock, the
+    device synchronised; the median of ``reps``)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg.vcycle(b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _levels_line(rec) -> str:
+    """The setup split of a ``bench_mg`` record, level by level."""
+    line = (f"setup {rec['setup_secs']:.3f} s: level 1 null vectors "
+            f"{rec['null_vector_secs']:.3f} s (msrc iterations "
+            f"{rec['msrc_iters']}), orthonormalisation "
+            f"{rec['ortho_secs']:.3f} s, coarse build "
+            f"{rec['coarse_build_secs']:.3f} s")
+    for lv in ("level2", "level3"):
+        if lv in rec:
+            st = rec[lv]
+            line += (f"; {lv} null vectors {st['null_vector_secs']:.3f} s "
+                     f"(BiCGstab iterations {sum(st['bicgstab_iters'])} in "
+                     f"all, at most {max(st['bicgstab_iters'])}), build "
+                     f"{st['build_secs']:.3f} s")
+    return line
+
+
+def phase_mg_levels(geom_dims, light_dims, probe_dims, cli_dims, mg6: dict):
+    """Phase 13: the production multigrid.  (a) three-level MG-GCR-PC at
+    ``geom_dims`` on phase 6's complex64 problem (4⁴ × 24, then the
+    level-2 defaults 2⁴ × 24, GCR(8), setup2 tol 1e-4), the level-2
+    Galerkin identity, the complex128 true residual; (b) the same on
+    four levels (level 3: 2⁴ × 16); (c) two levels with the null vectors
+    stored in bf16: V's bytes against the complex64 V's, restrict and
+    prolong against complex128 on the bf16-rounded V and field, the
+    true residual; (d) two levels at ``light_dims`` with GCR-PC(10);
+    (e) ``bench_light`` at ``light_dims`` (the κ ladder at
+    ``probe_dims``, μ 0.003) with a three-level ``delta_mu_coarse=8``
+    MG beside the two-level ones, every residual finite, no MG solve
+    falsely converged, K1 / K2 on its operator against plain; (f) ``cli
+    twop --mg --mg-levels 3 --mg-solver gcr-pc`` at ``cli_dims`` against
+    the CG route's pion.  Each part's seconds, peak memory and K1 / K2 launches.
+    Returns the launches and the kernels' largest absolute errors."""
+    import tempfile
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import cli
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_light, bench_mg, make_problem, tmc_params)
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.mg.transfer import Transfer
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13: three- and four-level MG, bf16 null vectors, the "
+          f"light-mass point; memory in use at its start "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    geom = Geometry(*geom_dims)
+    launches = {"k1": 0, "k2": 0}
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+
+    def run(label, fn):
+        """``fn()`` with the K1 / K2 counts set to 0 before it and read
+        after it, its seconds and its peak memory printed."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dslash_ch.launches = dslash_ch_msrc.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k2 = dslash_ch.launches, dslash_ch_msrc.launches
+        launches["k1"] += k1
+        launches["k2"] += k2
+        print(f"  ({label[0]}) {label[2:]}: {secs:.3f} s, K1 launches {k1}, "
+              f"K2 launches {k2}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        if not (k1 and k2):
+            raise AssertionError(f"({label[0]}) launched no K1 or no K2")
+        return out
+
+    d, b = make_problem(geom, DEVICE, seed=7, dtype=torch.complex64)
+    two_ms = 1e3 * mg6["split"]["vcycle"] / mg6["split"]["iters"]
+    mg_kw = dict(tol=MG_TOL, nvec=MG_NVEC, block=MG_BLOCK,
+                 n_krylov=MG_NKRYLOV, problem=(d, b))
+    records = {}
+
+    # (a), (b): three and four levels
+    for tag, n_level in (("a", 3), ("b", 4)):
+        rec, mg = run(f"{tag} {n_level}-level MG-GCR-PC at {geom_dims}",
+                      lambda: bench_mg(geom, n_level=n_level, **mg_kw))
+        records[tag] = rec
+        vc_ms = _vcycle_ms(mg, b)
+        print(f"  {_levels_line(rec)}", flush=True)
+        print(f"  outer iterations {rec['iters']} (cold {rec['iters_cold']};"
+              f" two levels, phase 6: {mg6['iters']}; JAX record "
+              f"{MG_JAX_RECORD_ITERS})  warm secs {rec['secs']:.4f}  V-cycle"
+              f" {vc_ms:.2f} ms (two levels, phase 6: {two_ms:.2f} ms)  "
+              f"true_res {rec['true_res']:.3e} (complex128; complex64 solve "
+              f"{rec['true_res_solve']:.3e})  telemetry {rec['telemetry']}",
+              flush=True)
+        _galerkin(mg.transfer2, mg.coarse.apply, mg.coarse2.apply, gen,
+                  "level-2 Galerkin D2 = R2 D1 P2 (complex64)")
+        if n_level == 4:
+            _galerkin(mg.transfer3, mg.coarse2.apply, mg.coarse3.apply, gen,
+                      "level-3 Galerkin D3 = R3 D2 P3 (complex64)")
+        _check(f"{n_level}-level true residual (complex128)",
+               rec["true_res"], TRUE_RES_LIMIT)
+        del mg
+
+    # (c) bf16 null vectors
+    rec, mg = run(f"c bf16 null vectors, two levels, at {geom_dims}",
+                  lambda: bench_mg(geom, vec_dtype="bf16", **mg_kw))
+    records["c"] = rec
+    tr = mg.transfer
+    c64_bytes = tr.vr.numel() * 8
+    print(f"  V {tr.nbytes / 2**30:.4f} GiB in bf16 against "
+          f"{c64_bytes / 2**30:.4f} GiB complex64; outer iterations "
+          f"{rec['iters']} (float32 V, phase 6: {mg6['iters']}; JAX record "
+          f"{MG_JAX_RECORD_ITERS} with bf16 V and GCR(5)); true_res "
+          f"{rec['true_res']:.3e} (complex128)", flush=True)
+    if 2 * tr.nbytes != c64_bytes or tr.vr.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 V holds {tr.nbytes} bytes, not half of "
+                             f"{c64_bytes}")
+    t128 = Transfer(v=torch.complex(tr.vr.double(), tr.vi.double()),
+                    bg=tr.bg)
+
+    def rounded(f):
+        return torch.complex(f.real.to(torch.bfloat16).double(),
+                             f.imag.to(torch.bfloat16).double())
+    f = rng.random_spinor(gen, geom, torch.complex64)
+    vc = tr.restrict(f)
+    _check("bf16 restrict vs complex128 (same bf16 V, field)",
+           _rel(vc.to(torch.complex128), t128.restrict(rounded(f))),
+           BF16_TRANSFER_LIMIT)
+    _check("bf16 prolong vs complex128 (same bf16 V, field)",
+           _rel(tr.prolong(vc).to(torch.complex128),
+                t128.prolong(rounded(vc))), BF16_TRANSFER_LIMIT)
+    _check("bf16-V true residual (complex128)", rec["true_res"],
+           TRUE_RES_LIMIT)
+    del mg, tr, t128, f, vc, d, b
+
+    # (d) two levels at the 24³×48 record's settings, GCR-PC(10)
+    lg = Geometry(*light_dims)
+    rec, _ = run(f"d two-level MG-GCR-PC(10) at {light_dims}",
+                 lambda: bench_mg(lg, tol=MG_TOL, nvec=MG_NVEC,
+                                  block=MG_BLOCK, n_krylov=10,
+                                  problem=make_problem(
+                                      lg, DEVICE, seed=7,
+                                      dtype=torch.complex64)))
+    records["d"] = rec
+    print(f"  {_levels_line(rec)}", flush=True)
+    print(f"  outer iterations {rec['iters']} (JAX mg24 record "
+          f"{MG24_JAX_ITERS}, GCR(10)); warm secs {rec['secs']:.4f}; "
+          f"true_res {rec['true_res']:.3e} (complex128)", flush=True)
+    _check("24³×48 true residual (complex128)", rec["true_res"],
+           TRUE_RES_LIMIT)
+
+    # (e) the light-mass point
+    light = run(f"e bench_light at {light_dims}, ladder at {probe_dims}",
+                lambda: bench_light(lg, mu=LIGHT_MU,
+                                    probe_geom=Geometry(*probe_dims),
+                                    device=DEVICE))
+    records["e"] = light
+    print("  ladder " + ", ".join(
+        f"κ {r['kappa']}: {r['iters']} iterations {r['true_res']:.2e}"
+        for r in light["probe_ladder"]) + f" (JAX {LIGHT_JAX['ladder']})",
+        flush=True)
+    print(f"  κ {light['kappa']}: CG {light['cg_iters']} iterations, "
+          f"{light['cg_secs']:.3f} s, its residual {light['cg_res']:.3e}, "
+          f"complex128 {light['cg_true_res']:.3e} (JAX: "
+          f"{LIGHT_JAX['cg']})", flush=True)
+    tags = ("mg_", "mg_dmu_", "mg3_dmu_")
+    for tag in tags:
+        print(f"  {tag[:-1]}: setup {light[tag + 'setup_secs']:.3f} s, "
+              f"{light[tag + 'iters']} outer iterations, "
+              f"{light[tag + 'secs']:.3f} s, its residual "
+              f"{light[tag + 'res']:.3e}, complex128 "
+              f"{light[tag + 'true_res']:.3e} (JAX: "
+              f"{LIGHT_JAX.get(tag, 'no record')})", flush=True)
+    print(f"  mg_beats_cg {light['mg_beats_cg']} (an MG solve certified to "
+          f"5 × tol), amortise_solves {light['amortise_solves']}",
+          flush=True)
+    nums = [light["cg_res"], light["cg_true_res"]] + [
+        light[t + k] for t in tags for k in ("res", "true_res")] + [
+        r["true_res"] for r in light["probe_ladder"]]
+    if not all(v == v and abs(v) != float("inf") for v in nums):
+        raise AssertionError(f"a light-mass residual is not finite: {nums}")
+    for tag in tags:
+        _check(f"{tag[:-1]}: complex128 / own residual",
+               light[tag + "true_res"] / light[tag + "res"],
+               FALSE_CONVERGENCE_RATIO)
+    dl, _ = _light_operator(lg, light["kappa"])
+    err = _chain_kernel_checks(
+        dl, lg, rng.random_spinor(gen, lg, torch.complex64,
+                                  batch_shape=(MSRC_TIME_N,)),
+        label=f"κ {light['kappa']}: ")
+    del dl
+
+    # (f) the CLI on three levels against its CG route
+    def cli_pair():
+        p = tmc_params()
+        args = ["twop", "--xdim", str(cli_dims[0]), "--ydim",
+                str(cli_dims[1]), "--zdim", str(cli_dims[2]), "--tdim",
+                str(cli_dims[3]), "--kappa", str(p.kappa), "--mu",
+                str(p.mu), "--csw", str(p.csw), "--tol", str(TWOP_TOL),
+                "--seed", "7", "--device", DEVICE]
+        outs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for extra in ([], ["--mg", "--mg-levels", "3", "--mg-solver",
+                               "gcr-pc"]):
+                outs.append(cli.main(args + extra + [
+                    "--output", str(Path(tmp) / f"twop{len(outs)}")]))
+        return outs
+    cg_out, mg_out = run(f"f cli twop --mg --mg-levels 3 at {cli_dims}",
+                         cli_pair)
+    pair = mg_out["mg_pair"]
+    if not all(m.coarse2 is not None for m in pair):
+        raise AssertionError("the CLI's MG pair has no level 2")
+    zero = [i for i, m in enumerate(cg_out["moms"]) if not any(m)][0]
+    _check("cli: pion, 3-level MG vs CG (relative)",
+           _rel(_pion(mg_out, zero), _pion(cg_out, zero)), TWOP_MG_PION)
+    del cg_out, mg_out, pair
+    print(f"  phase 13 {time.perf_counter() - t_phase:.1f} s; K1 launches "
+          f"{launches['k1']}, K2 launches {launches['k2']}", flush=True)
+    return {**launches, "err": err, "records": records}
+
+
+def _light_operator(geom, kappa: float):
+    """The complex64 twisted-clover operator of ``bench_light`` at κ."""
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
+    return light_problem(geom, kappa, LIGHT_MU, DEVICE)
+
 
 def main():
     _import_port()
@@ -2918,7 +3197,7 @@ def main():
     tbc = phase_tbc(CHECK_GEOM)
     k = phase_slice(SLICE_GEOM)
     k2 = phase_msrc(CHECK_GEOM, SLICE_GEOM)
-    launches, _ = phase_mg(SLICE_GEOM)
+    launches, mg6 = phase_mg(SLICE_GEOM)
     err_16 = phase_bf16_kernels(CHECK_GEOM)
     mixed = phase_mixed(SLICE_GEOM)
     times, bounds, err_time, k2d = phase_bf16_timing(SLICE_GEOM,
@@ -2934,6 +3213,8 @@ def main():
     twop = phase_twop(SLICE_GEOM, CLI_GEOM)
     thrp = phase_threep_loops(twop, SLICE_GEOM, CLI_GEOM)
     del twop["u"]
+    lv = phase_mg_levels(SLICE_GEOM, LIGHT_GEOM, LIGHT_PROBE_GEOM, CLI_GEOM,
+                         mg6)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
     k5 = mesh_runs[True]["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
@@ -2946,7 +3227,8 @@ def main():
           f"{cmix['k1e']}; K3: bench_recon8 {spin['k3']}; K4: sharded "
           f"path {k4}; K5: sharded path {k5}; 2pt path: K1 {twop['k1']}, "
           f"K2 {twop['k2']}; 3pt and loops: K1 {thrp['k1']}, K2 "
-          f"{thrp['k2']}")
+          f"{thrp['k2']}; production MG (phase 13): K1 {lv['k1']}, K2 "
+          f"{lv['k2']}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -2961,16 +3243,17 @@ def main():
         entry("dslash_ch", KERNEL_SOURCE,
               f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
               k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8
-              + twop["k1"] + thrp["k1"],
+              + twop["k1"] + thrp["k1"] + lv["k1"],
               max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
                   vk["v2"][3], tbc["k1"], twop["err"]["k1"],
-                  thrp["err"]["k1"]), k["ms"],
+                  thrp["err"]["k1"], lv["err"]["k1"]), k["ms"],
               k["plain_ms"],
               k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
-              launches["dslash_ch_msrc"] + twop["k2"] + thrp["k2"],
+              launches["dslash_ch_msrc"] + twop["k2"] + thrp["k2"]
+              + lv["k2"],
               max(k2["max_abs_err"], err_time["chain f32"], tbc["k2"],
-                  twop["err"]["k2"], thrp["err"]["k2"]),
+                  twop["err"]["k2"], thrp["err"]["k2"], lv["err"]["k2"]),
               k2["ms"], k2["plain_ms"], k2["bound"]),
         entry("dslash_ch_bf16", BF16_KERNEL_SOURCE,
               f"{BF16_KERNEL_REPLACES}; {V2_BF16_REPLACES}",

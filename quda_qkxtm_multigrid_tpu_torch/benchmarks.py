@@ -6,10 +6,13 @@ point source: one cold solve, then one timed warm solve, with CG or one
 of the other solvers of ``invert`` (the mixed ones with a bf16 or a
 complex64 sloppy operator); ``bench_cg_mesh`` the same CG t-sharded on a
 ring of ranks.  ``bench_mg``
-times the multigrid setup and then one cold and one warm ``mg_solve``,
-and certifies the warm solution in complex128.  GFLOP/s counts one
-``flops_per_mat`` per outer iteration, the JAX package's convention (the
-V-cycle's work is not counted).
+times the multigrid setup (two to four levels, float32 or bf16 null
+vectors) and then one cold and one warm ``mg_solve``, and certifies the
+warm solution in complex128.  GFLOP/s counts one ``flops_per_mat`` per
+outer iteration, the JAX package's convention (the V-cycle's work is
+not counted).  ``bench_light`` and ``bench_light2`` put CG and MG side
+by side at a light quark mass, and ``bench_mg_vecs`` times the setup
+with null vectors generated and written, then read back.
 
 The compact operator (``compact.py``): ``bench_bf16_spinor`` (the hop
 with bf16 spinor storage against float32 storage, the bf16-storage CG
@@ -25,8 +28,12 @@ clock, for rehearsal only.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
+import os
 import statistics
+import tempfile
 import time
 import types
 from typing import NamedTuple
@@ -171,30 +178,46 @@ def bench_cg_mesh(geom: Geometry, mesh: TMesh, overlap: bool = False,
     return _cold_warm(solve, ds, bs.device, label), last["out"].x
 
 
+def c128_true_res(d: Dirac, x: torch.Tensor, b: torch.Tensor) -> float:
+    """|b − M x| / |b| with M the complex128 operator on ``d``'s gauge and
+    parameters (every hop through the double-precision kernel where the
+    operator uses the kernels), x and b widened to complex128."""
+    d128 = make_dirac(d.u.to(torch.complex128), d.params, d.geom)
+    _, rel = true_residual(d128, x.to(torch.complex128),
+                           b.to(torch.complex128))
+    return float(rel)
+
+
 def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
              block=(4, 4, 4, 4), solver: str = "gcr-pc", n_krylov: int = 5,
-             problem=None, seed: int = 3) -> tuple[dict, MGPreconditioner]:
+             problem=None, seed: int = 3, n_level: int = 2,
+             vec_dtype: str = "f32", mg_params: MGParams | None = None
+             ) -> tuple[dict, MGPreconditioner]:
     """MG setup, then one cold and one warm ``mg_solve`` (``problem`` is
     a ``(dirac, b)`` pair, the complex64 problem of ``make_problem`` on
     the GPU if not given; ``seed`` seeds the setup sources).  The
-    reference MG settings: ``block``, ``nvec``, ``smoother_pc``, otherwise
-    ``MGParams`` defaults.
+    reference MG settings: ``block``, ``nvec``, ``smoother_pc``,
+    ``n_level`` levels, the level-1 V stored as ``vec_dtype``; every other
+    field from ``mg_params`` (the level-2 and level-3 fields, the deltas)
+    or the ``MGParams`` defaults.
 
     Returns the record and the preconditioner.  The record holds the
-    setup's host seconds and their split, the multi-source CG
-    iterations of each null-vector batch, each solve's outer iterations
-    and seconds, GFLOP/s, the warm solution's true residual in
-    complex128 (a complex128 operator on the same gauge, every hop
-    through the double-precision kernel where the operator uses the
-    kernels), the kernel launches of the setup and of the warm solve,
-    and the peak device memory (None on the CPU)."""
+    setup's host seconds and their split (each coarser level's under
+    "level2" / "level3"), the multi-source CG iterations of each
+    null-vector batch, each solve's outer iterations and seconds,
+    GFLOP/s, the warm solve's ``SolveTelemetry`` (``telemetry``), the
+    warm solution's true residual in complex128 (``c128_true_res``), the
+    kernel launches of the setup and of the warm solve, and the peak
+    device memory (None on the CPU)."""
     d, b = problem if problem is not None else make_problem(
         geom, dtype=torch.complex64)
     dev = b.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    params = MGParams(block=tuple(block), nvec=nvec, smoother_pc=True,
-                      outer_solver=solver)
+    params = dataclasses.replace(
+        mg_params if mg_params is not None else MGParams(),
+        block=tuple(block), nvec=nvec, smoother_pc=True,
+        outer_solver=solver, n_level=n_level, vec_dtype=vec_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     k1_0, k2_0 = dslash_ch.launches, dslash_ch_msrc.launches
     t0 = time.perf_counter()
@@ -208,29 +231,194 @@ def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
     secs_cold = time.perf_counter() - t0
     k1_2, k2_2 = dslash_ch.launches, dslash_ch_msrc.launches
     t0 = time.perf_counter()
-    out = mg_solve(mg, b, tol=tol, n_krylov=n_krylov)
+    out, tel = mg_solve(mg, b, tol=tol, n_krylov=n_krylov, telemetry=True)
     _sync(dev)
     secs = time.perf_counter() - t0
     k1_3, k2_3 = dslash_ch.launches, dslash_ch_msrc.launches
     b2 = float(norm2(b))
-    d128 = make_dirac(d.u.to(torch.complex128), d.params, geom)
-    _, rel = true_residual(d128, out.x.to(torch.complex128),
-                           b.to(torch.complex128))
-    del d128
     record = {
         "solver": f"mg-{solver}", "nvec": nvec, "block": list(block),
+        "n_level": n_level, "vec_dtype": vec_dtype,
         "n_krylov": n_krylov, "setup_secs": setup_secs,
         **{k: v for k, v in mg.setup_stats.items()},
         "iters": out.iters, "iters_cold": cold.iters, "secs": secs,
         "secs_cold": secs_cold,
         "gflops": d.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
-        "true_res": float(rel),
+        "telemetry": tel.as_dict(),
+        "true_res": c128_true_res(d, out.x, b),
         "true_res_solve": (float(out.r2) / b2) ** 0.5,
         "k1_launches_setup": k1_1 - k1_0, "k2_launches_setup": k2_1 - k2_0,
         "k1_launches_solve": k1_3 - k1_2, "k2_launches_solve": k2_3 - k2_2,
         "k1_launches_cold_solve": k1_2 - k1_1,
         "peak_mem_bytes": _peak(dev)}
     return record, mg
+
+
+def light_problem(geom: Geometry, kappa: float, mu: float, device,
+                   seed: int = 7) -> tuple[Dirac, torch.Tensor]:
+    """The complex64 problem of ``make_problem`` with twisted-clover
+    (κ, μ, c_sw = 1.0)."""
+    u, b = make_gauge_source(geom, device, seed, torch.complex64)
+    p = DiracParams(kind="twisted-clover", kappa=kappa, mu=mu, csw=1.0,
+                    use_kernels=True)
+    return make_dirac(u, p, geom), b
+
+
+def _cg_record(d: Dirac, b: torch.Tensor, tol: float, maxiter: int) -> dict:
+    """A cold, then a timed warm CG solve: its seconds, iterations, its
+    own true residual (complex64) and the complex128 one."""
+    invert(d, b, tol=tol, maxiter=maxiter)
+    _sync(b.device)
+    t0 = time.perf_counter()
+    out = invert(d, b, tol=tol, maxiter=maxiter)
+    _sync(b.device)
+    return {"cg_secs": time.perf_counter() - t0, "cg_iters": out.iters,
+            "cg_res": out.true_res,
+            "cg_true_res": c128_true_res(d, out.x, b)}
+
+
+def _light_mg_record(d: Dirac, b: torch.Tensor, params: MGParams, tol: float,
+                     tag: str, seed: int = 3) -> dict:
+    """MG setup and one GCR-PC(10) solve (at most 50 restarts) on ``d``:
+    the setup seconds and statistics, the solve's seconds and outer
+    iterations, its own full-system residual (complex64) and the
+    complex128 one, each key prefixed ``tag``.  The preconditioner is
+    freed before returning."""
+    dev = b.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    mg = setup_mg(d, params, torch.Generator(device=dev).manual_seed(seed))
+    _sync(dev)
+    setup_secs = time.perf_counter() - t0
+    out, tel = mg_solve(mg, b, tol=tol, solver="gcr-pc", telemetry=True)
+    rec = {f"{tag}setup_secs": setup_secs, f"{tag}secs": tel.secs,
+           f"{tag}iters": out.iters,
+           f"{tag}res": (float(out.r2) / float(norm2(b))) ** 0.5,
+           f"{tag}true_res": c128_true_res(d, out.x, b),
+           f"{tag}setup_stats": mg.setup_stats}
+    del mg, out
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _mg_verdict(rec: dict, tags, tol: float) -> dict:
+    """``mg_beats_cg``: an MG solve whose complex128 true residual is at
+    most 5 × tol, faster than the CG or with the CG not so certified
+    (an MG run that stopped at its iteration cap never wins); and the
+    solves that pay for its setup (None without a certified win on
+    time)."""
+    ok = [t for t in tags if rec[f"{t}true_res"] <= 5 * tol]
+    cg_ok = rec["cg_true_res"] <= 5 * tol
+    if not ok:
+        return {"mg_beats_cg": False, "amortise_solves": None}
+    best = min(ok, key=lambda t: rec[f"{t}secs"])
+    faster = rec[f"{best}secs"] < rec["cg_secs"]
+    return {"mg_beats_cg": faster or not cg_ok,
+            "amortise_solves": (rec[f"{best}setup_secs"]
+                                / (rec["cg_secs"] - rec[f"{best}secs"])
+                                if faster and cg_ok else None)}
+
+
+def bench_light(geom: Geometry, mu: float = 0.003, tol: float = 1e-7,
+                probe_geom: Geometry | None = None,
+                kappas=(0.125, 0.15, 0.18, 0.21),
+                probe_iters_target: int = 350, cg_maxiter: int = 6000,
+                device="cuda", block=(4, 4, 4, 4), nvec: int = 24,
+                mg_params: MGParams | None = None) -> dict:
+    """CG against MG at a light quark mass (the JAX package's
+    ``bench_light``): on a random gauge the critical κ is shifted, so
+    short CG probes (tol, at most 2000 iterations) at ``probe_geom``
+    (16³×32 by default) walk the κ ladder until the iterations reach
+    ``probe_iters_target``.  At that κ and ``geom``: the CG (a cold,
+    then a timed warm solve, at most ``cg_maxiter`` iterations), then
+    MG-GCR-PC, ``block`` × ``nvec``, ``smoother_pc``: plain ("mg_"), with
+    ``delta_mu_coarse=8`` and ``setup_tol`` 1e-6 ("mg_dmu_"), and the
+    latter on three levels ("mg3_dmu_", which the JAX package's record
+    lacks).  ``mg_params`` gives the other MG fields (the level-2 ones).
+
+    Every solve carries its own residual (``*_res``: the CG's and the
+    MG's in complex64) and its complex128 true residual (``*_true_res``).
+    Unlike the JAX package's rule, ``mg_beats_cg`` is true only for an MG
+    solve certified in complex128 to ≤ 5 × tol (``_mg_verdict``)."""
+    pg = probe_geom if probe_geom is not None else Geometry(16, 16, 16, 32)
+    ladder, kappa_l = [], kappas[0]
+    for kappa in kappas:
+        d, b = light_problem(pg, kappa, mu, device)
+        out = invert(d, b, tol=tol, maxiter=2000)
+        ladder.append({"kappa": kappa, "iters": out.iters,
+                       "true_res": out.true_res})
+        kappa_l = kappa
+        del d, b, out
+        if ladder[-1]["iters"] >= min(probe_iters_target, 2000):
+            break
+    d, b = light_problem(geom, kappa_l, mu, device)
+    rec = {"geom": list(geom.dims), "kappa": kappa_l, "mu": mu,
+           "probe_geom": list(pg.dims), "probe_ladder": ladder,
+           **_cg_record(d, b, tol, cg_maxiter)}
+    base = dataclasses.replace(
+        mg_params if mg_params is not None else MGParams(),
+        block=tuple(block), nvec=nvec, smoother_pc=True,
+        outer_solver="gcr-pc")
+    dmu = dataclasses.replace(base, delta_mu_coarse=8.0, setup_tol=1e-6)
+    runs = [("mg_", base), ("mg_dmu_", dmu),
+            ("mg3_dmu_", dataclasses.replace(dmu, n_level=3))]
+    for tag, p in runs:
+        rec.update(_light_mg_record(d, b, p, tol, tag))
+    rec.update(_mg_verdict(rec, [t for t, _ in runs], tol))
+    rec["solver"] = "cg-fused vs mg-gcr-pc (light mass)"
+    return rec
+
+
+def bench_light2(geom: Geometry, kappa: float = 0.21, mu: float = 0.003,
+                 tol: float = 1e-7, cg_maxiter: int = 6000, device="cuda",
+                 block=(4, 4, 4, 4), nvec: int = 24) -> dict:
+    """The light-mass record at a given κ (the JAX package's
+    ``bench_light2``): the CG of ``bench_light`` and its
+    ``delta_mu_coarse=8`` MG on the same operator, with the same
+    residuals and the same certified ``mg_beats_cg``."""
+    d, b = light_problem(geom, kappa, mu, device)
+    rec = {"geom": list(geom.dims), "kappa": kappa, "mu": mu,
+           **_cg_record(d, b, tol, cg_maxiter)}
+    p = MGParams(block=tuple(block), nvec=nvec, smoother_pc=True,
+                 outer_solver="gcr-pc", delta_mu_coarse=8.0, setup_tol=1e-6)
+    rec.update(_light_mg_record(d, b, p, tol, "mg_dmu_"))
+    rec.update(_mg_verdict(rec, ["mg_dmu_"], tol))
+    rec["solver"] = "cg-fused vs mg-gcr-pc-dmu (light mass)"
+    return rec
+
+
+def bench_mg_vecs(geom: Geometry, nvec: int = 24, block=(4, 4, 4, 4),
+                  path: str | None = None, problem=None) -> dict:
+    """The null-vector file (the JAX package's ``bench_mg_vecs``): set
+    up with ``vec_outfile`` (generation, the file written), set up again
+    with ``vec_infile`` (the file read, generation skipped), then one
+    GCR-PC solve on the second, certified in complex128.  ``path`` is the
+    file (a temporary directory's if not given, removed after);
+    ``problem`` as in ``bench_mg``."""
+    d, b = problem if problem is not None else make_problem(
+        geom, dtype=torch.complex64)
+    dev = b.device
+    with tempfile.TemporaryDirectory() as tmp:
+        path = path if path is not None else os.path.join(tmp, "vecs.npz")
+        kw = dict(block=tuple(block), nvec=nvec, smoother_pc=True,
+                  outer_solver="gcr-pc")
+        secs = []
+        for p, seed in ((MGParams(vec_outfile=path, **kw), 3),
+                        (MGParams(vec_infile=path, **kw), 5)):
+            _sync(dev)
+            t0 = time.perf_counter()
+            mg = setup_mg(d, p, torch.Generator(device=dev).manual_seed(seed))
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+        size_mb = os.path.getsize(path) / 2**20
+    out = mg_solve(mg, b, tol=1e-7)
+    return {"geom": list(geom.dims), "nvec": nvec,
+            "setup_secs_generate": secs[0], "setup_secs_load": secs[1],
+            "speedup": secs[0] / secs[1], "vec_file_mb": size_mb,
+            "iters": out.iters, "true_res": c128_true_res(d, out.x, b),
+            "solver": "mg-gcr-pc (vec_outfile / vec_infile)"}
 
 
 # ---- the compact channel operator -----------------------------------------

@@ -13,8 +13,10 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, DiracParams, make_dirac
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import CoarseOperator
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
-    BlockGeometry, Transfer, block_orthonormalize_flat, to_blocked_flat)
+    Bf16Transfer, BlockGeometry, CoarseBlockGeometry, CoarseTransfer,
+    Transfer, block_orthonormalize_flat, to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh, t_slab
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
     ShardedDirac, shard_dirac)
@@ -88,15 +90,25 @@ def sharded_dirac_from_numpy(u, params, geom: Geometry, mesh: TMesh,
 
 
 def transfer_from_numpy(v, bg: BlockGeometry, dtype=torch.complex128,
-                        device="cuda") -> Transfer:
+                        device="cuda") -> Transfer | Bf16Transfer:
     """The port's ``Transfer`` from the JAX package's MG state, given as
     numpy: the planar pair ``(vr, vi)`` of ``Transfer.v``, each
     [2, Tc,Zc,Yc,Xc, nvec, bdof], or the complex V of that shape (what
     ``vec_outfile`` holds), used as it is; or raw null vectors
     [nvec, 2,4,3,T,Z,W], block-orthonormalised here as ``setup_mg``
-    does.  V lives on ``device``, the card unless asked otherwise."""
+    does.  A planar pair in bf16 (the JAX package's ``vec_dtype="bf16"``
+    tier) gives a ``Bf16Transfer`` with the same bits (``dtype`` does
+    not apply).  V lives on ``device``, the card unless asked
+    otherwise."""
     vshape = (2,) + tuple(bg.coarse_shape) + (bg.nvec, bg.bdof)
     if isinstance(v, (tuple, list)) and len(v) == 2:
+        if np.asarray(v[0]).dtype.name == "bfloat16":
+            vr, vi = (torch.tensor(np.asarray(p, np.float32), device=device)
+                      .to(torch.bfloat16) for p in v)
+            if tuple(vr.shape) != vshape:
+                raise ValueError(f"bf16 V shape {tuple(vr.shape)} != "
+                                 f"{vshape}")
+            return Bf16Transfer(vr=vr, vi=vi, bg=bg)
         a = np.asarray(v[0]) + 1j * np.asarray(v[1])
     else:
         a = np.asarray(v)
@@ -108,3 +120,35 @@ def transfer_from_numpy(v, bg: BlockGeometry, dtype=torch.complex128,
                          f"null vectors {raw}")
     flat = to_blocked_flat(torch.tensor(a, dtype=dtype, device=device), bg)
     return Transfer(v=block_orthonormalize_flat(flat), bg=bg)
+
+
+def coarse_transfer_from_numpy(v, bg2: CoarseBlockGeometry,
+                               dtype=torch.complex128,
+                               device="cuda") -> CoarseTransfer:
+    """The port's ``CoarseTransfer`` from the JAX package's V2 (or V3) as
+    numpy, [nvec2, T2,Z2,Y2,X2, bv, ns, nc1] (the same layout), on
+    ``device``."""
+    a = np.asarray(v)
+    want = ((bg2.nvec,) + tuple(bg2.coarse_shape)
+            + (bg2.block_volume, bg2.fine_ns, bg2.fine_nc))
+    if a.shape != want:
+        raise ValueError(f"V2 shape {a.shape} != {want}")
+    return CoarseTransfer(v=torch.tensor(a, dtype=dtype, device=device),
+                          bg=bg2)
+
+
+def coarse_op_from_numpy(x, y, bg, dtype=torch.complex128,
+                         device="cuda") -> CoarseOperator:
+    """The port's ``CoarseOperator`` from the JAX package's X [dof, dof,
+    cvol] and Y [8, dof, dof, cvol] as numpy: the site axis moves first,
+    X [cvol, dof, dof], Y [8, cvol, dof, dof].  ``bg`` is the level's
+    ``BlockGeometry`` or ``CoarseBlockGeometry``."""
+    x, y = np.asarray(x), np.asarray(y)
+    dof, cvol = bg.coarse_dof, bg.coarse_volume
+    if x.shape != (dof, dof, cvol) or y.shape != (8, dof, dof, cvol):
+        raise ValueError(f"X {x.shape}, Y {y.shape}: expected "
+                         f"{(dof, dof, cvol)}, {(8, dof, dof, cvol)}")
+    return CoarseOperator(
+        x=torch.tensor(np.moveaxis(x, -1, 0), dtype=dtype, device=device),
+        y=torch.tensor(np.moveaxis(y, -1, 1), dtype=dtype, device=device),
+        bg=bg)

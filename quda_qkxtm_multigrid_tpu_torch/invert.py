@@ -30,6 +30,7 @@ from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import (
 from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg, cg_mixed
 from quda_qkxtm_multigrid_tpu_torch.solvers.msrc import msrc_cg
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import ReliableStats
+from quda_qkxtm_multigrid_tpu_torch.utils.guards import maybe_guard
 
 SOLVERS = ("cg", "cg-mixed", "bicgstab", "bicgstab-mixed")
 
@@ -146,7 +147,8 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
     x_p = from_channels(res.x, (4, 3)).to(rhs.dtype) if fused else res.x
     x = dirac.reconstruct(x_p, b)
     _, rel = true_residual(dirac, x, b)
-    return InvertResult(x, res.iters, float(rel), res.stats)
+    return InvertResult(maybe_guard(x, "invert.x"), res.iters, float(rel),
+                        res.stats)
 
 
 def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,

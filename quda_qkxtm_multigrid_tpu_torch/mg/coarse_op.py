@@ -4,24 +4,37 @@ transfer.
 
 Layouts: coarse field vc [2(chir), nvec, Tc, Zc, Yc, Xc], whose dof
 a = chir·nvec + vec; X [cvol, dof, dof] and Y [8, cvol, dof, dof],
-site-major so that an application is one batched [dof × dof] product
-per site and direction (the JAX package keeps the site axis last,
-[dof, dof, cvol], for the TPU's tiling).  Direction d = 2·mu + (0 fwd |
-1 bwd); the forward term reads the field at xc + mu.
+site-major (the JAX package keeps the site axis last, [dof, dof, cvol],
+for the TPU's tiling).  Direction d = 2·mu + (0 fwd | 1 bwd); the
+forward term reads the field at xc + mu.  The operator stores X and Y
+side by side, one [cvol, dof, 9·dof] tensor, and ``x`` / ``y`` are views
+of it: an application is one gather of each site's 9 stencil entries
+and one batched [dof × 9·dof] matrix-vector product, a handful of
+kernel launches at every level.
 
 Coarse stencil flops per site: 8·(8n²) − 2n, n = 2·nvec.
+
+The next level down (MG level ≥ 2) is built the same way from a
+``CoarseOperator`` through a ``CoarseTransfer``: ``coarse_diag_hops``
+splits the operator into its diagonal and its 8 hop terms and
+``build_coarse_op_direct_coarse`` runs the masked-source face split over
+the dof-generic blocked layout (the reference's CoarseCoarseOp).  Its
+``bg`` is then a ``CoarseBlockGeometry``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
-    BlockGeometry, Transfer, from_blocked_flat, to_blocked_flat)
+    BlockGeometry, CoarseBlockGeometry, CoarseTransfer, Transfer,
+    from_blocked_coarse, from_blocked_flat, to_blocked_coarse,
+    to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
 
 
@@ -30,31 +43,77 @@ def _axis_of_mu(mu: int) -> int:
     return {0: -1, 1: -2, 2: -3, 3: -4}[mu]
 
 
+@functools.lru_cache(maxsize=None)
+def _stencil_index(coarse_shape: tuple) -> np.ndarray:
+    """[9, cvol]: each site's flat index, then that of the site hop
+    direction d = 2·mu + (0 fwd | 1 bwd) reads (x + mu, x − mu)."""
+    idx = np.arange(int(np.prod(coarse_shape))).reshape(coarse_shape)
+    rows = [idx.reshape(-1)]
+    for mu in range(4):
+        for shift in (-1, 1):
+            rows.append(np.roll(idx, shift,
+                                axis=_axis_of_mu(mu)).reshape(-1))
+    return np.stack(rows)
+
+
 @dataclasses.dataclass(frozen=True)
 class CoarseOperator:
+    """X and Y of a coarse level.  Construction copies them into one
+    [cvol, dof, 9·dof] tensor (X, then Y_0..Y_7 per site) and replaces
+    ``x`` and ``y`` by views of it."""
+
     x: torch.Tensor            # [cvol, dof, dof]
     y: torch.Tensor            # [8, cvol, dof, dof]
-    bg: BlockGeometry
+    bg: BlockGeometry | CoarseBlockGeometry
+
+    def __post_init__(self):
+        dof, cvol = self.bg.coarse_dof, self.bg.coarse_volume
+        w = torch.cat([self.x.unsqueeze(0), self.y]).permute(1, 2, 0, 3)
+        w = w.reshape(cvol, dof, 9 * dof)
+        wv = w.view(cvol, dof, 9, dof)
+        object.__setattr__(self, "_w", w)
+        object.__setattr__(self, "x", wv[:, :, 0])
+        object.__setattr__(self, "y", wv[:, :, 1:].permute(2, 0, 1, 3))
+        object.__setattr__(self, "_idx", torch.tensor(
+            _stencil_index(tuple(self.bg.coarse_shape)), device=w.device))
 
     @full_float32()
     def apply(self, vc: torch.Tensor) -> torch.Tensor:
         """vc [2, nvec, Tc,Zc,Yc,Xc] → D_c vc (same shape), its products
         in full float32."""
-        dof = self.bg.coarse_dof
-        v = vc.reshape((dof,) + tuple(vc.shape[2:]))
-        shifted = []
-        for mu in range(4):
-            ax = _axis_of_mu(mu)
-            shifted.append(torch.roll(v, -1, dims=ax))     # v(xc + mu)
-            shifted.append(torch.roll(v, 1, dims=ax))      # v(xc - mu)
-        vs = torch.stack(shifted).reshape(8, dof, -1).transpose(1, 2)
-        out = torch.matmul(self.x, v.reshape(dof, -1).T.unsqueeze(-1))
-        out = out + torch.matmul(self.y, vs.unsqueeze(-1)).sum(dim=0)
-        return out[..., 0].T.reshape(vc.shape)
+        dof, cvol = self.bg.coarse_dof, self.bg.coarse_volume
+        g = vc.reshape(dof, cvol)[:, self._idx]            # [dof, 9, cvol]
+        g = g.permute(2, 1, 0).reshape(cvol, 9 * dof, 1)
+        out = torch.matmul(self._w, g)                     # [cvol, dof, 1]
+        return out.reshape(cvol, dof).T.reshape(vc.shape)
 
     def flops_per_apply(self) -> int:
         n = self.bg.coarse_dof
         return (8 * (8 * n * n) - 2 * n) * self.bg.coarse_volume
+
+
+def coarse_diag_hops(op: CoarseOperator):
+    """(diagonal term, 8 hop terms) of ``op`` on coarse fields [...,
+    ns, nc, T,Z,Y,X] (any leading batch): the inputs of the next level's
+    build.  Hop d = 2·mu + (0 fwd | 1 bwd) applies Y_d to the field at
+    x + mu (fwd: a roll by −1 along mu) or x − mu; the products run in
+    full float32."""
+    dof, cvol = op.bg.coarse_dof, op.bg.coarse_volume
+
+    @full_float32()
+    def sitewise(m, vc):
+        v = vc.reshape(-1, dof, cvol).permute(2, 1, 0)     # [cvol, dof, B]
+        return torch.matmul(m, v).permute(2, 1, 0).reshape(vc.shape)
+
+    def diag_apply(vc):
+        return sitewise(op.x, vc)
+
+    def hop(vc, d):
+        shift = -1 if d % 2 == 0 else 1
+        return sitewise(op.y[d], torch.roll(vc, shift,
+                                            dims=_axis_of_mu(d // 2)))
+
+    return diag_apply, [functools.partial(hop, d=d) for d in range(8)]
 
 
 def _coarse_parity_mask(coarse_shape) -> np.ndarray:
@@ -126,6 +185,53 @@ def build_coarse_op_direct(transfer: Transfer, diag_apply: Callable,
             xcol = xcol + (tot - face)
             y[d, :, :, j] = face
         x[:, :, j] = xcol
+    return CoarseOperator(x=x, y=y, bg=bg)
+
+
+def build_coarse_op_direct_coarse(transfer2: CoarseTransfer,
+                                  diag_apply: Callable,
+                                  hop_terms: list[Callable],
+                                  dtype: torch.dtype,
+                                  batch: int = 16) -> CoarseOperator:
+    """``build_coarse_op_direct`` for a coarse → coarser level (the
+    reference's CoarseCoarseOp): the source of column j = (spin s, vector
+    k) is the spin-s part of V2's vector k, each hop term's restriction
+    splits by the intra-block face mask of its direction into the link
+    Y_d and a part of X; the coarse spin plays the chirality's role.
+    ``diag_apply`` and ``hop_terms`` act on coarse fields with a leading
+    batch (``coarse_diag_hops``); the columns run ``batch`` at a time.
+    With a block extent of 1 both face masks of that direction are all
+    ones, and Y_2mu, Y_2mu+1 stay separate terms."""
+    if len(hop_terms) != 8:
+        raise ValueError(f"expected 8 hop terms, got {len(hop_terms)}")
+    bg = transfer2.bg
+    n, dof, cvol = bg.nvec, bg.coarse_dof, bg.coarse_volume
+    v = transfer2.v                           # [n, T2..X2, bv, ns, nc]
+    dev = v.device
+    masks = torch.tensor(_face_masks(bg.bt, bg.bz, bg.by, bg.bx),
+                         dtype=v.real.dtype, device=dev)[:, :, None, None]
+    x = torch.zeros((cvol, dof, dof), dtype=dtype, device=dev)
+    y = torch.zeros((8, cvol, dof, dof), dtype=dtype, device=dev)
+
+    def columns(blk):     # [B, T2..X2, bv, ns, nc] → [cvol, dof, B]
+        s = transfer2.restrict_blocked(blk)             # [B, ns, n, T2..]
+        return s.reshape(-1, dof, cvol).permute(2, 1, 0).to(dtype)
+
+    for j0 in range(0, dof, batch):
+        js = range(j0, min(j0 + batch, dof))
+        w_blk = torch.zeros((len(js),) + tuple(v.shape[1:]), dtype=v.dtype,
+                            device=dev)
+        for i, j in enumerate(js):
+            s0, k = divmod(j, n)
+            w_blk[i, ..., s0, :] = v[k, ..., s0, :]
+        w = from_blocked_coarse(w_blk, bg).to(dtype)
+        xcols = columns(to_blocked_coarse(diag_apply(w), bg))
+        for d, h in enumerate(hop_terms):
+            hb = to_blocked_coarse(h(w), bg)
+            face = columns(hb * masks[d])
+            xcols = xcols + (columns(hb) - face)
+            y[d, :, :, js.start:js.stop] = face
+        x[:, :, js.start:js.stop] = xcols
     return CoarseOperator(x=x, y=y, bg=bg)
 
 

@@ -1,5 +1,6 @@
-"""Adaptive aggregation multigrid, two levels: null-vector setup, the
-V-cycle preconditioner and the MG-preconditioned outer solves.
+"""Adaptive aggregation multigrid, two to four levels: null-vector
+setup, the V-cycle preconditioner and the MG-preconditioned outer
+solves.
 
 Setup (``setup_mg``): nvec null vectors, each a loose solve of M x = ξ
 from a Gaussian source ξ; on the fused kernel chain they are solved in
@@ -7,9 +8,22 @@ batches through ``invert_msrc`` (the multi-source kernel), otherwise one
 BiCGstab each.  Then block orthonormalisation (CholQR²) into the
 transfer V, and the Galerkin coarse operator V†MV.
 
+Three and four levels (``n_level``, at most the reference's
+QUDA_MAX_MG_LEVEL = 4): ``setup_coarse_level`` repeats the aggregation
+on the explicit coarse operator (BiCGstab null vectors on it, CholQR²
+into a ``CoarseTransfer``, the coarse-of-coarse Galerkin build), for
+level 2 and then level 3.
+
 V-cycle (``MGPreconditioner.vcycle``): restrict the residual, GCR on
 the coarse operator, prolong, then ``nu_post`` MR smoothing steps on the
 full operator or, with ``smoother_pc``, on its even-odd Schur system.
+With a level 2 the coarse GCR is preconditioned by a V-cycle of the
+coarse operator (``_coarse_vcycle``), whose GCR on level 2 is in turn
+preconditioned through level 3 when there is one (``_coarse2_vcycle``).
+
+``vec_dtype="bf16"`` stores the level-1 V as a planar bf16 pair
+(``transfer.Bf16Transfer``) once every coarse operator has been built
+from the complex V.
 
 ``mg_solve``: "gcr-pc" runs GCR on the Schur system with the V-cycle
 through the Schur embedding (the production path), "gcr" runs GCR on
@@ -29,9 +43,12 @@ import torch
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, make_dirac
 from quda_qkxtm_multigrid_tpu_torch.invert import invert_msrc
 from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import (
-    CoarseOperator, build_coarse_op_direct)
+    CoarseOperator, build_coarse_op_direct, build_coarse_op_direct_coarse,
+    coarse_diag_hops)
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
-    BlockGeometry, Transfer, block_orthonormalize_flat, to_blocked_flat)
+    Bf16Transfer, BlockGeometry, CoarseBlockGeometry, CoarseTransfer,
+    Transfer, block_orthonormalize_coarse, block_orthonormalize_flat,
+    to_blocked_coarse, to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct, norm2
 from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import bicgstab
@@ -39,6 +56,9 @@ from quda_qkxtm_multigrid_tpu_torch.solvers.gcr import GCRResult, gcr_cycle
 from quda_qkxtm_multigrid_tpu_torch.solvers.mr import mr
 from quda_qkxtm_multigrid_tpu_torch.utils import checkpoint as ckpt
 from quda_qkxtm_multigrid_tpu_torch.utils import rng as _rng
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import solve_telemetry
+
+QUDA_MAX_MG_LEVEL = 4    # the reference's deepest hierarchy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +75,20 @@ class MGParams:
     smoother_pc: bool = False         # MR on the even-odd Schur system
     outer_solver: str = "gcr"         # "gcr" | "gcr-pc" | "mr-richardson"
     coarse_nkrylov: int = 10          # coarse GCR cycle length
-    n_level: int = 2
+    n_level: int = 2                  # 2, 3 or 4
+    # level 2 (n_level >= 3): aggregation of the level-1 coarse lattice,
+    # its null vectors (BiCGstab on the coarse operator) and its GCR
+    block2: tuple = (2, 2, 2, 2)
+    nvec2: int = 24
+    coarse2_nkrylov: int = 8
+    setup2_tol: float = 1e-4
+    setup2_maxiter: int = 200
+    # level 3 (n_level = 4)
+    block3: tuple = (2, 2, 2, 2)
+    nvec3: int = 16
+    coarse3_nkrylov: int = 8
+    setup3_tol: float = 1e-4
+    setup3_maxiter: int = 150
     # multiplicative rescalings of the operator the coarse level is built
     # from (*_coarse) and of the smoother's operator (*_pr)
     delta_mu_coarse: float = 1.0
@@ -67,21 +100,19 @@ class MGParams:
     # null-vector files: infile skips generation, outfile saves V
     vec_infile: str = ""
     vec_outfile: str = ""
+    # storage of the level-1 V in the V-cycle: "f32" (complex) or "bf16"
+    # (a planar bf16 pair; the coarse operators are built before the cast)
     vec_dtype: str = "f32"
     solve_operator: str = "canonical"
 
     def __post_init__(self):
-        if self.n_level != 2:
+        if self.n_level not in range(2, QUDA_MAX_MG_LEVEL + 1):
             raise ValueError(
-                f"n_level={self.n_level}: only two-level MG is ported; three "
-                "and four levels (setup_coarse_level, CoarseTransfer) are "
-                "the three- and four-level MG item of ROADMAP queue 1 "
-                "('MG, the rest')")
-        if self.vec_dtype != "f32":
-            raise ValueError(
-                f"vec_dtype={self.vec_dtype!r}: the bf16 null-vector tier is "
-                "the bf16 null-vector item of ROADMAP queue 1 ('MG, the "
-                "rest')")
+                f"n_level={self.n_level}: 2 to QUDA_MAX_MG_LEVEL = "
+                f"{QUDA_MAX_MG_LEVEL} levels")
+        if self.vec_dtype not in ("f32", "bf16"):
+            raise ValueError(f"vec_dtype={self.vec_dtype!r}: 'f32' or "
+                             "'bf16'")
         if self.solve_operator != "canonical":
             raise ValueError(
                 f"solve_operator={self.solve_operator!r}: the compact "
@@ -93,24 +124,86 @@ class MGParams:
 
 @dataclasses.dataclass
 class MGPreconditioner:
-    transfer: Transfer
+    transfer: Transfer | Bf16Transfer
     coarse: CoarseOperator
     dirac: Dirac
     params: MGParams
     dirac_pr: Optional[Dirac] = None  # delta-scaled smoother operator
     # what setup_mg measured: host seconds of each part, the multi-source
     # CG iterations of each null-vector batch, the worst null-vector
-    # solve's true residual
+    # solve's true residual; "level2" / "level3" those of the coarser
+    # levels (null-vector seconds, BiCGstab iterations, build seconds)
     setup_stats: dict = dataclasses.field(default_factory=dict)
+    transfer2: Optional[CoarseTransfer] = None    # n_level >= 3
+    coarse2: Optional[CoarseOperator] = None
+    transfer3: Optional[CoarseTransfer] = None    # n_level = 4
+    coarse3: Optional[CoarseOperator] = None
+    # the level-1 V-cycle's CUDA graphs, by (shape, dtype, device)
+    _graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def _dirac_smooth(self) -> Dirac:
         return self.dirac if self.dirac_pr is None else self.dirac_pr
 
+    def _coarse2_vcycle(self, r2: torch.Tensor) -> torch.Tensor:
+        """Level-2 V-cycle through level 3: GCR(coarse3_nkrylov) on the
+        level-3 operator, prolong, then max(nu_post, 1) MR steps on the
+        level-2 operator."""
+        p = self.params
+        m2 = self.coarse2.apply
+        x3 = gcr_cycle(self.coarse3.apply, self.transfer3.restrict(r2),
+                       n_krylov=p.coarse3_nkrylov)
+        x2 = self.transfer3.prolong(x3)
+        return x2 + mr(m2, r2 - m2(x2), niter=max(p.nu_post, 1),
+                       omega=p.omega)
+
+    def _coarse_vcycle(self, r1: torch.Tensor) -> torch.Tensor:
+        """Level-1 V-cycle through level 2: nu_pre MR steps on the
+        coarse operator, GCR(coarse2_nkrylov) on level 2 (preconditioned
+        through level 3 when there is one), prolong, then
+        max(nu_post, 1) MR steps."""
+        p = self.params
+        m1 = self.coarse.apply
+        if p.nu_pre > 0:
+            x1 = mr(m1, r1, niter=p.nu_pre, omega=p.omega)
+            rr = r1 - m1(x1)
+        else:
+            x1, rr = torch.zeros_like(r1), r1
+        precond2 = self._coarse2_vcycle if self.transfer3 is not None \
+            else None
+        x2 = gcr_cycle(self.coarse2.apply, self.transfer2.restrict(rr),
+                       n_krylov=p.coarse2_nkrylov, precond=precond2)
+        x1 = x1 + self.transfer2.prolong(x2)
+        return x1 + mr(m1, r1 - m1(x1), niter=max(p.nu_post, 1),
+                       omega=p.omega)
+
     def coarse_solve(self, rc: torch.Tensor) -> torch.Tensor:
-        """One GCR(coarse_nkrylov) cycle on the coarse operator."""
+        """One GCR(coarse_nkrylov) cycle on the coarse operator,
+        preconditioned by the level-1 V-cycle when there is a level 2
+        (on the card, replayed from a CUDA graph: ``_graphed``)."""
+        precond = None
+        if self.transfer2 is not None:
+            precond = (self._coarse_vcycle if rc.device.type != "cuda"
+                       else self._graphed(self._coarse_vcycle, rc))
         return gcr_cycle(self.coarse.apply, rc,
-                         n_krylov=self.params.coarse_nkrylov)
+                         n_krylov=self.params.coarse_nkrylov,
+                         precond=precond)
+
+    def _graphed(self, fn, like: torch.Tensor):
+        """``fn`` (one CUDA tensor in, one out, no host read) as the
+        replay of a CUDA graph captured at the first call for tensors
+        like ``like``.  The levels below the first are small enough that
+        launching their thousands of kernels one by one from Python costs
+        several times their device time; a replay launches them all at
+        once, the same kernels on the same operands.  Each call copies
+        its argument into the graph's input and returns a copy of its
+        output.  The graph holds this preconditioner's coarse operators
+        and transfers: they are not to change after the first call."""
+        key = (tuple(like.shape), like.dtype, like.device)
+        if key not in self._graphs:
+            self._graphs[key] = _cuda_graphed(fn, like)
+        return self._graphs[key]
 
     def _smooth(self, r: torch.Tensor, niter: int) -> torch.Tensor:
         """``niter`` MR steps on M x = r, on the full operator or (with
@@ -136,6 +229,28 @@ class MGPreconditioner:
         if p.nu_post > 0:
             x = x + self._smooth(r - m(x), p.nu_post)
         return x
+
+
+def _cuda_graphed(fn, like: torch.Tensor):
+    """``fn`` captured into a CUDA graph on an input buffer of ``like``'s
+    shape and dtype, after one warm-up call on a side stream (cuBLAS
+    handles and workspaces are made there, not in the capture)."""
+    static_in = like.clone()
+    dev = like.device
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn(static_in)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = fn(static_in)
+
+    def replay(x: torch.Tensor) -> torch.Tensor:
+        static_in.copy_(x)
+        graph.replay()
+        return static_out.clone()
+    return replay
 
 
 def _level1_terms(dirac: Dirac):
@@ -274,12 +389,112 @@ def _preconditioner(transfer: Transfer, dirac: Dirac, params: MGParams,
                             setup_stats=stats)
 
 
+def _coarse_null_solve(coarse: CoarseOperator, b: torch.Tensor, tol: float,
+                       maxiter: int):
+    """A level-2 (or level-3) null vector: BiCGstab on the coarse
+    operator from the source ``b``."""
+    return bicgstab(coarse.apply, b, tol=tol, maxiter=maxiter)
+
+
+def _random_coarse(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """A complex Gaussian coarse field of ``shape`` from ``gen``."""
+    return _rng.normal_complex(gen, shape, dtype)
+
+
+def _build_level2(transfer2: CoarseTransfer,
+                  coarse: CoarseOperator) -> CoarseOperator:
+    """The Galerkin operator V2† D_c V2 of the next level down."""
+    diag2, hops2 = coarse_diag_hops(coarse)
+    return build_coarse_op_direct_coarse(transfer2, diag2, hops2,
+                                         coarse.x.dtype)
+
+
+def setup_coarse_level(coarse: CoarseOperator, params: MGParams,
+                       gen: torch.Generator, block=None, nvec=None,
+                       tol=None, maxiter=None,
+                       stats: Optional[dict] = None) -> tuple:
+    """The next level below ``coarse`` (any level): ``nvec`` null
+    vectors, each a BiCGstab solve of D_c x = ξ to ``tol`` from a complex
+    Gaussian ξ drawn from ``gen``, block-orthonormalised over
+    ``block`` aggregates into a ``CoarseTransfer``, and its Galerkin
+    operator.  ``block``, ``nvec``, ``tol`` and ``maxiter`` default to
+    the level-2 fields of ``params``.  ``stats``, if given, receives the
+    host seconds of the null vectors with their orthonormalisation and
+    of the build, and the BiCGstab iterations of each vector.  Returns
+    (transfer2, coarse2)."""
+    block = params.block2 if block is None else block
+    nvec = params.nvec2 if nvec is None else nvec
+    tol = params.setup2_tol if tol is None else tol
+    maxiter = params.setup2_maxiter if maxiter is None else maxiter
+    bg1 = coarse.bg
+    bx, by, bz, bt = block
+    bg2 = CoarseBlockGeometry(fine_shape=tuple(bg1.coarse_shape), fine_ns=2,
+                              fine_nc=bg1.nvec, bx=bx, by=by, bz=bz, bt=bt,
+                              nvec=nvec)
+    dtype = coarse.x.dtype
+    fshape = (2, bg1.nvec) + tuple(bg1.coarse_shape)
+    t0 = time.perf_counter()
+    blk = torch.empty((nvec,) + tuple(bg2.coarse_shape)
+                      + (bg2.block_volume, 2, bg1.nvec), dtype=dtype,
+                      device=coarse.x.device)
+    iters = []
+    for i in range(nvec):
+        res = _coarse_null_solve(coarse, _random_coarse(gen, fshape, dtype),
+                                 tol, maxiter)
+        blk[i] = to_blocked_coarse(res.x, bg2)
+        iters.append(res.iters)
+    transfer2 = CoarseTransfer(v=block_orthonormalize_coarse(blk), bg=bg2)
+    del blk
+    _sync(transfer2.v)
+    t1 = time.perf_counter()
+    coarse2 = _build_level2(transfer2, coarse)
+    _sync(coarse2.y)
+    if stats is not None:
+        stats.update(null_vector_secs=t1 - t0, bicgstab_iters=iters,
+                     build_secs=time.perf_counter() - t1)
+    return transfer2, coarse2
+
+
+def _add_coarse_levels(mg: MGPreconditioner, gen: torch.Generator):
+    """Level 2 (n_level ≥ 3) and level 3 (n_level = 4) of ``mg``, their
+    sources drawn from ``gen`` in that order; the timings go to
+    ``mg.setup_stats["level2"]`` / ``["level3"]``."""
+    p = mg.params
+    if p.n_level < 3:
+        return
+    if gen is None:
+        raise ValueError(f"n_level={p.n_level} draws the coarse levels' "
+                         "null-vector sources from gen; gen is None")
+    st = mg.setup_stats
+    mg.transfer2, mg.coarse2 = setup_coarse_level(
+        mg.coarse, p, gen, stats=st.setdefault("level2", {}))
+    if p.n_level >= 4:
+        mg.transfer3, mg.coarse3 = setup_coarse_level(
+            mg.coarse2, p, gen, block=p.block3, nvec=p.nvec3,
+            tol=p.setup3_tol, maxiter=p.setup3_maxiter,
+            stats=st.setdefault("level3", {}))
+
+
+def _vec_storage_cast(transfer: Transfer,
+                      params: MGParams) -> Transfer | Bf16Transfer:
+    """The level-1 transfer in the storage of ``params.vec_dtype``: as it
+    is for "f32", the planar bf16 pair for "bf16" (the caller drops the
+    complex V, which every coarse build has read by then)."""
+    if params.vec_dtype != "bf16":
+        return transfer
+    out = Bf16Transfer.from_transfer(transfer)
+    _sync(out.vr)
+    return out
+
+
 def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
              null_vectors=None) -> MGPreconditioner:
-    """Build the two-level MG preconditioner.  ``gen`` draws the setup
-    sources (a ``torch.Generator`` on the operator's device);
-    ``null_vectors`` (a sequence of nvec fields [2,4,3,T,Z,W]) skips
-    the generation and is orthonormalised as given."""
+    """Build the MG preconditioner of ``params.n_level`` levels.  ``gen``
+    draws the setup sources (a ``torch.Generator`` on the operator's
+    device): the fine null vectors, then level 2's and level 3's;
+    ``null_vectors`` (a sequence of nvec fields [2,4,3,T,Z,W]) skips the
+    fine generation and is orthonormalised as given.  With
+    ``vec_dtype="bf16"`` the level-1 V is cast after every build."""
     bx, by, bz, bt = params.block
     bg = BlockGeometry(dirac.geom, bx, by, bz, bt, params.nvec)
     stats = {}
@@ -288,7 +503,11 @@ def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
     else:
         v = block_orthonormalize_flat(torch.stack(
             [to_blocked_flat(x, bg) for x in null_vectors]))
-    return _preconditioner(Transfer(v=v, bg=bg), dirac, params, stats)
+    mg = _preconditioner(Transfer(v=v, bg=bg), dirac, params, stats)
+    del v
+    _add_coarse_levels(mg, gen)
+    mg.transfer = _vec_storage_cast(mg.transfer, params)
+    return mg
 
 
 def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
@@ -297,21 +516,40 @@ def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
     twist sign, sharing one set of null vectors (generated on
     ``dirac_up``): the JAX package's ``setup_mg_pair`` (the reference's
     preconditionerUP / DN).  The coarse operator is built for each
-    flavour, which carries its twist sign to the coarse level.  Each
-    preconditioner's ``setup_stats`` holds the shared null-vector
-    seconds and its own ``coarse_build_secs``."""
+    flavour, which carries its twist sign to the coarse level, and so
+    are levels 2 and 3: each flavour draws their sources from a
+    generator in the state ``gen`` had after the fine null vectors, so
+    both solve the same sources against their own coarse operators (JAX
+    hands both the same key).  With ``vec_dtype="bf16"`` the one shared
+    V is cast after both flavours' builds.  Each preconditioner's
+    ``setup_stats`` holds the shared null-vector seconds and its own
+    build seconds."""
     bx, by, bz, bt = params.block
     bg = BlockGeometry(dirac_up.geom, bx, by, bz, bt, params.nvec)
     shared = {}
     transfer = Transfer(v=_null_vectors_for(dirac_up, bg, gen, params,
                                             shared), bg=bg)
-    return tuple(_preconditioner(transfer, d, params, dict(shared))
-                 for d in (dirac_up, dirac_dn))
+    state = (gen.get_state() if gen is not None and params.n_level >= 3
+             else None)
+    mgs = []
+    for d in (dirac_up, dirac_dn):
+        mg = _preconditioner(transfer, d, params, dict(shared))
+        g = None
+        if state is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(state)
+        _add_coarse_levels(mg, g)
+        mgs.append(mg)
+    cast = _vec_storage_cast(transfer, params)
+    del transfer
+    for mg in mgs:
+        mg.transfer = cast
+    return tuple(mgs)
 
 
 def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
              n_krylov: int = 10, max_restarts: int = 50,
-             solver: Optional[str] = None) -> GCRResult:
+             solver: Optional[str] = None, telemetry: bool = False):
     """MG-preconditioned outer solve of M x = b.
 
     "gcr-pc": restarted GCR(n_krylov) on the even-odd Schur system
@@ -323,10 +561,26 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
     ``r2`` is the full system's |b − M x|².
     "gcr": restarted GCR(n_krylov) on M x = b with the V-cycle.
     "mr-richardson": x += ω z, z = V-cycle(r), ω = <Mz, r>/|Mz|².
-    ``iters`` counts n_krylov per GCR cycle, 1 per Richardson step."""
+    ``iters`` counts n_krylov per GCR cycle, 1 per Richardson step.
+
+    ``telemetry=True`` returns ``(result, utils.profiling.SolveTelemetry)``
+    timed on the host clock from before ``prepare`` to after the last
+    residual, the device synchronised at both ends."""
     if solver is None:
         solver = mg.params.outer_solver
     d = mg.dirac
+    _sync(b)
+    t0 = time.perf_counter()
+    res = _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver)
+    if not telemetry:
+        return res
+    _sync(res.x)
+    return res, solve_telemetry(d, res.iters, time.perf_counter() - t0)
+
+
+def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
+              n_krylov: int, max_restarts: int, solver: str) -> GCRResult:
+    """The outer solve of ``mg_solve``."""
     if solver == "gcr-pc":
         pr = d.params.matpc_parity
         src = d.prepare(b)

@@ -17,6 +17,17 @@ restrict and prolong are batched [nvec × bdof] matrix-vector products
 over the (chirality, aggregate) pairs, each one pass over V.  Float32
 products run in full float32 whatever the caller has set: each product
 runs under ``utils.precision.full_float32``.
+
+The bf16 storage tier (``MGParams.vec_dtype="bf16"``) keeps V as a
+planar pair of bf16 tensors, ``Bf16Transfer``: PyTorch has no complex
+bf16.  Its restrict and prolong cast the field to bf16 as well and
+accumulate in float32 (the JAX package's ``Transfer._ein``).
+
+Between coarse levels (MG level ≥ 2) the transfer is dof-generic,
+``CoarseTransfer``: a coarse field [ns=2, nc, T1,Z1,Y1,X1] is blocked
+geometrically into [T2,Z2,Y2,X2, bv, ns, nc]; the coarse spin is
+preserved, and each (aggregate, spin) holds nvec2 orthonormal vectors
+over (bv, nc).
 """
 
 from __future__ import annotations
@@ -165,3 +176,216 @@ class Transfer:
         w = torch.movedim(vc, 1, -1).reshape(2 * bg.coarse_volume, bg.nvec, 1)
         f = torch.matmul(self._mat().transpose(1, 2), w)   # [2A, bdof, 1]
         return from_blocked_flat(f.reshape(2, *bg.coarse_shape, bg.bdof), bg)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16Transfer:
+    """The bf16 storage tier of ``Transfer``: V as the planar pair
+    (``vr``, ``vi``) of bf16 tensors [2(ch), Tc,Zc,Yc,Xc, nvec, bdof],
+    half the bytes of the complex64 V.  Restrict and prolong round the
+    field to bf16 too, and accumulate and return float32: per tc slab,
+    the slab of V is widened to float32 (a product of two bf16 values is
+    exact in float32), so no float32 copy of the whole V exists (the
+    JAX package's ``lax.map`` over tc slabs)."""
+
+    vr: torch.Tensor
+    vi: torch.Tensor
+    bg: BlockGeometry
+
+    @classmethod
+    def from_transfer(cls, tr: Transfer) -> "Bf16Transfer":
+        """The pair rounded from a complex V (which the caller frees)."""
+        return cls(vr=tr.v.real.to(torch.bfloat16),
+                   vi=tr.v.imag.to(torch.bfloat16), bg=tr.bg)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.vr, self.vi))
+
+    def _slab(self, a: int) -> torch.Tensor:
+        """tc slab ``a`` of V, complex64 from the bf16 pair:
+        [2, Zc,Yc,Xc, nvec, bdof]."""
+        return torch.complex(self.vr[:, a].float(), self.vi[:, a].float())
+
+    @staticmethod
+    def _round(f: torch.Tensor) -> torch.Tensor:
+        """A complex field with both planes rounded to bf16, complex64."""
+        return torch.complex(f.real.to(torch.bfloat16).float(),
+                             f.imag.to(torch.bfloat16).float())
+
+    @full_float32()
+    def restrict(self, psi: torch.Tensor) -> torch.Tensor:
+        """fine [2,4,3,T,Z,W] → coarse [2(ch), nvec, Tc,Zc,Yc,Xc] (S =
+        V† f per aggregate, as ``Transfer.restrict``), accumulated in
+        float32 and returned in the field's dtype."""
+        bg = self.bg
+        flat = self._round(to_blocked_flat(psi, bg))   # [2, Tc.., bdof]
+        tc, zc, yc, xc = bg.coarse_shape
+        out = []
+        for a in range(tc):
+            f = flat[:, a].reshape(-1, 1, bg.bdof)
+            v = self._slab(a).reshape(-1, bg.nvec, bg.bdof)
+            out.append(torch.matmul(f, v.mH).reshape(2, zc, yc, xc, bg.nvec))
+        s = torch.movedim(torch.stack(out, dim=1), -1, 1)
+        return s.to(psi.dtype).contiguous()
+
+    @full_float32()
+    def prolong(self, vc: torch.Tensor) -> torch.Tensor:
+        """coarse [2, nvec, Tc,Zc,Yc,Xc] → fine [2,4,3,T,Z,W], accumulated
+        in float32 and returned in the coarse field's dtype."""
+        bg = self.bg
+        w = self._round(torch.movedim(vc, 1, -1))    # [2, Tc.., nvec]
+        tc = bg.coarse_shape[0]
+        out = []
+        for a in range(tc):
+            wa = w[:, a].reshape(-1, bg.nvec, 1)
+            v = self._slab(a).reshape(-1, bg.nvec, bg.bdof)
+            out.append(torch.matmul(v.transpose(1, 2), wa).reshape(
+                2, *bg.coarse_shape[1:], bg.bdof))
+        return from_blocked_flat(torch.stack(out, dim=1), bg).to(vc.dtype)
+
+
+# ---- between coarse levels (MG level >= 2) -------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CoarseBlockGeometry:
+    """Geometric blocking of a coarse lattice of shape ``fine_shape``
+    (T1, Z1, Y1, X1), whose fields are [fine_ns, fine_nc, T1,Z1,Y1,X1],
+    into aggregates of (bx, by, bz, bt) sites with ``nvec`` vectors each
+    per coarse spin."""
+
+    fine_shape: tuple
+    fine_ns: int
+    fine_nc: int
+    bx: int = 2
+    by: int = 2
+    bz: int = 2
+    bt: int = 2
+    nvec: int = 24
+
+    def __post_init__(self):
+        t1, z1, y1, x1 = self.fine_shape
+        for d, b in ((x1, self.bx), (y1, self.by), (z1, self.bz),
+                     (t1, self.bt)):
+            if d % b:
+                raise ValueError(
+                    f"block does not divide coarse dim: {self.fine_shape} "
+                    f"/ ({self.bt},{self.bz},{self.by},{self.bx})")
+
+    @property
+    def coarse_shape(self):
+        t1, z1, y1, x1 = self.fine_shape
+        return (t1 // self.bt, z1 // self.bz, y1 // self.by, x1 // self.bx)
+
+    @property
+    def block_volume(self) -> int:
+        return self.bx * self.by * self.bz * self.bt
+
+    @property
+    def coarse_volume(self) -> int:
+        t2, z2, y2, x2 = self.coarse_shape
+        return t2 * z2 * y2 * x2
+
+    @property
+    def coarse_dof(self) -> int:
+        return self.fine_ns * self.nvec
+
+
+def to_blocked_coarse(vc: torch.Tensor,
+                      bg: CoarseBlockGeometry) -> torch.Tensor:
+    """[..., ns, nc, T1,Z1,Y1,X1] → [..., T2,Z2,Y2,X2, bv, ns, nc]."""
+    ns, nc = bg.fine_ns, bg.fine_nc
+    t2, z2, y2, x2 = bg.coarse_shape
+    lead = vc.shape[:-6]
+    k = len(lead)
+    r = vc.reshape(*lead, ns, nc, t2, bg.bt, z2, bg.bz, y2, bg.by, x2, bg.bx)
+    #      ns nc t2 bt z2 bz y2 by x2 bx  →  t2 z2 y2 x2 bt bz by bx ns nc
+    perm = [2, 4, 6, 8, 3, 5, 7, 9, 0, 1]
+    r = r.permute(*range(k), *(k + i for i in perm))
+    return r.reshape(*lead, t2, z2, y2, x2, bg.block_volume, ns, nc)
+
+
+def from_blocked_coarse(blk: torch.Tensor,
+                        bg: CoarseBlockGeometry) -> torch.Tensor:
+    """[..., T2,Z2,Y2,X2, bv, ns, nc] → [..., ns, nc, T1,Z1,Y1,X1]."""
+    ns, nc = bg.fine_ns, bg.fine_nc
+    t2, z2, y2, x2 = bg.coarse_shape
+    lead = blk.shape[:-7]
+    k = len(lead)
+    r = blk.reshape(*lead, t2, z2, y2, x2, bg.bt, bg.bz, bg.by, bg.bx, ns, nc)
+    #      t2 z2 y2 x2 bt bz by bx ns nc  →  ns nc t2 bt z2 bz y2 by x2 bx
+    perm = [8, 9, 0, 4, 1, 5, 2, 6, 3, 7]
+    r = r.permute(*range(k), *(k + i for i in perm))
+    return r.reshape(*lead, ns, nc, *bg.fine_shape)
+
+
+def block_orthonormalize_coarse(v_blocked: torch.Tensor) -> torch.Tensor:
+    """v_blocked [nvec2, T2,Z2,Y2,X2, bv, ns, nc] → the same, orthonormal
+    within every (aggregate, coarse spin) over the (bv, nc) axes:
+    CholQR² on the aggregate-major stack [A, ns, nvec2, bv·nc]."""
+    n = v_blocked.shape[0]
+    bv, ns, nc = v_blocked.shape[-3:]
+    lead = v_blocked.shape[1:5]
+    v = v_blocked.reshape(n, -1, bv, ns, nc).permute(1, 3, 0, 2, 4)
+    v = cholqr_pass(cholqr_pass(v.reshape(-1, ns, n, bv * nc)))
+    v = v.reshape(-1, ns, n, bv, nc).permute(2, 0, 3, 1, 4)
+    return v.reshape(n, *lead, bv, ns, nc).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class CoarseTransfer:
+    """Aggregation between coarse layouts: restrict [ns, nc1, T1..X1] →
+    [ns, nvec2, T2..X2] with the coarse spin preserved, prolong back.  V
+    [nvec2, T2,Z2,Y2,X2, bv, ns, nc1], the JAX package's layout; the
+    construction stores it aggregate-major, [A, ns, nvec2, bv·nc1] (the
+    operand of the per-(aggregate, spin) products), and ``v`` becomes a
+    view of that."""
+
+    v: torch.Tensor
+    bg: CoarseBlockGeometry
+
+    def __post_init__(self):
+        bg = self.bg
+        n, bv, ns, nc = bg.nvec, bg.block_volume, bg.fine_ns, bg.fine_nc
+        mat = self.v.reshape(n, -1, bv, ns, nc).permute(1, 3, 0, 2, 4) \
+            .reshape(-1, ns, n, bv * nc)
+        object.__setattr__(self, "_mat", mat)
+        object.__setattr__(self, "v", mat.view(-1, ns, n, bv, nc).permute(
+            2, 0, 3, 1, 4).unflatten(1, tuple(bg.coarse_shape)))
+
+    def _blocked_rows(self, blk: torch.Tensor) -> tuple:
+        """[..., T2..X2, bv, ns, nc] → ([A, ns, B, bv·nc], the leading
+        shape (...) whose product is B)."""
+        bg = self.bg
+        lead = blk.shape[:-7]
+        bv, ns, nc = bg.block_volume, bg.fine_ns, bg.fine_nc
+        f = blk.reshape(-1, bg.coarse_volume, bv, ns, nc)
+        return f.permute(1, 3, 0, 2, 4).reshape(bg.coarse_volume, ns, -1,
+                                                 bv * nc), lead
+
+    @full_float32()
+    def restrict_blocked(self, blk: torch.Tensor) -> torch.Tensor:
+        """A blocked field [..., T2..X2, bv, ns, nc] → [..., ns, nvec2,
+        T2..X2]: S = Σ_(bv, nc) conj(V)·blk per (aggregate, spin), as the
+        row vectors f V† (V† a conjugate-transpose view)."""
+        bg = self.bg
+        f, lead = self._blocked_rows(blk)
+        s = torch.matmul(f, self._mat.mH)            # [A, ns, B, n]
+        s = s.permute(2, 1, 3, 0)
+        return s.reshape(*lead, bg.fine_ns, bg.nvec, *bg.coarse_shape)
+
+    def restrict(self, vc: torch.Tensor) -> torch.Tensor:
+        """[..., ns, nc1, T1..X1] → [..., ns, nvec2, T2..X2]."""
+        return self.restrict_blocked(to_blocked_coarse(vc, self.bg))
+
+    @full_float32()
+    def prolong(self, vc2: torch.Tensor) -> torch.Tensor:
+        """[..., ns, nvec2, T2..X2] → [..., ns, nc1, T1..X1]."""
+        bg = self.bg
+        lead = vc2.shape[:-6]
+        bv, ns, nc = bg.block_volume, bg.fine_ns, bg.fine_nc
+        w = vc2.reshape(-1, ns, bg.nvec, bg.coarse_volume).permute(3, 1, 0, 2)
+        f = torch.matmul(w, self._mat)                  # [A, ns, B, bv·nc]
+        f = f.reshape(bg.coarse_volume, ns, -1, bv, nc).permute(2, 0, 3, 1, 4)
+        blk = f.reshape(*lead, *bg.coarse_shape, bv, ns, nc)
+        return from_blocked_coarse(blk, bg)

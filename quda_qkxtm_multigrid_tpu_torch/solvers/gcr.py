@@ -31,13 +31,17 @@ def gcr_cycle(matvec: Callable, b: torch.Tensor, n_krylov: int = 10,
 
     A direction that orthogonalisation annihilates (|v|² below eps² of
     its norm before, eps² = 1e-10 in single precision, 1e-24 in double)
-    is skipped instead of amplifying round-off."""
+    is skipped instead of amplifying round-off, and so is one whose |v|²
+    is below the smallest normal number."""
     if precond is None:
         precond = lambda r: r        # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
     r = b if x0 is None else b - matvec(x)
     single = b.dtype in (torch.complex64, torch.float32)
     eps2 = 1e-10 if single else 1e-24
+    # a direction needs |v|² to be a normal number too (a residual below
+    # ~1e-19 in single precision): 1/|v| would overflow or mis-normalise
+    tiny = torch.finfo(torch.float32 if single else torch.float64).tiny
     zs, vs = [], []
     for _ in range(n_krylov):
         z = precond(r)
@@ -48,8 +52,8 @@ def gcr_cycle(matvec: Callable, b: torch.Tensor, n_krylov: int = 10,
             z = z - c * zj
             v = v - c * vj
         vnorm2 = norm2(v)
-        inv = torch.where(vnorm2 > eps2 * v0n2,
-                          1.0 / torch.sqrt(torch.clamp(vnorm2, min=1e-30)),
+        inv = torch.where((vnorm2 > eps2 * v0n2) & (vnorm2 > tiny),
+                          1.0 / torch.sqrt(torch.clamp(vnorm2, min=tiny)),
                           torch.zeros_like(vnorm2)).to(b.dtype)
         z = z * inv
         v = v * inv

@@ -21,9 +21,13 @@ def mr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     r = b if x0 is None else b - matvec(x)
     for _ in range(niter):
         ar = matvec(r)
-        d = cDotProduct(ar, ar)
-        alpha = torch.where(d.real > 0, cDotProduct(ar, r) / d,
-                            torch.zeros_like(d))
+        # a step needs |Ar|² to be a normal number: below it (a residual
+        # of ~1e-19 in float32, behind a near-exact coarser level) the
+        # quotient overflows, and the step is skipped
+        d = cDotProduct(ar, ar).real
+        alpha = torch.where(d > torch.finfo(d.dtype).tiny,
+                            cDotProduct(ar, r) / d,
+                            torch.zeros_like(r.flatten()[0]))
         alpha = omega * alpha
         x = x + alpha * r
         r = r - alpha * ar

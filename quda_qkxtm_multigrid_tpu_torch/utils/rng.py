@@ -14,7 +14,9 @@ import torch
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 
 
-def _normal_complex(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+def normal_complex(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """Complex Gaussian entries of ``shape`` (real parts drawn first,
+    then imaginary), on the generator's device."""
     rdt = torch.float64 if dtype == torch.complex128 else torch.float32
     re = torch.randn(shape, generator=gen, dtype=rdt, device=gen.device)
     im = torch.randn(shape, generator=gen, dtype=rdt, device=gen.device)
@@ -25,7 +27,7 @@ def random_spinor(gen: torch.Generator, geom: Geometry,
                   dtype=torch.complex128, batch_shape=()) -> torch.Tensor:
     """Gaussian random colour-spinor field [*batch_shape, 2, 4, 3, T, Z,
     W], drawn as one batch."""
-    return _normal_complex(gen, tuple(batch_shape) + (2, 4, 3)
+    return normal_complex(gen, tuple(batch_shape) + (2, 4, 3)
                            + geom.lat_shape, dtype)
 
 
@@ -45,7 +47,7 @@ def random_su3(gen: torch.Generator, batch_shape,
                dtype=torch.complex128) -> torch.Tensor:
     """Random SU(3) matrices [3, 3, *batch_shape]."""
     return su3_project_leading(
-        _normal_complex(gen, (3, 3) + tuple(batch_shape), dtype))
+        normal_complex(gen, (3, 3) + tuple(batch_shape), dtype))
 
 
 def random_gauge(gen: torch.Generator, geom: Geometry,

@@ -6,7 +6,7 @@ against JAX and against the probing oracle, and its application), the
 V-cycle, and ``mg_solve`` with the three outer solvers from the same
 null vectors (same iteration count, solution to 1e-8).  Also: a JAX
 ``vec_outfile`` read by the port, the converter for the JAX package's MG
-state, the MG options that are not ported, and ``bench_mg`` at a tiny
+state, the MG options that are refused, and ``bench_mg`` at a tiny
 size.  Tolerances are normwise relative.
 """
 
@@ -285,8 +285,9 @@ def test_vec_outfile_round_trip(tmp_path, flds):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(n_level=3), "three- and four-level MG item"),
-    (dict(vec_dtype="bf16"), "bf16 null-vector item"),
+    (dict(n_level=1), "QUDA_MAX_MG_LEVEL = 4"),
+    (dict(n_level=5), "QUDA_MAX_MG_LEVEL = 4"),
+    (dict(vec_dtype="f16"), "'f32' or 'bf16'"),
     (dict(solve_operator="compact"), "not ported on purpose"),
     (dict(outer_solver="cg"), "outer_solver")])
 def test_mg_params_refuse_what_is_not_ported(kw, match):

@@ -63,11 +63,59 @@ def test_mg_products_run_without_tf32(caller_allows_tf32):
     dof, cvol = BG.coarse_dof, BG.coarse_volume
     CoarseOperator(x=cplx(cvol, dof, dof), y=cplx(8, cvol, dof, dof),
                    bg=BG).apply(vc)
-    # CholQR² (2 products a pass), restrict, prolong, coarse apply (2)
-    assert len(seen) == 8
+    # CholQR² (2 products a pass), restrict, prolong, coarse apply (one
+    # product of the 9 stencil blocks side by side)
+    assert len(seen) == 7
     assert set(seen) == {(False, "highest")}
     assert torch.backends.cuda.matmul.allow_tf32 is True
     assert torch.get_float32_matmul_precision() == "high"
+
+
+def test_three_level_vcycle_runs_without_tf32(caller_allows_tf32,
+                                             monkeypatch):
+    """The coarse levels of a three-level V-cycle (the level-1 coarse
+    operator, the coarse transfer, the level-2 operator and its build)
+    run every product in full float32 with TF32 allowed by the caller;
+    ``torch.einsum`` is recorded too."""
+    from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import (
+        build_coarse_op_direct_coarse, coarse_diag_hops)
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+        MGParams, MGPreconditioner)
+    from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
+        CoarseBlockGeometry, CoarseTransfer, block_orthonormalize_coarse)
+    seen = caller_allows_tf32
+    einsum = torch.einsum
+
+    def spy(*args, **kwargs):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.get_float32_matmul_precision()))
+        return einsum(*args, **kwargs)
+    monkeypatch.setattr(torch, "einsum", spy)
+    rng = np.random.default_rng(6)
+
+    def cplx(*shape):
+        return torch.tensor(rng.standard_normal(shape)
+                            + 1j * rng.standard_normal(shape),
+                            dtype=torch.complex64)
+    dof, cvol = BG.coarse_dof, BG.coarse_volume
+    coarse = CoarseOperator(x=cplx(cvol, dof, dof) + 8 * torch.eye(dof),
+                            y=0.1 * cplx(8, cvol, dof, dof), bg=BG)
+    bg2 = CoarseBlockGeometry(tuple(BG.coarse_shape), 2, BG.nvec, 1, 1, 1,
+                              2, nvec=2)
+    v2 = block_orthonormalize_coarse(
+        cplx(2, *bg2.coarse_shape, bg2.block_volume, 2, BG.nvec))
+    tr2 = CoarseTransfer(v=v2, bg=bg2)
+    diag, hops = coarse_diag_hops(coarse)
+    coarse2 = build_coarse_op_direct_coarse(tr2, diag, hops, torch.complex64)
+    mg = MGPreconditioner(transfer=None, coarse=coarse, dirac=None,
+                          params=MGParams(n_level=3, coarse2_nkrylov=2),
+                          transfer2=tr2, coarse2=coarse2)
+    n0 = len(seen)
+    out = mg._coarse_vcycle(cplx(2, BG.nvec, *BG.coarse_shape))
+    assert bool(torch.isfinite(out).all())
+    assert len(seen) > n0 > 0
+    assert set(seen) == {(False, "highest")}
+    assert torch.backends.cuda.matmul.allow_tf32 is True
 
 
 def test_full_float32_keeps_the_per_backend_form():
