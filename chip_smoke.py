@@ -113,6 +113,32 @@ and does not print its last line:
     undeflated; (e) ``cli threep`` and ``cli loops`` at 8³×16.  Each
     stage's seconds, launches and peak memory.
 
+13. the production MG (``phase_mg_levels``): three and four levels and
+    bf16 null vectors at 32³×64, two levels at 24³×48, the light-mass
+    point (``bench_light``), ``cli twop --mg --mg-levels 3``.
+
+14. the rest of the Krylov solvers and the non-degenerate doublet
+    (``phase_krylov``): (a) at 32³×64 on the complex64 reference
+    operator through the K1 chain (tol 1e-7): ``pcg`` plain and with an
+    MR(4, ω 0.9) preconditioner, ``pipelined_cg`` on the complex128
+    chain, ``pipelined_cg_reliable`` (complex128 outer, complex64
+    inner), ``mpcg`` (s = 4, its block through K2 at n = 4) as the inner
+    solve of complex128 defect correction, ``simple_bicgstab`` and
+    ``bicgstab_l`` (L = 2) on matpc, ``gmresdr(20, 8)`` (capped),
+    ``multishift_cg_refined`` (12 shifts 1e-4…1), the chronological
+    guess from 8 nearby solutions (through K2 at n = 8), ``sd`` and
+    ``xsd`` (50 steps); every converged solve certified in complex128,
+    the batched applies against single K1 chains; (b) the heavy doublet
+    of cB211.072.64 (no clover) at 32³×64: CG through K2 at n = 2
+    certified by the plain complex128 doublet, K2's n = 2 bare hop
+    against plain, the 16³×32 complex128 identities (τ1γ5-hermiticity,
+    Schur, ε → 0); (c) the light-mass point at 24³×48 in complex128 (K1
+    f64): ``IncEigCG(8, 48)`` over a point source's 12 columns with each
+    harvest's restarts and matvecs, every column certified, then the
+    acceleration on the JAX test's isolated spectrum at that size, and
+    ``gmresdr`` (capped) against ``gcr``.  Each solve's seconds and K1 /
+    K2 launches.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -261,6 +287,21 @@ LIGHT_JAX = {"ladder": "κ 0.125: 18, 0.15: 29, 0.18: 72, 0.21: 1477",
              "cg": "1740 iterations, 1.05e-5",
              "mg_": "500 iterations (its cap), 8.60e-7",
              "mg_dmu_": "500 iterations (its cap), 8.45e-7"}
+
+# phase 14, the Krylov tail and the non-degenerate doublet
+KRYLOV_TOL = 1e-7
+MPCG_S, CHRONO_DEPTH = 4, 8      # K2 at n = s and at n = the history's depth
+DC_INNER = 1e-3                  # mpcg's inner tol under defect correction
+# GMRES-DR's restart residual drifts in complex64 and the solve stalls
+# near 4e-7 (the JAX function's too): its cycles are capped
+GMRESDR_RESTARTS = 10
+# the heavy doublet of ETMC's cB211.072.64 (Alexandrou et al., PRD 98
+# (2018) 054518): κ, μσ, μδ; no clover term (the doublet has none)
+NDEG = dict(kappa=0.1394265, mu=0.1246864, epsilon=0.1315052)
+LIGHT_KAPPA = 0.21               # bench_light's κ, with LIGHT_MU
+# the normal equations to 1e-8: at 1e-7 the full operator's residual is
+# 9.6e-7 here (κ 0.21 on a hot 24³×48 gauge), above TRUE_RES_LIMIT
+LIGHT_TOL, LIGHT_MAXITER, LIGHT_GMRESDR_CAP = 1e-8, 4000, 40
 
 
 def _import_port():
@@ -3182,6 +3223,448 @@ def phase_mg_levels(geom_dims, light_dims, probe_dims, cli_dims, mg6: dict):
     return {**launches, "err": err, "records": records}
 
 
+# ---- phase 14: the Krylov tail and the non-degenerate doublet ------------
+
+def _stamp(label: str, run_out: dict, extra: str = ""):
+    print(f"  {label}: {run_out['secs']:.3f} s, K1 launches {run_out['k1']}, "
+          f"K2 launches {run_out['k2']}{extra}", flush=True)
+
+
+def _counted(fn, launches: dict) -> dict:
+    """``fn()`` with the K1 / K2 counts set to 0 before it and read after
+    it (added to ``launches``), timed on the host with the device
+    synchronised."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc)
+    torch.cuda.synchronize()
+    dslash_ch.launches = dslash_ch_msrc.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1, k2 = dslash_ch.launches, dslash_ch_msrc.launches
+    launches["k1"] += k1
+    launches["k2"] += k2
+    return {"out": out, "secs": secs, "k1": k1, "k2": k2}
+
+
+def _batched_vs_singles(d, v, label: str) -> float:
+    """``matpc_dagm_batched`` on the block ``v`` (one K2 chain) against n
+    single K1 chains: the largest absolute difference, printed (the K2
+    sum order is K1's: expected 0)."""
+    import torch
+    got = d.matpc_dagm_batched(v)
+    want = torch.stack([d.matpc_dagm(a) for a in v])
+    diff = float((got - want).abs().max())
+    print(f"  {label}: K2 n = {v.shape[0]} chain vs {v.shape[0]} K1 chains, "
+          f"largest difference {diff:.3e}", flush=True)
+    _check(f"{label}: K2 chain vs K1 chains (normwise)", _rel(got, want),
+           MSRC_VS_K1_LIMIT)
+    return diff
+
+
+def _full_res(d128, x_p, b128) -> float:
+    """The complex128 full operator's |b − M x| / |b| after reconstruct."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.invert import true_residual
+    x = d128.reconstruct(x_p.to(torch.complex128), b128)
+    return float(true_residual(d128, x, b128)[1])
+
+
+def _krylov_reference(geom_dims, launches: dict, gen) -> dict:
+    """Phase 14 (a): the solvers at ``geom_dims`` on the reference
+    twisted-clover operator (complex64, the K1 chain, tol ``KRYLOV_TOL``;
+    module docstring), each with its iterations, seconds and launches,
+    every converged solve certified in complex128; the batched applies
+    against single chains; K1 / K2 on the chain's operands against
+    plain.  Returns the kernels' largest absolute errors."""
+    import numpy as np
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_problem
+    from quda_qkxtm_multigrid_tpu_torch.dirac import make_dirac
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.solvers import (
+        ChronoHistory, gmresdr, multishift_cg_refined, pipelined_cg,
+        pipelined_cg_reliable, sd)
+    from quda_qkxtm_multigrid_tpu_torch.solvers.ca import bicgstab_l, mpcg
+    from quda_qkxtm_multigrid_tpu_torch.solvers.cg import CGResult, cg
+    from quda_qkxtm_multigrid_tpu_torch.solvers.mr import mr
+    from quda_qkxtm_multigrid_tpu_torch.solvers.pcg import (
+        pcg, simple_bicgstab, xsd)
+    from quda_qkxtm_multigrid_tpu_torch.solvers.support import (
+        defect_correction)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    c128, tol, mx = torch.complex128, KRYLOV_TOL, SLICE_MAXITER
+    geom = Geometry(*geom_dims)
+    d, b = make_problem(geom, DEVICE, seed=7, dtype=torch.complex64)
+    d128 = make_dirac(d.u.to(c128), d.params, geom)
+    b128 = b.to(c128)
+    src = d.prepare(b)
+    rhs = d.matpc(src, dagger=True)
+    rhs128 = d128.matpc(d128.prepare(b128), dagger=True)
+
+    def solve(label, fn, converged=lambda o: True):
+        r = _counted(fn, launches)
+        o = r["out"]
+        cert = _full_res(d128, o.x, b128) if converged(o) else None
+        _stamp(f"(a) {label}", r, f", iterations {o.iters}" + (
+            f", c128 true_res {cert:.3e}" if cert is not None
+            else ", not converged"))
+        if not r["k1"]:
+            raise AssertionError(f"{label} launched no K1")
+        if cert is not None:
+            _check(f"{label}: true residual (complex128)", cert,
+                   TRUE_RES_LIMIT)
+        return o, r
+
+    solve("pcg", lambda: pcg(d.matpc_dagm, rhs, tol=tol, maxiter=mx))
+    solve("pcg, MR(4, ω 0.9) preconditioner",
+          lambda: pcg(d.matpc_dagm, rhs, tol=tol, maxiter=mx,
+                      precond=lambda r: mr(d.matpc_dagm, r, niter=4,
+                                           omega=0.9)))
+    # the pipelined recurrences floor near 1e-6 in complex64 (the JAX
+    # function's too): the plain one runs on the complex128 chain
+    solve("pipelined_cg (c128, K1 f64)",
+          lambda: pipelined_cg(d128.matpc_dagm, rhs128, tol=tol, maxiter=mx))
+    o, _ = solve("pipelined_cg_reliable (c128 outer K1 f64, c64 inner)",
+                 lambda: pipelined_cg_reliable(
+                     d128.matpc_dagm, d.matpc_dagm, rhs128, tol=tol,
+                     maxiter=mx))
+    print(f"    restarts {o.stats.restarts}", flush=True)
+
+    # s-step CG in complex64 floors near 7e-7 at s = 4 (the monomial
+    # basis): it runs as the inner solve of complex128 defect correction
+    def mpcg_dc():
+        x, r2, its, st = defect_correction(
+            d128.matpc_dagm,
+            lambda r, cap: mpcg(d.matpc_dagm, r, s=MPCG_S, tol=DC_INNER,
+                                max_blocks=max(1, cap // MPCG_S),
+                                matvec_batched=d.matpc_dagm_batched),
+            rhs128, torch.complex64, tol, mx, 20, 20, 20)
+        return CGResult(x, its, r2, st)
+    o, r = solve(f"mpcg s = {MPCG_S} (block through K2) in c128 defect "
+                 "correction", mpcg_dc)
+    print(f"    restarts {o.stats.restarts}", flush=True)
+    if not r["k2"]:
+        raise AssertionError("mpcg launched no K2")
+    _batched_vs_singles(d, rng.random_spinor(
+        gen, geom, torch.complex64, batch_shape=(MPCG_S,))[:, 0],
+        f"mpcg block, s = {MPCG_S}")
+    del rhs128, o
+    solve("simple_bicgstab on matpc",
+          lambda: simple_bicgstab(d.matpc, src, tol=tol, maxiter=mx))
+    solve("bicgstab_l L = 2 on matpc",
+          lambda: bicgstab_l(d.matpc, src, L=2, tol=tol, maxiter=mx))
+    solve(f"gmresdr(20, 8) on matpc, at most {GMRESDR_RESTARTS} cycles",
+          lambda: gmresdr(d.matpc, src, tol=tol, n_krylov=20, n_defl=8,
+                          max_restarts=GMRESDR_RESTARTS),
+          converged=lambda o: float(o.r2) <= tol * tol * float(
+              (src.abs() ** 2).sum()))
+
+    # multi-shift: each shift certified on its own system in complex128
+    shifts = [float(s) for s in np.geomspace(1e-4, 1.0, 12)]
+    r = _counted(lambda: multishift_cg_refined(d.matpc_dagm, rhs, shifts,
+                                               tol=tol, maxiter=mx), launches)
+    o = r["out"]
+    rhs_c = rhs.to(c128)
+    certs = [float((rhs_c - d128.matpc_dagm(x.to(c128)) - s * x.to(c128)
+                    ).norm() / rhs_c.norm()) for s, x in zip(shifts, o.x)]
+    _stamp("(a) multishift_cg_refined, 12 shifts 1e-4…1", r,
+           f", shifted pass {o.iters} iterations, refinements "
+           f"{o.refine_iters}, c128 (A + σ) residuals "
+           f"{min(certs):.2e}…{max(certs):.2e}")
+    _check("multishift: worst shift residual (complex128)", max(certs),
+           TRUE_RES_LIMIT)
+    del o, rhs_c
+
+    # the chronological guess over 8 nearby sources
+    chrono = ChronoHistory(depth=CHRONO_DEPTH)
+    for _ in range(CHRONO_DEPTH):
+        eta = rng.random_spinor(gen, geom, torch.complex64)
+        bj = b + (0.01 * b.norm() / eta.norm()) * eta   # 1 % of |b|
+        chrono.push(cg(d.matpc_dagm, d.matpc(d.prepare(bj), dagger=True),
+                       tol=tol, maxiter=mx).x)
+    r0 = _counted(lambda: cg(d.matpc_dagm, rhs, tol=tol, maxiter=mx),
+                  launches)
+    rg = _counted(lambda: chrono.guess(d.matpc_dagm, rhs,
+                                       matvec_batched=d.matpc_dagm_batched),
+                  launches)
+    if not rg["k2"]:
+        raise AssertionError("the history's applies launched no K2")
+    rc = _counted(lambda: cg(d.matpc_dagm, rhs, x0=rg["out"], tol=tol,
+                             maxiter=mx), launches)
+    cert = _full_res(d128, rc["out"].x, b128)
+    _stamp(f"(a) min_res_ext guess, history of {CHRONO_DEPTH}", rg)
+    _stamp("(a) CG from the guess", rc,
+           f", iterations {rc['out'].iters} against {r0['out'].iters} from "
+           f"zero, c128 true_res {cert:.3e}")
+    _check("chrono CG: true residual (complex128)", cert, TRUE_RES_LIMIT)
+    _batched_vs_singles(d, torch.stack(chrono._xs),
+                        f"history, depth {CHRONO_DEPTH}")
+    del chrono, r0, rg, rc
+
+    # sd and xsd: smoothers, 50 fixed steps
+    for label, fn in (("sd", sd), ("xsd", xsd)):
+        r = _counted(lambda: fn(d.matpc_dagm, rhs, tol=0.0, maxiter=50),
+                     launches)
+        o = r["out"]
+        red = float((rhs - d.matpc_dagm(o.x)).norm() / rhs.norm())
+        _stamp(f"(a) {label}, 50 steps", r, f", |r|/|b| {red:.3e}")
+        if not (o.iters == 50 and red < 1.0):   # finite and reduced
+            raise AssertionError(f"{label} did not reduce the residual")
+    return _chain_kernel_checks(d, geom, rng.random_spinor(
+        gen, geom, torch.complex64, batch_shape=(MPCG_S,)),
+        label="(a) tmc: ")
+
+
+def _krylov_doublet(geom_dims, check_dims, launches: dict, gen) -> float:
+    """Phase 14 (b): the doublet (``NDEG``) at ``geom_dims``, CG on
+    matpc†matpc through K2 at n = 2 certified by the plain complex128
+    ``m``, K2's n = 2 bare hop against plain on the solve's source; at
+    ``check_dims`` in complex128 (K1 f64) τ1γ5-hermiticity, the Schur
+    identities and the ε → 0 limit.  Returns K2's largest absolute
+    error."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_gauge_source
+    from quda_qkxtm_multigrid_tpu_torch.dirac import (
+        DiracNdeg, DiracParams, make_dirac, make_dirac_ndeg)
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_msrc, dslash_ch_msrc_reference)
+    from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    c128, tol = torch.complex128, KRYLOV_TOL
+    geom = Geometry(*geom_dims)
+    u, bp = make_gauge_source(geom, DEVICE, 7, torch.complex64)
+    ndp = DiracParams(kind="twisted-mass", **NDEG, use_kernels=True)
+    dn = make_dirac_ndeg(u, ndp, geom)
+    bd = torch.zeros((2,) + tuple(bp.shape), dtype=bp.dtype, device=DEVICE)
+    bd[0] = bp                     # the point source in the first flavour
+    del bp
+
+    def doublet_solve():
+        s = dn.prepare(bd)
+        return cg(dn.matpc_dagm, dn.matpc(s, dagger=True), tol=tol,
+                  maxiter=SLICE_MAXITER), s
+    r = _counted(doublet_solve, launches)
+    o, dsrc = r["out"]
+    if not r["k2"]:
+        raise AssertionError("the doublet launched no K2")
+    dplain = make_dirac_ndeg(u.to(c128), dataclasses.replace(
+        ndp, use_kernels=False), geom)
+    bd128 = bd.to(c128)
+    x = dplain.reconstruct(o.x.to(c128), bd128)
+    cert = float((bd128 - dplain.m(x)).norm() / bd128.norm())
+    _stamp("(b) doublet CG on matpc†matpc (K2 n = 2)", r,
+           f", iterations {o.iters}, c128 true_res (plain m) {cert:.3e}")
+    _check("doublet: true residual (complex128, plain m)", cert,
+           TRUE_RES_LIMIT)
+    del dplain, bd128, x, o
+    psi = DiracNdeg.to_ch(dsrc).to(torch.float32)
+    kw = dict(recon12=True, antiperiodic=dn.antiperiodic)
+    err = 0.0
+    for p in (0, 1):
+        for dag in (False, True):
+            g = dn._gauge_ch(torch.float32, p)
+            got = dslash_ch_msrc(g, psi, p, geom, dag, **kw)
+            torch.cuda.synchronize()
+            ref = dslash_ch_msrc_reference(g, psi, p, geom, dag, **kw)
+            err = max(err, _compare(
+                got, ref, f"(b) K2 n=2 bare hop parity {p} dagger {dag}",
+                F32_LIMIT))
+            del got, ref
+    del psi, dn, dsrc, bd, u
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cg_ = Geometry(*check_dims)
+    u16 = rng.random_gauge(torch.Generator(device=DEVICE).manual_seed(7),
+                           cg_, dtype=c128)
+    dn16 = make_dirac_ndeg(u16, ndp, cg_)
+    psi = torch.stack([rng.random_spinor(gen, cg_, c128) for _ in (0, 1)])
+    g5 = torch.tensor([1, 1, -1, -1], dtype=c128,
+                      device=DEVICE).reshape(4, 1, 1, 1, 1)
+    t1g5 = lambda v: (g5 * v).flip(0)                    # noqa: E731
+    _check("(b) 16³×32 τ1γ5-hermiticity (c128, K1 f64)",
+           _rel(t1g5(dn16.m(t1g5(psi))), dn16.mdag(psi)), F64_LIMIT)
+    bb = dn16.m(psi)
+    _check("(b) 16³×32 Schur: matpc x_p = prepare(M x)",
+           _rel(dn16.matpc(psi[:, 0]), dn16.prepare(bb)), F64_LIMIT)
+    _check("(b) 16³×32 Schur: reconstruct", _rel(
+        dn16.reconstruct(psi[:, 0], bb), psi), F64_LIMIT)
+    got = make_dirac_ndeg(u16, dataclasses.replace(ndp, epsilon=1e-30),
+                          cg_).m(psi)
+    for fl, sign in ((0, +1), (1, -1)):
+        ds = make_dirac(u16, DiracParams(kind="twisted-mass",
+                                         kappa=ndp.kappa, mu=ndp.mu,
+                                         flavor=sign, use_kernels=True), cg_)
+        _check(f"(b) 16³×32 ε → 0: flavour {sign:+d} vs Dirac",
+               _rel(got[fl], ds.m(psi[fl])), F64_LIMIT)
+    return err
+
+
+def _inc_eigcg_isolated(n: int):
+    """IncEigCG on the card where deflation can work: the JAX test's
+    spectrum (``test_sequence_accelerates``: eight isolated low modes
+    1e-3 · 2^k over a bulk in [0.5, 1]) as a diagonal operator of ``n``
+    complex128 entries, four Gaussian right-hand sides at tol 1e-8; each
+    solve certified, the space holds the eight modes, and the last solve
+    takes under half the first's iterations, as in the JAX test."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.solvers import IncEigCG
+    lows = 1e-3 * 2.0 ** torch.arange(8, dtype=torch.float64, device=DEVICE)
+    w = torch.cat([lows, torch.linspace(0.5, 1.0, n - 8, dtype=torch.float64,
+                                        device=DEVICE)])
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    inc = IncEigCG(lambda v: w * v, nev_per_solve=8, max_nev=24,
+                   lanczos_tol=1e-4)
+    iters, worst = [], 0.0
+    t0 = time.perf_counter()
+    for _ in range(4):
+        b = torch.randn(n, generator=gen, dtype=torch.float64,
+                        device=DEVICE).to(torch.complex128)
+        res = inc.solve(b, tol=1e-8, maxiter=3000)
+        worst = max(worst, float((b - w * res.x).norm() / b.norm()))
+        iters.append(res.iters)
+    torch.cuda.synchronize()
+    print(f"  (c) IncEigCG on the JAX test's isolated spectrum, n = {n}: "
+          f"{time.perf_counter() - t0:.3f} s, iterations {iters}, "
+          f"n_deflated {inc.n_deflated}, harvests "
+          + ", ".join(f"{h['restarts']} restarts / {h['matvecs']} matvecs "
+                      f"kept {h['kept']}" for h in inc.harvests), flush=True)
+    _check("(c) isolated spectrum: worst relative residual", worst, 1e-7)
+    if not (inc.n_deflated >= 8 and iters[-1] < 0.5 * iters[0]):
+        raise AssertionError(f"IncEigCG did not accelerate on isolated low "
+                             f"modes: {iters}, n_deflated {inc.n_deflated}")
+
+
+def _krylov_light(light_dims, launches: dict) -> float:
+    """Phase 14 (c): the light-mass point (κ ``LIGHT_KAPPA``, μ
+    ``LIGHT_MU``, c_sw 1.0) at ``light_dims`` in complex128 through K1
+    f64: ``IncEigCG(8, 48)`` over the 12 columns of a point source, each
+    column's iterations, harvests and certificate (the plain Lanczos
+    resolves none of this dense low spectrum, so the sequence does not
+    speed up: ``_inc_eigcg_isolated`` checks the acceleration on the JAX
+    test's spectrum instead); ``gmresdr`` on matpc with ``LIGHT_GMRESDR_CAP`` cycles
+    against ``gcr`` at about the same matvecs; K1 f64 against plain on
+    the operator's operands.  Returns K1's largest absolute error."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import fields
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_gauge_source
+    from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams, make_dirac
+    from quda_qkxtm_multigrid_tpu_torch.invert import true_residual
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_reference, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.solvers import IncEigCG, gcr, gmresdr
+
+    c128, tol = torch.complex128, LIGHT_TOL
+    lg = Geometry(*light_dims)
+    ul, _ = make_gauge_source(lg, DEVICE, 7, c128)
+    dl = make_dirac(ul, DiracParams(kind="twisted-clover", kappa=LIGHT_KAPPA,
+                                    mu=LIGHT_MU, csw=1.0, use_kernels=True),
+                    lg)
+    del ul
+
+    def column(col):
+        s_, c_ = divmod(col, 3)
+        return fields.point_source(lg, (0, 0, 0, 0), s_, c_, dtype=c128,
+                                   device=DEVICE)
+    inc = IncEigCG(dl.matpc_dagm, nev_per_solve=8, max_nev=48)
+    iters = []
+    t0 = time.perf_counter()
+    for col in range(12):
+        bc = column(col)
+        rc = dl.matpc(dl.prepare(bc), dagger=True)
+        n_h = len(inc.harvests)
+        rr = _counted(lambda: inc.solve(rc, tol=tol, maxiter=LIGHT_MAXITER),
+                      launches)
+        cert = float(true_residual(dl, dl.reconstruct(rr["out"].x, bc),
+                                   bc)[1])
+        iters.append(rr["out"].iters)
+        harv = "; ".join(f"harvest: {h['restarts']} restarts, "
+                         f"{h['matvecs']} matvecs, {h['secs']:.2f} s, kept "
+                         f"{h['kept']} of {h['found']}"
+                         for h in inc.harvests[n_h:])
+        _stamp(f"(c) IncEigCG column {col}", rr,
+               f", iterations {rr['out'].iters}, c128 true_res {cert:.3e}, "
+               f"n_deflated {inc.n_deflated}" + (f"; {harv}" if harv else ""))
+        _check(f"(c) column {col}: true residual (complex128)", cert,
+               TRUE_RES_LIMIT)
+    kept = sum(h["kept"] for h in inc.harvests)
+    print(f"  (c) IncEigCG 12 columns {time.perf_counter() - t0:.3f} s, "
+          f"iterations {iters} (last / first {iters[-1] / iters[0]:.3f}), "
+          f"{len(inc.harvests)} harvests kept {kept} pairs, n_deflated "
+          f"{inc.n_deflated}", flush=True)
+    del inc
+    gc.collect()
+    _inc_eigcg_isolated(lg.half_volume * 12)
+
+    bc = column(0)
+    sl = dl.prepare(bc)
+    rg = _counted(lambda: gmresdr(dl.matpc, sl, tol=tol, n_krylov=20,
+                                  n_defl=8, max_restarts=LIGHT_GMRESDR_CAP),
+                  launches)
+    gm = rg["out"]
+    gm_conv = float(gm.r2) <= tol * tol * float((sl.abs() ** 2).sum())
+    gm_res = float(true_residual(dl, dl.reconstruct(gm.x, bc), bc)[1])
+    n_gcr = -(-gm.iters // 20)
+    rgc = _counted(lambda: gcr(dl.matpc, sl, tol=tol, n_krylov=20,
+                               max_restarts=n_gcr), launches)
+    gcr_res = float(true_residual(dl, dl.reconstruct(rgc["out"].x, bc),
+                                  bc)[1])
+    _stamp(f"(c) gmresdr(20, 8), at most {LIGHT_GMRESDR_CAP} cycles", rg,
+           f", iterations {gm.iters}, converged {gm_conv}, c128 true_res "
+           f"{gm_res:.3e}")
+    _stamp(f"(c) gcr(20), {n_gcr} cycles", rgc,
+           f", iterations {rgc['out'].iters}, c128 true_res {gcr_res:.3e}")
+    if gm_conv:
+        _check("(c) gmresdr: true residual (complex128)", gm_res,
+               TRUE_RES_LIMIT)
+    ops = dl._operands(torch.float64)
+    v = to_channels(sl)
+    err = 0.0
+    for p in (0, 1):
+        got = dslash_ch(ops["g"][p], v, p, lg, **dl._hop_kw())
+        torch.cuda.synchronize()
+        ref = dslash_ch_reference(ops["g"][p], v, p, lg, **dl._hop_kw())
+        err = max(err, _compare(got, ref, f"(c) K1 f64 bare hop parity {p}",
+                                F64_LIMIT))
+    return err
+
+
+def phase_krylov(geom_dims, check_dims, light_dims):
+    """Phase 14: the rest of the Krylov solvers and the non-degenerate
+    doublet, (a) ``_krylov_reference``, (b) ``_krylov_doublet``, (c)
+    ``_krylov_light`` (module docstring).  Returns the K1 / K2 launches
+    and the kernels' largest absolute errors."""
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14: the Krylov tail and the non-degenerate doublet; memory "
+          f"in use at its start {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    launches = {"k1": 0, "k2": 0}
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    err = dict(_krylov_reference(geom_dims, launches, gen))
+    for part in (lambda: {"k2": _krylov_doublet(geom_dims, check_dims,
+                                                launches, gen)},
+                 lambda: {"k1": _krylov_light(light_dims, launches)}):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, v in part().items():
+            err[k] = max(err[k], v)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 14 {time.perf_counter() - t_phase:.1f} s; K1 launches "
+          f"{launches['k1']}, K2 launches {launches['k2']}", flush=True)
+    return {**launches, "err": err}
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -3215,6 +3698,7 @@ def main():
     del twop["u"]
     lv = phase_mg_levels(SLICE_GEOM, LIGHT_GEOM, LIGHT_PROBE_GEOM, CLI_GEOM,
                          mg6)
+    kr = phase_krylov(SLICE_GEOM, CHECK_GEOM, LIGHT_GEOM)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
     k5 = mesh_runs[True]["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
@@ -3228,7 +3712,8 @@ def main():
           f"path {k4}; K5: sharded path {k5}; 2pt path: K1 {twop['k1']}, "
           f"K2 {twop['k2']}; 3pt and loops: K1 {thrp['k1']}, K2 "
           f"{thrp['k2']}; production MG (phase 13): K1 {lv['k1']}, K2 "
-          f"{lv['k2']}")
+          f"{lv['k2']}; Krylov tail and doublet (phase 14): K1 {kr['k1']}, "
+          f"K2 {kr['k2']}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -3243,17 +3728,19 @@ def main():
         entry("dslash_ch", KERNEL_SOURCE,
               f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
               k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8
-              + twop["k1"] + thrp["k1"] + lv["k1"],
+              + twop["k1"] + thrp["k1"] + lv["k1"] + kr["k1"],
               max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
                   vk["v2"][3], tbc["k1"], twop["err"]["k1"],
-                  thrp["err"]["k1"], lv["err"]["k1"]), k["ms"],
+                  thrp["err"]["k1"], lv["err"]["k1"], kr["err"]["k1"]),
+              k["ms"],
               k["plain_ms"],
               k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
               launches["dslash_ch_msrc"] + twop["k2"] + thrp["k2"]
-              + lv["k2"],
+              + lv["k2"] + kr["k2"],
               max(k2["max_abs_err"], err_time["chain f32"], tbc["k2"],
-                  twop["err"]["k2"], thrp["err"]["k2"], lv["err"]["k2"]),
+                  twop["err"]["k2"], thrp["err"]["k2"], lv["err"]["k2"],
+                  kr["err"]["k2"]),
               k2["ms"], k2["plain_ms"], k2["bound"]),
         entry("dslash_ch_bf16", BF16_KERNEL_SOURCE,
               f"{BF16_KERNEL_REPLACES}; {V2_BF16_REPLACES}",

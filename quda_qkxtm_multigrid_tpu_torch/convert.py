@@ -51,10 +51,12 @@ def params_from_jax(p) -> DiracParams:
     """The port's ``DiracParams`` for a JAX package ``DiracParams`` (read
     by attribute; this module does not import it): ``use_pallas`` maps
     to ``use_kernels`` and ``pallas_bf16`` to ``kernel_bf16``.  A
-    non-degenerate twist (``epsilon``) has no counterpart yet."""
-    if getattr(p, "epsilon", 0.0):
-        raise ValueError("DiracParams.epsilon (DiracNdeg) is not ported")
-    return DiracParams(kind=p.kind, kappa=p.kappa, mu=p.mu, csw=p.csw,
+    non-degenerate ``epsilon`` crosses too: such parameters build a
+    ``dirac.DiracNdeg`` (``make_dirac_ndeg``), and ``make_dirac`` refuses
+    them.  A doublet field [2f, 2p, 4, 3, T, Z, W] crosses as any field
+    (``spinor_from_numpy``)."""
+    return DiracParams(kind=p.kind, kappa=p.kappa, mu=p.mu,
+                       epsilon=p.epsilon, csw=p.csw,
                        flavor=p.flavor, matpc_parity=p.matpc_parity,
                        asymmetric=p.asymmetric, use_kernels=p.use_pallas,
                        kernel_bf16=p.pallas_bf16)

@@ -31,6 +31,14 @@ the doubled links (``ops.dslash_kernel.antiperiodic_t``, which raises on
 a gauge that is neither periodic nor antiperiodic) and every recon-12
 hop restores the sign, so the fused operator is the plain one.
 
+``DiracNdeg`` is the non-degenerate twisted-mass doublet (the ε τ1
+coupling of two flavours): its hop is flavour-diagonal, and with
+``use_kernels`` both flavours of a complex64 doublet go through one
+multi-source launch (``dslash_ch_msrc`` at n = 2, bare: the gauge read
+once for both), a complex128 one through the double ``dslash_ch`` once a
+flavour; the flavour-mixing A⁻¹ runs in PyTorch between the hops
+(``ops.twist.ndeg_twist_apply_ch``).
+
 ``kernel_bf16`` is the bf16 operand tier (the JAX package's
 ``pallas_bf16``, "the 'half' analogue"): the chain reads bfloat16 gauge
 and clover-inverse channels and keeps float32 spinors, and ``dslash``
@@ -119,6 +127,7 @@ class DiracParams:
     kind: str = "wilson"        # wilson | twisted-mass | clover | twisted-clover
     kappa: float = 0.12
     mu: float = 0.0             # twisted mass
+    epsilon: float = 0.0        # non-degenerate splitting (DiracNdeg)
     csw: float = 0.0            # clover coefficient
     flavor: int = +1            # twist sign
     matpc_parity: int = 0       # 0 = even-even, 1 = odd-odd
@@ -432,6 +441,19 @@ class Dirac(nn.Module):
             return from_channels(out, (4, 3))
         return self.matpc(self.matpc(psi_p), dagger=True)
 
+    def matpc_dagm_batched(self, psi_b: torch.Tensor) -> torch.Tensor:
+        """``matpc_dagm`` of each field of a batch [n, 4, 3, T, Z, W]: on
+        the fused chain in float32 one multi-source chain for all n (four
+        ``dslash_ch_msrc`` launches, the sum order of n single chains),
+        otherwise one field at a time (a complex128 operator: the double
+        ``dslash_ch``, as the multi-source kernel is float32 only)."""
+        if self._has_fused_matpc:
+            ch = torch.stack([self._chain_channels(v) for v in psi_b])
+            if ch.dtype == torch.float32:
+                out = self._fused_matpc_dagm_ch(ch, hop=dslash_ch_msrc)
+                return torch.stack([from_channels(o, (4, 3)) for o in out])
+        return torch.stack([self.matpc_dagm(v) for v in psi_b])
+
     # ---- Schur source prep / solution rebuild ------------------------
     def prepare(self, b: torch.Tensor) -> torch.Tensor:
         """b [2,...] → preconditioned-system source on the solve parity."""
@@ -487,9 +509,183 @@ def make_dirac(u: torch.Tensor, params: DiracParams, geom: Geometry,
                clover=None, clover_inv=None) -> Dirac:
     """Build the operator bundle on ``u``'s device.  For clover kinds the
     clover term and its (twisted) inverse are made from the field
-    strength unless given."""
+    strength unless given.  A non-degenerate ``epsilon`` raises: that
+    doublet is ``make_dirac_ndeg``'s."""
+    if params.epsilon != 0.0:
+        raise ValueError(f"epsilon={params.epsilon}: the non-degenerate "
+                         "doublet is make_dirac_ndeg's DiracNdeg")
     if params.has_clover and clover is None:
         clover, clover_inv = _cl.make_clover_pair(u, geom, params)
     u_doubled = _dsl.double_gauge(u, geom) if params.use_kernels else None
     return Dirac(u, params, geom, clover=clover, clover_inv=clover_inv,
                  u_doubled=u_doubled)
+
+
+class DiracNdeg(nn.Module):
+    """Non-degenerate twisted-mass doublet: two flavours coupled by the
+    ε τ1 term (the reference's DiracTwistedMass doublet path,
+    lib/dslash_ndeg_twisted_mass.cu; oracle tm_ndeg_mat / tm_ndeg_matpc,
+    tests/wilson_dslash_reference.cpp), the JAX package's ``DiracNdeg``.
+
+    Fields are doublets [2(flavour), 2(parity), 4, 3, T, Z, W].  The hop
+    is flavour-diagonal: it is the hop of ``wilson``, a Wilson ``Dirac``
+    on the same links (its gauge channels and the t boundary it reads
+    from them, ``antiperiodic_t``); A = 1 + i 2κμ γ5 τ3 − 2κε τ1 mixes
+    the flavours site by site (``ops.twist.ndeg_twist_apply``).  No
+    clover term.  With ``use_kernels`` the hops run on planar-channel
+    doublets [2f, T, 24, Z, W] (module docstring), and ``matpc`` /
+    ``matpc_dagm`` stay on channels from the first hop to the last."""
+
+    def __init__(self, u: torch.Tensor, params: DiracParams, geom: Geometry,
+                 u_doubled=None):
+        super().__init__()
+        self.params = params
+        self.geom = geom
+        self.wilson = Dirac(u, DiracParams(kind="wilson", kappa=params.kappa,
+                                           use_kernels=params.use_kernels),
+                            geom, u_doubled=u_doubled)
+
+    def forward(self, psi: torch.Tensor) -> torch.Tensor:
+        return self.m(psi)
+
+    @property
+    def antiperiodic(self) -> bool:
+        return self.wilson.antiperiodic
+
+    def _gauge_ch(self, dtype: torch.dtype, parity: int) -> torch.Tensor:
+        """Recon-12 gauge channels of ``parity`` in the real ``dtype``."""
+        return self.wilson._operands(dtype)["g"][parity]
+
+    def _hop_ch(self, psi_ch: torch.Tensor, parity: int,
+                dagger: bool = False) -> torch.Tensor:
+        """The bare hop of both flavours [2f, T, 24, Z, W]: one
+        multi-source launch in float32, the double single-source kernel
+        once a flavour in float64."""
+        g = self._gauge_ch(psi_ch.dtype, parity)
+        kw = self.wilson._hop_kw()
+        if psi_ch.dtype == torch.float32:
+            return dslash_ch_msrc(g, psi_ch, parity, self.geom, dagger, **kw)
+        return torch.stack([dslash_ch(g, v, parity, self.geom, dagger, **kw)
+                            for v in psi_ch])
+
+    @staticmethod
+    def to_ch(psi_f: torch.Tensor) -> torch.Tensor:
+        """Complex doublet [2f, 4, 3, T, Z, W] → channels [2f, T, 24, Z, W]."""
+        return torch.stack([to_channels(v) for v in psi_f])
+
+    @staticmethod
+    def from_ch(psi_ch: torch.Tensor) -> torch.Tensor:
+        return torch.stack([from_channels(v, (4, 3)) for v in psi_ch])
+
+    def _a_inv_ch(self, psi_ch: torch.Tensor, dagger: bool = False):
+        p = self.params
+        return _twist.ndeg_twist_apply_ch(psi_ch, p.kappa, p.mu, p.epsilon,
+                                          dagger, inverse=True)
+
+    # ---- hopping and A ----------------------------------------------
+    def dslash(self, psi_f_opp: torch.Tensor, parity: int,
+               dagger: bool = False) -> torch.Tensor:
+        """Flavour-diagonal Wilson hop of psi_f_opp [2f, 4, 3, T, Z, W]."""
+        if self.params.use_kernels:
+            return self.from_ch(self._hop_ch(self.to_ch(psi_f_opp), parity,
+                                             dagger))
+        return torch.stack([self.wilson.dslash(v, parity, dagger)
+                            for v in psi_f_opp])
+
+    def a_apply(self, psi_f_p: torch.Tensor,
+                dagger: bool = False) -> torch.Tensor:
+        p = self.params
+        return _twist.ndeg_twist_apply(psi_f_p, p.kappa, p.mu, p.epsilon,
+                                       dagger)
+
+    def a_inv_apply(self, psi_f_p: torch.Tensor,
+                    dagger: bool = False) -> torch.Tensor:
+        p = self.params
+        return _twist.ndeg_twist_apply(psi_f_p, p.kappa, p.mu, p.epsilon,
+                                       dagger, inverse=True)
+
+    # ---- full operator ----------------------------------------------
+    def m(self, psi: torch.Tensor, dagger: bool = False) -> torch.Tensor:
+        k = self.params.kappa
+        out = [self.a_apply(psi[:, p], dagger)
+               - k * self.dslash(psi[:, 1 - p], p, dagger) for p in (0, 1)]
+        return torch.stack(out, dim=1)
+
+    def mdag(self, psi: torch.Tensor) -> torch.Tensor:
+        return self.m(psi, dagger=True)
+
+    def mdagm(self, psi: torch.Tensor) -> torch.Tensor:
+        return self.mdag(self.m(psi))
+
+    # ---- even-odd preconditioned operator ----------------------------
+    def _matpc_ch(self, psi_ch: torch.Tensor, dagger: bool = False):
+        """``matpc`` on channel doublets: two hops, each with an A⁻¹ (the
+        dagger: A⁻¹† before each)."""
+        pr, k = self.params.matpc_parity, self.params.kappa
+        if not dagger:
+            t = self._a_inv_ch(self._hop_ch(psi_ch, 1 - pr))
+            return psi_ch - (k * k) * self._a_inv_ch(self._hop_ch(t, pr))
+        t = self._hop_ch(self._a_inv_ch(psi_ch, True), 1 - pr, True)
+        return psi_ch - (k * k) * self._hop_ch(self._a_inv_ch(t, True), pr,
+                                               True)
+
+    def _matpc_dagm_ch(self, psi_ch: torch.Tensor) -> torch.Tensor:
+        return self._matpc_ch(self._matpc_ch(psi_ch), True)
+
+    def matpc(self, psi_f_p: torch.Tensor, dagger: bool = False):
+        """Symmetric even-odd Schur operator on one parity of the
+        doublet: 1 − κ² A_p⁻¹ D A_{1−p}⁻¹ D."""
+        if self.params.use_kernels:
+            return self.from_ch(self._matpc_ch(self.to_ch(psi_f_p), dagger))
+        pr, k = self.params.matpc_parity, self.params.kappa
+        if not dagger:
+            t = self.dslash(psi_f_p, 1 - pr)
+            t = self.a_inv_apply(t)
+            t = self.dslash(t, pr)
+            return psi_f_p - (k * k) * self.a_inv_apply(t)
+        t = self.a_inv_apply(psi_f_p, dagger=True)
+        t = self.dslash(t, 1 - pr, dagger=True)
+        t = self.a_inv_apply(t, dagger=True)
+        t = self.dslash(t, pr, dagger=True)
+        return psi_f_p - (k * k) * t
+
+    def matpc_dagm(self, psi_f_p: torch.Tensor) -> torch.Tensor:
+        if self.params.use_kernels:
+            return self.from_ch(self._matpc_dagm_ch(self.to_ch(psi_f_p)))
+        return self.matpc(self.matpc(psi_f_p), dagger=True)
+
+    # ---- Schur source prep / solution rebuild ------------------------
+    def prepare(self, b: torch.Tensor) -> torch.Tensor:
+        """b [2f, 2p, ...] → doublet source on the solve parity."""
+        pr, k = self.params.matpc_parity, self.params.kappa
+        src = b[:, pr] + k * self.dslash(self.a_inv_apply(b[:, 1 - pr]), pr)
+        return self.a_inv_apply(src)
+
+    def reconstruct(self, x_f_p: torch.Tensor, b: torch.Tensor):
+        pr, k = self.params.matpc_parity, self.params.kappa
+        x_other = self.a_inv_apply(b[:, 1 - pr]
+                                   + k * self.dslash(x_f_p, 1 - pr))
+        parts = [None, None]
+        parts[pr] = x_f_p
+        parts[1 - pr] = x_other
+        return torch.stack(parts, dim=1)
+
+    def flops_per_mat(self) -> int:
+        """Analytic flops of one application of the doublet's m: both
+        flavours' hop (1320 a site) and A (96 a site)."""
+        return 2 * (_dsl.WILSON_DSLASH_FLOPS_PER_SITE + 96) * self.geom.volume
+
+
+def make_dirac_ndeg(u: torch.Tensor, params: DiracParams,
+                    geom: Geometry) -> DiracNdeg:
+    """The non-degenerate doublet on ``u``'s device (``params.kind``
+    "twisted-mass" with ε ≠ 0: the ε τ1 coupling tells it from two
+    independent degenerate operators).  Refuses μ = 0 or ε = 0, as the
+    JAX package does, and the bf16 operand tier, which it has no chain
+    for."""
+    if params.mu == 0.0 or params.epsilon == 0.0:
+        raise ValueError("ndeg doublet requires mu != 0 and epsilon != 0")
+    if params.kernel_bf16:
+        raise ValueError("the doublet has no bf16 operand tier")
+    u_doubled = _dsl.double_gauge(u, geom) if params.use_kernels else None
+    return DiracNdeg(u, params, geom, u_doubled=u_doubled)

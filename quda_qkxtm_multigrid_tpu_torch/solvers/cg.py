@@ -16,7 +16,7 @@ import torch
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import (
     axpy, norm2, reDotProduct, xpay)
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import (
-    ReliableStats, defect_correction)
+    ReliableStats, defect_correction, heavy_quark_residual_sq)
 
 
 class CGResult(NamedTuple):
@@ -29,13 +29,21 @@ class CGResult(NamedTuple):
 def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        tol: float = 1e-10, maxiter: int = 1000,
        abs_b2: Optional[torch.Tensor] = None,
-       allreduce: Optional[Callable] = None) -> CGResult:
+       allreduce: Optional[Callable] = None,
+       tol_hq: Optional[float] = None) -> CGResult:
     """Solve A x = b, A hermitian positive definite.
 
     Stops on |r|² ≤ tol²·|b|² or after ``maxiter`` iterations; ``iters``
     counts the matvecs of the loop, as the JAX package counts them.
-    ``allreduce`` sums each local reduction over the ranks of a sharded
-    field (``parallel.mesh.TMesh.allreduce``); None leaves them local."""
+    With ``tol_hq`` the heavy-quark residual hq(x, r) must also fall
+    below it (both conditions of the bitmask, quda.h:252-260; fields in
+    the canonical complex layout [..., 4, 3, T, Z, W]); the two tests
+    reach the host in one read.  ``allreduce`` sums each local reduction
+    over the ranks of a sharded field (``parallel.mesh.TMesh.allreduce``);
+    None leaves them local."""
+    if tol_hq is not None and allreduce is not None:
+        raise ValueError("tol_hq has no sharded form: its site mean would "
+                         "stay on this rank's slab")
     red = (lambda v: v) if allreduce is None else allreduce
     if x0 is None:
         x = torch.zeros_like(b)
@@ -48,7 +56,14 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     r2 = red(norm2(r))
     p = r.clone()
     k = 0
-    while k < maxiter and bool(r2 > target):
+
+    def not_done(r2):
+        if tol_hq is None:
+            return bool(r2 > target)
+        return bool((r2 > target)
+                    | (heavy_quark_residual_sq(x, r) > tol_hq * tol_hq))
+
+    while k < maxiter and not_done(r2):
         ap = matvec(p)
         alpha = r2 / red(reDotProduct(p, ap))
         axpy(alpha, p, x)

@@ -250,9 +250,13 @@ def test_params_from_jax_carries_the_bf16_flag(flds):
     assert (p.use_kernels, p.kernel_bf16, p.kind, p.kappa, p.mu, p.csw) == (
         True, True, "twisted-clover", 0.115, 0.05, 1.0)
     assert dirac_from_numpy(flds[0], jp, GT).params == p
+    # a non-degenerate doublet's parameters cross; the degenerate
+    # operator refuses them (the doublet is make_dirac_ndeg's)
+    nd = params_from_jax(jd.DiracParams(kind="twisted-mass", mu=0.1,
+                                        epsilon=0.05))
+    assert nd.epsilon == 0.05
     with pytest.raises(ValueError, match="epsilon"):
-        params_from_jax(jd.DiracParams(kind="twisted-mass", mu=0.1,
-                                       epsilon=0.05))
+        dirac_from_numpy(flds[0], nd, GT)
 
 
 # ---- the wrapper: dtype rules and dispatch -------------------------------
