@@ -139,6 +139,25 @@ and does not print its last line:
     ``gmresdr`` (capped) against ``gcr``.  Each solve's seconds and K1 /
     K2 launches.
 
+15. the gauge utilities, domain-wall / Möbius and staggered fermions
+    (``phase_dw_staggered``) at 32³×64 on a random complex128 gauge of
+    seed ``P15_SEED`` with the antiperiodic t boundary: (a) the
+    topological charge before and after a random gauge transformation,
+    ``gauge_fix_ovr`` (Coulomb, 40 iterations) and ``gauge_fix_fft``
+    (Landau and Coulomb, 60): θ before and after, the plaquette
+    unchanged, the seconds; (b) Shamir DWF at Ls = 8 (M5 1.5, mferm
+    0.1): CG on the normal equations of ``dw4d_mat`` in complex64 on
+    channels, every hop one K2 launch at n = Ls, certified by the plain
+    complex128 operator, refined by complex128 defect correction (the
+    outer on K1 f64 a slice) where complex64 alone does not certify;
+    (c) the same for Möbius (M5 −1.5, b5 1.5, c5 0.5) and zMöbius
+    (per-s b5, c5) on M_pc†M_pc; (d) asqtad links from the thin links
+    with the η phases, CG on ``staggered_matpc`` at mass 0.1 (plain
+    PyTorch), certified likewise; (e) K2 at n = Ls against its plain
+    version, both directions, on antiperiodic and periodic links, K1
+    f64 on a slice, and K2 at n = Ls timed with its byte bound.  Each
+    solve's iterations, seconds and K1 / K2 launches.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -302,6 +321,21 @@ LIGHT_KAPPA = 0.21               # bench_light's κ, with LIGHT_MU
 # the normal equations to 1e-8: at 1e-7 the full operator's residual is
 # 9.6e-7 here (κ 0.21 on a hot 24³×48 gauge), above TRUE_RES_LIMIT
 LIGHT_TOL, LIGHT_MAXITER, LIGHT_GMRESDR_CAP = 1e-8, 4000, 40
+
+# phase 15, the gauge utilities, domain-wall / Möbius and staggered
+P15_SEED = 15
+CHARGE_LIMIT, PLAQ_LIMIT = 1e-10, 1e-12
+# the JAX tests' iteration counts and θ gates (tests/test_io.py:195-220)
+OVR_ITERS, OVR_DROP = 40, 0.5
+FFT_ITERS, FFT_DROP = 60, 0.05
+DW_LS = 8
+SHAMIR = dict(m5=1.5, mferm=0.1)          # tests/test_staggered_dw.py:132-147
+MOBIUS = dict(m5=-1.5, mferm=0.1, b5=1.5, c5=0.5)  # tests/test_mobius.py:17-21
+ZMOBIUS_B5 = (1.2, 1.8)                   # per-s linspace over Ls (the
+ZMOBIUS_C5 = (0.2, 0.8)                   # JAX zMöbius test)
+STAG_MASS = 0.1                           # tests/test_staggered_dw.py:79-87
+DW_TOL, DW_MAXITER = 1e-7, 6000
+DC_INNER_DW = 1e-4        # the K2 inner solve's tol under defect correction
 
 
 def _import_port():
@@ -3665,6 +3699,305 @@ def phase_krylov(geom_dims, check_dims, light_dims):
     return {**launches, "err": err}
 
 
+def _gauge_utilities(u, geom, gen) -> dict:
+    """Phase 15 (a): the topological charge before and after a random
+    gauge transformation; ``gauge_fix_ovr`` (Coulomb) and
+    ``gauge_fix_fft`` (Landau and Coulomb): θ before and after, the
+    plaquette unchanged, the seconds of each."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops import gauge as G
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    secs = {}
+    t0 = time.perf_counter()
+    q0 = float(G.topological_charge(u, geom))
+    g = rng.random_su3(gen, (2,) + geom.lat_shape, u.dtype).movedim(
+        (0, 1), (1, 2))
+    q1 = float(G.topological_charge(G.gauge_transform(u, g, geom), geom))
+    del g
+    secs["charge"] = time.perf_counter() - t0
+    print(f"  (a) topological charge {q0:.12e}, after a random gauge "
+          f"transformation {q1:.12e} ({secs['charge']:.3f} s for both)",
+          flush=True)
+    _check("(a) charge: gauge invariance (relative)",
+           abs(q1 - q0) / max(abs(q0), 1.0), CHARGE_LIMIT)
+    p0 = float(G.plaquette(u, geom)[0])
+    for label, fix, n, drop in (
+            ("ovr, gauge_dir 3", lambda n: G.gauge_fix_ovr(
+                u, geom, gauge_dir=3, n_iter=n), OVR_ITERS, OVR_DROP),
+            ("fft, gauge_dir 4", lambda n: G.gauge_fix_fft(
+                u, geom, gauge_dir=4, n_iter=n), FFT_ITERS, FFT_DROP),
+            ("fft, gauge_dir 3", lambda n: G.gauge_fix_fft(
+                u, geom, gauge_dir=3, n_iter=n), FFT_ITERS, FFT_DROP)):
+        th0 = float(fix(0)[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        uf, th1 = fix(n)
+        th1 = float(th1)
+        secs[label] = time.perf_counter() - t0
+        p1 = float(G.plaquette(uf, geom)[0])
+        del uf
+        print(f"  (a) gauge_fix_{label}: θ {th0:.6e} -> {th1:.6e} after {n} "
+              f"iterations ({th1 / th0:.4f}), {secs[label]:.3f} s; "
+              f"plaquette {p0:.15f} -> {p1:.15f}", flush=True)
+        _check(f"(a) {label}: θ after / before", th1 / th0, drop)
+        _check(f"(a) {label}: plaquette unchanged (relative)",
+               abs(p1 - p0) / abs(p0), PLAQ_LIMIT)
+    return secs
+
+
+def _certified_solve(label: str, solve64, matvec_hi, inner, plain, b128,
+                     launches: dict, inner_name: str = "K2") -> dict:
+    """A phase-15 solve: ``solve64()`` (the complex64 CG to ``DW_TOL``
+    through the kernels; returns (x, iterations)), certified by the plain
+    complex128 operator ``plain``: |b − A x| / |b|.  Where that exceeds
+    ``TRUE_RES_LIMIT`` the complex64 solution is refined by
+    ``support.defect_correction`` (``matvec_hi`` the complex128 operator,
+    ``inner(r, cap)`` the complex64 inner solve) and certified again."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.solvers.support import (
+        defect_correction)
+    r = _counted(solve64, launches)
+    x, iters = r["out"]
+    x = x.to(torch.complex128)
+    bn = float(b128.norm())
+    cert = float((b128 - plain(x)).norm()) / bn
+    _stamp(f"{label}: complex64 CG (tol {DW_TOL:.0e})", r,
+           f", iterations {iters} ({r['secs'] * 1e3 / max(iters, 1):.2f} "
+           f"ms an iteration), c128 true_res (plain) {cert:.3e}")
+    out = {"iters": iters, "secs": r["secs"], "k1": r["k1"], "k2": r["k2"],
+           "true_res": cert, "route": "complex64 alone"}
+    if cert > TRUE_RES_LIMIT:
+        rhs = b128 - matvec_hi(x)
+        tol = DW_TOL * bn / float(rhs.norm())
+        rd = _counted(lambda: defect_correction(
+            matvec_hi, inner, rhs, torch.complex64, tol, DW_MAXITER, 20, 1,
+            10), launches)
+        dx, _, it_dc, st = rd["out"]
+        x = x + dx
+        cert = float((b128 - plain(x)).norm()) / bn
+        _stamp(f"{label}: + complex128 defect correction", rd,
+               f", {st.restarts} restarts, inner iterations {it_dc} "
+               f"({rd['secs'] * 1e3 / max(it_dc, 1):.2f} ms an inner "
+               f"iteration with the outer's share), "
+               f"diverged {st.diverged}, c128 true_res (plain) {cert:.3e}")
+        out.update(iters=iters + it_dc, secs=out["secs"] + rd["secs"],
+                   k1=out["k1"] + rd["k1"], k2=out["k2"] + rd["k2"],
+                   true_res=cert, route="complex64, then complex128 "
+                   f"defect correction around the {inner_name} inner solve")
+    _check(f"{label}: true residual (complex128, plain)", cert,
+           TRUE_RES_LIMIT)
+    return out
+
+
+def _dw_solves(u, geom, gen, launches: dict) -> dict:
+    """Phase 15 (b), (c): the Shamir CG on dw4d_mat†dw4d_mat and the
+    Möbius / zMöbius CGs on M_pc†M_pc, each in complex64 on channels
+    through K2 at n = Ls, certified by the plain complex128 operators
+    (``_certified_solve``).  Returns each solve's record and the
+    complex64 source's channels for (e)."""
+    import collections
+    import numpy as np
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops import domain_wall as dw
+    from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    c64, c128 = torch.complex64, torch.complex128
+    Res = collections.namedtuple("Res", "x iters")
+    h32 = dw.Hop4D(u.to(c64), geom)
+    h64 = dw.Hop4D(u, geom)                      # K1 f64 a slice
+    hp = dw.Hop4D(u, geom, use_kernels=False)    # the plain certificate
+    if not h32.hop_kw["recon12"] or not h32.hop_kw["antiperiodic"]:
+        raise AssertionError(f"phase 15's gauge reads {h32.hop_kw}")
+    ls = DW_LS
+    rec = {}
+
+    def to_ch_full(v):
+        return torch.stack([dw.to_channels5(v[:, p]) for p in (0, 1)])
+
+    def from_ch_full(v):
+        return torch.stack([dw.from_channels5(o) for o in v], dim=1)
+
+    # (b) Shamir, the full operator's normal equations
+    k, mf = dw.kappa5(SHAMIR["m5"]), SHAMIR["mferm"]
+    b = rng.normal_complex(gen, (ls, 2, 4, 3) + geom.lat_shape, c128)
+    mat = lambda h, v, dg=False: dw.dw4d_mat(h, v, k, mf, geom, dg)  # noqa
+    normal = lambda v: mat(h32, mat(h32, v), True)                   # noqa
+
+    def inner(r, cap):
+        rc = to_ch_full(r)
+        o = cg(normal, mat(h32, rc, True), tol=DC_INNER_DW, maxiter=cap)
+        return Res(from_ch_full(o.x), o.iters)
+
+    def solve64():
+        bc = to_ch_full(b.to(c64))
+        o = cg(normal, mat(h32, bc, True), tol=DW_TOL, maxiter=DW_MAXITER)
+        return from_ch_full(o.x), o.iters
+    rec["shamir"] = _certified_solve(
+        f"(b) Shamir Ls {ls}, M5 {SHAMIR['m5']}, mferm {mf}", solve64,
+        lambda v: mat(h64, v), inner, lambda v: mat(hp, v), b, launches)
+    src = dw.to_channels5(b[:, 1].to(c64))
+    del b
+
+    # (c) Möbius and zMöbius, M_pc on parity 0
+    m5, mf = MOBIUS["m5"], MOBIUS["mferm"]
+    for name, b5, c5 in (
+            ("Möbius", MOBIUS["b5"], MOBIUS["c5"]),
+            ("zMöbius", np.linspace(*ZMOBIUS_B5, ls),
+             np.linspace(*ZMOBIUS_C5, ls))):
+        bp = rng.normal_complex(gen, (ls, 4, 3) + geom.lat_shape, c128)
+        mpc = lambda h, v, dg=False: dw.mdw_matpc(  # noqa: E731
+            h, v, m5, mf, b5, c5, geom, 0, dg)
+        normal_m = lambda v: mpc(h32, mpc(h32, v), True)  # noqa: E731
+
+        def inner_m(r, cap):
+            o = cg(normal_m, mpc(h32, dw.to_channels5(r), True),
+                   tol=DC_INNER_DW, maxiter=cap)
+            return Res(dw.from_channels5(o.x), o.iters)
+
+        def solve64_m():
+            bc = dw.to_channels5(bp.to(c64))
+            o = cg(normal_m, mpc(h32, bc, True), tol=DW_TOL,
+                   maxiter=DW_MAXITER)
+            return dw.from_channels5(o.x), o.iters
+        rec[name] = _certified_solve(
+            f"(c) {name} Ls {ls}, M5 {m5}, mferm {mf}", solve64_m,
+            lambda v: mpc(h64, v), inner_m, lambda v: mpc(hp, v), bp,
+            launches)
+        del bp
+    return rec, src, h32, h64
+
+
+def _staggered_solve(u0, geom, gen, launches: dict) -> dict:
+    """Phase 15 (d): asqtad links from the thin periodic links, the η
+    phases (antiperiodic in t) folded in, then CG on ``staggered_matpc``
+    at ``STAG_MASS`` in complex64, certified in complex128."""
+    import collections
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops import staggered as st
+    from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    c64, c128 = torch.complex64, torch.complex128
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fat, lng = st.asqtad_links(u0, geom)
+    fat = st.apply_staggered_phases(fat, geom)
+    lng = st.apply_staggered_phases(lng, geom)
+    torch.cuda.synchronize()
+    t_links = time.perf_counter() - t0
+    print(f"  (d) asqtad fat + Naik links (complex128): {t_links:.3f} s",
+          flush=True)
+    f32, l32 = fat.to(c64), lng.to(c64)
+    b = rng.normal_complex(gen, (3,) + geom.lat_shape, c128)
+    mv = lambda f, ll, v: st.staggered_matpc(f, v, STAG_MASS, geom,  # noqa
+                                             ll)
+    Res = collections.namedtuple("Res", "x iters")
+
+    def solve64():
+        o = cg(lambda v: mv(f32, l32, v), b.to(c64), tol=DW_TOL,
+               maxiter=DW_MAXITER)
+        return o.x, o.iters
+
+    def inner(r, cap):
+        o = cg(lambda v: mv(f32, l32, v), r, tol=DC_INNER_DW, maxiter=cap)
+        return Res(o.x, o.iters)
+    out = _certified_solve(f"(d) asqtad staggered matpc, mass {STAG_MASS}",
+                           solve64, lambda v: mv(fat, lng, v), inner,
+                           lambda v: mv(fat, lng, v), b, launches,
+                           "plain complex64")
+    out["link_secs"] = t_links
+    return out
+
+
+def _k2_ls_checks(h32, h_periodic, h64, src, geom) -> dict:
+    """Phase 15 (e): K2 at n = Ls on the source's channels against its
+    plain version, both directions, on the antiperiodic and the periodic
+    links; K1 f64 (the complex128 outer's hop) against plain on one
+    slice; K2 at n = Ls timed against plain with its byte bound."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc, dslash_ch_msrc_reference,
+        dslash_ch_reference)
+    err = {"k1": 0.0, "k2": 0.0}
+    for name, h in (("antiperiodic", h32), ("periodic", h_periodic)):
+        kw = h.hop_kw
+        for p, dag in ((0, False), (1, True)):
+            g = h.gauge_ch(torch.float32, p)
+            got = dslash_ch_msrc(g, src, p, geom, dag, **kw)
+            torch.cuda.synchronize()
+            ref = dslash_ch_msrc_reference(g, src, p, geom, dag, **kw)
+            err["k2"] = max(err["k2"], _compare(
+                got, ref, f"(e) K2 n={src.shape[0]} {name} parity {p} "
+                f"dagger {dag}", F32_LIMIT))
+            del got, ref
+    v = src[0].to(torch.float64)
+    for p, dag in ((0, False), (1, True)):
+        g = h64.gauge_ch(torch.float64, p)
+        got = dslash_ch(g, v, p, geom, dag, **h64.hop_kw)
+        torch.cuda.synchronize()
+        ref = dslash_ch_reference(g, v, p, geom, dag, **h64.hop_kw)
+        err["k1"] = max(err["k1"], _compare(
+            got, ref, f"(e) K1 f64 antiperiodic parity {p} dagger {dag}",
+            F64_LIMIT))
+    g = h32.gauge_ch(torch.float32, 0)
+    kw = h32.hop_kw
+    med = _turns({"kernel": lambda: dslash_ch_msrc(g, src, 0, geom, **kw),
+                  "plain": lambda: dslash_ch_msrc_reference(g, src, 0, geom,
+                                                            **kw)},
+                 {"kernel": 10, "plain": 1})
+    n = src.shape[0]
+    bound = _bound(_nbytes(g, src, src), n * HOP_FLOPS * geom.half_volume)
+    print(f"  (e) K2 n={n} bare hop, antiperiodic: {med['kernel']:.4f} ms "
+          f"({med['kernel'] / n:.4f} ms a slice; bound {bound[0]:.4f} ms, "
+          f"{bound[1]}; at {bound[0] / med['kernel']:.2f} of it), plain "
+          f"{med['plain']:.4f} ms", flush=True)
+    return {"err": err, "ms": med["kernel"], "plain_ms": med["plain"],
+            "bound": bound}
+
+
+def phase_dw_staggered(geom_dims):
+    """Phase 15: the gauge utilities, the domain-wall / Möbius and the
+    staggered solves at ``geom_dims`` on a random gauge of seed
+    ``P15_SEED`` with the antiperiodic t boundary (module docstring).
+    Returns the K1 / K2 launches and the kernels' largest errors."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops import domain_wall as dw
+    from quda_qkxtm_multigrid_tpu_torch.ops.gauge import apply_t_boundary
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    geom = Geometry(*geom_dims)
+    print(f"phase 15: gauge utilities, domain-wall / Möbius and staggered "
+          f"at {geom.dims}; memory in use at its start "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(P15_SEED)
+    u0 = rng.random_gauge(gen, geom, torch.complex128)
+    u = apply_t_boundary(u0, geom)
+    launches = {"k1": 0, "k2": 0}
+    secs = _gauge_utilities(u, geom, gen)
+    torch.cuda.reset_peak_memory_stats()
+    rec, src, h32, h64 = _dw_solves(u, geom, gen, launches)
+    rec["staggered"] = _staggered_solve(u0, geom, gen, launches)
+    del u
+    gc.collect()
+    h_periodic = dw.Hop4D(u0.to(torch.complex64), geom)
+    k2 = _k2_ls_checks(h32, h_periodic, h64, src, geom)
+    del h_periodic, h32, h64, src
+    print(f"  solves: " + "; ".join(
+        f"{k} {v['iters']} iterations, {v['secs']:.3f} s, K1 {v['k1']}, K2 "
+        f"{v['k2']}, {v['true_res']:.3e} ({v['route']})"
+        for k, v in rec.items()) + f"; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  phase 15 {time.perf_counter() - t_phase:.1f} s; K1 launches "
+          f"{launches['k1']}, K2 launches {launches['k2']}", flush=True)
+    del u0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**launches, "err": k2["err"], "k2_time": k2, "secs": secs,
+            "solves": rec}
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -3699,6 +4032,7 @@ def main():
     lv = phase_mg_levels(SLICE_GEOM, LIGHT_GEOM, LIGHT_PROBE_GEOM, CLI_GEOM,
                          mg6)
     kr = phase_krylov(SLICE_GEOM, CHECK_GEOM, LIGHT_GEOM)
+    dws = phase_dw_staggered(SLICE_GEOM)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
     k5 = mesh_runs[True]["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
@@ -3713,7 +4047,8 @@ def main():
           f"K2 {twop['k2']}; 3pt and loops: K1 {thrp['k1']}, K2 "
           f"{thrp['k2']}; production MG (phase 13): K1 {lv['k1']}, K2 "
           f"{lv['k2']}; Krylov tail and doublet (phase 14): K1 {kr['k1']}, "
-          f"K2 {kr['k2']}")
+          f"K2 {kr['k2']}; gauge utilities, domain wall and staggered (phase "
+          f"15): K1 {dws['k1']}, K2 {dws['k2']}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -3728,19 +4063,20 @@ def main():
         entry("dslash_ch", KERNEL_SOURCE,
               f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
               k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8
-              + twop["k1"] + thrp["k1"] + lv["k1"] + kr["k1"],
+              + twop["k1"] + thrp["k1"] + lv["k1"] + kr["k1"] + dws["k1"],
               max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
                   vk["v2"][3], tbc["k1"], twop["err"]["k1"],
-                  thrp["err"]["k1"], lv["err"]["k1"], kr["err"]["k1"]),
+                  thrp["err"]["k1"], lv["err"]["k1"], kr["err"]["k1"],
+                  dws["err"]["k1"]),
               k["ms"],
               k["plain_ms"],
               k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
               launches["dslash_ch_msrc"] + twop["k2"] + thrp["k2"]
-              + lv["k2"] + kr["k2"],
+              + lv["k2"] + kr["k2"] + dws["k2"],
               max(k2["max_abs_err"], err_time["chain f32"], tbc["k2"],
                   twop["err"]["k2"], thrp["err"]["k2"], lv["err"]["k2"],
-                  kr["err"]["k2"]),
+                  kr["err"]["k2"], dws["err"]["k2"]),
               k2["ms"], k2["plain_ms"], k2["bound"]),
         entry("dslash_ch_bf16", BF16_KERNEL_SOURCE,
               f"{BF16_KERNEL_REPLACES}; {V2_BF16_REPLACES}",

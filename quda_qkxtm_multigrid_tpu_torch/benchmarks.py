@@ -702,3 +702,50 @@ def bench_cg48_dc(geom: Geometry, inner_tol: float = 1e-6,
             "exact_build_secs": pb.exact_build_secs,
             "peak_mem_bytes": _peak(dev),
             "solver": "cg-compact-bf16 + float64 defect-correction outer"}
+
+
+# ---- host I/O -------------------------------------------------------------
+
+def bench_byte_swap(dims=(32, 32, 32, 64), reps: int = 5,
+                    seed: int = 7) -> dict:
+    """The ILDG payload's byte swap for a gauge at ``dims`` (X, Y, Z, T;
+    4 × 18 reals a site): ``io/_native.decode_be`` / ``encode_be``
+    against numpy's ``astype`` at both precisions, the least of ``reps``
+    host-clock seconds each.  The results are held equal bit for bit.
+    Run: ``python -c "from quda_qkxtm_multigrid_tpu_torch.benchmarks
+    import bench_byte_swap; print(bench_byte_swap())"``."""
+    import numpy as np
+
+    from quda_qkxtm_multigrid_tpu_torch.io import _native
+
+    if _native.get_lib() is None:
+        raise RuntimeError("no g++: the native byte swap cannot be built")
+    n = 4 * 18 * int(np.prod(dims))
+    vals = np.random.default_rng(seed).standard_normal(n)
+
+    def best(fn):
+        secs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            secs.append(time.perf_counter() - t0)
+        return min(secs), out
+
+    rec = {"dims": list(dims), "reals": n, "cpus": os.cpu_count()}
+    for prec in (64, 32):
+        be = ">f8" if prec == 64 else ">f4"
+        buf = vals.astype(be).tobytes()
+        rows = {
+            "decode": (lambda: _native.decode_be(buf, prec),
+                       lambda: np.frombuffer(buf, be).astype(np.float64)),
+            "encode": (lambda: _native.encode_be(vals, prec),
+                       lambda: vals.astype(be).tobytes())}
+        for op, (native, plain) in rows.items():
+            t_nat, got = best(native)
+            t_np, want = best(plain)
+            if bytes(got) != bytes(want):
+                raise AssertionError(f"{op} f{prec}: native != numpy")
+            rec[f"{op}{prec}"] = {"bytes": len(buf), "native_s": t_nat,
+                                  "numpy_s": t_np,
+                                  "speedup": t_np / t_nat}
+    return rec

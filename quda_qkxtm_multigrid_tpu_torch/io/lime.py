@@ -1,7 +1,7 @@
-"""LIME / ILDG gauge-configuration I/O, host-side numpy: the JAX
-package's ``io/lime.py`` (the reference's ``readLimeGauge``), with the
-big-endian decode done by numpy (the threaded native helper,
-``io/_native.py``, is ROADMAP queue 1 item 4).
+"""LIME / ILDG gauge-configuration I/O on the host: the JAX package's
+``io/lime.py`` (the reference's ``readLimeGauge``).  The big-endian
+payload is swapped by the threaded native helper (``io/_native.py``),
+or by numpy where ``g++`` is missing.
 
 LIME container: records with 144-byte headers (magic u32 BE 0x456789ab,
 version u16, flags u16, length u64, type 128 bytes NUL-padded), data
@@ -16,6 +16,8 @@ import re
 import struct
 
 import numpy as np
+
+from quda_qkxtm_multigrid_tpu_torch.io._native import decode_be, encode_be
 
 _MAGIC = 0x456789AB
 _HDR = struct.Struct(">IHHQ128s")
@@ -51,10 +53,9 @@ def write_records(path: str, records):
             f.write(b"\0" * ((8 - len(data) % 8) % 8))
 
 
-def _dtype(precision: int):
+def _check_precision(precision: int):
     if precision not in (32, 64):
         raise ValueError(f"ILDG precision {precision}: 32 or 64")
-    return np.dtype(">f8" if precision == 64 else ">f4")
 
 
 def read_ildg_gauge(path: str, dims=None, precision=None) -> np.ndarray:
@@ -77,8 +78,9 @@ def read_ildg_gauge(path: str, dims=None, precision=None) -> np.ndarray:
     if precision is None:
         precision = 64
     X, Y, Z, T = dims
-    arr = np.frombuffer(recs["ildg-binary-data"], dtype=_dtype(precision))
-    arr = arr.astype(np.float64).reshape(T, Z, Y, X, 4, 3, 3, 2)
+    _check_precision(precision)
+    arr = decode_be(recs["ildg-binary-data"], precision)
+    arr = arr.reshape(T, Z, Y, X, 4, 3, 3, 2)
     return np.moveaxis(arr[..., 0] + 1j * arr[..., 1], 4, 0)
 
 
@@ -87,7 +89,8 @@ def write_ildg_gauge(path: str, u_full, precision: int = 64):
     mu_last = np.moveaxis(np.asarray(u_full), 0, 4)    # [T,Z,Y,X,4,3,3]
     T, Z, Y, X = mu_last.shape[:4]
     flat = np.stack([mu_last.real, mu_last.imag], axis=-1)
-    payload = np.ascontiguousarray(flat, dtype=_dtype(precision)).tobytes()
+    _check_precision(precision)
+    payload = encode_be(flat, precision)
     fmt = (f'<?xml version="1.0" encoding="UTF-8"?><ildgFormat>'
            f"<version>1.0</version><field>su3gauge</field>"
            f"<precision>{precision}</precision>"

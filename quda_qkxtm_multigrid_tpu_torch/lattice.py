@@ -210,6 +210,19 @@ def spinor_from_lex_dof_leading(full: torch.Tensor,
         *lead, 2, 4, 3, *geom.lat_shape)
 
 
+def gauge_to_lex(u: torch.Tensor, geom: Geometry) -> torch.Tensor:
+    """canonical [4, 2, 3, 3, T, Z, W] → lexicographic [4, T, Z, Y, X, 3, 3]
+    (mu in x, y, z, t order): the inverse of ``gauge_from_lex``."""
+    g = u.reshape((4, 2, 3, 3) + geom.cb4_shape).movedim(
+        (2, 3), (6, 7))                          # [4,2,T,Z,Y,Xh,3,3]
+    even, odd = g[:, 0], g[:, 1]
+    r = _row_parity(geom, u.device).reshape(
+        1, geom.T, geom.Z, geom.Y, 1, 1, 1)
+    pairs = torch.stack([torch.where(r, odd, even),
+                         torch.where(r, even, odd)], dim=5)
+    return pairs.reshape(4, geom.T, geom.Z, geom.Y, geom.X, 3, 3)
+
+
 def gauge_from_lex(full: torch.Tensor, geom: Geometry) -> torch.Tensor:
     """lexicographic [4, T, Z, Y, X, 3, 3] (mu in x, y, z, t order) →
     canonical [4, 2, 3, 3, T, Z, W]."""

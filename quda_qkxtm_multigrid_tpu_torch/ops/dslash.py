@@ -4,9 +4,10 @@
                               + (1 + gamma_mu) U_mu^dag(x-mu) psi(x-mu)
 
 (no 1/2 — folded into kappa); dagger swaps the projectors.  Full Wilson
-operator M = psi - kappa D psi.  Layouts: psi [4,3,T,Z,W] per parity,
-u [4,2,3,3,T,Z,W].  This is the in-port oracle for the CUDA hop kernel
-(ops/dslash_kernel.py).
+operator M = psi - kappa D psi; even-odd preconditioned M_pc =
+psi - kappa² D_eo D_oe psi (``wilson_matpc``).  Layouts: psi
+[4,3,T,Z,W] per parity, u [4,2,3,3,T,Z,W].  This is the in-port oracle
+for the CUDA hop kernel (ops/dslash_kernel.py).
 
 Flops: 1,320 per site per application.
 """
@@ -48,6 +49,22 @@ def wilson_mat(u, psi, kappa: float, geom: Geometry, dagger: bool = False):
     d_even = dslash_parity(u, psi[1], 0, geom, dagger)
     d_odd = dslash_parity(u, psi[0], 1, geom, dagger)
     return psi - kappa * torch.stack([d_even, d_odd])
+
+
+def wilson_matpc(u, psi_p, kappa: float, geom: Geometry, parity: int = 0,
+                 dagger: bool = False):
+    """Even-odd preconditioned: out = psi − kappa² D_{p,1−p} D_{1−p,p} psi
+    (parity 0 is QUDA_MATPC_EVEN_EVEN)."""
+    tmp = dslash_parity(u, psi_p, 1 - parity, geom, dagger)
+    out = dslash_parity(u, tmp, parity, geom, dagger)
+    return psi_p - (kappa * kappa) * out
+
+
+def dslash_flops(geom: Geometry, sites: str = "half") -> int:
+    """Analytic flops of one hop over half the lattice ("half") or all of
+    it."""
+    v = geom.half_volume if sites == "half" else geom.volume
+    return WILSON_DSLASH_FLOPS_PER_SITE * v
 
 
 def doubled_links(u, geom: Geometry, parity: int):

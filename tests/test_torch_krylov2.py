@@ -245,3 +245,27 @@ def test_harmonic_ritz():
                 + 1j * rng.standard_normal((11, 10)), -1)
     np.testing.assert_allclose(_harmonic_ritz(h, 10, 4), jharm(h, 10, 4),
                                atol=1e-13)
+
+
+@pytest.mark.cuda
+def test_matpc_dagm_batched_on_the_card():
+    """On the card the batch is one four-hop K2 chain (four launches),
+    equal to n single K1 chains to float32 rounding (the sum order is
+    K1's), and to the CPU kernel route's plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the chain runs CUDA kernels")
+    from quda_qkxtm_multigrid_tpu_torch.ops import dslash_kernel as dk
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    gen = torch.Generator().manual_seed(5)
+    u = rng.random_gauge(gen, GT, dtype=torch.complex128).to(torch.complex64)
+    v = rng.random_spinor(gen, GT, torch.complex64, batch_shape=(3,))[:, 0]
+    params = DiracParams(kind="twisted-clover", kappa=0.115, mu=0.05,
+                         csw=1.0, use_kernels=True)
+    d = make_dirac(u.cuda(), params, GT)
+    before = dk.dslash_ch_msrc.launches
+    got = d.matpc_dagm_batched(v.cuda())
+    assert dk.dslash_ch_msrc.launches == before + 4
+    singles = torch.stack([d.matpc_dagm(a) for a in v.cuda()])
+    assert rel(got.cpu(), singles.cpu().numpy()) < 1e-6
+    want = make_dirac(u, params, GT).matpc_dagm_batched(v)
+    assert rel(got.cpu(), want.numpy()) < 1e-6

@@ -207,3 +207,28 @@ def test_refusals_and_params(fields):
                                            GJ).flops_per_mat()
     psi = np.asarray(fields["psi"])
     assert np.array_equal(convert.spinor_to_numpy(T(psi)), psi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gauge", ["periodic", "antiperiodic"])
+def test_k2_doublet_hop_on_the_card(fields, gauge):
+    """On the card the complex64 doublet's hop is one K2 launch at n = 2
+    (bare), equal to the plain hop of each flavour, and its matpc equals
+    the CPU kernel route's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the hop is a CUDA kernel")
+    u = T(np.asarray(fields[gauge])).to(torch.complex64)
+    psi = T(np.asarray(fields["psi"])).to(torch.complex64)
+    ndp = DiracParams(**ND, use_kernels=True)
+    dc = make_dirac_ndeg(u.cuda(), ndp, GT)
+    dp = make_dirac_ndeg(u, ndp, GT)
+    for parity in (0, 1):
+        for dagger in (False, True):
+            before = dk.dslash_ch_msrc.launches
+            got = dc.dslash(psi[:, 1 - parity].cuda(), parity, dagger)
+            assert dk.dslash_ch_msrc.launches == before + 1
+            want = torch.stack([dp.wilson.dslash(v, parity, dagger)
+                                for v in psi[:, 1 - parity]])
+            assert rel(got.cpu(), want.numpy()) < 1e-6
+    assert rel(dc.matpc(psi[:, 0].cuda()).cpu(),
+               dp.matpc(psi[:, 0]).numpy()) < 1e-6
