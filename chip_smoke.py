@@ -158,6 +158,25 @@ and does not print its last line:
     f64 on a slice, and K2 at n = Ls timed with its byte bound.  Each
     solve's iterations, seconds and K1 / K2 launches.
 
+16. the rest of the multi-GPU path (``phase_mesh_rest``, after phase 12,
+    on its own ring of one over NCCL): (a) at 32³×64 phase 6's problem
+    and setup cut by ``shard_mg``, ``mg_solve(mesh=…, solver="gcr-pc")``
+    through ``benchmarks.bench_mg_mesh`` against the unsharded solve
+    (outer iterations equal, the solution within 1e-5, the complex128
+    certificate, K4 launched, one all-gather a V-cycle), the V-cycle's
+    ms sharded and unsharded; "gcr" and "mr-richardson" the same at
+    16³×32 in complex128; (b) at 16³×32, complex128, on an antiperiodic
+    gauge, GCR(10) on the sharded operator plain and with the additive
+    and the multiplicative Schwarz preconditioners (K1 f64 on the
+    block), each certified and the preconditioned in fewer iterations,
+    then the block's K1 and the sharded K4 float64 hops against plain;
+    (c) ``run_twop``, ``run_threep`` and ``run_loops`` with ``mesh`` on
+    phases 11–12's gauge and settings: every column certified in
+    complex128, the correlators and loops against phases 11–12 (the 3pt
+    on phase 12's propagators), no K1 or K2 launch, K4 and K5 against
+    plain on the path's sharded operator.  Each part's seconds and
+    launches.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -264,6 +283,9 @@ SPLIT_NT, SPLIT_RANK = 4, 1      # 9a: the slab of rank 1 of a four-way split
 LOCAL_VS_K1 = {"float32": 1e-7, "float64": 1e-14}   # K4 vs K1, normwise
 OVERLAP_VS_K4 = 1e-7             # K5 vs K4, normwise, float32
 MESH_X_LIMIT = 1e-5              # sharded vs unsharded solution, normwise
+P16_SEED = 5                     # phase 16's Schwarz gauge and source
+SCHWARZ = dict(kind="twisted-mass", kappa=0.12, mu=0.04)   # test_parallel
+SCHWARZ_TOL = 1e-8               # GCR(10) with Schwarz (test_parallel.py:93)
 
 # phase 2b, the antiperiodic t boundary: a kernel against its plain
 # version, and against the recon-18 form on the same links (bf16 links:
@@ -2273,8 +2295,9 @@ def _main_path_local_checks(ds, mesh, gen):
     operands of the sharded path of 9b (``ds`` on ``mesh``, T_loc =
     geom.T): the four float32 chain hops of the clover matpc halves (K5
     with the projected faces it takes there), and the float64 bare K4 hop
-    of the complex128 stages, both parities, with and without dagger.
-    Returns the largest absolute errors {"k4": .., "k5": ..}."""
+    of the complex128 stages, both parities, with and without dagger, in
+    the instance of the operator's t boundary.  Returns the largest
+    absolute errors {"k4": .., "k5": ..}."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch_local, dslash_ch_local_reference, dslash_ch_overlap,
@@ -2283,6 +2306,7 @@ def _main_path_local_checks(ds, mesh, gen):
     from quda_qkxtm_multigrid_tpu_torch.utils import rng
 
     geom, k = ds.geom, ds.params.kappa
+    tb = ds._hop_kw()["t_boundary"]     # the rows of an antiperiodic gauge
     print(f"  K4 / K5 vs plain on the sharded path's operands, T_loc "
           f"{geom.T}", flush=True)
     f32, f64 = torch.float32, torch.float64
@@ -2292,7 +2316,8 @@ def _main_path_local_checks(ds, mesh, gen):
     for label, c in _msrc_cases(0.0, 1.0, -k * k)[:4]:
         p, dagger = c["parity"], c.get("dagger", False)
         v = to_channels(psi[1 - p]).to(f32)
-        kw = dict(dagger=dagger, recon12=True, clover=c.get("clover"),
+        kw = dict(dagger=dagger, recon12=True, t_boundary=tb,
+                  clover=c.get("clover"),
                   cinv_ch=ops["ci"][p] if "clover" in c else None,
                   xpay_coef=c.get("xpay"),
                   x_ch=to_channels(x[p]).to(f32) if "xpay" in c else None)
@@ -2316,9 +2341,9 @@ def _main_path_local_checks(ds, mesh, gen):
         for dagger in (False, True):
             err["k4"] = max(err["k4"], _compare(
                 dslash_ch_local(g64[p], v, *f24, p, geom, dagger,
-                                recon12=True),
+                                recon12=True, t_boundary=tb),
                 dslash_ch_local_reference(g64[p], v, *f24, p, geom, dagger,
-                                          recon12=True),
+                                          recon12=True, t_boundary=tb),
                 f"K4 f64 hop parity {p} dagger {int(dagger)}", F64_LIMIT))
     torch.cuda.synchronize()
     return err
@@ -2676,6 +2701,7 @@ def phase_twop(geom_dims, cli_dims):
         raise AssertionError("the pion at zero momentum is not real and "
                              "positive with C(1) < C(0)")
     mes_cg = out["mesons"].clone()
+    bar_cg = out["baryons"].clone()
     # phase 12 starts from the CG path's propagators and smeared links
     threep_in = {k: out[k] for k in ("prop_up", "prop_dn", "u_ape")}
 
@@ -2746,7 +2772,7 @@ def phase_twop(geom_dims, cli_dims):
            _rel(_pion(out, zero), _pion({"mesons": mes_cg}, zero)),
            TWOP_MG_PION)
     threep_in["mg_pair"] = out["mg_pair"]
-    del out, st, mes_cg
+    del out, st
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2773,7 +2799,8 @@ def phase_twop(geom_dims, cli_dims):
                                  "wrote no meson file")
     print(f"  phase 11 {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"k1": k1 + k1_single + mg_k1 + cli_k1, "k2": k2 + mg_k2,
-            "err": err, "u": u, "threep_in": threep_in}
+            "err": err, "u": u, "threep_in": threep_in,
+            "refs": {"mesons": mes_cg, "baryons": bar_cg}}
 
 
 def _loops_finite(loops: dict, label: str):
@@ -2919,6 +2946,9 @@ def phase_threep_loops(twop, geom_dims, cli_dims):
                       for i in range(THREEP_TSINK + 1)), flush=True)
             _check(f"3pt {part} {t}, MG vs CG (resolved t)",
                    _rel64(v[..., ts, :], ref[..., ts, :]), THREEP_MG_VS_CG)
+    # phase 16's references: the 3pt of the CG path and its inputs
+    twop["refs"].update(thrp=thrp_cg, threep_in={
+        k: inp[k].cpu() for k in ("prop_up", "prop_dn", "u_ape")})
     del st, mg_out, thrp_cg, kw, inp, twop["threep_in"], x_cg
 
     # (c) the loops, complex64, through K1
@@ -2943,6 +2973,7 @@ def phase_threep_loops(twop, geom_dims, cli_dims):
                                                csw=p.csw), geom)
     _check("loops: partner m through K1 vs plain c128",
            _rel64(got, plain.m(x.to(c128))), PARTNER_M_LIMIT)
+    twop["refs"]["loops"] = {k: v.cpu() for k, v in loops.items()}
     del st, loops, x, got, plain
 
     # (d) the deflated loops, complex128, through K1's float64 instance
@@ -3020,15 +3051,16 @@ def _galerkin(transfer, fine_apply, coarse_apply, gen, label: str):
            GALERKIN_LIMIT)
 
 
-def _vcycle_ms(mg, b, reps: int = 3) -> float:
-    """ms of one V-cycle of ``mg`` on the field ``b`` (host clock, the
-    device synchronised; the median of ``reps``)."""
+def _vcycle_ms(vcycle, b, reps: int = 3) -> float:
+    """ms of one call of ``vcycle`` (a preconditioner's V-cycle) on the
+    field ``b`` (host clock, the device synchronised; the median of
+    ``reps``)."""
     import torch
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mg.vcycle(b)
+        vcycle(b)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
@@ -3121,7 +3153,7 @@ def phase_mg_levels(geom_dims, light_dims, probe_dims, cli_dims, mg6: dict):
         rec, mg = run(f"{tag} {n_level}-level MG-GCR-PC at {geom_dims}",
                       lambda: bench_mg(geom, n_level=n_level, **mg_kw))
         records[tag] = rec
-        vc_ms = _vcycle_ms(mg, b)
+        vc_ms = _vcycle_ms(mg.vcycle, b)
         print(f"  {_levels_line(rec)}", flush=True)
         print(f"  outer iterations {rec['iters']} (cold {rec['iters_cold']};"
               f" two levels, phase 6: {mg6['iters']}; JAX record "
@@ -3998,6 +4030,313 @@ def phase_dw_staggered(geom_dims):
             "solves": rec}
 
 
+def _counts_zero():
+    """Set the K1, K2, K4 and K5 launch counts to 0."""
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_local, dslash_ch_msrc, dslash_ch_overlap)
+    for fn in (dslash_ch, dslash_ch_msrc, dslash_ch_local,
+               dslash_ch_overlap):
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    """The K1, K2, K4 and K5 launch counts."""
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_local, dslash_ch_msrc, dslash_ch_overlap)
+    return {"k1": dslash_ch.launches, "k2": dslash_ch_msrc.launches,
+            "k4": dslash_ch_local.launches, "k5": dslash_ch_overlap.launches}
+
+
+def _mesh_mg(mesh, geom, dtype, solvers, tol, launches: dict) -> dict:
+    """16a at ``geom``: ``bench_mg``'s setup (on the whole lattice) and
+    its unsharded solve with each of ``solvers``, then ``shard_mg`` and
+    ``bench_mg_mesh`` on ``mesh``: the outer iterations equal, the
+    solution within ``MESH_X_LIMIT`` of the unsharded, the complex128
+    certificate, K4 launched, one all-gather a V-cycle.  Returns the
+    sharded records by solver, with the V-cycle ms sharded and unsharded
+    of the first solver."""
+    import functools
+
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_mg, bench_mg_mesh, make_problem)
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+        mg_solve, shard_mg)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import shard_spinor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, b = make_problem(geom, DEVICE, seed=7, dtype=dtype)
+    rec, mg = bench_mg(geom, tol=tol, nvec=MG_NVEC, block=MG_BLOCK,
+                       n_krylov=MG_NKRYLOV, problem=(d, b),
+                       solver=solvers[0])
+    print(f"  {geom.dims} {str(dtype)[6:]}: setup {rec['setup_secs']:.3f} s "
+          f"(whole lattice), unsharded warm solve {rec['secs']:.4f} s",
+          flush=True)
+    out = {}
+    for solver in solvers:
+        ref = mg_solve(mg, b, tol=tol, n_krylov=MG_NKRYLOV, solver=solver)
+        _counts_zero()
+        r, x = bench_mg_mesh(mesh, (d, b), mg, tol=tol, solver=solver,
+                             n_krylov=MG_NKRYLOV)
+        c = _counts()
+        for k in ("k1", "k4", "k5"):
+            launches[k] += c[k]
+        r["x_rel"] = _rel(x, shard_spinor(ref.x, mesh))
+        print(f"  {solver}: sharded iterations {r['iters']} (cold "
+              f"{r['iters_cold']}; unsharded {ref.iters}), warm "
+              f"{r['secs']:.4f} s, true_res {r['true_res']:.3e} "
+              f"(complex128), solution vs unsharded {r['x_rel']:.3e}, "
+              f"V-cycles {r['vcycles']}, all-gathers {r['allgathers']}, "
+              f"warm K4 {r['k4_launches']}; launches {c}", flush=True)
+        if r["iters"] != ref.iters or r["iters_cold"] != ref.iters:
+            raise AssertionError(f"sharded {solver} iterations "
+                                 f"{r['iters']} != unsharded {ref.iters}")
+        _check(f"sharded MG {solver}: solution vs unsharded", r["x_rel"],
+               MESH_X_LIMIT)
+        _check(f"sharded MG {solver}: true residual (c128)", r["true_res"],
+               TRUE_RES_LIMIT)
+        if not r["k4_launches"] or r["allgathers"] != r["vcycles"]:
+            raise AssertionError(f"sharded MG {solver}: K4 launches "
+                                 f"{r['k4_launches']}, all-gathers "
+                                 f"{r['allgathers']} vs V-cycles "
+                                 f"{r['vcycles']}")
+        out[solver] = r
+        del x, ref
+    ms = shard_mg(mg, mesh)
+    bs = shard_spinor(b, mesh)
+    vms = {"unsharded": _vcycle_ms(mg.vcycle, b),
+           "sharded": _vcycle_ms(
+               functools.partial(ms.vcycle, mesh=mesh), bs)}
+    print(f"  V-cycle {vms['sharded']:.2f} ms sharded (K4 hops, unfused "
+          f"smoother, one all-gather) against {vms['unsharded']:.2f} ms "
+          f"unsharded (K1 fused chain)", flush=True)
+    out[solvers[0]]["vcycle_ms"] = vms
+    del mg, ms, d, b, bs
+    return out
+
+
+def _mesh_schwarz(mesh, geom, launches: dict) -> dict:
+    """16b: GCR(10) on the sharded twisted-mass operator (κ 0.12, μ
+    0.04, complex128, the antiperiodic gauge of seed ``P16_SEED``) to
+    tol 1e-8: plain, with additive and with multiplicative Schwarz (4 MR
+    steps of the block, K1 f64 on the local geometry); each certified by
+    the plain complex128 operator, each preconditioned one in fewer
+    iterations than plain GCR; then the block's K1 and the sharded
+    operator's K4 float64 hops against plain on the same links."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_gauge_source
+    from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams, make_dirac
+    from quda_qkxtm_multigrid_tpu_torch.invert import true_residual
+    from quda_qkxtm_multigrid_tpu_torch.ops.gauge import apply_t_boundary
+    from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
+        shard_spinor)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.schwarz import (
+        schwarz_precond, schwarz_precond_multiplicative)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+        local_block, shard_dirac)
+    from quda_qkxtm_multigrid_tpu_torch.solvers.gcr import gcr
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    c128 = torch.complex128
+    u, _ = make_gauge_source(geom, DEVICE, seed=P16_SEED, dtype=c128)
+    u = apply_t_boundary(u, geom)
+    gen = torch.Generator(device=DEVICE).manual_seed(P16_SEED)
+    b = rng.random_spinor(gen, geom, c128)
+    params = DiracParams(**SCHWARZ, use_kernels=True)
+    ds = shard_dirac(make_dirac(u, params, geom), mesh)
+    plain = make_dirac(u, dataclasses.replace(params, use_kernels=False),
+                       geom)
+    bs = shard_spinor(b, mesh)
+    pcs = {"plain": None, "additive": schwarz_precond(ds, mesh, niter=4),
+           "multiplicative": schwarz_precond_multiplicative(ds, mesh,
+                                                            niter=4)}
+    out = {}
+    for name, pc in pcs.items():
+        _counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gcr(ds.m, bs, tol=SCHWARZ_TOL, n_krylov=10, max_restarts=40,
+                  precond=pc, allreduce=mesh.allreduce)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = _counts()
+        for k in ("k1", "k4"):
+            launches[k] += c[k]
+        tr = float(true_residual(plain, mesh.allgather_t(res.x), b)[1])
+        out[name] = {"iters": res.iters, "secs": secs, "true_res": tr, **c}
+        print(f"  GCR(10) {name}: {res.iters} iterations, {secs:.3f} s, "
+              f"true_res {tr:.3e} (plain complex128), launches K1 "
+              f"{c['k1']} K4 {c['k4']}", flush=True)
+        _check(f"Schwarz {name}: true residual (c128)", tr, TRUE_RES_LIMIT)
+        if pc is not None and not (res.iters < out["plain"]["iters"]
+                                   and c["k1"] > 0):
+            raise AssertionError(f"Schwarz {name}: {res.iters} iterations "
+                                 f"(plain {out['plain']['iters']}), K1 "
+                                 f"launches {c['k1']}")
+    block = local_block(ds)
+    plain_block = make_dirac(ds.u, dataclasses.replace(
+        params, use_kernels=False), ds.geom)
+    psi = rng.random_spinor(gen, ds.geom, c128)
+    err = {"k1": 0.0, "k4": 0.0}
+    for p in (0, 1):
+        for dagger in (False, True):
+            ref = plain_block.dslash(psi[1 - p], p, dagger)
+            err["k1"] = max(err["k1"], _compare(
+                block.dslash(psi[1 - p], p, dagger), ref,
+                f"block K1 f64 hop p{p} d{int(dagger)} vs plain",
+                F64_LIMIT))
+            ref = plain.dslash(b[1 - p], p, dagger)
+            err["k4"] = max(err["k4"], _compare(
+                ds.dslash(bs[1 - p], p, dagger), shard_spinor(ref, mesh),
+                f"sharded K4 f64 hop p{p} d{int(dagger)} vs plain",
+                F64_LIMIT))
+    out["err"] = err
+    return out
+
+
+def _mesh_workflows(mesh, u, geom, refs: dict, launches: dict) -> dict:
+    """16c: ``run_twop``, ``run_threep`` and ``run_loops`` with ``mesh``
+    on phases 11–12's gauge and settings: each column certified by the
+    plain complex128 operator, the results against phases 11–12's
+    (``refs``), each run's launches and stage seconds; K4 / K5 against
+    plain on the path's sharded operator.  Returns the errors and the
+    seconds."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import workflows as wf
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+
+    p = tmc_params()
+    phys = dict(kappa=p.kappa, mu=p.mu, csw=p.csw)
+    out = {"secs": {}}
+
+    def run(label, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _counts_zero()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = _counts()
+        for k in ("k1", "k4", "k5"):
+            launches[k] += c[k]
+        out["secs"][label] = secs
+        print(f"  {label} (mesh): {secs:.3f} s, launches {c}", flush=True)
+        if not c["k4"] or c["k1"] or c["k2"]:
+            raise AssertionError(f"{label} on the mesh: launches {c}")
+        return res
+
+    def certify(label, flavor, st):
+        xs = mesh.allgather_t(st["x"])
+        bs = mesh.allgather_t(st["sources"])
+        res = _certify(u, flavor, geom, bs, xs)
+        _check(f"{label}: worst column (complex128)", max(res),
+               TRUE_RES_LIMIT)
+
+    st = {}
+    twop = run("run_twop", lambda: wf.run_twop(
+        u, geom, source=TWOP_SOURCE, tol=TWOP_TOL, maxiter=SLICE_MAXITER,
+        mesh=mesh, stats=st, **phys))
+    print("  stages (s): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in st["secs"].items()),
+          flush=True)
+    for flavor, name in ((+1, "up"), (-1, "dn")):
+        certify(f"2pt {name}", flavor, dict(st[name], sources=st["sources"]))
+    for key in ("mesons", "baryons"):
+        _check(f"2pt {key} vs phase 11", _rel64(twop[key], refs[key]),
+               MESH_X_LIMIT)
+    del st, twop
+    # the 3pt on phase 12's inputs (phase 11's propagators): a propagator
+    # far from its source is resolved only to tol relative to its
+    # largest entries, so the 2pt's propagators above would move it more
+    inp = {k: v.to(DEVICE) for k, v in refs["threep_in"].items()}
+    st = {}
+    thrp = run("run_threep", lambda: wf.run_threep(
+        u, geom, tsink=THREEP_TSINK, source=TWOP_SOURCE,
+        projectors=(THREEP_PROJ,), tol=TWOP_TOL, maxiter=SLICE_MAXITER,
+        mesh=mesh, stats=st, **inp, **phys))
+    print("  stages (s): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in st["secs"].items()),
+          flush=True)
+    for part in (1, 2):
+        pt = st[(THREEP_PROJ, part)]
+        certify(f"3pt part{part}", pt["flavor"], pt)
+    for part, types_ in thrp["thrp"][THREEP_PROJ].items():
+        for t, v in types_.items():
+            _check(f"3pt {part} {t} vs phase 12",
+                   _rel64(v, refs["thrp"][part][t]), MESH_X_LIMIT)
+    del st, thrp, inp
+    ds = wf.make_operator(u, tmc_params(), geom, mesh=mesh)
+    out["err"] = _main_path_local_checks(
+        ds, mesh, torch.Generator(device=DEVICE).manual_seed(16))
+    del ds
+    st = {}
+    loops = run("run_loops", lambda: wf.run_loops(
+        u, geom, n_stoch=LOOPS_NSTOCH,
+        gen=torch.Generator(DEVICE).manual_seed(7), tol=TWOP_TOL,
+        tol_lp=LOOPS_TOL_LP, n_hp=LOOPS_NHP, maxiter=SLICE_MAXITER,
+        mesh=mesh, stats=st, **phys))
+    print("  stages (s): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in st["secs"].items()),
+          flush=True)
+    res = _certify(u, +1, geom, [mesh.allgather_t(h[0]) for h in st["hp"]],
+                   [mesh.allgather_t(h[1]) for h in st["hp"]])
+    _check("loops: worst HP solve (complex128)", max(res), TRUE_RES_LIMIT)
+    for k, v in loops.items():
+        _check(f"loops {k} vs phase 12", _rel64(v.cpu(), refs["loops"][k]),
+               MESH_X_LIMIT)
+    return out
+
+
+def phase_mesh_rest(twop_refs: dict, u, geom_dims, check_dims):
+    """Phase 16: the rest of the multi-GPU path on a ring of one rank
+    over NCCL (its own process group, destroyed at the end): (a) the
+    sharded MG-GCR-PC at ``geom_dims`` on phase 6's problem and setup,
+    "gcr" and "mr-richardson" at ``check_dims`` in complex128; (b) the
+    Schwarz-preconditioned GCR at ``check_dims``; (c) the meshed 2pt, 3pt
+    and loops at ``geom_dims`` against phases 11–12.  Returns the
+    records, the K1 / K4 / K5 launches of the phase and the kernels'
+    largest errors against their plain versions."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import init_ring
+
+    t_phase = time.perf_counter()
+    geom, check = Geometry(*geom_dims), Geometry(*check_dims)
+    print(f"phase 16: sharded MG, Schwarz and the meshed workflows on a "
+          f"ring of one rank over NCCL", flush=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mesh = init_ring(1, 0, f"tcp://localhost:{port}", device=DEVICE)
+    launches = {"k1": 0, "k4": 0, "k5": 0}
+    try:
+        print("  (a) sharded MG", flush=True)
+        mg = _mesh_mg(mesh, geom, torch.complex64, ("gcr-pc",), MG_TOL,
+                      launches)
+        mg.update(_mesh_mg(mesh, check, torch.complex128,
+                           ("gcr", "mr-richardson"), MG_TOL, launches))
+        print("  (b) Schwarz-preconditioned GCR", flush=True)
+        sz = _mesh_schwarz(mesh, check, launches)
+        print("  (c) the meshed workflows", flush=True)
+        wfs = _mesh_workflows(mesh, u, geom, twop_refs, launches)
+    finally:
+        dist.destroy_process_group()
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 16 {secs:.1f} s; launches {launches}", flush=True)
+    err = {"k1": sz["err"]["k1"],
+           "k4": max(sz["err"]["k4"], wfs["err"]["k4"]),
+           "k5": wfs["err"]["k5"]}
+    return {"mg": mg, "schwarz": sz, "workflows": wfs, "secs": secs,
+            "err": err, **launches}
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -4028,13 +4367,15 @@ def main():
     vk, _ = phase_v_kernels(CHECK_GEOM, SLICE_GEOM)
     twop = phase_twop(SLICE_GEOM, CLI_GEOM)
     thrp = phase_threep_loops(twop, SLICE_GEOM, CLI_GEOM)
+    m16 = phase_mesh_rest(twop.pop("refs"), twop["u"], SLICE_GEOM,
+                          CHECK_GEOM)
     del twop["u"]
     lv = phase_mg_levels(SLICE_GEOM, LIGHT_GEOM, LIGHT_PROBE_GEOM, CLI_GEOM,
                          mg6)
     kr = phase_krylov(SLICE_GEOM, CHECK_GEOM, LIGHT_GEOM)
     dws = phase_dw_staggered(SLICE_GEOM)
-    k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"]
-    k5 = mesh_runs[True]["k5"]
+    k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"] + m16["k4"]
+    k5 = mesh_runs[True]["k5"] + m16["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
     k1d_8 = cmix["k1d"] + cmix["k1d_sloppy_run"]["k1d"] + big["k1d"]
     print(f"dslash_ch launches: CG path {k['launches']}, MG path "
@@ -4048,7 +4389,9 @@ def main():
           f"{thrp['k2']}; production MG (phase 13): K1 {lv['k1']}, K2 "
           f"{lv['k2']}; Krylov tail and doublet (phase 14): K1 {kr['k1']}, "
           f"K2 {kr['k2']}; gauge utilities, domain wall and staggered (phase "
-          f"15): K1 {dws['k1']}, K2 {dws['k2']}")
+          f"15): K1 {dws['k1']}, K2 {dws['k2']}; sharded MG, Schwarz and "
+          f"meshed workflows (phase 16): K1 {m16['k1']}, K4 {m16['k4']}, "
+          f"K5 {m16['k5']}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -4063,11 +4406,12 @@ def main():
         entry("dslash_ch", KERNEL_SOURCE,
               f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
               k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8
-              + twop["k1"] + thrp["k1"] + lv["k1"] + kr["k1"] + dws["k1"],
+              + twop["k1"] + thrp["k1"] + lv["k1"] + kr["k1"] + dws["k1"]
+              + m16["k1"],
               max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
                   vk["v2"][3], tbc["k1"], twop["err"]["k1"],
                   thrp["err"]["k1"], lv["err"]["k1"], kr["err"]["k1"],
-                  dws["err"]["k1"]),
+                  dws["err"]["k1"], m16["err"]["k1"]),
               k["ms"],
               k["plain_ms"],
               k["bound"]),
@@ -4101,12 +4445,14 @@ def main():
               spin["times"]["K3"], spin["times"]["K3 plain"],
               spin["bounds"]["k3"]),
         entry("dslash_ch_local", LOCAL_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
-              k4, max(err_9a["k4"], t9["err"]["k4"], tbc["k4"]),
+              k4, max(err_9a["k4"], t9["err"]["k4"], tbc["k4"],
+                      m16["err"]["k4"]),
               t9["times"]["K4"],
               t9["times"]["K4 plain"], t9["bounds"]["K4"]),
         entry("dslash_ch_overlap", LOCAL_KERNEL_SOURCE,
               OVERLAP_KERNEL_REPLACES, k5,
-              max(err_9a["k5"], t9["err"]["k5"], tbc["k5"]),
+              max(err_9a["k5"], t9["err"]["k5"], tbc["k5"],
+                  m16["err"]["k5"]),
               t9["times"]["K5"], t9["times"]["K5 plain"],
               t9["bounds"]["K5"])]}))
     print(json.dumps({"ok": True, "device": {

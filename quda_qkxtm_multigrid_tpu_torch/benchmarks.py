@@ -5,7 +5,7 @@ MG-GCR-PC solve, and the compact channel operator's paths.
 point source: one cold solve, then one timed warm solve, with CG or one
 of the other solvers of ``invert`` (the mixed ones with a bf16 or a
 complex64 sloppy operator); ``bench_cg_mesh`` the same CG t-sharded on a
-ring of ranks.  ``bench_mg``
+ring of ranks (``bench_mg_mesh``: a sharded MG solve).  ``bench_mg``
 times the multigrid setup (two to four levels, float32 or bf16 null
 vectors) and then one cold and one warm ``mg_solve``, and certifies the
 warm solution in complex128.  GFLOP/s counts one ``flops_per_mat`` per
@@ -252,6 +252,54 @@ def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
         "k1_launches_cold_solve": k1_2 - k1_1,
         "peak_mem_bytes": _peak(dev)}
     return record, mg
+
+
+def bench_mg_mesh(mesh: TMesh, problem, mg, tol: float = 1e-7,
+                  solver: str = "gcr-pc",
+                  n_krylov: int = 5) -> tuple[dict, torch.Tensor]:
+    """The t-sharded MG solve without its setup: the preconditioner ``mg``
+    of ``problem`` (the whole lattice's operator and source, as
+    ``make_problem``'s; ``mg`` set up on that operator, as ``bench_mg``
+    does), cut by ``shard_mg``, then one cold and one timed warm
+    ``mg_solve(mesh=…)``.  Returns the record (the warm solve's outer
+    iterations and seconds on this rank's clock, the cold one's
+    iterations, the complex128 true residual of the gathered warm
+    solution, its V-cycles, the coarse-residual all-gathers and the K4
+    launches of the warm solve) and this rank's slab of the warm
+    solution."""
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import shard_mg
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_local)
+    d, b = problem
+    ms = shard_mg(mg, mesh)
+    bs = shard_spinor(b, mesh)
+    vcycles = [0]
+    vcycle = ms.vcycle
+
+    def counted(r, mesh=None):
+        vcycles[0] += 1
+        return vcycle(r, mesh)
+    ms.vcycle = counted
+    dev = bs.device
+    cold = mg_solve(ms, bs, tol=tol, n_krylov=n_krylov, solver=solver,
+                    mesh=mesh)
+    _sync(dev)
+    vcycles[0] = 0
+    g0, k4 = TMesh.gathers, dslash_ch_local.launches
+    t0 = time.perf_counter()
+    out = mg_solve(ms, bs, tol=tol, n_krylov=n_krylov, solver=solver,
+                   mesh=mesh)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    gathers, k4 = TMesh.gathers - g0, dslash_ch_local.launches - k4
+    record = {
+        "solver": f"mg-{solver}-sharded-nt{mesh.nt}", "iters": out.iters,
+        "iters_cold": cold.iters, "secs": secs, "vcycles": vcycles[0],
+        "allgathers": gathers, "k4_launches": k4,
+        "true_res": c128_true_res(d, mesh.allgather_t(out.x), b),
+        "true_res_solve": float(
+            (out.r2 / mesh.allreduce(norm2(bs))) ** 0.5)}
+    return record, out.x
 
 
 def light_problem(geom: Geometry, kappa: float, mu: float, device,

@@ -91,10 +91,10 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
     Source preparation, reconstruction and the true residual stay in the
     fields' precision.
 
-    ``mesh`` runs the t-sharded solve (``_invert_sharded``): ``dirac`` is
-    this rank's ``parallel.sharded.shard_dirac`` on that mesh and ``b``
-    its ``shard_spinor``; the result holds this rank's slab of x and the
-    whole lattice's true residual.  ``overlap`` picks K5 for the chain's
+    ``mesh`` runs the t-sharded solve (``_invert_sharded``, "cg" or
+    "cg-mixed"): ``dirac`` is this rank's ``parallel.sharded.shard_dirac``
+    on that mesh and ``b`` its ``shard_spinor``; the result holds this
+    rank's slab of x and the whole lattice's true residual.  ``overlap`` picks K5 for the chain's
     hops instead of K4 (the JAX package's ``None``, read from its tuned
     policy, has no counterpart: the choice is the caller's)."""
     if solver not in SOLVERS:
@@ -105,7 +105,7 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
                          "instead")
     if mesh is not None or isinstance(dirac, ShardedDirac):
         return _invert_sharded(dirac, b, tol, maxiter, solver,
-                               sloppy_dirac, mesh, overlap)
+                               sloppy_dirac, mesh, overlap, inner_tol)
     if isinstance(dirac, CompactDirac):
         if solver != "cg":
             raise ValueError(f"a CompactDirac solves with solver='cg' only, "
@@ -153,16 +153,27 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
 
 def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,
                     maxiter: int, solver: str, sloppy_dirac, mesh: TMesh,
-                    overlap: bool) -> InvertResult:
-    """The t-sharded solve (the JAX package's ``invert(mesh=…)``): CG on
-    the float32 sharded chain ``dirac.matpc_ch`` (four halo hops an
-    iteration, K4 or with ``overlap`` K5), its reductions summed over
-    the ring; prepare, the right-hand side's matpc†, reconstruct and the
-    true residual in the fields' precision through the slab's K4 hop
-    (float64 for complex128).  "cg" only."""
-    if solver != "cg":
-        raise ValueError(f"a sharded solve (mesh=...) runs solver='cg' "
-                         f"only, not {solver!r}")
+                    overlap: bool, inner_tol: float) -> InvertResult:
+    """The t-sharded solve (the JAX package's ``invert(mesh=…)``), every
+    reduction summed over the ring.  Prepare, the right-hand side's
+    matpc†, reconstruct and the true residual run in the fields'
+    precision through the slab's K4 hop (float64 for complex128).  The
+    normal equations' CG takes one of three routes:
+
+      "cg" on the sharded fused chain (``has_sharded_chain``): CG on
+        float32 channels, each matvec ``dirac.matpc_ch`` twice (four
+        halo hops, K4 or with ``overlap`` K5);
+      "cg" without the chain: CG on ``dirac.matpc_dagm`` in the fields'
+        precision, its hops the slab's K4 (float64 for complex128) and
+        its A⁻¹ plain (the JAX package's XLA path on sharded arrays);
+      "cg-mixed" on the chain: the float64 outer loop of ``cg_mixed`` on
+        ``matpc_dagm`` (K4 float64 hops) over float64 channels, and its
+        float32 inner loop on the chain to ``inner_tol``.
+
+    Other solvers and a sloppy operator raise."""
+    if solver not in ("cg", "cg-mixed"):
+        raise ValueError(f"a sharded solve (mesh=...) runs solver='cg' or "
+                         f"'cg-mixed', not {solver!r}")
     if sloppy_dirac is not None:
         raise ValueError("a sharded solve takes no sloppy operator")
     if not isinstance(dirac, ShardedDirac):
@@ -171,22 +182,36 @@ def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,
     if mesh is not dirac.mesh:
         raise ValueError("a ShardedDirac solves on its own mesh: pass "
                          "mesh=dirac.mesh")
-    if not dirac.has_sharded_chain:
-        raise ValueError("the sharded solve needs the fused chain: "
+    if solver == "cg-mixed" and not dirac.has_sharded_chain:
+        raise ValueError("the sharded cg-mixed needs the fused chain: "
                          "use_kernels, the symmetric Schur form and a "
                          "twisted or clover kind")
     src = dirac.prepare(b)
     rhs = dirac.matpc(src, dagger=True)
 
-    def matvec(v):
+    def chain(v):
         return dirac.matpc_ch(dirac.matpc_ch(v, False, overlap), True,
                               overlap)
 
-    res = cg(matvec, to_channels(rhs).to(torch.float32), tol=tol,
-             maxiter=maxiter, allreduce=mesh.allreduce)
-    x = dirac.reconstruct(from_channels(res.x, (4, 3)).to(rhs.dtype), b)
+    red = mesh.allreduce
+    if solver == "cg-mixed":
+        def matvec_hi(v):
+            return to_channels(dirac.matpc_dagm(from_channels(v, (4, 3))))
+        res = cg_mixed(matvec_hi, chain, to_channels(rhs), tol=tol,
+                       maxiter=maxiter, inner_tol=inner_tol,
+                       lo_dtype=torch.float32, allreduce=red)
+        x_p = from_channels(res.x, (4, 3))
+    elif dirac.has_sharded_chain:
+        res = cg(chain, to_channels(rhs).to(torch.float32), tol=tol,
+                 maxiter=maxiter, allreduce=red)
+        x_p = from_channels(res.x, (4, 3)).to(rhs.dtype)
+    else:
+        res = cg(dirac.matpc_dagm, rhs, tol=tol, maxiter=maxiter,
+                 allreduce=red)
+        x_p = res.x
+    x = dirac.reconstruct(x_p, b)
     _, rel = true_residual(dirac, x, b)
-    return InvertResult(x, res.iters, float(rel))
+    return InvertResult(x, res.iters, float(rel), res.stats)
 
 
 def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,

@@ -96,17 +96,23 @@ class Geometry:
 
 
 def gather_neighbor(f: torch.Tensor, mu: int, forward: bool, parity: int,
-                    geom: Geometry, t0: int | None = None) -> torch.Tensor:
+                    geom: Geometry, t0: int | None = None,
+                    mesh=None) -> torch.Tensor:
     """Gather f(x ± mu) for every site x of ``parity``.
 
     ``f`` lives on the opposite parity, any leading axes, trailing axes
     [T, Z, W].  Returns the same shape, aligned with sites of ``parity``.
     ``t0``: ``f`` holds only the timeslice t0 (trailing [1, Z, W]); the
-    spatial directions only.
+    spatial directions only.  ``mesh``: ``f`` is this rank's t-slab on
+    that ring (``parallel.mesh.TMesh``, ``geom`` the slab's), and a t
+    shift crosses to the neighbour ranks (``parallel.halo.gather_t``).
     """
     if mu == 3:
         if t0 is not None:
             raise ValueError("a single timeslice has no t neighbour")
+        if mesh is not None:
+            from quda_qkxtm_multigrid_tpu_torch.parallel.halo import gather_t
+            return gather_t(f, mesh, forward)
         return torch.roll(f, -1 if forward else 1, dims=-3)
     if mu == 2:
         return torch.roll(f, -1 if forward else 1, dims=-2)

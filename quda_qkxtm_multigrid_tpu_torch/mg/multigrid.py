@@ -30,11 +30,17 @@ through the Schur embedding (the production path), "gcr" runs GCR on
 the full operator, "mr-richardson" V-cycle steps with a minimal-residual
 step length.  Every restart recomputes the true residual of its system
 and reads it on the host once.
+
+On a t-ring (``shard_mg`` after the setup, then ``mg_solve(mesh=…)``)
+the fine level runs on each rank's slab through the sharded operator,
+and the coarse levels are replicated: ``vcycle(mesh=…)`` gathers the
+coarse residual and every rank runs the whole coarse solve.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -54,6 +60,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct, norm2
 from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import bicgstab
 from quda_qkxtm_multigrid_tpu_torch.solvers.gcr import GCRResult, gcr_cycle
 from quda_qkxtm_multigrid_tpu_torch.solvers.mr import mr
+from quda_qkxtm_multigrid_tpu_torch.solvers.support import summed
 from quda_qkxtm_multigrid_tpu_torch.utils import checkpoint as ckpt
 from quda_qkxtm_multigrid_tpu_torch.utils import rng as _rng
 from quda_qkxtm_multigrid_tpu_torch.utils.profiling import solve_telemetry
@@ -205,29 +212,53 @@ class MGPreconditioner:
             self._graphs[key] = _cuda_graphed(fn, like)
         return self._graphs[key]
 
-    def _smooth(self, r: torch.Tensor, niter: int) -> torch.Tensor:
+    def _smooth(self, r: torch.Tensor, niter: int,
+                allreduce=None) -> torch.Tensor:
         """``niter`` MR steps on M x = r, on the full operator or (with
-        ``smoother_pc``) on the Schur system via prepare/reconstruct."""
+        ``smoother_pc``) on the Schur system via prepare/reconstruct;
+        ``allreduce`` sums MR's reductions over the ring of a sharded
+        operator."""
         p = self.params
         d = self._dirac_smooth
         if not p.smoother_pc:
-            return mr(d.m, r, niter=niter, omega=p.omega)
-        x_p = mr(d.matpc, d.prepare(r), niter=niter, omega=p.omega)
+            return mr(d.m, r, niter=niter, omega=p.omega,
+                      allreduce=allreduce)
+        x_p = mr(d.matpc, d.prepare(r), niter=niter, omega=p.omega,
+                 allreduce=allreduce)
         return d.reconstruct(x_p, r)
 
-    def vcycle(self, r: torch.Tensor) -> torch.Tensor:
+    def vcycle(self, r: torch.Tensor, mesh=None) -> torch.Tensor:
         """One V(nu_pre, nu_post) cycle approximating M⁻¹ r on the full
-        field [2,4,3,T,Z,W]."""
+        field [2,4,3,T,Z,W].
+
+        ``mesh``: ``r`` is this rank's t-slab of a field on that ring and
+        the preconditioner is ``shard_mg``'s, with the coarse levels
+        replicated (the JAX package's ``vcycle_resharded``): smooth on the
+        slab through the sharded operator (MR's reductions summed over
+        the ring), restrict to the rank's aggregates, gather the coarse
+        residual of every rank (``TMesh.allgather_t`` on the coarse t
+        axis), run the whole coarse solve on every rank with no further
+        communication, and prolong the rank's coarse t rows.  The
+        gathered residual is the same bytes on every rank, so the coarse
+        solves agree to the bit and the prolonged corrections meet at the
+        slab edges; the gather stays outside the CUDA graph of the coarse
+        levels (``_graphed``)."""
         p = self.params
         m = self.dirac.m
+        red = None if mesh is None else mesh.allreduce
         x = torch.zeros_like(r)
         if p.nu_pre > 0:
-            x = self._smooth(r, p.nu_pre)
+            x = self._smooth(r, p.nu_pre, red)
         rr = r - m(x) if p.nu_pre > 0 else r
-        x = x + self.transfer.prolong(
-            self.coarse_solve(self.transfer.restrict(rr)))
+        rc = self.transfer.restrict(rr)
+        if mesh is None:
+            xc = self.coarse_solve(rc)
+        else:
+            rc = mesh.allgather_t(rc, axis=2)
+            xc = self.coarse_solve(rc).narrow(2, *mesh.t_range(rc.shape[2]))
+        x = x + self.transfer.prolong(xc)
         if p.nu_post > 0:
-            x = x + self._smooth(r - m(x), p.nu_post)
+            x = x + self._smooth(r - m(x), p.nu_post, red)
         return x
 
 
@@ -547,9 +578,27 @@ def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
     return tuple(mgs)
 
 
+def shard_mg(mg: MGPreconditioner, mesh) -> MGPreconditioner:
+    """This rank's part of a preconditioner set up on the whole lattice,
+    for ``mg_solve(mesh=…)``: the operator's slab
+    (``parallel.sharded.shard_dirac``), that of the δ-scaled smoother
+    operator, the transfer's aggregates on the slab (``t_slab``), and the
+    coarse levels whole, replicated on every rank.  The block's t extent
+    must divide T_loc.  The setup stays on the whole-lattice operator
+    (every rank holds it while ``shard_dirac`` cuts slabs from a
+    whole-lattice operator)."""
+    from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import shard_dirac
+    return dataclasses.replace(
+        mg, dirac=shard_dirac(mg.dirac, mesh),
+        dirac_pr=None if mg.dirac_pr is None else shard_dirac(mg.dirac_pr,
+                                                              mesh),
+        transfer=mg.transfer.t_slab(mesh))
+
+
 def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
              n_krylov: int = 10, max_restarts: int = 50,
-             solver: Optional[str] = None, telemetry: bool = False):
+             solver: Optional[str] = None, telemetry: bool = False,
+             mesh=None):
     """MG-preconditioned outer solve of M x = b.
 
     "gcr-pc": restarted GCR(n_krylov) on the even-odd Schur system
@@ -563,15 +612,24 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
     "mr-richardson": x += ω z, z = V-cycle(r), ω = <Mz, r>/|Mz|².
     ``iters`` counts n_krylov per GCR cycle, 1 per Richardson step.
 
+    ``mesh``: the t-sharded solve on that ring (the JAX package's
+    ``mg_solve(mesh=…)``): ``mg`` is ``shard_mg``'s, ``b`` and the
+    returned x this rank's slab; the V-cycle is ``vcycle(mesh=…)``,
+    every reduction of the outer solve is summed over the ring, and
+    ``r2`` is the whole lattice's.
+
     ``telemetry=True`` returns ``(result, utils.profiling.SolveTelemetry)``
     timed on the host clock from before ``prepare`` to after the last
     residual, the device synchronised at both ends."""
     if solver is None:
         solver = mg.params.outer_solver
     d = mg.dirac
+    if getattr(d, "mesh", None) is not mesh:
+        raise ValueError("a sharded solve needs both shard_mg(mg, mesh) "
+                         "and mg_solve(mesh=mesh)")
     _sync(b)
     t0 = time.perf_counter()
-    res = _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver)
+    res = _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver, mesh)
     if not telemetry:
         return res
     _sync(res.x)
@@ -579,61 +637,69 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
 
 
 def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
-              n_krylov: int, max_restarts: int, solver: str) -> GCRResult:
+              n_krylov: int, max_restarts: int, solver: str,
+              mesh=None) -> GCRResult:
     """The outer solve of ``mg_solve``."""
+    if mesh is None:
+        allreduce, vcycle = None, mg.vcycle
+        red = lambda v: v       # noqa: E731
+    else:
+        allreduce = red = mesh.allreduce
+        vcycle = functools.partial(mg.vcycle, mesh=mesh)
     if solver == "gcr-pc":
         pr = d.params.matpc_parity
         src = d.prepare(b)
         x_p = torch.zeros_like(src)
         r_p = src - d.matpc(x_p)
-        r2 = norm2(r_p)
+        r2 = red(norm2(r_p))
         b2 = float(r2)
 
         def precond(rp):
             full = torch.zeros((2,) + tuple(rp.shape), dtype=rp.dtype,
                                device=rp.device)
             full[pr] = d.a_apply(rp, pr)
-            return mg.vcycle(full)[pr]
+            return vcycle(full)[pr]
 
         iters = 0
         for _ in range(max_restarts):
             if float(r2) <= tol * tol * b2:
                 break
             x_p = x_p + gcr_cycle(d.matpc, r_p, n_krylov=n_krylov,
-                                  precond=precond)
+                                  precond=precond, allreduce=allreduce)
             iters += n_krylov
             r_p = src - d.matpc(x_p)
-            r2 = norm2(r_p)
+            r2 = red(norm2(r_p))
         x = d.reconstruct(x_p, b)
-        return GCRResult(x, iters, norm2(b - d.m(x)))
+        return GCRResult(x, iters, red(norm2(b - d.m(x))))
 
     x = torch.zeros_like(b)
     r = b - d.m(x)
-    r2 = norm2(r)
+    r2 = red(norm2(r))
     b2 = float(r2)
     iters = 0
     if solver == "mr-richardson":
         for _ in range(max_restarts * n_krylov):
             if float(r2) <= tol * tol * b2:
                 break
-            z = mg.vcycle(r)
+            z = vcycle(r)
             w = d.m(z)
-            denom = norm2(w)
+            denom, num = summed(allreduce, norm2(w), cDotProduct(w, r))
             omega = torch.where(
-                denom > 0, cDotProduct(w, r) / denom,
+                denom > 0, num / denom,
                 torch.zeros((), dtype=r.dtype, device=r.device))
             x = x + omega * z
             iters += 1
             r = b - d.m(x)
-            r2 = norm2(r)
+            r2 = red(norm2(r))
     elif solver == "gcr":
         for _ in range(max_restarts):
             if float(r2) <= tol * tol * b2:
                 break
-            x = x + gcr_cycle(d.m, r, n_krylov=n_krylov, precond=mg.vcycle)
+            x = x + gcr_cycle(d.m, r, n_krylov=n_krylov, precond=vcycle,
+                              allreduce=allreduce)
             iters += n_krylov
             r = b - d.m(x)
-            r2 = norm2(r)
+            r2 = red(norm2(r))
     else:
         raise ValueError(f"unknown mg_solve solver {solver!r}")
     return GCRResult(x, iters, r2)

@@ -38,6 +38,7 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.lattice import (
     Geometry, spinor_from_lex_dof_leading, spinor_to_lex_dof_leading)
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import local_t
 from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
 
 
@@ -139,6 +140,21 @@ def block_orthonormalize_flat(v_stacked: torch.Tensor) -> torch.Tensor:
     return cholqr_pass(cholqr_pass(torch.movedim(v_stacked, 0, -2)))
 
 
+def _slab_bg(bg: BlockGeometry, mesh) -> tuple:
+    """(the blocking of this rank's t-slab, (first, count) of its coarse t
+    rows): aggregates do not straddle slabs, so the block's t extent must
+    divide T_loc.  The slab's origin is even, so its blocked layout is
+    the whole lattice's restricted to those rows."""
+    f = bg.fine
+    t_loc = local_t(f.T, mesh)
+    if t_loc % bg.bt:
+        raise ValueError(f"the block's t extent {bg.bt} does not divide "
+                         f"the slab's T_loc = {t_loc}")
+    slab = BlockGeometry(Geometry(f.X, f.Y, f.Z, t_loc), bg.bx, bg.by,
+                         bg.bz, bg.bt, bg.nvec)
+    return slab, mesh.t_range(bg.coarse_shape[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class Transfer:
     """Aggregation V (orthonormal per aggregate and chirality), complex
@@ -150,6 +166,14 @@ class Transfer:
     def _mat(self) -> torch.Tensor:
         bg = self.bg
         return self.v.reshape(2 * bg.coarse_volume, bg.nvec, bg.bdof)
+
+    def t_slab(self, mesh) -> "Transfer":
+        """This rank's aggregates on a t-ring ``mesh``
+        (``parallel.mesh.TMesh``): V narrowed to the rank's coarse t rows
+        (the whole V itself on a ring of one), on the slab's fine
+        geometry (``_slab_bg``)."""
+        bg, (t0, n) = _slab_bg(self.bg, mesh)
+        return Transfer(v=self.v.narrow(1, t0, n).contiguous(), bg=bg)
 
     @full_float32()
     def restrict_flat(self, flat: torch.Tensor) -> torch.Tensor:
@@ -201,6 +225,12 @@ class Bf16Transfer:
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (self.vr, self.vi))
+
+    def t_slab(self, mesh) -> "Bf16Transfer":
+        """``Transfer.t_slab`` of the bf16 pair: both planes narrowed."""
+        bg, (t0, n) = _slab_bg(self.bg, mesh)
+        return Bf16Transfer(vr=self.vr.narrow(1, t0, n).contiguous(),
+                            vi=self.vi.narrow(1, t0, n).contiguous(), bg=bg)
 
     def _slab(self, a: int) -> torch.Tensor:
         """tc slab ``a`` of V, complex64 from the bf16 pair:

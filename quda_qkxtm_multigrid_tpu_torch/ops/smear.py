@@ -144,18 +144,21 @@ def gaussian_smear(psi: torch.Tensor, u_smeared: torch.Tensor,
 
 
 def covdev_apply(u: torch.Tensor, psi: torch.Tensor, mu: int,
-                 forward: bool, geom: Geometry) -> torch.Tensor:
+                 forward: bool, geom: Geometry, mesh=None) -> torch.Tensor:
     """Gauge-covariant shift of a full spinor field [2, 4, 3, T, Z, W]:
     U_mu(x) ψ(x+mu) forward, U_mu†(x−mu) ψ(x−mu) backward (the
-    reference's ``covDev.cu``)."""
+    reference's ``covDev.cu``).  ``mesh``: ``u`` and ``psi`` are this
+    rank's t-slabs on that ring, and for mu = t the shifted field and
+    the backward link U_t(x−t̂) cross ranks (``lattice.gather_neighbor``)."""
     outs = []
     for p in (0, 1):
         src = psi[1 - p]
         if forward:
-            outs.append(su3_mul(u[mu, p],
-                                gather_neighbor(src, mu, True, p, geom)))
+            outs.append(su3_mul(u[mu, p], gather_neighbor(
+                src, mu, True, p, geom, mesh=mesh)))
         else:
-            u_b = gather_neighbor(u[mu, 1 - p], mu, False, p, geom)
+            u_b = gather_neighbor(u[mu, 1 - p], mu, False, p, geom,
+                                  mesh=mesh)
             outs.append(su3_dag_mul(
-                u_b, gather_neighbor(src, mu, False, p, geom)))
+                u_b, gather_neighbor(src, mu, False, p, geom, mesh=mesh)))
     return torch.stack(outs)

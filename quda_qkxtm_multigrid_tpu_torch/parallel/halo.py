@@ -91,3 +91,35 @@ def t_faces(psi_ch: torch.Tensor, mesh: TMesh, project: bool = False,
     its ``wait``."""
     return start_t_faces(psi_ch, mesh, project, dagger).wait()
 
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous real view of a message (complex as its real pairs)."""
+    t = t.contiguous()
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def gather_t(f: torch.Tensor, mesh: TMesh, forward: bool) -> torch.Tensor:
+    """The ring form of ``lattice.gather_neighbor`` for mu = t: f(x ± t̂)
+    of a field with trailing [T_loc, Z, W] (any leading axes; a gauge
+    link or a spinor).  The even-odd index w does not change under a t
+    shift, so this is ``torch.roll`` along −3 with the plane that crosses
+    the slab's edge taken from the neighbour: forward, each rank sends its
+    first plane to rank − 1 and receives rank + 1's as its last row;
+    backward, the last plane to rank + 1 and rank − 1's as its first.
+    One send and one receive a rank (a ring of two pairs them with one
+    peer); on a ring of one, the roll."""
+    if mesh.nt == 1:
+        return torch.roll(f, -1 if forward else 1, dims=-3)
+    send = f[..., :1, :, :] if forward else f[..., -1:, :, :]
+    wire = _wire(send)
+    recv = torch.empty_like(wire)
+    to, frm = (mesh.prev, mesh.next) if forward else (mesh.next, mesh.prev)
+    for w in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, wire, to, mesh.group, _TAG_P),
+            dist.P2POp(dist.irecv, recv, frm, mesh.group, _TAG_P)]):
+        w.wait()
+    plane = torch.view_as_complex(recv) if send.is_complex() else recv
+    if forward:
+        return torch.cat([f[..., 1:, :, :], plane], dim=-3)
+    return torch.cat([plane, f[..., :-1, :, :]], dim=-3)

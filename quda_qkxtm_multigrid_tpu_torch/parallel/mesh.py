@@ -26,6 +26,8 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+
 
 @dataclasses.dataclass(frozen=True)
 class TMesh:
@@ -49,10 +51,47 @@ class TMesh:
         return (self.rank + 1) % self.nt
 
     def allreduce(self, value: torch.Tensor) -> torch.Tensor:
-        """The sum of a 0-d tensor over the ring (a new tensor)."""
-        v = value.detach().clone().reshape(1)
+        """The sum over the ring of a tensor of any shape (a new tensor).
+        A complex one is summed as its real pairs: the reductions of the
+        collective libraries are not relied on for complex types."""
+        v = value.detach().clone()
+        if v.is_complex():
+            pairs = torch.view_as_real(v).contiguous()
+            dist.all_reduce(pairs, op=dist.ReduceOp.SUM, group=self.group)
+            return torch.view_as_complex(pairs)
+        v = v.reshape(-1)
         dist.all_reduce(v, op=dist.ReduceOp.SUM, group=self.group)
-        return v.reshape(())
+        return v.reshape(value.shape)
+
+    def allgather_t(self, x: torch.Tensor, axis: int = -3) -> torch.Tensor:
+        """Every rank's ``x`` joined along its t axis ``axis`` in rank
+        order (the same on every rank): the whole lattice's field from
+        the slabs, or the coarse residual [2, nvec, Tc, Zc, Yc, Xc] of
+        the replicated coarse solve (``axis=2``).  ``x`` itself on a ring
+        of one (no copy).  ``TMesh.gathers`` counts the calls."""
+        TMesh.gathers += 1
+        if self.nt == 1:
+            return x
+        v = x.contiguous()
+        if v.is_complex():
+            v = torch.view_as_real(v)
+        parts = [torch.empty_like(v) for _ in range(self.nt)]
+        dist.all_gather(parts, v, group=self.group)
+        if x.is_complex():
+            parts = [torch.view_as_complex(p) for p in parts]
+        return torch.cat(parts, dim=axis)
+
+    def t_range(self, t_extent: int) -> tuple:
+        """(first, count) of this rank's rows of a t axis of the whole
+        lattice's extent ``t_extent`` (a fine T or a coarse Tc)."""
+        if t_extent % self.nt:
+            raise ValueError(f"t extent {t_extent} is not divisible by "
+                             f"nt={self.nt}")
+        n = t_extent // self.nt
+        return self.rank * n, n
+
+
+TMesh.gathers = 0   # calls of allgather_t, for the benchmarks' records
 
 
 def _backend(device: torch.device) -> str:
@@ -111,6 +150,11 @@ def local_t(T: int, mesh: TMesh) -> int:
         raise ValueError(f"local T extent {t_loc} must be even (the "
                          "slab's origin must be even)")
     return t_loc
+
+
+def local_geometry(geom: Geometry, mesh: TMesh) -> Geometry:
+    """The geometry of this rank's slab of a lattice ``geom``."""
+    return Geometry(geom.X, geom.Y, geom.Z, local_t(geom.T, mesh))
 
 
 def t_slab(field: torch.Tensor, mesh: TMesh) -> torch.Tensor:

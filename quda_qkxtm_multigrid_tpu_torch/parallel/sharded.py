@@ -154,3 +154,26 @@ def shard_dirac(dirac: Dirac, mesh: TMesh) -> ShardedDirac:
                         clover=cut(dirac.clover),
                         clover_inv=cut(dirac.clover_inv), u_doubled=cut(ud),
                         antiperiodic=antiperiodic)
+
+
+def local_block(dirac: ShardedDirac) -> Dirac:
+    """The Schwarz block operator of this rank: a plain ``Dirac`` on the
+    slab's geometry and links, with the t wrap *inside* the slab (the
+    JAX package's shard-local ``Dirac`` of ``parallel/schwarz.py``).  The
+    gauge is re-doubled on the slab (with ``use_kernels``, for K1 on the
+    local geometry); the slab's clover and A⁻¹ are kept as they are.
+
+    The block's wrap link is the slab's last forward t link: it carries
+    the antiperiodic boundary's −1 on the rank that holds global
+    t = T−1 and no sign elsewhere.  Recon-12 drops that sign, so the
+    block is told its boundary (``antiperiodic`` on that rank only, read
+    from the whole lattice's links through ``dirac.t_rows``), and K1
+    restores it on the last local row, where it lies."""
+    geom = dirac.geom
+    ud = (_dsl.double_gauge(dirac.u, geom) if dirac.params.use_kernels
+          else None)
+    block = Dirac(dirac.u, dirac.params, geom, clover=dirac.clover,
+                  clover_inv=dirac.clover_inv, u_doubled=ud)
+    block._antiperiodic = (dirac.antiperiodic
+                           and dirac.t_rows[1] == geom.T - 1)
+    return block

@@ -179,6 +179,17 @@ def momentum_project_dyn(c_lex: torch.Tensor, geom: Geometry, moms,
                                   device=base.device)
 
 
+def t_gather(c: torch.Tensor, mesh, space: str = "momentum") -> torch.Tensor:
+    """A correlator of this rank's t rows joined with every rank's along
+    its t axis (``parallel.mesh.TMesh.allgather_t``): [..., T, nmom] in
+    momentum space, [..., T, Z, Y, X] in position space.  The momentum
+    projection has no t dependence, so each rank projects its own rows
+    first.  ``c`` itself when ``mesh`` is None."""
+    if mesh is None:
+        return c
+    return mesh.allgather_t(c, axis=-2 if space == "momentum" else -4)
+
+
 def fft_project(c_lex: torch.Tensor) -> torch.Tensor:
     """The full momentum grid by a spatial FFT (the reference's batched
     CUFFT projection)."""

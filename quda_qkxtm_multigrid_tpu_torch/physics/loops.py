@@ -35,6 +35,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops import clover as _cl
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
 from quda_qkxtm_multigrid_tpu_torch.ops.gamma import apply_gamma5
 from quda_qkxtm_multigrid_tpu_torch.ops.smear import covdev_apply
+from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import ShardedDirac
 from quda_qkxtm_multigrid_tpu_torch.physics.contract import corr_to_lex
 from quda_qkxtm_multigrid_tpu_torch.utils.precision import heinsum
 from quda_qkxtm_multigrid_tpu_torch.utils.rng import z4_source
@@ -64,17 +65,22 @@ def _lex16(c: torch.Tensor, geom: Geometry) -> torch.Tensor:
 def one_end_trick(x: torch.Tensor, dirac_plain: Dirac,
                   geom: Geometry) -> LoopResult:
     """One noise sample's loop contributions from the solution x = M⁻¹ξ;
-    ``dirac_plain`` is the untwisted partner (``plain_wilson_partner``)."""
+    ``dirac_plain`` is the untwisted partner (``plain_wilson_partner``).
+    A sharded partner (``parallel.sharded.ShardedDirac``) takes this
+    rank's t-slab of x, ``geom`` the slab's: its ``m`` hops through the
+    halo exchange and the t shifts cross ranks on its mesh; the loops
+    are then the slab's rows."""
     u = dirac_plain.u
+    mesh = getattr(dirac_plain, "mesh", None)
     tmp3 = apply_gamma5(dirac_plain.m(x))
     std = -_lex16(spin_outer_g5(x, x), geom)
     gen = _lex16(spin_outer_g5(x, tmp3), geom)
     der_s, der_g, con_s, con_g = [], [], [], []
     for mu in range(4):
-        dp_t3 = covdev_apply(u, tmp3, mu, True, geom)
-        dm_t3 = covdev_apply(u, tmp3, mu, False, geom)
-        dp_x = covdev_apply(u, x, mu, True, geom)
-        dm_x = covdev_apply(u, x, mu, False, geom)
+        dp_t3 = covdev_apply(u, tmp3, mu, True, geom, mesh)
+        dm_t3 = covdev_apply(u, tmp3, mu, False, geom, mesh)
+        dp_x = covdev_apply(u, x, mu, True, geom, mesh)
+        dm_x = covdev_apply(u, x, mu, False, geom, mesh)
         t0 = spin_outer_g5(x, dp_t3)
         t3 = spin_outer_g5(dm_x, tmp3)
         t2 = spin_outer_g5(dp_x, tmp3)
@@ -103,11 +109,18 @@ def plain_wilson_partner(dirac: Dirac) -> Dirac:
     """The untwisted companion of ``dirac`` for the one-end trick (Wilson
     for twisted mass, clover for twisted clover): the same links, doubled
     links, clover term and, with ``use_kernels``, the same gauge channels
-    (one cache), no clover inverse."""
+    (one cache), no clover inverse.  The partner of a ``ShardedDirac`` is
+    the same slab's, on its mesh."""
     p = _partner_params(dirac.params, dirac.params.use_kernels)
-    out = Dirac(dirac.u, p, dirac.geom,
-                clover=dirac.clover if p.has_clover else None,
-                u_doubled=dirac.u_doubled)
+    clover = dirac.clover if p.has_clover else None
+    if isinstance(dirac, ShardedDirac):
+        out = ShardedDirac(dirac.u, p, dirac.geom, dirac.mesh,
+                           dirac.global_geom, clover=clover,
+                           u_doubled=dirac.u_doubled,
+                           antiperiodic=dirac.antiperiodic)
+    else:
+        out = Dirac(dirac.u, p, dirac.geom, clover=clover,
+                    u_doubled=dirac.u_doubled)
     out._ch_cache = dirac._ch_cache
     out._antiperiodic = dirac._antiperiodic
     return out

@@ -188,33 +188,38 @@ def fixsink_local(seq: torch.Tensor, fwd: torch.Tensor, particle: int,
     return heinsum("onr,prmbatzw,pnmbatzw->optzw", ops, fwd, seq)
 
 
-def _shift_col_fwd(u, prop, mu, geom):
+def _shift_col_fwd(u, prop, mu, geom, mesh=None):
     """U_mu(x) P(x+mu) on the sink colour axis; ``prop`` arranged
-    [2, 4(src s), 3(src c), 4(snk s), 3(snk c), T, Z, W]."""
+    [2, 4(src s), 3(src c), 4(snk s), 3(snk c), T, Z, W].  ``mesh``: the
+    fields are t-slabs on that ring (``lattice.gather_neighbor``)."""
     return torch.stack([su3_mul(u[mu, p],
                                 gather_neighbor(prop[1 - p], mu, True, p,
-                                                geom)) for p in (0, 1)])
+                                                geom, mesh=mesh))
+                        for p in (0, 1)])
 
 
-def _shift_col_bwd(u, prop, mu, geom):
+def _shift_col_bwd(u, prop, mu, geom, mesh=None):
     """U_mu†(x−mu) P(x−mu)."""
     return torch.stack([su3_dag_mul(
-        gather_neighbor(u[mu, 1 - p], mu, False, p, geom),
-        gather_neighbor(prop[1 - p], mu, False, p, geom)) for p in (0, 1)])
+        gather_neighbor(u[mu, 1 - p], mu, False, p, geom, mesh=mesh),
+        gather_neighbor(prop[1 - p], mu, False, p, geom, mesh=mesh))
+        for p in (0, 1)])
 
 
-def _shift_row_fwd(u, prop, mu, geom):
+def _shift_row_fwd(u, prop, mu, geom, mesh=None):
     """P(x+mu) U_mu(x)† on the sink colour axis (the row side)."""
     return torch.stack([su3_conj_mul(u[mu, p],
                                      gather_neighbor(prop[1 - p], mu, True, p,
-                                                     geom)) for p in (0, 1)])
+                                                     geom, mesh=mesh))
+                        for p in (0, 1)])
 
 
-def _shift_row_bwd(u, prop, mu, geom):
+def _shift_row_bwd(u, prop, mu, geom, mesh=None):
     """P(x−mu) U_mu(x−mu)."""
     return torch.stack([su3_transp_mul(
-        gather_neighbor(u[mu, 1 - p], mu, False, p, geom),
-        gather_neighbor(prop[1 - p], mu, False, p, geom)) for p in (0, 1)])
+        gather_neighbor(u[mu, 1 - p], mu, False, p, geom, mesh=mesh),
+        gather_neighbor(prop[1 - p], mu, False, p, geom, mesh=mesh))
+        for p in (0, 1)])
 
 
 def _to_shiftable(prop):
@@ -227,19 +232,20 @@ def _from_shiftable(prop):
 
 
 def _shifted_terms(seq, fwd, u, geom: Geometry, particle: int,
-                   partflag: int, noether: bool, one_d: bool):
+                   partflag: int, noether: bool, one_d: bool, mesh=None):
     """The conserved current [4, 2, T, Z, W] and the one-derivative
     insertions [16, 4, 2, T, Z, W] (either None unless asked for), from
-    one set of the four covariant shifts a direction."""
+    one set of the four covariant shifts a direction (``mesh``: on the
+    t-slabs of that ring, the t shifts crossing ranks)."""
     ops = _const(insertion_ops(particle, partflag), fwd)
     eye = _const(np.eye(4), fwd)
     fwd_s, seq_s = _to_shiftable(fwd), _to_shiftable(seq)
     noe, oned = [], []
     for mu in range(4):
-        f_fwd = _from_shiftable(_shift_col_fwd(u, fwd_s, mu, geom))
-        f_bwd = _from_shiftable(_shift_col_bwd(u, fwd_s, mu, geom))
-        s_fwd = _from_shiftable(_shift_row_fwd(u, seq_s, mu, geom))
-        s_bwd = _from_shiftable(_shift_row_bwd(u, seq_s, mu, geom))
+        f_fwd = _from_shiftable(_shift_col_fwd(u, fwd_s, mu, geom, mesh))
+        f_bwd = _from_shiftable(_shift_col_bwd(u, fwd_s, mu, geom, mesh))
+        s_fwd = _from_shiftable(_shift_row_fwd(u, seq_s, mu, geom, mesh))
+        s_bwd = _from_shiftable(_shift_row_bwd(u, seq_s, mu, geom, mesh))
         if one_d:
             t1 = heinsum("okl,pkmbatzw,plmbatzw->optzw", ops, seq,
                          f_fwd - f_bwd)
@@ -279,9 +285,11 @@ def fixsink_noether(seq, fwd, u, geom: Geometry, particle: int,
                           False)[0]
 
 
-def fixsink_all(seq, fwd, u, geom: Geometry, particle: int, partflag: int):
+def fixsink_all(seq, fwd, u, geom: Geometry, particle: int, partflag: int,
+                mesh=None):
     """(``fixsink_local``, ``fixsink_noether``, ``fixsink_oneD``), the
-    last two from one set of covariant shifts."""
+    last two from one set of covariant shifts; ``mesh``: the fields are
+    t-slabs on that ring, the t shifts crossing ranks."""
     noe, oned = _shifted_terms(seq, fwd, u, geom, particle, partflag, True,
-                               True)
+                               True, mesh)
     return fixsink_local(seq, fwd, particle, partflag), noe, oned

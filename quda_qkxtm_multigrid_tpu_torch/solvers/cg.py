@@ -80,7 +80,8 @@ def cg_mixed(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor,
              inner_tol: float = 1e-3, inner_maxiter: int = 500,
              lo_dtype: torch.dtype = torch.complex64, max_restarts: int = 20,
              max_res_increase: int = 1,
-             max_res_increase_total: int = 10) -> CGResult:
+             max_res_increase_total: int = 10,
+             allreduce: Optional[Callable] = None) -> CGResult:
     """Mixed-precision CG: a sloppy inner CG on ``matvec_lo`` in
     ``lo_dtype`` to ``inner_tol``, inside high-precision defect-correction
     restarts on ``matvec_hi`` in b's precision (the role of matSloppy and
@@ -89,11 +90,13 @@ def cg_mixed(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor,
     ``support.defect_correction``; ``stats.diverged`` reports a stop at
     the sloppy operator's precision floor.  ``iters`` sums the inner
     iterations, and ``maxiter`` caps that sum (the JAX package takes
-    ``maxiter`` and does not use it)."""
+    ``maxiter`` and does not use it).  ``allreduce`` sums the reductions
+    of both loops over the ranks of a sharded field."""
     x, r2, iters, stats = defect_correction(
         matvec_hi,
         lambda r, cap: cg(matvec_lo, r, tol=inner_tol,
-                          maxiter=min(inner_maxiter, cap)),
+                          maxiter=min(inner_maxiter, cap),
+                          allreduce=allreduce),
         b, lo_dtype, tol, maxiter, max_restarts, max_res_increase,
-        max_res_increase_total)
+        max_res_increase_total, allreduce)
     return CGResult(x, iters, r2, stats)

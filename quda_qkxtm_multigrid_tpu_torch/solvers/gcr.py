@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct, norm2
+from quda_qkxtm_multigrid_tpu_torch.solvers.support import summed
 
 
 class GCRResult(NamedTuple):
@@ -26,13 +27,21 @@ class GCRResult(NamedTuple):
 
 def gcr_cycle(matvec: Callable, b: torch.Tensor, n_krylov: int = 10,
               precond: Optional[Callable] = None,
-              x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+              x0: Optional[torch.Tensor] = None,
+              allreduce: Optional[Callable] = None) -> torch.Tensor:
     """One GCR(n_krylov) cycle from ``x0`` (zero if not given); returns x.
 
     A direction that orthogonalisation annihilates (|v|² below eps² of
     its norm before, eps² = 1e-10 in single precision, 1e-24 in double)
     is skipped instead of amplifying round-off, and so is one whose |v|²
-    is below the smallest normal number."""
+    is below the smallest normal number.
+
+    ``allreduce`` sums the reductions over the ranks of a sharded field
+    (``parallel.mesh.TMesh.allreduce``), those of one direction that do
+    not wait on each other as one vector: |v|² with the first
+    projection, each further projection of the modified Gram-Schmidt on
+    its own, and the orthogonalised |v|² with <v, r> (α is then
+    <v, r>/|v| rather than <v/|v|, r>)."""
     if precond is None:
         precond = lambda r: r        # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -46,18 +55,30 @@ def gcr_cycle(matvec: Callable, b: torch.Tensor, n_krylov: int = 10,
     for _ in range(n_krylov):
         z = precond(r)
         v = matvec(z)
-        v0n2 = norm2(v)
-        for zj, vj in zip(zs, vs):
-            c = cDotProduct(vj, v)
-            z = z - c * zj
-            v = v - c * vj
-        vnorm2 = norm2(v)
+        if allreduce is None:
+            v0n2 = norm2(v)
+            for zj, vj in zip(zs, vs):
+                c = cDotProduct(vj, v)
+                z = z - c * zj
+                v = v - c * vj
+            vnorm2 = norm2(v)
+        else:
+            if vs:
+                v0n2, c = summed(allreduce, norm2(v), cDotProduct(vs[0], v))
+            else:
+                (v0n2,) = summed(allreduce, norm2(v))
+            for j, (zj, vj) in enumerate(zip(zs, vs)):
+                if j > 0:
+                    c = allreduce(cDotProduct(vj, v))
+                z = z - c * zj
+                v = v - c * vj
+            vnorm2, vr = summed(allreduce, norm2(v), cDotProduct(v, r))
         inv = torch.where((vnorm2 > eps2 * v0n2) & (vnorm2 > tiny),
                           1.0 / torch.sqrt(torch.clamp(vnorm2, min=tiny)),
                           torch.zeros_like(vnorm2)).to(b.dtype)
         z = z * inv
         v = v * inv
-        alpha = cDotProduct(v, r)
+        alpha = cDotProduct(v, r) if allreduce is None else inv * vr
         x = x + alpha * z
         r = r - alpha * v
         zs.append(z)
@@ -67,18 +88,24 @@ def gcr_cycle(matvec: Callable, b: torch.Tensor, n_krylov: int = 10,
 
 def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         tol: float = 1e-10, n_krylov: int = 10, max_restarts: int = 50,
-        precond: Optional[Callable] = None) -> GCRResult:
+        precond: Optional[Callable] = None,
+        allreduce: Optional[Callable] = None) -> GCRResult:
     """Restarted GCR(n_krylov) on M x = b.  ``precond`` maps r to an
-    approximation of M⁻¹ r."""
+    approximation of M⁻¹ r.  ``allreduce`` sums every reduction over the
+    ranks of a sharded field (``gcr_cycle``)."""
+    red = (lambda v: v) if allreduce is None else allreduce
     x = torch.zeros_like(b) if x0 is None else x0
     r = b if x0 is None else b - matvec(x)
-    target = (tol * tol) * norm2(b)
+    target = (tol * tol) * red(norm2(b))
     iters = 0
+    r2 = red(norm2(r))
     for _ in range(max_restarts):
-        if not bool(norm2(r) > target):
+        if not bool(r2 > target):
             break
-        x = gcr_cycle(matvec, r, n_krylov, precond) + x
+        x = gcr_cycle(matvec, r, n_krylov, precond,
+                      allreduce=allreduce) + x
         # the recursed residual drifts in single precision: recompute it
         r = b - matvec(x)
+        r2 = red(norm2(r))
         iters += n_krylov
-    return GCRResult(x, iters, norm2(r))
+    return GCRResult(x, iters, r2)

@@ -13,10 +13,15 @@ from typing import Callable, Optional
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct
+from quda_qkxtm_multigrid_tpu_torch.solvers.support import summed
 
 
 def mr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
-       niter: int = 4, omega: float = 0.85) -> torch.Tensor:
+       niter: int = 4, omega: float = 0.85,
+       allreduce: Optional[Callable] = None) -> torch.Tensor:
+    """``niter`` MR steps on A x = b from ``x0`` (zero if not given).
+    ``allreduce`` sums a step's two reductions, as one vector, over the
+    ranks of a sharded field (``parallel.mesh.TMesh.allreduce``)."""
     x = torch.zeros_like(b) if x0 is None else x0
     r = b if x0 is None else b - matvec(x)
     for _ in range(niter):
@@ -24,9 +29,9 @@ def mr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         # a step needs |Ar|² to be a normal number: below it (a residual
         # of ~1e-19 in float32, behind a near-exact coarser level) the
         # quotient overflows, and the step is skipped
-        d = cDotProduct(ar, ar).real
-        alpha = torch.where(d > torch.finfo(d.dtype).tiny,
-                            cDotProduct(ar, r) / d,
+        d, num = summed(allreduce, cDotProduct(ar, ar), cDotProduct(ar, r))
+        d = d.real
+        alpha = torch.where(d > torch.finfo(d.dtype).tiny, num / d,
                             torch.zeros_like(r.flatten()[0]))
         alpha = omega * alpha
         x = x + alpha * r

@@ -117,10 +117,27 @@ class ReliableStats(NamedTuple):
     diverged: bool            # True if terminated by the counters
 
 
+def summed(allreduce: Callable, *values: torch.Tensor) -> tuple:
+    """0-d reductions (real or complex) of one local field, each summed
+    over the ranks of a sharded field by one ``allreduce`` call on their
+    stacked vector (``parallel.mesh.TMesh.allreduce``, which sums a
+    complex vector as its real pairs); the values themselves when
+    ``allreduce`` is None."""
+    if allreduce is None:
+        return values
+    cdt = torch.promote_types(values[0].dtype, torch.complex64)
+    for v in values[1:]:
+        cdt = torch.promote_types(cdt, v.dtype)
+    out = allreduce(torch.stack([v.to(cdt) for v in values])).unbind()
+    return tuple(o if v.is_complex() else o.real.to(v.dtype)
+                 for o, v in zip(out, values))
+
+
 def defect_correction(matvec_hi: Callable, solve_lo: Callable, b,
                       lo_dtype: torch.dtype, tol: float, maxiter: int,
                       max_restarts: int, max_res_increase: int,
-                      max_res_increase_total: int):
+                      max_res_increase_total: int,
+                      allreduce: Callable | None = None):
     """The restart loop of ``cg_mixed`` and ``bicgstab_mixed`` (the JAX
     package's loop, reference inv_cg_quda.cpp:207-311): from x = 0,
     repeat x += solve_lo(r in ``lo_dtype``, cap) and r = b − matvec_hi(x)
@@ -137,8 +154,11 @@ def defect_correction(matvec_hi: Callable, solve_lo: Callable, b,
     loop recomputes b − matvec_hi(x) at the top of each restart; here
     the residual that ended the previous restart is reused (the same
     function of the same x), which saves one high-precision matvec a
-    restart.  Returns (x, |r|², summed inner iterations, ReliableStats)."""
-    b2 = norm2(b)
+    restart.  ``allreduce`` sums the outer loop's |r|² over the ranks of
+    a sharded field.  Returns (x, |r|², summed inner iterations,
+    ReliableStats)."""
+    red = (lambda v: v) if allreduce is None else allreduce
+    b2 = red(norm2(b))
     target = (tol * tol) * b2
     x = torch.zeros_like(b)
     r = b
@@ -149,7 +169,7 @@ def defect_correction(matvec_hi: Callable, solve_lo: Callable, b,
         e = solve_lo(r.to(lo_dtype), maxiter - iters)
         x = x + e.x.to(b.dtype)
         r = b - matvec_hi(x)
-        r2_new = norm2(r)
+        r2_new = red(norm2(r))
         increased = bool(r2_new > r2)
         inc = inc + 1 if increased else 0
         inc_tot += int(increased)

@@ -28,6 +28,13 @@ one at a time with the mixed CG: the outer loop on K1's float64
 instance, the inner one on its float32 instance.  A gauge on the CPU
 takes the plain operator.  The JAX package's gate (2.2 M sites) was a
 rule for a 16 GB TPU.
+
+With ``mesh`` (a t-ring, ``parallel.mesh.TMesh``) the 2pt, 3pt and
+loops run t-sharded: each rank holds the whole gauge, cuts its slab of
+every field and of the operator (``make_operator(mesh=…)``), solves each
+column through ``invert(mesh=…)`` (the sharded chain's CG, its
+``cg-mixed`` in complex128, or the plain sharded CG off the card) or the
+``shard_mg`` pair, and gathers the results whole on every rank.
 """
 
 from __future__ import annotations
@@ -47,6 +54,10 @@ from quda_qkxtm_multigrid_tpu_torch.invert import (
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.ops.gamma import apply_gamma5
 from quda_qkxtm_multigrid_tpu_torch.ops.smear import ape_smear, gaussian_smear
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
+    local_geometry, t_slab)
+from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+    ShardedDirac, shard_dirac)
 from quda_qkxtm_multigrid_tpu_torch.physics import contract as con
 from quda_qkxtm_multigrid_tpu_torch.physics import loops as lp
 from quda_qkxtm_multigrid_tpu_torch.physics import threept as tp
@@ -63,8 +74,10 @@ from quda_qkxtm_multigrid_tpu_torch.utils.rng import z4_source
 _FORCE_KERNELS: Optional[bool] = None
 _FORCE_COMPACT: Optional[bool] = None
 
-MESH_REFUSAL = ("the meshed workflows are ROADMAP queue 1 item 7 "
-                "('Multi-GPU, the rest'); run without mesh")
+MESH_REFUSAL = ("run_loops_wexact has no meshed form: its Lanczos (the "
+                "CGS2 passes and the Rayleigh-Ritz step) does not sum its "
+                "reductions over the ring (ROADMAP queue 1 item 7); run "
+                "it without mesh")
 
 
 def _use_kernels(u: torch.Tensor) -> bool:
@@ -97,9 +110,12 @@ def make_operator(u: torch.Tensor, params: DiracParams, geom: Geometry,
     """The production operator on ``u``'s device (module docstring):
     ``compact.make_compact`` (bf16 tier) where a complex64 bundle does
     not fit, else ``make_dirac`` with ``use_kernels`` on the card and
-    without on the CPU."""
+    without on the CPU.  With ``mesh`` (a t-ring), this rank's slab of
+    the ``make_dirac`` operator built on the whole gauge ``u``
+    (``parallel.sharded.shard_dirac``)."""
     if mesh is not None:
-        raise ValueError(MESH_REFUSAL)
+        return shard_dirac(make_dirac(u, dataclasses.replace(
+            params, use_kernels=_use_kernels(u)), geom), mesh)
     if _use_compact(u, geom):
         return make_compact(u, params, geom, dtype=torch.bfloat16)
     return make_dirac(u, dataclasses.replace(
@@ -138,20 +154,37 @@ def _check_space(corr_space: str):
 
 def _solver(dirac) -> str:
     """``invert``'s solver for a column: CG, or the mixed CG on the
-    complex128 fused chain (its float64 outer loop certifies the
-    tolerance; the plain "cg" runs the chain in float32)."""
-    fused = getattr(dirac, "_has_fused_matpc", False)
+    complex128 fused chain, sharded or not (its float64 outer loop
+    certifies the tolerance; the plain "cg" runs the chain in
+    float32)."""
+    fused = (dirac.has_sharded_chain if isinstance(dirac, ShardedDirac)
+             else getattr(dirac, "_has_fused_matpc", False))
     return ("cg-mixed" if fused and _op_dtype(dirac) == torch.complex128
             else "cg")
 
 
+def _slabs(mesh, geom: Geometry, *fields):
+    """(the local geometry, each field's t-slab) on ``mesh``, or
+    (``geom``, the fields) when ``mesh`` is None."""
+    if mesh is None:
+        return (geom,) + fields
+    return (local_geometry(geom, mesh),) + tuple(
+        t_slab(f, mesh) for f in fields)
+
+
+
 def smeared_sources(u_ape: torch.Tensor, geom: Geometry, coords,
-                    alpha: float, nsmear: int, dtype) -> torch.Tensor:
+                    alpha: float, nsmear: int, dtype,
+                    mesh=None) -> torch.Tensor:
     """The twelve Gaussian-smeared point sources of ``coords``
-    [12 (spin-major), 2, 4, 3, T, Z, W], smeared as one batch."""
+    [12 (spin-major), 2, 4, 3, T, Z, W], smeared as one batch.  With
+    ``mesh``: the sources are made on the whole lattice ``geom`` and
+    this rank's t-slabs smeared over ``u_ape``, the slab's smeared links
+    (the smearing is spatial)."""
     bs = torch.stack([fields.point_source_dyn(geom, coords, s, c, dtype,
                                               u_ape.device)
                       for s in range(4) for c in range(3)])
+    geom, bs = _slabs(mesh, geom, bs)
     return gaussian_smear(bs, u_ape, geom, alpha, nsmear)
 
 
@@ -159,14 +192,13 @@ def mg_solve_fn(mg, tol: float = 1e-8, n_krylov: int = 10,
                 max_restarts: int = 50, mesh=None):
     """An MG preconditioner as a workflow solver b → (x, true_rel) (the
     reference's per-column GCR-MG solve); each solve appends its outer
-    iterations to the returned function's ``iters``."""
+    iterations to the returned function's ``iters``.  ``mesh``: ``mg`` is
+    ``shard_mg``'s on that ring and b this rank's slab."""
     from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import mg_solve
-    if mesh is not None:
-        raise ValueError(MESH_REFUSAL)
 
     def solve(b):
         out = mg_solve(mg, b, tol=tol, n_krylov=n_krylov,
-                       max_restarts=max_restarts)
+                       max_restarts=max_restarts, mesh=mesh)
         solve.iters.append(out.iters)
         _, rel = true_residual(mg.dirac, out.x, b)
         return out.x, float(rel)
@@ -219,7 +251,8 @@ def forward_prop(dirac, u_ape, geom: Geometry, coords, alpha: float = 4.0,
             continue
         if solve_fn is None:
             out = invert(dirac, b, tol=tol, maxiter=maxiter,
-                         solver=_solver(dirac))
+                         solver=_solver(dirac),
+                         mesh=getattr(dirac, "mesh", None))
             x, res = out.x, out.true_res
             iters.append(out.iters)
         else:
@@ -236,23 +269,26 @@ def forward_prop(dirac, u_ape, geom: Geometry, coords, alpha: float = 4.0,
 
 
 def _contract(pu, pd, geom: Geometry, moms, source, space: str,
-              t_batch: int = 4):
+              t_batch: int = 4, mesh=None):
     """Mesons and baryons of the two propagators, ``t_batch`` timeslices
     at a time (the contraction is site-local; the baryon terms'
     intermediates grow with the batch), then to lexicographic order and,
-    in momentum space, projected."""
+    in momentum space, projected.  With ``mesh`` the propagators are this
+    rank's t-slabs (``geom`` the slab's), and the correlators come back
+    whole (``physics.contract.t_gather``)."""
     mes, bar = [], []
     for t0 in range(0, geom.T, t_batch):
         a = pu[..., t0:t0 + t_batch, :, :]
         b = pd[..., t0:t0 + t_batch, :, :]
         mes.append(con.meson_correlators(a, b))
         bar.append(con.baryon_correlators(a, b))
-    mes_lex = con.corr_to_lex(torch.cat(mes, dim=-3), geom)
-    bar_lex = con.corr_to_lex(torch.cat(bar, dim=-3), geom)
-    if space == "position":
-        return mes_lex, bar_lex
-    return (con.momentum_project_dyn(mes_lex, geom, moms, source),
-            con.momentum_project_dyn(bar_lex, geom, moms, source))
+    out = []
+    for c in (torch.cat(mes, dim=-3), torch.cat(bar, dim=-3)):
+        lex = con.corr_to_lex(c, geom)
+        if space == "momentum":
+            lex = con.momentum_project_dyn(lex, geom, moms, source)
+        out.append(con.t_gather(lex, mesh, space))
+    return tuple(out)
 
 
 def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
@@ -273,23 +309,33 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     ``mg_params``: an ``mg.multigrid.MGParams``; the pair of
     preconditioners (``setup_mg_pair``, null vectors drawn from
     ``mg_gen``, default a generator on ``u``'s device seeded 0) solves
-    all 24 columns.  A compact operator has no MG (raises), nor has
-    ``mesh`` a workflow yet (raises).  ``stats``, if given, receives
-    the host seconds of each stage (``secs``: ape, operators, smear,
-    mg_setup, solve, rotate, contract; the device synchronised around
-    each), each flavour's ``forward_prop`` stats under "up" / "dn", the
-    smeared ``sources`` and the MG setup split."""
-    if mesh is not None:
-        raise ValueError(MESH_REFUSAL)
+    all 24 columns.  A compact operator has no MG (raises).  ``stats``,
+    if given, receives the host seconds of each stage (``secs``: ape,
+    operators, smear, mg_setup, solve, rotate, contract; the device
+    synchronised around each), each flavour's ``forward_prop`` stats
+    under "up" / "dn", the smeared ``sources`` and the MG setup split.
+
+    ``mesh`` (a t-ring, ``parallel.mesh.TMesh``; ``u`` the whole gauge on
+    every rank): each rank runs the workflow on its t-slab.  APE and the
+    Gaussian smearing are spatial, so slab-local; the point sources are
+    made on the whole lattice and sliced; every column solves through
+    ``invert(mesh=…)`` on the rank's ``make_operator(mesh=…)``, or with
+    ``mg_params`` through ``mg_solve(mesh=…)`` on the pair set up on the
+    whole lattice and cut by ``shard_mg`` (``mg_pair`` holds the cut
+    pair).  The correlators, propagators and ``u_ape`` come back whole
+    on every rank; ``stats``' fields are the rank's slabs."""
     _check_space(corr_space)
     dev = u.device
     secs = {}
     lap = _stage_clock(dev, secs)
     kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
-    u_ape = ape_smear(u, geom, ape_alpha, ape_n)
+    geom_l, u_l = _slabs(mesh, geom, u)
+    u_ape = ape_smear(u_l, geom_l, ape_alpha, ape_n)
     lap("ape")
+    whole = mesh is not None and mg_params is not None
     diracs = {name: make_operator(u, DiracParams(
-        kind=kind, kappa=kappa, mu=mu, csw=csw, flavor=flavor), geom)
+        kind=kind, kappa=kappa, mu=mu, csw=csw, flavor=flavor), geom,
+        mesh=None if whole else mesh)
         for name, flavor in (("up", +1), ("dn", -1))}
     lap("operators")
     if mg_params is not None and isinstance(diracs["up"], CompactDirac):
@@ -298,22 +344,26 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
             "the compact operator (the card's memory) — run without "
             "mg_params")
     sources = smeared_sources(u_ape, geom, source, gauss_alpha, gauss_n,
-                              _op_dtype(diracs["up"]))
+                              _op_dtype(diracs["up"]), mesh=mesh)
     lap("smear")
     solve_fns = {"up": None, "dn": None}
     mg_pair = None
     if mg_params is not None:
-        from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import setup_mg_pair
+        from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+            setup_mg_pair, shard_mg)
         gen = mg_gen if mg_gen is not None else torch.Generator(
             device=dev).manual_seed(0)
         mg_pair = setup_mg_pair(diracs["up"], diracs["dn"], mg_params, gen)
-        solve_fns = {"up": mg_solve_fn(mg_pair[0], tol=tol),
-                     "dn": mg_solve_fn(mg_pair[1], tol=tol)}
+        if mesh is not None:
+            mg_pair = tuple(shard_mg(m, mesh) for m in mg_pair)
+            diracs = {"up": mg_pair[0].dirac, "dn": mg_pair[1].dirac}
+        solve_fns = {"up": mg_solve_fn(mg_pair[0], tol=tol, mesh=mesh),
+                     "dn": mg_solve_fn(mg_pair[1], tol=tol, mesh=mesh)}
         lap("mg_setup")
     props, flavour_stats = {}, {}
     for name, flavor in (("up", +1), ("dn", -1)):
         st = {} if stats is not None else None
-        p = forward_prop(diracs[name], u_ape, geom, source, gauss_alpha,
+        p = forward_prop(diracs[name], u_ape, geom_l, source, gauss_alpha,
                          gauss_n, tol, maxiter, verbose,
                          solve_fn=solve_fns[name], columns=columns,
                          sources=sources, stats=st)
@@ -323,8 +373,11 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
         lap("rotate")
         flavour_stats[name] = st
     moms = con.momentum_list(q_sq_max)
-    mes, bar = _contract(props["up"], props["dn"], geom, moms, source,
-                         corr_space)
+    mes, bar = _contract(props["up"], props["dn"], geom_l, moms, source,
+                         corr_space, mesh=mesh)
+    if mesh is not None:
+        props = {k: mesh.allgather_t(v) for k, v in props.items()}
+        u_ape = mesh.allgather_t(u_ape)
     lap("contract")
     if stats is not None:
         stats.update(secs=secs, sources=sources, **flavour_stats)
@@ -394,71 +447,95 @@ def run_threep(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     comes off in complex128 (a complex64 3pt at t_sink = 12 on a hot
     32³×64 gauge, ~1e-36, would fall below float32's normal range).
 
-    One operator a flavour serves every projector.  ``mesh`` raises (no
-    meshed workflow yet).  ``stats``, if given, receives the host
-    seconds of each stage (``secs``: smear, seq_source, operators,
-    solve, fixsink; the device synchronised) and, under ``(projector,
-    part)``, the solve's ``forward_prop`` stats with its ``sources`` and
-    ``flavor`` (the sources and solutions of the scaled sequential
-    source, and its ``scale``)."""
-    if mesh is not None:
-        raise ValueError(MESH_REFUSAL)
+    One operator a flavour serves every projector.  ``stats``, if given,
+    receives the host seconds of each stage (``secs``: smear, seq_source,
+    operators, solve, fixsink; the device synchronised) and, under
+    ``(projector, part)``, the solve's ``forward_prop`` stats with its
+    ``sources`` and ``flavor`` (the sources and solutions of the scaled
+    sequential source, and its ``scale``).
+
+    ``mesh`` (a t-ring; ``u``, ``u_ape`` and the propagators whole on
+    every rank): each rank works on its t-slabs.  The sink timeslice and
+    its sequential sources live on the rank that holds ``tsink`` (the
+    other ranks hold zeros there, and the scale is summed over the
+    ring); the columns solve through ``invert(mesh=…)`` (or the
+    ``shard_mg`` pair's ``mg_solve(mesh=…)``); the t shifts of the
+    insertions cross ranks; the results come back whole on every rank."""
     _check_space(corr_space)
     dev = u.device
     secs = {}
     lap = _stage_clock(dev, secs)
     kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
     moms = con.momentum_list(q_sq_max)
-    sink = {name: _sink_timeslice(p, u_ape, geom, tsink, gauss_alpha,
-                                  gauss_n)
-            for name, p in (("up", prop_up), ("dn", prop_dn))}
+    geom_l, u_l, u_ape, prop_up, prop_dn = _slabs(mesh, geom, u, u_ape,
+                                                  prop_up, prop_dn)
+    t_first, t_loc = (0, geom.T) if mesh is None else mesh.t_range(geom.T)
+    owner = t_first <= tsink < t_first + t_loc
+    ts = tsink - t_first
+    sink = None
+    if owner:
+        sink = {name: _sink_timeslice(p, u_ape, geom_l, ts, gauss_alpha,
+                                      gauss_n)
+                for name, p in (("up", prop_up), ("dn", prop_dn))}
     lap("smear")
 
     def project(c, scale):
-        lex = con.corr_to_lex(c, geom)
+        lex = con.corr_to_lex(c, geom_l)
         if corr_space == "momentum":
-            lex = con.momentum_project_dyn(lex, geom, -moms, source)
-        return lex.to(torch.complex128) / scale
+            lex = con.momentum_project_dyn(lex, geom_l, -moms, source)
+        return con.t_gather(lex, mesh, corr_space).to(torch.complex128) \
+            / scale
 
     ops, results = {}, {}
     for proj_name in projectors:
         proj = tp.projector(proj_name, particle)
         results[proj_name] = {}
         for partflag in (1, 2):
-            seq = (tp.seq_source_part1(sink["up"], sink["dn"], proj)
-                   if partflag == 1 else tp.seq_source_part2(sink["up"],
-                                                             proj))
-            lap("seq_source")
-            # a sequential source is ~|S(t_sink)|², whose |r|² far from
-            # the source underflows float32: smear, solve and contract a
-            # power-of-two multiple (the reference scales by 1e10) and
-            # take the scale off in complex128, where the 3pt (~1e-36 at
-            # t_sink = 12 on a hot 32³×64 gauge) keeps its digits
-            scale = _pow2_scale(seq)
-            bs = _seq_sources(seq * scale, u_ape, geom, tsink, gauss_alpha,
-                              gauss_n)
-            del seq
+            scale, bs = 0.0, None
+            if owner:
+                seq = (tp.seq_source_part1(sink["up"], sink["dn"], proj)
+                       if partflag == 1 else tp.seq_source_part2(sink["up"],
+                                                                 proj))
+                lap("seq_source")
+                # a sequential source is ~|S(t_sink)|², whose |r|² far
+                # from the source underflows float32: smear, solve and
+                # contract a power-of-two multiple (the reference scales
+                # by 1e10) and take the scale off in complex128, where
+                # the 3pt (~1e-36 at t_sink = 12 on a hot 32³×64 gauge)
+                # keeps its digits
+                scale = _pow2_scale(seq)
+                bs = _seq_sources(seq * scale, u_ape, geom_l, ts,
+                                  gauss_alpha, gauss_n)
+                del seq
+            if mesh is not None:
+                # one rank adds its scale to zeros: the sum is exact
+                scale = float(mesh.allreduce(torch.tensor(
+                    scale, dtype=torch.float64, device=mesh.device)))
+                if bs is None:
+                    bs = torch.zeros((12, 2, 4, 3) + geom_l.lat_shape,
+                                     dtype=prop_up.dtype,
+                                     device=prop_up.device)
             lap("smear")
             # the opposite twist: part 1 of the proton solves with the
             # minus flavour
             flavor = -particle if partflag == 1 else +particle
             if mg_pair is not None:
                 mg = mg_pair[0 if flavor > 0 else 1]
-                d, solve_fn = mg.dirac, mg_solve_fn(mg, tol=tol)
+                d, solve_fn = mg.dirac, mg_solve_fn(mg, tol=tol, mesh=mesh)
             else:
                 if flavor not in ops:
                     ops[flavor] = make_operator(u, DiracParams(
                         kind=kind, kappa=kappa, mu=mu, csw=csw,
-                        flavor=flavor), geom)
+                        flavor=flavor), geom, mesh=mesh)
                     lap("operators")
                 d, solve_fn = ops[flavor], None
             st = {} if stats is not None else None
-            seqprop = forward_prop(d, u_ape, geom, source, tol=tol,
+            seqprop = forward_prop(d, u_ape, geom_l, source, tol=tol,
                                    maxiter=maxiter, solve_fn=solve_fn,
                                    sources=bs, stats=st)
             lap("solve")
-            loc, noe, oned = tp.fixsink_all(seqprop, prop_up, u, geom,
-                                            particle, partflag)
+            loc, noe, oned = tp.fixsink_all(seqprop, prop_up, u_l, geom_l,
+                                            particle, partflag, mesh=mesh)
             del seqprop
             results[proj_name][f"part{partflag}"] = {
                 "ultra_local": project(loc, scale),
@@ -482,15 +559,17 @@ LOOP_NAMES = {"Scalar": "std", "dOp": "gen", "LpsDw": "der_std",
               "LoopsCv": "cons_gen"}
 
 
-def _finalize_loops(first, n_first: float, second, n_second: float) -> dict:
+def _finalize_loops(first, n_first: float, second, n_second: float,
+                    mesh=None) -> dict:
     """{type: fft_project(first / n_first + second / n_second)}, the
-    second term left out where ``second`` is None."""
+    second term left out where ``second`` is None; with ``mesh``, each
+    rank's t rows joined whole (the FFT is spatial)."""
     out = {}
     for name, field in LOOP_NAMES.items():
         a = getattr(first, field) / n_first
         if second is not None:
             a = a + getattr(second, field) / n_second
-        out[name] = con.fft_project(a)
+        out[name] = con.t_gather(con.fft_project(a), mesh, "position")
     return out
 
 
@@ -514,45 +593,56 @@ def run_loops(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
 
     The solve operator is ``make_operator``'s (a ``CompactDirac`` takes
     ``plain_partner_from_gauge``); each solve is one ``invert`` (CG, the
-    mixed CG on the complex128 fused chain).  ``mesh`` raises.
-    ``stats``, if given, receives the seconds of each stage (``secs``:
-    operators, solve, one_end, finalize) and, under ``hp``, each pair's
-    (source, high-precision solution, its true residual, iterations),
-    and the ``partner``."""
-    if mesh is not None:
-        raise ValueError(MESH_REFUSAL)
+    mixed CG on the complex128 fused chain).  ``stats``, if given,
+    receives the seconds of each stage (``secs``: operators, solve,
+    one_end, finalize) and, under ``hp``, each pair's (source,
+    high-precision solution, its true residual, iterations), and the
+    ``partner``.
+
+    ``mesh`` (a t-ring; ``u`` whole on every rank, ``gen`` in the same
+    state on every rank): each rank solves and contracts its t-slab.
+    The noise is drawn on the whole lattice and sliced, so a ring gives
+    the unsharded numbers; the partner is the sharded operator's
+    (``plain_wilson_partner``), the one-end trick's t shifts cross
+    ranks, and the loops come back whole on every rank (``stats``' fields
+    are the rank's slabs)."""
     dev = u.device
     secs = {}
     lap = _stage_clock(dev, secs)
     kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
     d = make_operator(u, DiracParams(kind=kind, kappa=kappa, mu=mu, csw=csw),
-                      geom)
+                      geom, mesh=mesh)
     plain = _loop_partner(d, u, geom)
+    geom_l = geom if mesh is None else d.geom
     lap("operators")
     solve_tol = tol_lp if tol_lp is not None else tol
 
+    def noise():
+        return _slabs(mesh, geom, z4_source(gen, geom, u.dtype))[1]
+
     def sample(xi, stol, smax):
-        out = invert(d, xi, tol=stol, maxiter=smax, solver=_solver(d))
+        out = invert(d, xi, tol=stol, maxiter=smax, solver=_solver(d),
+                     mesh=mesh)
         lap("solve")
-        res = lp.one_end_trick(out.x, plain, geom)
+        res = lp.one_end_trick(out.x, plain, geom_l)
         lap("one_end")
         return out, res
 
     acc = None
     for _ in range(n_stoch):
-        _, res = sample(z4_source(gen, geom, u.dtype), solve_tol, maxiter)
+        _, res = sample(noise(), solve_tol, maxiter)
         acc = lp.add_loops(acc, res)
     corr, hp = None, []
     for _ in range(n_hp):
         # TSM bias correction: the same noise, solved twice
-        xi = z4_source(gen, geom, u.dtype)
+        xi = noise()
         hi_out, hi = sample(xi, tol, 4 * maxiter)
         _, lo = sample(xi, solve_tol, maxiter)
         corr = lp.add_loops(corr, lp.add_loops(hi, lo, -1.0))
         if stats is not None:
             hp.append((xi, hi_out.x, hi_out.true_res, hi_out.iters))
         del hi, lo, hi_out
-    out = _finalize_loops(acc, n_stoch, corr, max(n_hp, 1))
+    out = _finalize_loops(acc, n_stoch, corr, max(n_hp, 1), mesh)
     lap("finalize")
     if stats is not None:
         stats.update(secs=secs, hp=hp, partner=plain)

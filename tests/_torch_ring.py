@@ -1,0 +1,57 @@
+"""Spawning a gloo ring of ``tests/_torch_mesh_worker.py`` processes on
+the CPU for the tests of the sharded port (one process a rank, a file
+store under the test's temporary directory), and joining the ranks'
+results by the suffix of their names: "|cat" t-slabs joined along t
+(axis −3), "|same" a value that must be equal on every rank (one copy
+returned), "|each" the list of every rank's value."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+WORKER = Path(__file__).resolve().parent / "_torch_mesh_worker.py"
+JOIN_TIMEOUT = 240        # seconds for a whole ring, start-up included
+
+
+def spawn(nt: int, work: Path, groups: dict, jobs: list,
+          inputs: dict) -> dict:
+    """Run the ring of ``nt`` worker processes on ``jobs``; returns each
+    result joined over the ranks by its suffix (module docstring)."""
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "spec.json").write_text(json.dumps({"groups": groups,
+                                                "jobs": jobs}))
+    np.savez(work / "inputs.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(r), str(nt),
+                               str(work)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(nt)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=JOIN_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    outs = [np.load(work / f"out_{r}.npz") for r in range(nt)]
+    res = {}
+    for k in outs[0].files:
+        name, how = k.rsplit("|", 1)
+        vals = [o[k] for o in outs]
+        if how == "cat":
+            res[name] = np.concatenate(vals, axis=-3)
+        elif how == "each":
+            res[name] = vals
+        else:
+            assert all(np.array_equal(v, vals[0]) for v in vals), name
+            res[name] = vals[0]
+    return res

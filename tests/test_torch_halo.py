@@ -421,10 +421,10 @@ def test_sharded_dslash_on_a_ring_of_one_is_the_hop(tmc_problem):
 def test_invert_refuses_what_the_sharded_path_does_not_take(tmc_problem):
     d, b = tmc_problem
     ds = shard_dirac(d, ONE)
-    with pytest.raises(ValueError, match="solver='cg' only"):
+    with pytest.raises(ValueError, match="solver='cg' or 'cg-mixed'"):
         invert(ds, b, solver="bicgstab", mesh=ONE)
-    with pytest.raises(ValueError, match="solver='cg' only"):
-        invert(ds, b, solver="cg-mixed", mesh=ONE)
+    with pytest.raises(ValueError, match="no sloppy operator"):
+        invert(ds, b, solver="cg-mixed", sloppy_dirac=d, mesh=ONE)
     with pytest.raises(ValueError, match="shard_dirac"):
         invert(d, b, mesh=ONE)
     with pytest.raises(ValueError, match="its own mesh"):
@@ -432,7 +432,7 @@ def test_invert_refuses_what_the_sharded_path_does_not_take(tmc_problem):
     plain = shard_dirac(convert.dirac_from_numpy(
         N(d.u), DiracParams(**TMC), GT, device="cpu"), ONE)
     with pytest.raises(ValueError, match="fused chain"):
-        invert(plain, b, mesh=ONE)
+        invert(plain, b, solver="cg-mixed", mesh=ONE)
     cd = compact.make_compact(d.u, d.params, GT, F32)
     with pytest.raises(ValueError, match="CompactDirac"):
         invert(cd, b, mesh=ONE)

@@ -161,8 +161,10 @@ def test_run_loops_stats_and_refusals(loops_pair, gauge):
     assert res <= 1e-11 and iters > 0
     assert set(st["secs"]) == {"operators", "solve", "one_end", "finalize"}
     with pytest.raises(ValueError, match="queue 1 item 7"):
-        wf.run_loops(torch.tensor(gauge), GT, gen=torch.Generator(),
-                     mesh=object(), **LOOPS)
+        wf.run_loops_wexact(torch.tensor(gauge), GT, nev=2,
+                            gen=torch.Generator(), mesh=object(),
+                            **{k: LOOPS[k] for k in ("kappa", "mu", "csw",
+                                                     "n_stoch")})
 
 
 def test_compact_route_agrees_with_the_canonical(gauge, monkeypatch):

@@ -16,7 +16,8 @@ oracle and the frozen output.
   ``golden_contractions.npz`` at its rtol 1e-6 / atol 1e-10; the
   complex64 fused route (the sequential solves through the plain K2)
   within 1e-4 normwise; the MG pair against CG within 1e-4; position
-  space projected against the momentum run; ``mesh=`` refused;
+  space projected against the momentum run; a ring that does not
+  divide T refused;
 * the 3pt writers against the JAX writers' files, and ``cli threep``.
 """
 
@@ -44,6 +45,7 @@ from quda_qkxtm_multigrid_tpu_torch.lattice import (
 from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
     MGParams, setup_mg_pair)
 from quda_qkxtm_multigrid_tpu_torch.ops import smear
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh
 from quda_qkxtm_multigrid_tpu_torch.physics import contract as con
 from quda_qkxtm_multigrid_tpu_torch.physics import threept as tp
 from quda_qkxtm_multigrid_tpu_torch.physics.propagator import (
@@ -336,7 +338,8 @@ def test_run_threep_mg_pair_matches_cg(golden_run):
 def test_position_space_projects_to_the_momentum_run(golden_run,
                                                       monkeypatch):
     """``corr_space="position"`` on the golden run's inputs, projected,
-    gives the momentum run; ``mesh=`` and an unknown space raise.  The
+    gives the momentum run; a ring that does not divide T and an unknown
+    space raise.  The
     sequential solves are the golden run's own (``forward_prop`` hands
     back its solutions): everything else of the workflow runs again."""
     u, twop, mom, st = golden_run
@@ -353,8 +356,9 @@ def test_position_space_projects_to_the_momentum_run(golden_run,
             assert v.shape[-4:] == (GT.T, GT.Z, GT.Y, GT.X)
             proj = con.momentum_project_dyn(v, GT, -mom["moms"], (0, 0, 0, 0))
             assert rel(proj, mom["thrp"]["G4"][part][ttype].numpy()) <= 1e-12
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        wf.run_threep(u, GT, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="divisible"):
+        wf.run_threep(u, GT, mesh=TMesh(nt=3, rank=0,
+                                        device=torch.device("cpu")), **kw)
     with pytest.raises(ValueError, match="corr_space"):
         wf.run_threep(u, GT, corr_space="spin", **kw)
 

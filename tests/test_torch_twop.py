@@ -44,6 +44,7 @@ from quda_qkxtm_multigrid_tpu_torch.io import hdf5 as h5w
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import MGParams
 from quda_qkxtm_multigrid_tpu_torch.ops.gauge import apply_t_boundary
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh
 from quda_qkxtm_multigrid_tpu_torch.physics import contract as con
 from quda_qkxtm_multigrid_tpu_torch.utils import rng
 
@@ -274,10 +275,11 @@ def test_make_operator_routes(gauge, hooks):
     with pytest.raises(ValueError, match="compact operator"):
         wf.run_twop(u64, GT, mg_params=MGParams(block=(2, 2, 2, 2), nvec=4),
                     **TWOP)
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        wf.make_operator(u64, p, GT, mesh=object())
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        wf.run_twop(u64, GT, mesh=object(), **TWOP)
+    ring3 = TMesh(nt=3, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="divisible"):
+        wf.make_operator(u64, p, GT, mesh=ring3)
+    with pytest.raises(ValueError, match="divisible"):
+        wf.run_twop(u64, GT, mesh=ring3, **TWOP)
     # the canonical complex128 bundle at 48³×96 (PERF.md §2: 42.8 GB)
     big = Geometry(48, 48, 48, 96)
     assert abs(wf.bundle_bytes(u128, big) / 1e9 - 42.8) < 0.05
