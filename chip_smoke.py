@@ -171,10 +171,24 @@ and does not print its last line:
     block), each certified and the preconditioned in fewer iterations,
     then the block's K1 and the sharded K4 float64 hops against plain;
     (c) ``run_twop``, ``run_threep`` and ``run_loops`` with ``mesh`` on
-    phases 11–12's gauge and settings: every column certified in
-    complex128, the correlators and loops against phases 11–12 (the 3pt
-    on phase 12's propagators), no K1 or K2 launch, K4 and K5 against
-    plain on the path's sharded operator.  Each part's seconds and
+    phases 11–12's gauge and settings, every operator built on the slab
+    (``make_sharded_dirac``): every column certified in complex128, the
+    correlators and loops against phases 11–12 (the 3pt on phase 12's
+    propagators, handed over whole; the 2pt's returned propagators and
+    smeared links are slabs), no K1 or K2 launch, K4 and K5 against
+    plain on the path's sharded operator, each run's peak memory; (d)
+    ``run_loops_wexact(mesh=…)`` at 32³×64 in complex128 with phase
+    12d's settings and generator seed, its Lanczos on the slab's
+    M_pc†M_pc through K4 float64 hops: eigenvalues within 1e-8 of phase
+    12d's, the worst Ritz residual, the loops against phase 12d's, no
+    K1 launch, its K4 float64 launches and stage seconds, then the K4
+    float64 hop on the path's operands against plain and timed with its
+    byte bound; (e) (run right after (a), on its whole-lattice setup)
+    ``setup_mg`` on the slab's operator at 32³×64 in complex64 with
+    phase 6's parameters and generator seed: its seconds against the
+    whole lattice's, V and the coarse operator within 1e-5 of the whole
+    lattice's setup, the warm ``mg_solve(mesh=…)`` in the same outer
+    iterations, certified in complex128.  Each part's seconds and
     launches.
 
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
@@ -286,6 +300,9 @@ MESH_X_LIMIT = 1e-5              # sharded vs unsharded solution, normwise
 P16_SEED = 5                     # phase 16's Schwarz gauge and source
 SCHWARZ = dict(kind="twisted-mass", kappa=0.12, mu=0.04)   # test_parallel
 SCHWARZ_TOL = 1e-8               # GCR(10) with Schwarz (test_parallel.py:93)
+WEXACT_EVALS_LIMIT = 1e-8        # 16d: eigenvalues vs phase 12d, relative
+SETUP_VS_WHOLE = 1e-5            # 16e: V, coarse X / Y vs the whole setup
+TWOP_PEAK_GIB = 43.73            # phase 11's recorded peak memory (PERF.md)
 
 # phase 2b, the antiperiodic t boundary: a kernel against its plain
 # version, and against the recon-18 form on the same links (bf16 links:
@@ -2998,6 +3015,10 @@ def phase_threep_loops(twop, geom_dims, cli_dims):
     if not bool((eig.evals > 0).all()):
         raise AssertionError("an eigenvalue of M_pc†M_pc is not positive")
     _loops_finite(wex, "run_loops_wexact")
+    # phase 16d's references
+    twop["refs"]["wexact"] = {
+        "evals": eig.evals.cpu(), "loops": {k: v.cpu() for k, v in
+                                            wex.items()}}
     d = wf.make_operator(u128, tmc_params(), geom)
     xi = z4_source(torch.Generator(DEVICE).manual_seed(9), geom, c128)
     b = d.matpc(d.prepare(xi), dagger=True)
@@ -4047,14 +4068,16 @@ def _counts() -> dict:
             "k4": dslash_ch_local.launches, "k5": dslash_ch_overlap.launches}
 
 
-def _mesh_mg(mesh, geom, dtype, solvers, tol, launches: dict) -> dict:
+def _mesh_mg(mesh, geom, dtype, solvers, tol, launches: dict,
+             setup: bool = False) -> dict:
     """16a at ``geom``: ``bench_mg``'s setup (on the whole lattice) and
     its unsharded solve with each of ``solvers``, then ``shard_mg`` and
     ``bench_mg_mesh`` on ``mesh``: the outer iterations equal, the
     solution within ``MESH_X_LIMIT`` of the unsharded, the complex128
     certificate, K4 launched, one all-gather a V-cycle.  Returns the
     sharded records by solver, with the V-cycle ms sharded and unsharded
-    of the first solver."""
+    of the first solver; with ``setup``, also 16e on this setup
+    (``_mesh_setup``) under "setup"."""
     import functools
 
     import torch
@@ -4112,7 +4135,91 @@ def _mesh_mg(mesh, geom, dtype, solvers, tol, launches: dict) -> dict:
           f"smoother, one all-gather) against {vms['unsharded']:.2f} ms "
           f"unsharded (K1 fused chain)", flush=True)
     out[solvers[0]]["vcycle_ms"] = vms
-    del mg, ms, d, b, bs
+    del ms, bs
+    if setup:
+        out["setup"] = _mesh_setup(mesh, geom, d, b, mg, rec, launches)
+    del mg, d, b
+    return out
+
+
+def _mesh_setup(mesh, geom, d, b, mg, rec: dict, launches: dict) -> dict:
+    """16e: ``setup_mg`` on this rank's operator built from its slab of
+    ``d``'s gauge (``make_sharded_dirac``), with the parameters and the
+    generator seed of ``bench_mg``'s setup ``mg`` (phase 6's): its
+    seconds and split against the whole lattice's (``rec``), V and the
+    coarse X / Y within ``SETUP_VS_WHOLE`` of ``mg``'s, then a cold and
+    a warm ``mg_solve(mesh=…)`` in ``rec``'s outer iterations, the warm
+    one certified in complex128; no K1 or K2 launch.  Returns the
+    record."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import c128_true_res
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+        mg_solve, setup_mg)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
+        shard_spinor, t_slab)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+        make_sharded_dirac)
+
+    print("  (e) MG set up on the slab (make_sharded_dirac, setup_mg on a "
+          "ShardedDirac)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = make_sharded_dirac(t_slab(d.u, mesh), d.params, geom, mesh)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(3)    # bench_mg's
+    t0 = time.perf_counter()
+    ms = setup_mg(ds, mg.params, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = ms.setup_stats
+    print(f"  operator on the slab {t_op:.3f} s; setup {secs:.3f} s against "
+          f"{rec['setup_secs']:.3f} s on the whole lattice (phase 6's "
+          f"record: 3.93 s): null vectors {st['null_vector_secs']:.3f} s "
+          f"(against {rec['null_vector_secs']:.3f}; a sharded CG a column, "
+          f"iterations {st['cg_iters']}, worst true_res "
+          f"{st['null_true_res']:.3e}; whole lattice: multi-source batches "
+          f"{rec['msrc_iters']}), orthonormalisation {st['ortho_secs']:.3f} "
+          f"s ({rec['ortho_secs']:.3f}), coarse build "
+          f"{st['coarse_build_secs']:.3f} s ({rec['coarse_build_secs']:.3f})",
+          flush=True)
+    err = {"v": _rel(ms.transfer.v, mg.transfer.t_slab(mesh).v),
+           "x": _rel(ms.coarse.x, mg.coarse.x),
+           "y": _rel(ms.coarse.y, mg.coarse.y)}
+    for k, e in err.items():
+        _check(f"sharded setup {k.upper()} vs the whole lattice's", e,
+               SETUP_VS_WHOLE)
+    bs = shard_spinor(b, mesh)
+    cold = mg_solve(ms, bs, tol=MG_TOL, n_krylov=MG_NKRYLOV, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = mg_solve(ms, bs, tol=MG_TOL, n_krylov=MG_NKRYLOV, mesh=mesh)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    c = _counts()
+    for k in ("k1", "k4", "k5"):
+        launches[k] += c[k]
+    tr = c128_true_res(d, mesh.allgather_t(warm.x), b)
+    print(f"  mg_solve(mesh=…) on it: {warm.iters} outer iterations (cold "
+          f"{cold.iters}; whole-lattice setup {rec['iters']}), warm "
+          f"{t_solve:.4f} s, true_res {tr:.3e} (complex128); launches {c}",
+          flush=True)
+    if warm.iters != rec["iters"] or cold.iters != rec["iters"]:
+        raise AssertionError(f"sharded setup: {warm.iters} / {cold.iters} "
+                             f"outer iterations, whole lattice "
+                             f"{rec['iters']}")
+    _check("sharded setup's solve: true residual (c128)", tr,
+           TRUE_RES_LIMIT)
+    if not c["k4"] or c["k1"] or c["k2"]:
+        raise AssertionError(f"sharded setup: launches {c}")
+    out = {"secs": secs, "whole_secs": rec["setup_secs"], "err": err,
+           "iters": warm.iters, "solve_secs": t_solve, "true_res": tr,
+           "split": {k: st[k] for k in ("null_vector_secs", "ortho_secs",
+                                        "coarse_build_secs")}, **c}
+    del ms, ds, bs, cold, warm
     return out
 
 
@@ -4208,11 +4315,13 @@ def _mesh_workflows(mesh, u, geom, refs: dict, launches: dict) -> dict:
 
     p = tmc_params()
     phys = dict(kappa=p.kappa, mu=p.mu, csw=p.csw)
-    out = {"secs": {}}
+    out = {"secs": {}, "peak_gib": {}}
 
     def run(label, fn):
         gc.collect()
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() / 2**30
         _counts_zero()
         t0 = time.perf_counter()
         res = fn()
@@ -4222,7 +4331,11 @@ def _mesh_workflows(mesh, u, geom, refs: dict, launches: dict) -> dict:
         for k in ("k1", "k4", "k5"):
             launches[k] += c[k]
         out["secs"][label] = secs
-        print(f"  {label} (mesh): {secs:.3f} s, launches {c}", flush=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out["peak_gib"][label] = peak
+        print(f"  {label} (mesh): {secs:.3f} s, launches {c}, peak memory "
+              f"{peak:.2f} GiB, {start:.2f} GiB of it in use at its start "
+              f"(phase 11's 2pt: {TWOP_PEAK_GIB} GiB)", flush=True)
         if not c["k4"] or c["k1"] or c["k2"]:
             raise AssertionError(f"{label} on the mesh: launches {c}")
         return res
@@ -4289,15 +4402,112 @@ def _mesh_workflows(mesh, u, geom, refs: dict, launches: dict) -> dict:
     return out
 
 
+def _mesh_wexact(mesh, u, geom, refs: dict, launches: dict) -> dict:
+    """16d: ``run_loops_wexact(mesh=…)`` in complex128 with phase 12d's
+    ``WEXACT`` settings and generator seed on phase 11's gauge: the
+    eigenvalues within ``WEXACT_EVALS_LIMIT`` of phase 12d's, the worst
+    Ritz residual within ``RITZ_LIMIT``, every loop type within
+    ``MESH_X_LIMIT`` of phase 12d's, K4 (float64) launched and no K1 or
+    K2; then the K4 float64 hop on the path's operands (the slab's
+    float64 gauge channels and a mode) against its plain version, both
+    parities and daggers, and timed against it in turns with its byte
+    bound.  Returns the record."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import workflows as wf
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_local, dslash_ch_local_reference, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.halo import t_faces
+
+    p = tmc_params()
+    phys = dict(kappa=p.kappa, mu=p.mu, csw=p.csw)
+    u128 = u.to(torch.complex128)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 2**30
+    _counts_zero()
+    st = {}
+    t0 = time.perf_counter()
+    wex, eig = wf.run_loops_wexact(
+        u128, geom, gen=torch.Generator(DEVICE).manual_seed(8),
+        maxiter=SLICE_MAXITER, mesh=mesh, stats=st, **WEXACT, **phys)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = _counts()
+    for k in ("k1", "k4", "k5"):
+        launches[k] += c[k]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    es = st["eig"]
+    print(f"  run_loops_wexact (mesh, complex128): {secs:.3f} s, launches "
+          f"{c} (every K4 a float64 hop), peak memory {peak:.2f} GiB "
+          f"({start:.2f} GiB in use at its start); "
+          f"Lanczos: Chebyshev degree {WEXACT['cheb_degree']} on "
+          f"[{es['bounds'][0]:.6f}, {es['bounds'][1]:.6f}], "
+          f"{es['restarts']} restarts, {es['matvecs']} matvecs, "
+          f"{es['secs']:.3f} s; stages (s): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in st["secs"].items()), flush=True)
+    print("  eigenvalues " + " ".join(f"{float(v):.8f}" for v in eig.evals)
+          + f"; deflated CG iterations {st['cg_iters']}", flush=True)
+    if not c["k4"] or c["k1"] or c["k2"]:
+        raise AssertionError(f"run_loops_wexact on the mesh: launches {c}")
+    ref = refs["wexact"]
+    got = eig.evals.cpu()
+    _check("16d eigenvalues vs phase 12d (relative, worst)",
+           float(((got - ref["evals"]).abs() / ref["evals"].abs()).max()),
+           WEXACT_EVALS_LIMIT)
+    _check("16d Lanczos: worst Ritz residual (complex128)",
+           float(eig.resid.max()), RITZ_LIMIT)
+    for k, v in wex.items():
+        _check(f"16d loops {k} vs phase 12d", _rel64(v.cpu(), ref["loops"][k]),
+               MESH_X_LIMIT)
+    # the K4 float64 hop on the path's operands
+    ds = wf.make_operator(u128, tmc_params(), geom, mesh=mesh)
+    tb = ds._hop_kw()["t_boundary"]
+    g64 = ds._operands(torch.float64, exact=True)["g"]
+    v = to_channels(eig.evecs[0])
+    f24 = t_faces(v, mesh)
+    err = 0.0
+    for par in (0, 1):
+        for dagger in (False, True):
+            err = max(err, _compare(
+                dslash_ch_local(g64[par], v, *f24, par, ds.geom, dagger,
+                                recon12=True, t_boundary=tb),
+                dslash_ch_local_reference(g64[par], v, *f24, par, ds.geom,
+                                          dagger, recon12=True,
+                                          t_boundary=tb),
+                f"16d K4 f64 hop parity {par} dagger {int(dagger)}",
+                F64_LIMIT))
+    pr = ds.params.matpc_parity
+    kw = dict(recon12=True, t_boundary=tb)
+    ms, plain_ms = _compare_timed(
+        lambda: dslash_ch_local(g64[pr], v, *f24, pr, ds.geom, **kw),
+        lambda: dslash_ch_local_reference(g64[pr], v, *f24, pr, ds.geom,
+                                          **kw))
+    bound = _bound(_nbytes(g64[pr], v, *f24, v),
+                   HOP_FLOPS * ds.geom.half_volume)
+    print(f"  K4 f64 bare hop at T_loc {ds.geom.T}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; float64 "
+          f"operations over the float32 peak, which bytes exceed), kernel "
+          f"at {bound[0] / ms:.2f} of it; launches in the run {c['k4']}",
+          flush=True)
+    del wex, eig, ds, g64, v, f24, u128
+    return {"secs": secs, "stages": st["secs"], "peak_gib": peak,
+            "k4_f64": {"ms": ms, "plain_ms": plain_ms, "bound": bound,
+                       "launches": c["k4"]}, "err": {"k4": err}, **c}
+
+
 def phase_mesh_rest(twop_refs: dict, u, geom_dims, check_dims):
     """Phase 16: the rest of the multi-GPU path on a ring of one rank
     over NCCL (its own process group, destroyed at the end): (a) the
     sharded MG-GCR-PC at ``geom_dims`` on phase 6's problem and setup,
-    "gcr" and "mr-richardson" at ``check_dims`` in complex128; (b) the
+    then (e) the MG set up on the slab against it, "gcr" and
+    "mr-richardson" at ``check_dims`` in complex128; (b) the
     Schwarz-preconditioned GCR at ``check_dims``; (c) the meshed 2pt, 3pt
-    and loops at ``geom_dims`` against phases 11–12.  Returns the
-    records, the K1 / K4 / K5 launches of the phase and the kernels'
-    largest errors against their plain versions."""
+    and loops at ``geom_dims`` against phases 11–12; (d) the meshed
+    deflated loops against phase 12d.  Returns the records, the K1 / K4
+    / K5 launches of the phase and the kernels' largest errors against
+    their plain versions."""
     import os
     import socket
 
@@ -4319,22 +4529,24 @@ def phase_mesh_rest(twop_refs: dict, u, geom_dims, check_dims):
     try:
         print("  (a) sharded MG", flush=True)
         mg = _mesh_mg(mesh, geom, torch.complex64, ("gcr-pc",), MG_TOL,
-                      launches)
+                      launches, setup=True)
         mg.update(_mesh_mg(mesh, check, torch.complex128,
                            ("gcr", "mr-richardson"), MG_TOL, launches))
         print("  (b) Schwarz-preconditioned GCR", flush=True)
         sz = _mesh_schwarz(mesh, check, launches)
         print("  (c) the meshed workflows", flush=True)
         wfs = _mesh_workflows(mesh, u, geom, twop_refs, launches)
+        print("  (d) the meshed deflated loops", flush=True)
+        wx = _mesh_wexact(mesh, u, geom, twop_refs, launches)
     finally:
         dist.destroy_process_group()
     secs = time.perf_counter() - t_phase
     print(f"  phase 16 {secs:.1f} s; launches {launches}", flush=True)
     err = {"k1": sz["err"]["k1"],
-           "k4": max(sz["err"]["k4"], wfs["err"]["k4"]),
+           "k4": max(sz["err"]["k4"], wfs["err"]["k4"], wx["err"]["k4"]),
            "k5": wfs["err"]["k5"]}
-    return {"mg": mg, "schwarz": sz, "workflows": wfs, "secs": secs,
-            "err": err, **launches}
+    return {"mg": mg, "schwarz": sz, "workflows": wfs, "wexact": wx,
+            "secs": secs, "err": err, **launches}
 
 
 def _light_operator(geom, kappa: float):

@@ -146,7 +146,15 @@ def _face_masks(bt: int, bz: int, by: int, bx: int) -> np.ndarray:
 def build_coarse_op_direct(transfer: Transfer, diag_apply: Callable,
                            hop_terms: list[Callable],
                            dtype: torch.dtype) -> CoarseOperator:
-    """Direct Galerkin construction (the reference's calculateY).
+    """The ``CoarseOperator`` of ``coarse_xy_direct``."""
+    x, y = coarse_xy_direct(transfer, diag_apply, hop_terms, dtype)
+    return CoarseOperator(x=x, y=y, bg=transfer.bg)
+
+
+def coarse_xy_direct(transfer: Transfer, diag_apply: Callable,
+                     hop_terms: list[Callable], dtype: torch.dtype) -> tuple:
+    """(X, Y) by the direct Galerkin construction (the reference's
+    calculateY).
 
     For every coarse column j = (chirality c, vector b) the source is
     the chirality-c part of null vector b, w = P_c v_b, which is what
@@ -157,7 +165,9 @@ def build_coarse_op_direct(transfer: Transfer, diag_apply: Callable,
     aggregate (the link Y_d), the others from the same aggregate (part
     of X).  ``diag_apply`` is the fine site-diagonal term; ``hop_terms``
     are the 8 directional hops, each with its −κ.  A plain loop over
-    the 2·nvec columns."""
+    the 2·nvec columns.  On a rank's slab of a t-ring (``transfer`` the
+    rank's aggregates, the hops reading across the slab faces) it gives
+    the slab's rows of X and Y."""
     if len(hop_terms) != 8:
         raise ValueError(f"expected 8 hop terms, got {len(hop_terms)}")
     bg = transfer.bg
@@ -185,7 +195,7 @@ def build_coarse_op_direct(transfer: Transfer, diag_apply: Callable,
             xcol = xcol + (tot - face)
             y[d, :, :, j] = face
         x[:, :, j] = xcol
-    return CoarseOperator(x=x, y=y, bg=bg)
+    return x, y
 
 
 def build_coarse_op_direct_coarse(transfer2: CoarseTransfer,

@@ -31,10 +31,19 @@ the full operator, "mr-richardson" V-cycle steps with a minimal-residual
 step length.  Every restart recomputes the true residual of its system
 and reads it on the host once.
 
-On a t-ring (``shard_mg`` after the setup, then ``mg_solve(mesh=…)``)
-the fine level runs on each rank's slab through the sharded operator,
-and the coarse levels are replicated: ``vcycle(mesh=…)`` gathers the
-coarse residual and every rank runs the whole coarse solve.
+On a t-ring the fine level runs on each rank's slab through the
+sharded operator, and the coarse levels are replicated:
+``vcycle(mesh=…)`` gathers the coarse residual and every rank runs the
+whole coarse solve.  ``setup_mg`` on a ``ShardedDirac`` sets the
+preconditioner up on the slabs: the null vectors by the sharded solves
+(``invert(mesh=…)`` a column on the fused chain, else
+``bicgstab(allreduce=…)``) from sources drawn whole and sliced, the
+block orthonormalisation on the rank's aggregates (the block's t extent
+divides T_loc), the level-1 Galerkin build on the slab with the fine
+hops' t shifts across the ring, and its X / Y all-gathered in t; levels
+2–4 are then built from the replicated level 1 alike on every rank.
+``shard_mg`` cuts a preconditioner set up on the whole lattice
+instead.  Either feeds ``mg_solve(mesh=…)``.
 """
 
 from __future__ import annotations
@@ -47,16 +56,19 @@ from typing import Optional
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, make_dirac
-from quda_qkxtm_multigrid_tpu_torch.invert import invert_msrc
+from quda_qkxtm_multigrid_tpu_torch.invert import invert, invert_msrc
 from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import (
     CoarseOperator, build_coarse_op_direct, build_coarse_op_direct_coarse,
-    coarse_diag_hops)
+    coarse_diag_hops, coarse_xy_direct)
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     Bf16Transfer, BlockGeometry, CoarseBlockGeometry, CoarseTransfer,
     Transfer, block_orthonormalize_coarse, block_orthonormalize_flat,
-    to_blocked_coarse, to_blocked_flat)
+    slab_block_geometry, to_blocked_coarse, to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct, norm2
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import t_slab
+from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+    ShardedDirac, make_sharded_dirac)
 from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import bicgstab
 from quda_qkxtm_multigrid_tpu_torch.solvers.gcr import GCRResult, gcr_cycle
 from quda_qkxtm_multigrid_tpu_torch.solvers.mr import mr
@@ -232,7 +244,8 @@ class MGPreconditioner:
         field [2,4,3,T,Z,W].
 
         ``mesh``: ``r`` is this rank's t-slab of a field on that ring and
-        the preconditioner is ``shard_mg``'s, with the coarse levels
+        the preconditioner a sharded one (``setup_mg`` on a
+        ``ShardedDirac``, or ``shard_mg``'s), with the coarse levels
         replicated (the JAX package's ``vcycle_resharded``): smooth on the
         slab through the sharded operator (MR's reductions summed over
         the ring), restrict to the rank's aggregates, gather the coarse
@@ -284,10 +297,16 @@ def _cuda_graphed(fn, like: torch.Tensor):
     return replay
 
 
+def _mesh(dirac: Dirac):
+    """The ring of a sharded operator, None for a whole-lattice one."""
+    return dirac.mesh if isinstance(dirac, ShardedDirac) else None
+
+
 def _level1_terms(dirac: Dirac):
     """(diagonal term, 8 hop terms with their −κ) of the fine operator on
-    full fields, for the coarse build."""
-    geom, kappa = dirac.geom, dirac.params.kappa
+    full fields, for the coarse build; on a sharded operator's slab the
+    t hops read the neighbours' planes."""
+    geom, kappa, mesh = dirac.geom, dirac.params.kappa, _mesh(dirac)
 
     def diag_apply(psi):
         return torch.stack([dirac.a_apply(psi[0], 0),
@@ -295,15 +314,30 @@ def _level1_terms(dirac: Dirac):
 
     hop_terms = [
         (lambda psi, mu=mu, sign=sign:
-         -kappa * _dsl.hop_apply(dirac.u, psi, mu, sign, geom))
+         -kappa * _dsl.hop_apply(dirac.u, psi, mu, sign, geom, mesh))
         for mu in range(4) for sign in (+1, -1)]
     return diag_apply, hop_terms
 
 
 def _build_level1(transfer: Transfer, dirac: Dirac) -> CoarseOperator:
+    """The Galerkin operator V†MV.  On a sharded operator (``transfer``
+    the rank's aggregates): the slab's rows of X and Y, whose t links
+    across a slab face see the neighbour's fine rows, then all-gathered
+    in t, the whole coarse operator on every rank."""
     diag_apply, hop_terms = _level1_terms(dirac)
-    return build_coarse_op_direct(transfer, diag_apply, hop_terms,
-                                  dtype=dirac.u.dtype)
+    mesh = _mesh(dirac)
+    if mesh is None:
+        return build_coarse_op_direct(transfer, diag_apply, hop_terms,
+                                      dtype=dirac.u.dtype)
+    x, y = coarse_xy_direct(transfer, diag_apply, hop_terms,
+                            dtype=dirac.u.dtype)
+    bl = transfer.bg
+    bg = BlockGeometry(dirac.global_geom, bl.bx, bl.by, bl.bz, bl.bt,
+                       bl.nvec)
+    tc = bl.coarse_shape[0]
+    x = mesh.allgather_t(x.unflatten(0, (tc, -1)), axis=0).flatten(0, 1)
+    y = mesh.allgather_t(y.unflatten(1, (tc, -1)), axis=1).flatten(1, 2)
+    return CoarseOperator(x=x, y=y, bg=bg)
 
 
 def _sync(t: torch.Tensor):
@@ -328,10 +362,25 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
     if given, receives the host seconds of the solves and of the
     orthonormalisation, the solver iterations of each batch
     (``msrc_iters``, or ``bicgstab_iters`` per vector) and, for the
-    multi-source path, the worst solve's true residual."""
+    multi-source path, the worst solve's true residual.
+
+    On a ``ShardedDirac`` (``bg`` the slab's blocking): the sources are
+    drawn whole, as the unsharded setup draws them, and sliced at once;
+    on the sharded fused chain each column is one ``invert(mesh=…)``
+    "cg" (the normal equations' CG of a column of ``invert_msrc``;
+    ``cg_iters`` a column and the worst true residual), otherwise one
+    ``bicgstab(allreduce=…)``.  V holds the rank's aggregates."""
     geom = dirac.geom
     dtype = dirac.u.dtype
-    fused = dirac._has_fused_matpc
+    mesh = _mesh(dirac)
+    if mesh is None:
+        whole, fused = geom, dirac._has_fused_matpc
+    else:
+        whole, fused = dirac.global_geom, dirac.has_sharded_chain
+
+    def sliced(b):
+        return b if mesh is None else t_slab(b, mesh)
+
     t0 = time.perf_counter()
     flat = torch.empty((bg.nvec, 2) + tuple(bg.coarse_shape) + (bg.bdof,),
                        dtype=dtype, device=dirac.u.device)
@@ -339,18 +388,29 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
     if fused:
         for i0 in range(0, bg.nvec, batch):
             nb = min(batch, bg.nvec - i0)
-            bs = _rng.random_spinor(gen, geom, dtype, batch_shape=(nb,))
-            res = invert_msrc(dirac, bs, tol=params.setup_tol,
-                              maxiter=params.setup_maxiter)
+            bs = sliced(_rng.random_spinor(gen, whole, dtype,
+                                           batch_shape=(nb,)))
+            if mesh is None:
+                res = invert_msrc(dirac, bs, tol=params.setup_tol,
+                                  maxiter=params.setup_maxiter)
+                del bs
+                flat[i0:i0 + nb] = to_blocked_flat(res.x, bg)
+                iters.append(res.iters)
+                worst = max(worst, res.true_res)
+                continue
+            for i, b in enumerate(bs):
+                res = invert(dirac, b, tol=params.setup_tol,
+                             maxiter=params.setup_maxiter, mesh=mesh)
+                flat[i0 + i] = to_blocked_flat(res.x, bg)
+                iters.append(res.iters)
+                worst = max(worst, res.true_res)
             del bs
-            flat[i0:i0 + nb] = to_blocked_flat(res.x, bg)
-            iters.append(res.iters)
-            worst = max(worst, res.true_res)
     else:
+        red = None if mesh is None else mesh.allreduce
         for i in range(bg.nvec):
-            b = _rng.random_spinor(gen, geom, dtype)
+            b = sliced(_rng.random_spinor(gen, whole, dtype))
             res = bicgstab(dirac.m, b, tol=params.setup_tol,
-                           maxiter=params.setup_maxiter)
+                           maxiter=params.setup_maxiter, allreduce=red)
             flat[i] = to_blocked_flat(res.x, bg)
             iters.append(res.iters)
     _sync(flat)
@@ -362,7 +422,7 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
         stats["null_vector_secs"] = t1 - t0
         stats["ortho_secs"] = time.perf_counter() - t1
         if fused:
-            stats["msrc_iters"] = iters
+            stats["msrc_iters" if mesh is None else "cg_iters"] = iters
             stats["null_true_res"] = worst
         else:
             stats["bicgstab_iters"] = iters
@@ -371,12 +431,16 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
 
 def _delta_scaled(dirac: Dirac, dmu: float, dkappa: float,
                   dcsw: float) -> Dirac:
-    """The operator with (mu, kappa, csw) rescaled, clover term rebuilt."""
+    """The operator with (mu, kappa, csw) rescaled, clover term rebuilt
+    (on a sharded operator's slab, from its slab of the links)."""
     if dmu == 1.0 and dkappa == 1.0 and dcsw == 1.0:
         return dirac
     p = dirac.params
     newp = dataclasses.replace(p, mu=p.mu * dmu, kappa=p.kappa * dkappa,
                                csw=p.csw * dcsw)
+    if isinstance(dirac, ShardedDirac):
+        return make_sharded_dirac(dirac.u, newp, dirac.global_geom,
+                                  dirac.mesh, antiperiodic=dirac.antiperiodic)
     return make_dirac(dirac.u, newp, dirac.geom)
 
 
@@ -385,7 +449,11 @@ def _null_vectors_for(dirac: Dirac, bg: BlockGeometry, gen, params: MGParams,
     """V from ``vec_infile`` if set (generation skipped), else generated
     and orthonormalised; saved to ``vec_outfile`` if set.  The file
     holds the complex V [2, Tc,Zc,Yc,Xc, nvec, bdof], the JAX package's
-    format."""
+    format.  A sharded operator takes neither file: it holds only its
+    rank's rows of V."""
+    if (params.vec_infile or params.vec_outfile) and _mesh(dirac):
+        raise ValueError("vec_infile / vec_outfile hold the whole lattice's "
+                         "V: set up on the whole lattice and shard_mg it")
     if params.vec_infile:
         a = ckpt.load_null_vectors(params.vec_infile)
         want = (2,) + tuple(bg.coarse_shape) + (bg.nvec, bg.bdof)
@@ -518,6 +586,15 @@ def _vec_storage_cast(transfer: Transfer,
     return out
 
 
+def _fine_blocking(dirac: Dirac, params: MGParams) -> BlockGeometry:
+    """The blocking of the fine lattice, or of the slab of a sharded
+    operator (whose T_loc the block's t extent must divide)."""
+    mesh = _mesh(dirac)
+    whole = dirac.geom if mesh is None else dirac.global_geom
+    bg = BlockGeometry(whole, *params.block, nvec=params.nvec)
+    return bg if mesh is None else slab_block_geometry(bg, mesh)[0]
+
+
 def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
              null_vectors=None) -> MGPreconditioner:
     """Build the MG preconditioner of ``params.n_level`` levels.  ``gen``
@@ -525,9 +602,14 @@ def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
     device): the fine null vectors, then level 2's and level 3's;
     ``null_vectors`` (a sequence of nvec fields [2,4,3,T,Z,W]) skips the
     fine generation and is orthonormalised as given.  With
-    ``vec_dtype="bf16"`` the level-1 V is cast after every build."""
-    bx, by, bz, bt = params.block
-    bg = BlockGeometry(dirac.geom, bx, by, bz, bt, params.nvec)
+    ``vec_dtype="bf16"`` the level-1 V is cast after every build.
+
+    A ``ShardedDirac`` sets up on the slabs of its ring (module
+    docstring; ``gen`` in the same state on every rank, ``null_vectors``
+    the rank's slabs): the result is what ``shard_mg`` makes of the
+    whole lattice's setup, for ``mg_solve(mesh=…)``, and no rank holds
+    a fine field of the whole lattice."""
+    bg = _fine_blocking(dirac, params)
     stats = {}
     if null_vectors is None:
         v = _null_vectors_for(dirac, bg, gen, params, stats)
@@ -554,9 +636,9 @@ def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
     hands both the same key).  With ``vec_dtype="bf16"`` the one shared
     V is cast after both flavours' builds.  Each preconditioner's
     ``setup_stats`` holds the shared null-vector seconds and its own
-    build seconds."""
-    bx, by, bz, bt = params.block
-    bg = BlockGeometry(dirac_up.geom, bx, by, bz, bt, params.nvec)
+    build seconds.  Two ``ShardedDirac`` set up on their slabs, as
+    ``setup_mg`` does."""
+    bg = _fine_blocking(dirac_up, params)
     shared = {}
     transfer = Transfer(v=_null_vectors_for(dirac_up, bg, gen, params,
                                             shared), bg=bg)
@@ -584,9 +666,8 @@ def shard_mg(mg: MGPreconditioner, mesh) -> MGPreconditioner:
     (``parallel.sharded.shard_dirac``), that of the δ-scaled smoother
     operator, the transfer's aggregates on the slab (``t_slab``), and the
     coarse levels whole, replicated on every rank.  The block's t extent
-    must divide T_loc.  The setup stays on the whole-lattice operator
-    (every rank holds it while ``shard_dirac`` cuts slabs from a
-    whole-lattice operator)."""
+    must divide T_loc.  ``setup_mg`` on a ``ShardedDirac`` gives the same
+    without a whole-lattice operator."""
     from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import shard_dirac
     return dataclasses.replace(
         mg, dirac=shard_dirac(mg.dirac, mesh),
@@ -613,7 +694,7 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
     ``iters`` counts n_krylov per GCR cycle, 1 per Richardson step.
 
     ``mesh``: the t-sharded solve on that ring (the JAX package's
-    ``mg_solve(mesh=…)``): ``mg`` is ``shard_mg``'s, ``b`` and the
+    ``mg_solve(mesh=…)``): ``mg`` a sharded preconditioner, ``b`` and the
     returned x this rank's slab; the V-cycle is ``vcycle(mesh=…)``,
     every reduction of the outer solve is summed over the ring, and
     ``r2`` is the whole lattice's.
@@ -625,8 +706,9 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
         solver = mg.params.outer_solver
     d = mg.dirac
     if getattr(d, "mesh", None) is not mesh:
-        raise ValueError("a sharded solve needs both shard_mg(mg, mesh) "
-                         "and mg_solve(mesh=mesh)")
+        raise ValueError("a sharded solve needs both a preconditioner on "
+                         "that mesh (setup_mg on its ShardedDirac, or "
+                         "shard_mg(mg, mesh)) and mg_solve(mesh=mesh)")
     _sync(b)
     t0 = time.perf_counter()
     res = _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver, mesh)

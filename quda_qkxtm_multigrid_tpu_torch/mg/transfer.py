@@ -140,7 +140,7 @@ def block_orthonormalize_flat(v_stacked: torch.Tensor) -> torch.Tensor:
     return cholqr_pass(cholqr_pass(torch.movedim(v_stacked, 0, -2)))
 
 
-def _slab_bg(bg: BlockGeometry, mesh) -> tuple:
+def slab_block_geometry(bg: BlockGeometry, mesh) -> tuple:
     """(the blocking of this rank's t-slab, (first, count) of its coarse t
     rows): aggregates do not straddle slabs, so the block's t extent must
     divide T_loc.  The slab's origin is even, so its blocked layout is
@@ -171,8 +171,8 @@ class Transfer:
         """This rank's aggregates on a t-ring ``mesh``
         (``parallel.mesh.TMesh``): V narrowed to the rank's coarse t rows
         (the whole V itself on a ring of one), on the slab's fine
-        geometry (``_slab_bg``)."""
-        bg, (t0, n) = _slab_bg(self.bg, mesh)
+        geometry (``slab_block_geometry``)."""
+        bg, (t0, n) = slab_block_geometry(self.bg, mesh)
         return Transfer(v=self.v.narrow(1, t0, n).contiguous(), bg=bg)
 
     @full_float32()
@@ -228,7 +228,7 @@ class Bf16Transfer:
 
     def t_slab(self, mesh) -> "Bf16Transfer":
         """``Transfer.t_slab`` of the bf16 pair: both planes narrowed."""
-        bg, (t0, n) = _slab_bg(self.bg, mesh)
+        bg, (t0, n) = slab_block_geometry(self.bg, mesh)
         return Bf16Transfer(vr=self.vr.narrow(1, t0, n).contiguous(),
                             vi=self.vi.narrow(1, t0, n).contiguous(), bg=bg)
 

@@ -34,10 +34,15 @@ def _mm(*ms):
     return out
 
 
-def _field_strength_plane(u, geom: Geometry, mu: int, nu: int, p: int):
-    """F_{mu nu} on the sites of parity ``p``: [3, 3, T, Z, W]."""
+def _field_strength_plane(u, geom: Geometry, mu: int, nu: int, p: int,
+                          mesh=None):
+    """F_{mu nu} on the sites of parity ``p``: [3, 3, T, Z, W].  ``mesh``:
+    ``u`` is this rank's t-slab on that ring; a leaf reaches one plane
+    in t at most, and each t shift reads it from the neighbour
+    (``lattice.gather_neighbor``)."""
     def g(mat_on_parity_q, d, fwd, target_p):
-        return gather_neighbor(mat_on_parity_q, d, fwd, target_p, geom)
+        return gather_neighbor(mat_on_parity_q, d, fwd, target_p, geom,
+                               mesh=mesh)
 
     q = 1 - p
     umu_p, unu_p = u[mu, p], u[nu, p]
@@ -82,14 +87,16 @@ def _clover_parity(f, coeff: float):
     return torch.cat([top, bot], dim=1)
 
 
-def make_clover(u, geom: Geometry, coeff: float):
+def make_clover(u, geom: Geometry, coeff: float, mesh=None):
     """Build A [2(parity),2(ch),6,6,T,Z,W], coeff = csw * kappa.
 
     Built one parity at a time, so the six F components of only one
     parity are alive at once (each [3,3,T,Z,W] c128 temporary is 151 MB
-    at 32³×64)."""
+    at 32³×64).  ``mesh``: on this rank's t-slab of ``u``, its t-faces
+    exchanged (``_field_strength_plane``)."""
     return torch.stack([
-        _clover_parity(torch.stack([_field_strength_plane(u, geom, mu, nu, p)
+        _clover_parity(torch.stack([_field_strength_plane(u, geom, mu, nu, p,
+                                                          mesh)
                                     for mu, nu in FMUNU_PAIRS]), coeff)
         for p in (0, 1)])
 
@@ -117,10 +124,11 @@ def clover_apply(clover_p, psi, dagger: bool = False):
     return chiral_mat_mul(clover_p, chi, dagger=dagger).reshape(shp)
 
 
-def make_clover_pair(u, geom: Geometry, params):
+def make_clover_pair(u, geom: Geometry, params, mesh=None):
     """clover + inverse (the inverse includes the twist for
-    twisted-clover)."""
-    clov = make_clover(u, geom, params.csw * params.kappa)
+    twisted-clover); ``mesh`` as in ``make_clover`` (the inverse is
+    site-local)."""
+    clov = make_clover(u, geom, params.csw * params.kappa, mesh)
     if params.kind == "twisted-clover" and params.mu != 0.0:
         inv = invert_clover(clover_with_twist(clov, params.kappa, params.mu,
                                               params.flavor))

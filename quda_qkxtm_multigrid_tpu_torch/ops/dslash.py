@@ -67,20 +67,24 @@ def dslash_flops(geom: Geometry, sites: str = "half") -> int:
     return WILSON_DSLASH_FLOPS_PER_SITE * v
 
 
-def doubled_links(u, geom: Geometry, parity: int):
+def doubled_links(u, geom: Geometry, parity: int, mesh=None):
     """One parity of ``double_gauge``: [4, 2, 3, 3, T, Z, W]."""
     return torch.stack([
         torch.stack([u[mu, parity],
                      gather_neighbor(u[mu, 1 - parity], mu, False, parity,
-                                     geom)])
+                                     geom, mesh=mesh)])
         for mu in range(4)])
 
 
-def double_gauge(u, geom: Geometry):
+def double_gauge(u, geom: Geometry, mesh=None):
     """ud[mu, parity, 0] = U_mu(x) and ud[mu, parity, 1] = U_mu(x-mu) for
     x of ``parity``: both hop directions addressable at the output site,
-    so the hop reads no gathered links.  [4, 2, 2, 3, 3, T, Z, W]."""
-    return torch.stack([doubled_links(u, geom, p) for p in range(2)], dim=1)
+    so the hop reads no gathered links.  [4, 2, 2, 3, 3, T, Z, W].
+    ``mesh``: ``u`` is this rank's t-slab on that ring, and the backward
+    t links of row 0 come from the t−1 neighbour's last plane
+    (``lattice.gather_neighbor``)."""
+    return torch.stack([doubled_links(u, geom, p, mesh) for p in range(2)],
+                       dim=1)
 
 
 def dslash_parity_doubled(ud, psi_opp, parity: int, geom: Geometry,
@@ -97,21 +101,23 @@ def dslash_parity_doubled(ud, psi_opp, parity: int, geom: Geometry,
     return out
 
 
-def hop_apply(u, psi, mu: int, sign: int, geom: Geometry):
+def hop_apply(u, psi, mu: int, sign: int, geom: Geometry, mesh=None):
     """One of the eight directional hop terms on a full field
     [2,4,3,T,Z,W]:
       sign=+1: out(x) = (1 − γ_mu) U_mu(x) psi(x+mu)
       sign=-1: out(x) = (1 + γ_mu) U_mu†(x-mu) psi(x-mu)
-    The coarse-operator build restricts each term separately."""
+    The coarse-operator build restricts each term separately.  ``mesh``:
+    ``u`` and ``psi`` are this rank's t-slabs on that ring, and a t hop
+    reads the neighbour's plane (``lattice.gather_neighbor``)."""
     outs = []
     for parity in (0, 1):
         src = psi[1 - parity]
         if sign > 0:
-            fwd = gather_neighbor(src, mu, True, parity, geom)
+            fwd = gather_neighbor(src, mu, True, parity, geom, mesh=mesh)
             outs.append(_su3(u[mu, parity], _proj(mu, False, fwd)))
         else:
-            bwd = gather_neighbor(src, mu, False, parity, geom)
+            bwd = gather_neighbor(src, mu, False, parity, geom, mesh=mesh)
             u_bwd = gather_neighbor(u[mu, 1 - parity], mu, False, parity,
-                                    geom)
+                                    geom, mesh=mesh)
             outs.append(_su3_dag(u_bwd, _proj(mu, True, bwd)))
     return torch.stack(outs)

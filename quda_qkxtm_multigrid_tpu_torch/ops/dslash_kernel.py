@@ -154,7 +154,7 @@ def _row2(m: torch.Tensor) -> torch.Tensor:
                         for c in range(3)]).conj()
 
 
-def antiperiodic_t(ud: torch.Tensor) -> bool:
+def antiperiodic_t(ud: torch.Tensor, t_rows=None, allmax=None) -> bool:
     """Whether doubled links of the whole lattice (``ops.dslash.
     double_gauge`` [4, 2, 2, 3, 3, T, Z, W], or one parity's
     ``doubled_links`` [4, 2, 3, 3, T, Z, W]) carry the antiperiodic t
@@ -163,31 +163,43 @@ def antiperiodic_t(ud: torch.Tensor) -> bool:
     links of row T−1 and the backward t links of row 0 are its negative,
     every one of them: True.  Anything else (a link off SU(3), or
     another phase) raises ``ValueError``: recon-12 would give another
-    operator than the links.  One read of the result on the host."""
+    operator than the links.  One read of the result on the host.
+
+    On a t-slab of the doubled links (``parallel.sharded``): ``t_rows``
+    = (the local row of global t = 0, that of global T−1), either
+    outside the slab where this rank holds neither, and ``allmax`` the
+    ring's maximum (``TMesh.allmax``) of the three offsets, so every
+    rank reads the whole lattice's boundary from its slab alone."""
     if ud.dim() == 7:
         ud = ud[:, None]
     tol = _SU3_TOL.get(ud.dtype)
     if tol is None:
         raise TypeError(f"doubled links of dtype {ud.dtype}: complex64 or "
                         "complex128")
-    t_last = ud.shape[-3] - 1
-    off, plus, minus = [], [], []
+    n_t = ud.shape[-3]
+    row_first, row_last = (0, n_t - 1) if t_rows is None else t_rows
+    zero = torch.zeros((), dtype=ud.real.dtype, device=ud.device)
+    off, plus, minus = [], [zero], [zero]
     for mu in range(4):
         for p in range(ud.shape[1]):
             for fb in (0, 1):
                 m = ud[mu, p, fb]
                 r2 = _row2(m)
                 diff = (m[2] - r2).abs().amax(dim=0)        # [T, Z, W]
-                if mu < 3:
+                row = row_last if fb == 0 else row_first
+                if mu < 3 or not 0 <= row < n_t:
                     off.append(diff.amax())
                     continue
-                row = t_last if fb == 0 else 0
                 rest = torch.cat([diff[:row], diff[row + 1:]])
-                off.append(rest.amax())
+                if rest.numel():
+                    off.append(rest.amax())
                 plus.append(diff[row].amax())
                 minus.append((m[2, :, row] + r2[:, row]).abs().amax())
-    worst, d_plus, d_minus = (float(torch.stack(v).amax())
-                              for v in (off, plus, minus))
+    offsets = torch.stack([torch.stack(v).amax() for v in (off, plus,
+                                                             minus)])
+    if allmax is not None:
+        offsets = allmax(offsets)
+    worst, d_plus, d_minus = (float(v) for v in offsets)
     if worst <= tol and d_plus <= tol:
         return False
     if worst <= tol and d_minus <= tol:

@@ -29,11 +29,15 @@ from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import (
 from quda_qkxtm_multigrid_tpu_torch.utils.rng import su3_project_leading
 
 
-def _staple_sum(u: torch.Tensor, mu: int, geom: Geometry, dirs):
+def _staple_sum(u: torch.Tensor, mu: int, geom: Geometry, dirs, mesh=None):
     """Sum of the upper and lower staples of U_mu over nu in ``dirs``, per
     parity [2, 3, 3, T, Z, W]:
     upper U_nu(x) U_mu(x+nu) U_nu†(x+mu), lower U_nu†(x−nu) U_mu(x−nu)
-    U_nu(x−nu+mu)."""
+    U_nu(x−nu+mu).  ``mesh``: ``u`` is this rank's t-slab on that ring,
+    and a t shift reads the neighbour's face."""
+    def g(f, d, fwd, parity):
+        return gather_neighbor(f, d, fwd, parity, geom, mesh=mesh)
+
     per_par = []
     for p in (0, 1):
         q = 1 - p
@@ -41,14 +45,11 @@ def _staple_sum(u: torch.Tensor, mu: int, geom: Geometry, dirs):
         for nu in dirs:
             if nu == mu:
                 continue
-            up = mat_mul(mat_mul(u[nu, p],
-                                 gather_neighbor(u[mu, q], nu, True, p, geom)),
-                         mat_dag(gather_neighbor(u[nu, q], mu, True, p, geom)))
-            u_nu_b = gather_neighbor(u[nu, q], nu, False, p, geom)
-            u_mu_b = gather_neighbor(u[mu, q], nu, False, p, geom)
-            u_nu_bm = gather_neighbor(
-                gather_neighbor(u[nu, p], mu, True, q, geom), nu, False, p,
-                geom)
+            up = mat_mul(mat_mul(u[nu, p], g(u[mu, q], nu, True, p)),
+                         mat_dag(g(u[nu, q], mu, True, p)))
+            u_nu_b = g(u[nu, q], nu, False, p)
+            u_mu_b = g(u[mu, q], nu, False, p)
+            u_nu_bm = g(g(u[nu, p], mu, True, q), nu, False, p)
             low = mat_mul(mat_mul(mat_dag(u_nu_b), u_mu_b), u_nu_bm)
             s = up + low
             acc = s if acc is None else acc + s
@@ -62,23 +63,27 @@ def _project_links(m: torch.Tensor) -> torch.Tensor:
 
 
 def ape_smear_step(u: torch.Tensor, geom: Geometry, alpha: float,
-                   spatial_only: bool = True) -> torch.Tensor:
+                   spatial_only: bool = True, mesh=None) -> torch.Tensor:
     """One APE step (the t links untouched when ``spatial_only``, the
-    smeared gauge that the Gaussian smearing reads)."""
+    smeared gauge that the Gaussian smearing reads); ``mesh`` as in
+    ``ape_smear``."""
     dirs = (0, 1, 2) if spatial_only else (0, 1, 2, 3)
     coeff = alpha / (2.0 * (len(dirs) - 1))
     out = u.clone()
     for mu in dirs:
-        st = _staple_sum(u, mu, geom, dirs)
+        st = _staple_sum(u, mu, geom, dirs, mesh)
         out[mu] = _project_links((1.0 - alpha) * u[mu] + coeff * st)
     return out
 
 
 def ape_smear(u: torch.Tensor, geom: Geometry, alpha: float, n_steps: int,
-              spatial_only: bool = True) -> torch.Tensor:
-    """``n_steps`` APE steps."""
+              spatial_only: bool = True, mesh=None) -> torch.Tensor:
+    """``n_steps`` APE steps.  ``mesh``: ``u`` is this rank's t-slab on
+    that ring (``geom`` the slab's), and each step exchanges the t-faces
+    its staples read; the spatial staples read none, so the default
+    smearing sends nothing."""
     for _ in range(n_steps):
-        u = ape_smear_step(u, geom, alpha, spatial_only)
+        u = ape_smear_step(u, geom, alpha, spatial_only, mesh)
     return u
 
 

@@ -63,6 +63,15 @@ class TMesh:
         dist.all_reduce(v, op=dist.ReduceOp.SUM, group=self.group)
         return v.reshape(value.shape)
 
+    def allmax(self, value: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over the ring of a real tensor (a new
+        tensor; ``value`` itself on a ring of one)."""
+        if self.nt == 1:
+            return value
+        v = value.detach().clone()
+        dist.all_reduce(v, op=dist.ReduceOp.MAX, group=self.group)
+        return v
+
     def allgather_t(self, x: torch.Tensor, axis: int = -3) -> torch.Tensor:
         """Every rank's ``x`` joined along its t axis ``axis`` in rank
         order (the same on every rank): the whole lattice's field from

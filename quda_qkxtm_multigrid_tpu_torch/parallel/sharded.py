@@ -2,11 +2,17 @@
 package's ``parallel.mesh.shard_dirac`` and ``Dirac._fused_matpc_ch_shmap``
 (``dirac.py:311-437``).
 
-``shard_dirac`` cuts the rank's slab out of an operator built on the
-whole lattice.  The doubled gauge and the clover terms are sliced, not
-rebuilt: the backward t-links of local row 0 belong to the previous rank
-and the clover leaves need the t±1 links, and ``double_gauge`` on a slab
-would wrap t inside it.
+``make_sharded_dirac`` builds the rank's slab of the operator from the
+rank's slab of the gauge alone, exchanging one t-plane with each
+neighbour wherever the build reads across a slab face: the backward
+t-links of local row 0 (the doubled gauge) and the t±1 links of the
+clover leaves (the field strength, the clover term and its inverse; a
+leaf reaches one plane in t at most), both through the ring's
+``lattice.gather_neighbor(mesh=…)``.  Every other term is site-local,
+so the slab holds the numbers of the whole lattice's build on its rows,
+and no rank holds a field of the whole lattice.  ``shard_dirac`` cuts
+the slab out of an operator that the caller built on the whole
+lattice.
 
 A ``ShardedDirac`` is a ``Dirac`` on the local geometry (T_loc) whose hop
 ``dslash`` is the t-local hop K4 on the channel field and its t-faces, in
@@ -21,9 +27,12 @@ flight.  The chain reads
 the operator's channel operands (bf16 in the bf16 operand tier); the
 hop of ``dslash`` reads them in the field's precision always.
 
-The t boundary is read from the whole lattice's links before the cut
-(``ops.dslash_kernel.antiperiodic_t``): a slab alone cannot tell it.
-With the antiperiodic boundary, the slab's hops take the local rows of
+The t boundary is read from the doubled links
+(``ops.dslash_kernel.antiperiodic_t``): ``shard_dirac`` reads the whole
+lattice's before the cut; ``make_sharded_dirac`` reads each slab's rows
+of global t = 0 and T−1 and takes the ring's maximum of the offsets, so
+the rank that holds the boundary tells every rank.  With the
+antiperiodic boundary, the slab's hops take the local rows of
 global t = 0 and T−1 (``ShardedDirac.t_rows``) and restore the sign
 that recon-12 drops there.
 """
@@ -34,8 +43,9 @@ import functools
 
 import torch
 
-from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
+from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, DiracParams
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+from quda_qkxtm_multigrid_tpu_torch.ops import clover as _cl
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     antiperiodic_t, dslash_ch_local, dslash_ch_overlap, from_channels,
@@ -43,7 +53,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
 from quda_qkxtm_multigrid_tpu_torch.parallel.halo import (
     start_t_faces, t_faces)
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
-    TMesh, local_t, t_slab)
+    TMesh, local_geometry, local_t, t_slab)
 
 
 def halo_hop(mesh: TMesh, overlap: bool, g_ch, psi_ch, parity: int,
@@ -86,8 +96,7 @@ class ShardedDirac(Dirac):
     def t_rows(self) -> tuple:
         """The local rows of global t = 0 and T−1 (outside [0, T_loc)
         on a rank that holds neither)."""
-        t0 = self.mesh.rank * self.geom.T
-        return (-t0, self.global_geom.T - 1 - t0)
+        return _t_rows(self.mesh, self.global_geom)
 
     def _hop_kw(self) -> dict:
         """The gauge keywords of every halo hop: recon-12, and the rows
@@ -135,11 +144,43 @@ class ShardedDirac(Dirac):
         return super().flops_per_mat() * self.mesh.nt
 
 
+def _t_rows(mesh: TMesh, geom: Geometry) -> tuple:
+    """The local rows of global t = 0 and T−1 of this rank's slab of a
+    lattice ``geom``."""
+    t0, _ = mesh.t_range(geom.T)
+    return (-t0, geom.T - 1 - t0)
+
+
+def make_sharded_dirac(u_slab: torch.Tensor, params: DiracParams,
+                       geom: Geometry, mesh: TMesh,
+                       antiperiodic=None) -> ShardedDirac:
+    """This rank's slab of the operator of a gauge field on the whole
+    lattice ``geom``, built from the rank's slab of the links ``u_slab``
+    [4, 2, 3, 3, T_loc, Z, W] alone (module docstring), on the mesh's
+    device: the clover term and its (twisted) inverse for a clover kind,
+    the doubled gauge always (the halo hop reads it), and the t boundary
+    read over the ring unless ``antiperiodic`` gives it."""
+    gl = local_geometry(geom, mesh)
+    if u_slab.shape[-3] != gl.T:
+        raise ValueError(f"u_slab has {u_slab.shape[-3]} t rows: this "
+                         f"rank's slab has T_loc = {gl.T}")
+    u = u_slab.to(mesh.device)
+    clover = clover_inv = None
+    if params.has_clover:
+        clover, clover_inv = _cl.make_clover_pair(u, gl, params, mesh)
+    ud = _dsl.double_gauge(u, gl, mesh)
+    if antiperiodic is None:
+        antiperiodic = antiperiodic_t(ud, _t_rows(mesh, geom), mesh.allmax)
+    return ShardedDirac(u, params, gl, mesh, geom, clover=clover,
+                        clover_inv=clover_inv, u_doubled=ud,
+                        antiperiodic=antiperiodic)
+
+
 def shard_dirac(dirac: Dirac, mesh: TMesh) -> ShardedDirac:
-    """This rank's slab of an operator built on the whole lattice, on the
-    mesh's device (module docstring).  The doubled gauge is built on the
-    whole lattice first where the operator has none, and the t boundary
-    read from it."""
+    """This rank's slab of an operator that the caller built on the whole
+    lattice, on the mesh's device (module docstring).  The doubled gauge
+    is built on the whole lattice first where the operator has none, and
+    the t boundary read from it."""
     geom = dirac.geom
     t_loc = local_t(geom.T, mesh)
     ud = dirac.u_doubled

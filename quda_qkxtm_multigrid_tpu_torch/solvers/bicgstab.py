@@ -19,7 +19,7 @@ import torch
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import (
     cDotProduct, cDotProduct_ch, cscale_ch, norm2)
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import (
-    ReliableStats, defect_correction)
+    ReliableStats, defect_correction, summed)
 
 
 class BiCGStabResult(NamedTuple):
@@ -35,12 +35,16 @@ def _scale(a, v: torch.Tensor) -> torch.Tensor:
 
 def bicgstab(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None, tol: float = 1e-10,
-             maxiter: int = 1000) -> BiCGStabResult:
+             maxiter: int = 1000,
+             allreduce: Optional[Callable] = None) -> BiCGStabResult:
     """Solve M x = b; stops on |r|² ≤ tol²|b|² or after ``maxiter``.
     On a real (planar-channel) b the complex products are the channel
-    forms."""
+    forms.  ``allreduce`` sums each reduction over the ranks of a
+    t-sharded field (``parallel.mesh.TMesh.allreduce``; ω's two dots as
+    one vector); None leaves them local."""
     dot, scale = ((cDotProduct, _scale) if b.is_complex()
                   else (cDotProduct_ch, cscale_ch))
+    red = (lambda v: v) if allreduce is None else allreduce
     if x0 is None:
         x = torch.zeros_like(b)
         r = b
@@ -48,25 +52,26 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
         x = x0
         r = b - matvec(x0)
     r0 = r                                   # shadow residual
-    target = (tol * tol) * norm2(b)
+    target = (tol * tol) * red(norm2(b))
     rho = alpha = omega = 1.0
     p = torch.zeros_like(b)
     v = torch.zeros_like(b)
-    r2 = norm2(r)
+    r2 = red(norm2(r))
     k = 0
     while k < maxiter and bool(r2 > target):
-        rho_new = dot(r0, r)
+        rho_new = red(dot(r0, r))
         beta = (rho_new / rho) * (alpha / omega)
         p = r + scale(beta, p - scale(omega, v))
         v = matvec(p)
-        alpha = rho_new / dot(r0, v)
+        alpha = rho_new / red(dot(r0, v))
         s = r - scale(alpha, v)
         t = matvec(s)
-        omega = dot(t, s) / dot(t, t)
+        ts, tt = summed(allreduce, dot(t, s), dot(t, t))
+        omega = ts / tt
         x = x + scale(alpha, p) + scale(omega, s)
         r = s - scale(omega, t)
         rho = rho_new
-        r2 = norm2(r)
+        r2 = red(norm2(r))
         k += 1
     return BiCGStabResult(x, k, r2)
 

@@ -21,10 +21,23 @@ low spectrum (a hot gauge at 32³×64, where the plain iteration stalls)
 resolves in a few restarts.  The eigenvalues are then the Rayleigh
 quotients of the operator itself.  ``spectrum_bounds`` gives amin and
 amax from one short unfiltered cycle.
+
+On a t-ring (``allreduce=``, ``parallel.mesh.TMesh.allreduce``) the
+fields are this rank's t-slabs and every inner product is summed over
+the ring: a CGS2 pass's dots as one vector, the diagonal entry and the
+norm of a Lanczos step as one scalar each, the Rayleigh quotients and
+residuals of a restart as one vector each.  The projected problem is
+then the same bytes on every rank, and so are its ``eigh`` and the
+restart's rotation of the basis rows.  ``chebyshev_op`` sums nothing:
+the matvec carries its own exchange.  The start vector is drawn by the
+caller (``v0``): the whole field from the generator, then this rank's
+slab of it, so a ring takes the unsharded start.  ``allreduce=None``
+leaves every path as it was.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -53,17 +66,28 @@ def _start_vector(example: torch.Tensor,
     return v / torch.linalg.vector_norm(v)
 
 
-def _dots(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _dots(rows: torch.Tensor, w: torch.Tensor,
+          allreduce: Optional[Callable] = None) -> torch.Tensor:
     """<rows_j, w> for every row (the conjugate falls on the one vector,
-    never on the basis)."""
-    return torch.mv(rows, w.conj()).conj()
+    never on the basis), summed over the ring by one ``allreduce`` of
+    the vector."""
+    d = torch.mv(rows, w.conj()).conj()
+    return d if allreduce is None else allreduce(d)
 
 
-def _orthogonalise(w: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def _orthogonalise(w: torch.Tensor, rows: torch.Tensor,
+                   allreduce: Optional[Callable] = None) -> torch.Tensor:
     """w minus its components along ``rows``, twice."""
     for _ in range(2):
-        w = w - torch.mv(rows.transpose(0, 1), _dots(rows, w))
+        w = w - torch.mv(rows.transpose(0, 1), _dots(rows, w, allreduce))
     return w
+
+
+def _norm(w: torch.Tensor, allreduce: Optional[Callable]) -> float:
+    """|w| on the host, summed over the ring."""
+    if allreduce is None:
+        return float(torch.linalg.vector_norm(w))
+    return math.sqrt(float(allreduce(torch.vdot(w, w).real)))
 
 
 def chebyshev_op(matvec: Callable, amin: float, amax: float,
@@ -86,43 +110,66 @@ def chebyshev_op(matvec: Callable, amin: float, amax: float,
 
 
 def _cycle_tmat(op: Callable, basis: torch.Tensor, tmat: torch.Tensor,
-                k_keep: int, shape):
+                k_keep: int, shape, allreduce: Optional[Callable] = None):
     """Extend the factorisation from row ``k_keep`` to the last row of
     ``tmat`` (ncv), the normalised residual vector into ``basis[ncv]``."""
     ncv = tmat.shape[0] - 1
     for k in range(k_keep, ncv):
         w = op(basis[k].view(shape)).reshape(-1)
-        tmat[k, k] += float(torch.vdot(basis[k], w).real)
-        w = _orthogonalise(w, basis[:k + 1])
-        beta = float(torch.linalg.vector_norm(w))
+        alpha = torch.vdot(basis[k], w).real
+        tmat[k, k] += float(alpha if allreduce is None else allreduce(alpha))
+        w = _orthogonalise(w, basis[:k + 1], allreduce)
+        beta = _norm(w, allreduce)
         basis[k + 1] = w / (beta if beta > 0 else 1.0)
         tmat[k + 1, k] = tmat[k, k + 1] = beta
 
 
-def _rayleigh_ritz(matvec: Callable, ritz: torch.Tensor, shape):
+def _residual_norms(triples, allreduce: Optional[Callable]) -> torch.Tensor:
+    """|a − λ v| for each (a, λ, v) of ``triples`` (an iterable, made one
+    at a time), summed over the ring as one vector of squares."""
+    if allreduce is None:
+        return torch.stack([torch.linalg.vector_norm(a - lam_i * v)
+                            for a, lam_i, v in triples])
+    sq = []
+    for a, lam_i, v in triples:
+        d = a - lam_i * v
+        sq.append(torch.vdot(d, d).real)
+    return torch.sqrt(allreduce(torch.stack(sq)))
+
+
+def _rayleigh_ritz(matvec: Callable, ritz: torch.Tensor, shape,
+                   allreduce: Optional[Callable] = None):
     """The Rayleigh quotients of ``matvec`` on the rows of ``ritz``,
     ascending, the rows in that order, and their residuals."""
     av = torch.stack([matvec(v.view(shape)).reshape(-1) for v in ritz])
     lam = torch.stack([torch.vdot(v, a).real for v, a in zip(ritz, av)])
+    if allreduce is not None:
+        lam = allreduce(lam)
     lam, order = torch.sort(lam)
     ritz, av = ritz[order], av[order]
-    res = torch.stack([torch.linalg.vector_norm(a - lam_i * v)
-                       for a, lam_i, v in zip(av, lam, ritz)])
-    return lam, ritz, res
+    return lam, ritz, _residual_norms(zip(av, lam, ritz), allreduce)
+
+
+def _first_row(example: torch.Tensor, gen, v0) -> torch.Tensor:
+    """The normalised start vector, flat: ``v0`` (this rank's slab of a
+    whole normalised field) or ``_start_vector(example, gen)``."""
+    return (_start_vector(example, gen) if v0 is None else v0).reshape(-1)
 
 
 def spectrum_bounds(matvec: Callable, example: torch.Tensor, nev: int,
-                    steps: int = 40, gen: Optional[torch.Generator] = None):
+                    steps: int = 40, gen: Optional[torch.Generator] = None,
+                    allreduce: Optional[Callable] = None,
+                    v0: Optional[torch.Tensor] = None):
     """(amin, amax) for ``lanczos(chebyshev=...)`` from one unfiltered
     cycle of ``steps``: amin the ``nev``-th lowest Ritz value, which is
     at least the ``nev``-th eigenvalue (interlacing), and amax the
     highest Ritz value plus 5 % of the Ritz spread, above the top of the
-    spectrum."""
+    spectrum.  ``allreduce`` and ``v0`` as in ``lanczos``."""
     basis = torch.empty((steps + 1, example.numel()), dtype=example.dtype,
                         device=example.device)
-    basis[0] = _start_vector(example, gen).reshape(-1)
+    basis[0] = _first_row(example, gen, v0)
     tmat = torch.zeros((steps + 1, steps + 1), dtype=torch.float64)
-    _cycle_tmat(matvec, basis, tmat, 0, example.shape)
+    _cycle_tmat(matvec, basis, tmat, 0, example.shape, allreduce)
     theta = torch.linalg.eigvalsh(tmat[:steps, :steps])
     spread = float(theta[-1] - theta[0])
     return float(theta[nev - 1]), float(theta[-1]) + 0.05 * spread
@@ -132,7 +179,9 @@ def lanczos(matvec: Callable, example: torch.Tensor, nev: int,
             ncv: Optional[int] = None, tol: float = 1e-8,
             max_restarts: int = 100, gen: Optional[torch.Generator] = None,
             stats: Optional[dict] = None,
-            chebyshev: Optional[tuple] = None) -> EigResult:
+            chebyshev: Optional[tuple] = None,
+            allreduce: Optional[Callable] = None,
+            v0: Optional[torch.Tensor] = None) -> EigResult:
     """The ``nev`` lowest eigenpairs of the hermitian ``matvec`` by
     thick-restart Lanczos; ``example`` gives the field's shape, dtype and
     device, and the start vector is ``_start_vector(example, gen)``.
@@ -143,7 +192,9 @@ def lanczos(matvec: Callable, example: torch.Tensor, nev: int,
     of ``matvec`` itself have residuals below ``tol``.  ``stats``, if
     given, receives the cycles (``restarts``), the applications of
     ``matvec`` (``matvecs``) and the host seconds (``secs``, the device
-    synchronised)."""
+    synchronised).  ``allreduce`` sums every inner product over the
+    ranks of a t-sharded field (module docstring); ``v0``, the start
+    vector, replaces the draw from ``gen``."""
     if ncv is None:
         ncv = max(2 * nev + 8, nev + 16)
     t0 = time.perf_counter()
@@ -161,11 +212,11 @@ def lanczos(matvec: Callable, example: torch.Tensor, nev: int,
         def op(v):
             return -poly(v)
     basis = torch.empty((ncv + 1, example.numel()), dtype=dtype, device=dev)
-    basis[0] = _start_vector(example, gen).reshape(-1)
+    basis[0] = _first_row(example, gen, v0)
     tmat = torch.zeros((ncv + 1, ncv + 1), dtype=torch.float64)
     k_keep, cycles = 0, 0
     for cycles in range(1, max_restarts + 1):
-        _cycle_tmat(op, basis, tmat, k_keep, shape)
+        _cycle_tmat(op, basis, tmat, k_keep, shape, allreduce)
         evals, q = torch.linalg.eigh(tmat[:ncv, :ncv])
         beta_last = float(tmat[ncv, ncv - 1])
         s = beta_last * q[ncv - 1, :nev]
@@ -183,14 +234,13 @@ def lanczos(matvec: Callable, example: torch.Tensor, nev: int,
             continue
         # the filter's values run to ~1e10: test the pairs of the
         # operator itself
-        lam, ritz, res = _rayleigh_ritz(counted, ritz, shape)
+        lam, ritz, res = _rayleigh_ritz(counted, ritz, shape, allreduce)
         if float(res.max()) < tol:
             break
     if chebyshev is None:
         lam = evals[:nev].to(dev, basis.real.dtype)
-        res = torch.stack([torch.linalg.vector_norm(
-            counted(v.view(shape)).reshape(-1) - lam_i * v)
-            for lam_i, v in zip(lam, ritz)])
+        res = _residual_norms(((counted(v.view(shape)).reshape(-1), lam_i, v)
+                               for lam_i, v in zip(lam, ritz)), allreduce)
     if stats is not None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -201,17 +251,20 @@ def lanczos(matvec: Callable, example: torch.Tensor, nev: int,
 
 
 def deflate_guess(evecs: torch.Tensor, evals: torch.Tensor,
-                  b: torch.Tensor) -> torch.Tensor:
+                  b: torch.Tensor,
+                  allreduce: Optional[Callable] = None) -> torch.Tensor:
     """x0 = V diag(1/λ) V† b, the exact low-mode solution as an initial
-    guess (the reference's ``deflateVector``)."""
+    guess (the reference's ``deflateVector``); ``allreduce`` sums the
+    nev dots over the ring as one vector."""
     e = evecs.reshape(evecs.shape[0], -1)
-    c = _dots(e, b.reshape(-1)) / evals.to(b.dtype)
+    c = _dots(e, b.reshape(-1), allreduce) / evals.to(b.dtype)
     return torch.mv(e.transpose(0, 1), c).view(b.shape)
 
 
-def project_out(evecs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def project_out(evecs: torch.Tensor, v: torch.Tensor,
+                allreduce: Optional[Callable] = None) -> torch.Tensor:
     """v without its component in the deflation space (the reference's
-    ``projectVector``)."""
+    ``projectVector``); ``allreduce`` as in ``deflate_guess``."""
     e = evecs.reshape(evecs.shape[0], -1)
-    return v - torch.mv(e.transpose(0, 1), _dots(e, v.reshape(-1))).view(
-        v.shape)
+    return v - torch.mv(e.transpose(0, 1),
+                        _dots(e, v.reshape(-1), allreduce)).view(v.shape)

@@ -29,12 +29,19 @@ instance, the inner one on its float32 instance.  A gauge on the CPU
 takes the plain operator.  The JAX package's gate (2.2 M sites) was a
 rule for a 16 GB TPU.
 
-With ``mesh`` (a t-ring, ``parallel.mesh.TMesh``) the 2pt, 3pt and
-loops run t-sharded: each rank holds the whole gauge, cuts its slab of
-every field and of the operator (``make_operator(mesh=…)``), solves each
-column through ``invert(mesh=…)`` (the sharded chain's CG, its
-``cg-mixed`` in complex128, or the plain sharded CG off the card) or the
-``shard_mg`` pair, and gathers the results whole on every rank.
+With ``mesh`` (a t-ring, ``parallel.mesh.TMesh``) every workflow runs
+t-sharded: each rank takes its slab of the gauge (the whole gauge given
+is read once and not kept; a slab is taken as it is), builds its slab
+of the operator from it (``make_operator(mesh=…)``, through
+``parallel.sharded.make_sharded_dirac``), solves each column through
+``invert(mesh=…)`` (the sharded chain's CG, its ``cg-mixed`` in
+complex128, or the plain sharded CG off the card) or the pair of MG
+preconditioners set up on the slabs, and gathers the correlators and
+loops whole on every rank.  No field that a rank keeps has the whole
+lattice's t extent: the propagators and smeared links come back as
+slabs, and the one whole field made on a rank is a source or noise
+vector drawn from a generator, sliced at once (so a ring draws the
+unsharded numbers).
 """
 
 from __future__ import annotations
@@ -57,12 +64,13 @@ from quda_qkxtm_multigrid_tpu_torch.ops.smear import ape_smear, gaussian_smear
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
     local_geometry, t_slab)
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
-    ShardedDirac, shard_dirac)
+    ShardedDirac, make_sharded_dirac)
 from quda_qkxtm_multigrid_tpu_torch.physics import contract as con
 from quda_qkxtm_multigrid_tpu_torch.physics import loops as lp
 from quda_qkxtm_multigrid_tpu_torch.physics import threept as tp
 from quda_qkxtm_multigrid_tpu_torch.physics.propagator import (
     assemble_prop, rotate_to_physical, smear_propagator)
+from quda_qkxtm_multigrid_tpu_torch.solvers import eigen
 from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
 from quda_qkxtm_multigrid_tpu_torch.solvers.eigen import (
     deflate_guess, lanczos, project_out, spectrum_bounds)
@@ -73,11 +81,6 @@ from quda_qkxtm_multigrid_tpu_torch.utils.rng import z4_source
 # reach the fused and compact operators through the plain versions.
 _FORCE_KERNELS: Optional[bool] = None
 _FORCE_COMPACT: Optional[bool] = None
-
-MESH_REFUSAL = ("run_loops_wexact has no meshed form: its Lanczos (the "
-                "CGS2 passes and the Rayleigh-Ritz step) does not sum its "
-                "reductions over the ring (ROADMAP queue 1 item 7); run "
-                "it without mesh")
 
 
 def _use_kernels(u: torch.Tensor) -> bool:
@@ -111,11 +114,11 @@ def make_operator(u: torch.Tensor, params: DiracParams, geom: Geometry,
     ``compact.make_compact`` (bf16 tier) where a complex64 bundle does
     not fit, else ``make_dirac`` with ``use_kernels`` on the card and
     without on the CPU.  With ``mesh`` (a t-ring), this rank's slab of
-    the ``make_dirac`` operator built on the whole gauge ``u``
-    (``parallel.sharded.shard_dirac``)."""
+    that operator, built from this rank's slab of ``u`` (``u`` the whole
+    gauge or the slab; ``parallel.sharded.make_sharded_dirac``)."""
     if mesh is not None:
-        return shard_dirac(make_dirac(u, dataclasses.replace(
-            params, use_kernels=_use_kernels(u)), geom), mesh)
+        return make_sharded_dirac(_slab(u, geom, mesh), dataclasses.replace(
+            params, use_kernels=_use_kernels(u)), geom, mesh)
     if _use_compact(u, geom):
         return make_compact(u, params, geom, dtype=torch.bfloat16)
     return make_dirac(u, dataclasses.replace(
@@ -163,14 +166,26 @@ def _solver(dirac) -> str:
             else "cg")
 
 
+def _slab(f: torch.Tensor, geom: Geometry, mesh) -> torch.Tensor:
+    """This rank's t-slab (t the axis −3) of ``f``, a field of the whole
+    lattice ``geom`` or already this rank's slab, on the mesh's device."""
+    if f.shape[-3] == geom.T:
+        return t_slab(f, mesh)
+    t_loc = local_geometry(geom, mesh).T
+    if f.shape[-3] != t_loc:
+        raise ValueError(f"a field with {f.shape[-3]} t rows is neither "
+                         f"the whole lattice's (T = {geom.T}) nor this "
+                         f"rank's slab (T_loc = {t_loc})")
+    return f.to(mesh.device)
+
+
 def _slabs(mesh, geom: Geometry, *fields):
-    """(the local geometry, each field's t-slab) on ``mesh``, or
-    (``geom``, the fields) when ``mesh`` is None."""
+    """(the local geometry, each field's t-slab by ``_slab``) on
+    ``mesh``, or (``geom``, the fields) when ``mesh`` is None."""
     if mesh is None:
         return (geom,) + fields
     return (local_geometry(geom, mesh),) + tuple(
-        t_slab(f, mesh) for f in fields)
-
+        _slab(f, geom, mesh) for f in fields)
 
 
 def smeared_sources(u_ape: torch.Tensor, geom: Geometry, coords,
@@ -178,13 +193,21 @@ def smeared_sources(u_ape: torch.Tensor, geom: Geometry, coords,
                     mesh=None) -> torch.Tensor:
     """The twelve Gaussian-smeared point sources of ``coords``
     [12 (spin-major), 2, 4, 3, T, Z, W], smeared as one batch.  With
-    ``mesh``: the sources are made on the whole lattice ``geom`` and
-    this rank's t-slabs smeared over ``u_ape``, the slab's smeared links
-    (the smearing is spatial)."""
-    bs = torch.stack([fields.point_source_dyn(geom, coords, s, c, dtype,
-                                              u_ape.device)
+    ``mesh``: this rank's t-slabs, made on the slab (zero off the rank
+    that holds the source's t) and smeared over ``u_ape``, the slab's
+    smeared links (the smearing is spatial)."""
+    dev = u_ape.device
+    if mesh is not None:
+        t_first, _ = mesh.t_range(geom.T)
+        x, y, z, t = (int(c) for c in coords)
+        geom = local_geometry(geom, mesh)
+        if not 0 <= t - t_first < geom.T:
+            return torch.zeros((12, 2, 4, 3) + geom.lat_shape, dtype=dtype,
+                               device=dev)
+        # the slab's origin is even: its local sites keep their parity
+        coords = (x, y, z, t - t_first)
+    bs = torch.stack([fields.point_source_dyn(geom, coords, s, c, dtype, dev)
                       for s in range(4) for c in range(3)])
-    geom, bs = _slabs(mesh, geom, bs)
     return gaussian_smear(bs, u_ape, geom, alpha, nsmear)
 
 
@@ -193,7 +216,8 @@ def mg_solve_fn(mg, tol: float = 1e-8, n_krylov: int = 10,
     """An MG preconditioner as a workflow solver b → (x, true_rel) (the
     reference's per-column GCR-MG solve); each solve appends its outer
     iterations to the returned function's ``iters``.  ``mesh``: ``mg`` is
-    ``shard_mg``'s on that ring and b this rank's slab."""
+    a sharded preconditioner on that ring (``setup_mg`` on a
+    ``ShardedDirac``, or ``shard_mg``'s) and b this rank's slab."""
     from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import mg_solve
 
     def solve(b):
@@ -315,27 +339,27 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     synchronised around each), each flavour's ``forward_prop`` stats
     under "up" / "dn", the smeared ``sources`` and the MG setup split.
 
-    ``mesh`` (a t-ring, ``parallel.mesh.TMesh``; ``u`` the whole gauge on
-    every rank): each rank runs the workflow on its t-slab.  APE and the
-    Gaussian smearing are spatial, so slab-local; the point sources are
-    made on the whole lattice and sliced; every column solves through
+    ``mesh`` (a t-ring, ``parallel.mesh.TMesh``; ``u`` the whole gauge or
+    this rank's slab): each rank runs the workflow on its t-slab.  APE
+    and the Gaussian smearing are spatial, so slab-local; the point
+    sources are made on the slab; every column solves through
     ``invert(mesh=…)`` on the rank's ``make_operator(mesh=…)``, or with
     ``mg_params`` through ``mg_solve(mesh=…)`` on the pair set up on the
-    whole lattice and cut by ``shard_mg`` (``mg_pair`` holds the cut
-    pair).  The correlators, propagators and ``u_ape`` come back whole
-    on every rank; ``stats``' fields are the rank's slabs."""
+    slabs (``setup_mg_pair`` on the sharded operators).  The contraction
+    runs on the slab and the correlators come back whole on every rank;
+    the propagators, ``u_ape`` and ``stats``' fields are the rank's
+    slabs (``run_threep`` and ``run_loops`` take them so)."""
     _check_space(corr_space)
     dev = u.device
     secs = {}
     lap = _stage_clock(dev, secs)
     kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
     geom_l, u_l = _slabs(mesh, geom, u)
-    u_ape = ape_smear(u_l, geom_l, ape_alpha, ape_n)
+    u_ape = ape_smear(u_l, geom_l, ape_alpha, ape_n, mesh=mesh)
     lap("ape")
-    whole = mesh is not None and mg_params is not None
-    diracs = {name: make_operator(u, DiracParams(
+    diracs = {name: make_operator(u_l, DiracParams(
         kind=kind, kappa=kappa, mu=mu, csw=csw, flavor=flavor), geom,
-        mesh=None if whole else mesh)
+        mesh=mesh)
         for name, flavor in (("up", +1), ("dn", -1))}
     lap("operators")
     if mg_params is not None and isinstance(diracs["up"], CompactDirac):
@@ -349,14 +373,10 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     solve_fns = {"up": None, "dn": None}
     mg_pair = None
     if mg_params is not None:
-        from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
-            setup_mg_pair, shard_mg)
+        from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import setup_mg_pair
         gen = mg_gen if mg_gen is not None else torch.Generator(
             device=dev).manual_seed(0)
         mg_pair = setup_mg_pair(diracs["up"], diracs["dn"], mg_params, gen)
-        if mesh is not None:
-            mg_pair = tuple(shard_mg(m, mesh) for m in mg_pair)
-            diracs = {"up": mg_pair[0].dirac, "dn": mg_pair[1].dirac}
         solve_fns = {"up": mg_solve_fn(mg_pair[0], tol=tol, mesh=mesh),
                      "dn": mg_solve_fn(mg_pair[1], tol=tol, mesh=mesh)}
         lap("mg_setup")
@@ -375,9 +395,6 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     moms = con.momentum_list(q_sq_max)
     mes, bar = _contract(props["up"], props["dn"], geom_l, moms, source,
                          corr_space, mesh=mesh)
-    if mesh is not None:
-        props = {k: mesh.allgather_t(v) for k, v in props.items()}
-        u_ape = mesh.allgather_t(u_ape)
     lap("contract")
     if stats is not None:
         stats.update(secs=secs, sources=sources, **flavour_stats)
@@ -454,12 +471,13 @@ def run_threep(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     ``sources`` and ``flavor`` (the sources and solutions of the scaled
     sequential source, and its ``scale``).
 
-    ``mesh`` (a t-ring; ``u``, ``u_ape`` and the propagators whole on
-    every rank): each rank works on its t-slabs.  The sink timeslice and
+    ``mesh`` (a t-ring; ``u``, ``u_ape`` and the propagators each whole
+    or this rank's slab, as the meshed ``run_twop`` returns them): each
+    rank works on its t-slabs.  The sink timeslice and
     its sequential sources live on the rank that holds ``tsink`` (the
     other ranks hold zeros there, and the scale is summed over the
     ring); the columns solve through ``invert(mesh=…)`` (or the
-    ``shard_mg`` pair's ``mg_solve(mesh=…)``); the t shifts of the
+    sharded pair's ``mg_solve(mesh=…)``); the t shifts of the
     insertions cross ranks; the results come back whole on every rank."""
     _check_space(corr_space)
     dev = u.device
@@ -524,7 +542,7 @@ def run_threep(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
                 d, solve_fn = mg.dirac, mg_solve_fn(mg, tol=tol, mesh=mesh)
             else:
                 if flavor not in ops:
-                    ops[flavor] = make_operator(u, DiracParams(
+                    ops[flavor] = make_operator(u_l, DiracParams(
                         kind=kind, kappa=kappa, mu=mu, csw=csw,
                         flavor=flavor), geom, mesh=mesh)
                     lap("operators")
@@ -599,8 +617,8 @@ def run_loops(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     high-precision solution, its true residual, iterations), and the
     ``partner``.
 
-    ``mesh`` (a t-ring; ``u`` whole on every rank, ``gen`` in the same
-    state on every rank): each rank solves and contracts its t-slab.
+    ``mesh`` (a t-ring; ``u`` whole or this rank's slab, ``gen`` in the
+    same state on every rank): each rank solves and contracts its t-slab.
     The noise is drawn on the whole lattice and sliced, so a ring gives
     the unsharded numbers; the partner is the sharded operator's
     (``plain_wilson_partner``), the one-end trick's t shifts cross
@@ -610,10 +628,10 @@ def run_loops(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     secs = {}
     lap = _stage_clock(dev, secs)
     kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
-    d = make_operator(u, DiracParams(kind=kind, kappa=kappa, mu=mu, csw=csw),
-                      geom, mesh=mesh)
-    plain = _loop_partner(d, u, geom)
-    geom_l = geom if mesh is None else d.geom
+    geom_l, u_l = _slabs(mesh, geom, u)
+    d = make_operator(u_l, DiracParams(kind=kind, kappa=kappa, mu=mu,
+                                       csw=csw), geom, mesh=mesh)
+    plain = _loop_partner(d, u_l, geom_l)
     lap("operators")
     solve_tol = tol_lp if tol_lp is not None else tol
 
@@ -675,29 +693,52 @@ def run_loops_wexact(u: torch.Tensor, geom: Geometry, kappa: float,
     receives the Lanczos ``stats`` (``eig``, with ``bounds``), the CG
     iterations of each sample (``cg_iters``) and the seconds of each
     stage (``secs``: operators, lanczos, exact, stochastic,
-    finalize)."""
-    if mesh is not None:
-        raise ValueError(MESH_REFUSAL)
+    finalize).
+
+    ``mesh`` (a t-ring; ``u`` whole or this rank's slab, ``gen`` in the
+    same state on every rank): the Lanczos runs on the rank's slab of
+    the normal operator (``ShardedDirac.matpc_dagm`` or ``mdagm``, its
+    hops K4 in the fields' precision), every inner product summed over
+    the ring (``solvers.eigen``, ``allreduce=``); its start vectors and
+    the noise are drawn whole from ``gen`` and sliced, so a ring takes
+    the unsharded draws.  The modes' contributions and the stochastic
+    remainder (the sharded CG from ``deflate_guess``) go through the
+    sharded one-end trick, and the loops come back whole on every rank,
+    as ``run_loops(mesh=…)`` returns them; the returned ``EigResult``
+    holds the rank's slabs of the modes."""
     dev = u.device
     secs = {}
     lap = _stage_clock(dev, secs)
     kind = "twisted-clover" if csw != 0.0 else "twisted-mass"
-    d = make_operator(u, DiracParams(kind=kind, kappa=kappa, mu=mu, csw=csw),
-                      geom)
-    plain = _loop_partner(d, u, geom)
+    geom_l, u_l = _slabs(mesh, geom, u)
+    d = make_operator(u_l, DiracParams(kind=kind, kappa=kappa, mu=mu,
+                                       csw=csw), geom, mesh=mesh)
+    plain = _loop_partner(d, u_l, geom_l)
     lap("operators")
-    example = fields.zeros_spinor(geom, dtype=u.dtype, device=dev)
+    red = None if mesh is None else mesh.allreduce
+    example = fields.zeros_spinor(geom_l, dtype=u.dtype, device=dev)
     normal_op = d.mdagm if full_op else d.matpc_dagm
     if not full_op:
         example = example[0]
+
+    def start():
+        """The start vector of a ring: drawn whole, this rank's slab."""
+        if mesh is None:
+            return None
+        whole = torch.zeros((), dtype=u.dtype, device=dev).expand(
+            example.shape[:-3] + geom.lat_shape)
+        return _slab(eigen._start_vector(whole, gen), geom, mesh)
+
     eig_stats, cheb = {}, None
     if cheb_degree > 0:
         bounds = spectrum_bounds(normal_op, example, nev,
-                                 steps=ncv or 2 * nev + 8, gen=gen)
+                                 steps=ncv or 2 * nev + 8, gen=gen,
+                                 allreduce=red, v0=start())
         cheb = bounds + (cheb_degree,)
         eig_stats["bounds"] = bounds
     eig = lanczos(normal_op, example, nev=nev, ncv=ncv, tol=lanczos_tol,
-                  gen=gen, stats=eig_stats, chebyshev=cheb)
+                  gen=gen, stats=eig_stats, chebyshev=cheb, allreduce=red,
+                  v0=start())
     lap("lanczos")
     acc = None
     for vec, lam in zip(eig.evecs, eig.evals):
@@ -708,27 +749,27 @@ def run_loops_wexact(u: torch.Tensor, geom: Geometry, kappa: float,
         else:
             x_pc = d.matpc(vec, dagger=True) / lam.to(vec.dtype)
             x = d.reconstruct(x_pc, torch.stack([vec, torch.zeros_like(vec)]))
-        acc = lp.add_loops(acc, lp.one_end_trick(x, plain, geom))
+        acc = lp.add_loops(acc, lp.one_end_trick(x, plain, geom_l))
     lap("exact")
     stoch, iters = None, []
     for _ in range(n_stoch):
-        xi = z4_source(gen, geom, u.dtype)
+        xi = _slabs(mesh, geom, z4_source(gen, geom, u.dtype))[1]
         if full_op:
-            sol = cg(d.mdagm, d.mdag(project_out(eig.evecs, xi)), tol=tol,
-                     maxiter=maxiter)
+            sol = cg(d.mdagm, d.mdag(project_out(eig.evecs, xi, red)),
+                     tol=tol, maxiter=maxiter, allreduce=red)
             x = sol.x
         else:
-            src = project_out(eig.evecs, d.prepare(xi))
+            src = project_out(eig.evecs, d.prepare(xi), red)
             rhs = d.matpc(src, dagger=True)
             sol = cg(d.matpc_dagm, rhs,
-                     x0=deflate_guess(eig.evecs, eig.evals, rhs), tol=tol,
-                     maxiter=maxiter)
+                     x0=deflate_guess(eig.evecs, eig.evals, rhs, red),
+                     tol=tol, maxiter=maxiter, allreduce=red)
             x = d.reconstruct(sol.x, xi)
         iters.append(sol.iters)
-        stoch = lp.add_loops(stoch, lp.one_end_trick(x, plain, geom))
+        stoch = lp.add_loops(stoch, lp.one_end_trick(x, plain, geom_l))
     lap("stochastic")
     out = _finalize_loops(acc, 1.0, stoch if n_stoch > 0 else None,
-                          max(n_stoch, 1))
+                          max(n_stoch, 1), mesh)
     lap("finalize")
     if stats is not None:
         stats.update(eig=eig_stats, cg_iters=iters, secs=secs)

@@ -1,5 +1,6 @@
-"""One rank of the gloo rings of ``tests/test_torch_mesh.py``,
-``tests/test_torch_mesh_mg.py`` and ``tests/test_torch_mesh_workflows.py``.
+"""One rank of the gloo rings of ``tests/test_torch_mesh.py`` and the
+``tests/test_torch_mesh_*.py`` files (MG, workflows, eigen, the deflated
+loops, the slab-local build and what a rank keeps, the sharded setup).
 
     python tests/_torch_mesh_worker.py RANK NT WORKDIR
 
@@ -16,6 +17,7 @@ every rank), "...|each" one rank's own value.  It imports neither JAX
 nor the JAX package.
 """
 
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -32,7 +34,7 @@ from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams
 from quda_qkxtm_multigrid_tpu_torch.invert import invert, true_residual
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, gather_neighbor
 from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
-    MGParams, MGPreconditioner, mg_solve, shard_mg)
+    MGParams, MGPreconditioner, mg_solve, setup_mg, shard_mg)
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import BlockGeometry
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     from_channels, to_channels)
@@ -41,7 +43,9 @@ from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
     init_ring, local_geometry, t_slab)
 from quda_qkxtm_multigrid_tpu_torch.parallel.schwarz import (
     schwarz_precond, schwarz_precond_multiplicative)
-from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import shard_dirac
+from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+    make_sharded_dirac, shard_dirac)
+from quda_qkxtm_multigrid_tpu_torch.solvers import eigen
 from quda_qkxtm_multigrid_tpu_torch.solvers.gcr import gcr
 
 
@@ -164,15 +168,18 @@ def _job_pieces(job, data, geom, mesh, out):
 
 
 def _job_workflow(job, data, geom, mesh, out):
-    """``run_twop``, ``run_threep`` or ``run_loops`` with ``mesh``; every
-    result is whole on every rank."""
+    """``run_twop``, ``run_threep`` or ``run_loops`` with ``mesh``: the
+    correlators and loops whole on every rank, the 2pt's propagators and
+    APE links the rank's slabs."""
     u = torch.tensor(data[job["u"]])
     kw = dict(job["kw"])
     name = job["name"]
     if job["type"] == "twop":
         res = workflows.run_twop(u, geom, mesh=mesh, **kw)
-        for k in ("mesons", "baryons", "prop_up", "u_ape"):
+        for k in ("mesons", "baryons"):
             out[f"{name}/{k}|same"] = res[k].numpy()
+        for k in ("prop_up", "u_ape"):
+            out[f"{name}/{k}|cat"] = res[k].numpy()
     elif job["type"] == "threep":
         res = workflows.run_threep(
             u, geom, prop_up=torch.tensor(data["pu"]),
@@ -198,11 +205,196 @@ def _job_workflow(job, data, geom, mesh, out):
             out[f"{name}/{k}|same"] = v.numpy()
 
 
+def _job_eigen(job, data, geom, mesh, out):
+    """``lanczos``, ``spectrum_bounds``, ``project_out`` and
+    ``deflate_guess`` with ``allreduce=mesh.allreduce`` on this rank's
+    slab of M_pc†M_pc (``make_operator(mesh=…)``), from the slab of the
+    whole start vector ``v0``."""
+    d = workflows.make_operator(torch.tensor(data[job["u"]]),
+                                DiracParams(**job["params"]), geom,
+                                mesh=mesh)
+    v0 = spinor_slab_from_numpy(data["v0"], mesh)
+    ex = torch.zeros_like(v0)
+    red = mesh.allreduce
+    name = job["name"]
+    res = eigen.lanczos(d.matpc_dagm, ex, allreduce=red, v0=v0,
+                        **job["lanczos"])
+    out[f"{name}/evals|same"] = res.evals.numpy()
+    out[f"{name}/resid|same"] = res.resid.numpy()
+    out[f"{name}/evecs|cat"] = res.evecs.numpy()
+    out[f"{name}/bounds|same"] = np.asarray(eigen.spectrum_bounds(
+        d.matpc_dagm, ex, job["lanczos"]["nev"], steps=job["steps"],
+        allreduce=red, v0=v0))
+    b = spinor_slab_from_numpy(data["b_pc"], mesh)
+    out[f"{name}/project|cat"] = eigen.project_out(res.evecs, b,
+                                                   red).numpy()
+    out[f"{name}/deflate|cat"] = eigen.deflate_guess(res.evecs, res.evals,
+                                                     b, red).numpy()
+
+
+def _job_wexact(job, data, geom, mesh, out):
+    """``run_loops_wexact(mesh=…)`` from the whole start vector and noise
+    of the inputs (the JAX package's draws), sliced by the workflow."""
+    noise = list(torch.tensor(data[job["noise"]]))
+    start, draw = eigen._start_vector, workflows.z4_source
+    eigen._start_vector = lambda ex, gen: torch.tensor(data[job["v0"]])
+    workflows.z4_source = lambda gen, geom, dtype: noise.pop(0)
+    st = {}
+    try:
+        loops, eig = workflows.run_loops_wexact(
+            torch.tensor(data[job["u"]]), geom, gen=torch.Generator(),
+            mesh=mesh, stats=st, **job["kw"])
+    finally:
+        eigen._start_vector, workflows.z4_source = start, draw
+    name = job["name"]
+    for k, v in loops.items():
+        out[f"{name}/{k}|same"] = v.numpy()
+    out[f"{name}/evals|same"] = eig.evals.numpy()
+    out[f"{name}/resid|same"] = eig.resid.numpy()
+    out[f"{name}/cg_iters|same"] = np.asarray(st["cg_iters"])
+
+
+def _job_build(job, data, geom, mesh, out):
+    """The slab-local operator build (``make_sharded_dirac``) of the
+    periodic and the antiperiodic gauge, field by field, and
+    ``ape_smear(mesh=…)``, spatial and four-dimensional."""
+    for key in ("u", "u_ap"):
+        u = spinor_slab_from_numpy(data[key], mesh)
+        d = make_sharded_dirac(u, DiracParams(**job["params"]), geom, mesh)
+        for f in ("u_doubled", "clover", "clover_inv"):
+            out[f"build/{key}/{f}|cat"] = getattr(d, f).numpy()
+        out[f"build/{key}/antiperiodic|same"] = np.asarray(d.antiperiodic)
+        gl = local_geometry(geom, mesh)
+        for spatial in (True, False):
+            out[f"ape/{key}/{spatial}|cat"] = ape_smear(
+                u, gl, 0.5, 2, spatial_only=spatial, mesh=mesh).numpy()
+
+
+def _whole_t(obj, t_whole: int, path: str = "", seen=None) -> list:
+    """The paths of the tensors reachable from ``obj`` (attributes,
+    buffers, dict / sequence items, dataclass fields) that have an axis
+    of the whole lattice's t extent ``t_whole``, and how many tensors
+    were seen (as ``[(path, shape)], count``)."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return [], 0
+    seen.add(id(obj))
+    if torch.is_tensor(obj):
+        return ([(path, tuple(obj.shape))]
+                if t_whole in obj.shape else []), 1
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif isinstance(obj, (list, tuple)):
+        items = enumerate(obj)
+    elif isinstance(obj, torch.nn.Module):
+        items = vars(obj).items()
+    elif dataclasses.is_dataclass(obj):
+        items = vars(obj).items()
+    elif hasattr(obj, "__dict__") and type(obj).__module__.startswith(
+            "quda_qkxtm_multigrid_tpu_torch"):
+        items = vars(obj).items()
+    else:
+        return [], 0
+    found, count = [], 0
+    for k, v in items:
+        f, c = _whole_t(v, t_whole, f"{path}/{k}", seen)
+        found += f
+        count += c
+    return found, count
+
+
+def _job_memory(job, data, geom, mesh, out):
+    """What a rank keeps on the meshed paths, walked for a tensor with
+    the whole lattice's t extent (T occurs in no other axis at this
+    geometry): the sharded operator after its chain ran, the sharded MG
+    pair set up on the slabs and used, ``run_twop``'s returned state and
+    stats, and the 3pt, loops and deflated loops' stats and modes."""
+    u = torch.tensor(data[job["u"]])
+    kw = dict(job["kw"])
+    workflows._FORCE_KERNELS = True
+    kept = {}
+    try:
+        d = workflows.make_operator(u, DiracParams(**job["params"]), geom,
+                                    mesh=mesh)
+        v = spinor_slab_from_numpy(data[job["b"]], mesh)
+        d.matpc_dagm(v[0])
+        d.matpc_ch(to_channels(v[0]).to(torch.float32), True)
+        kept["operator"] = d
+        st = {}
+        twop = workflows.run_twop(u, geom, mesh=mesh, stats=st,
+                                  mg_params=MGParams(**job["mg"]),
+                                  **job["twop"], **kw)
+        kept["twop"] = {k: twop[k] for k in ("prop_up", "prop_dn", "u_ape",
+                                             "mg_pair")}
+        kept["twop_stats"] = st
+        st = {}
+        workflows.run_threep(u, geom, prop_up=twop["prop_up"],
+                             prop_dn=twop["prop_dn"], u_ape=twop["u_ape"],
+                             tsink=job["tsink"], projectors=["G4"],
+                             mesh=mesh, stats=st, **kw)
+        kept["threep_stats"] = st
+        phys = {k: kw[k] for k in ("kappa", "mu", "csw", "tol", "maxiter")}
+        st = {}
+        workflows.run_loops(u, geom, n_stoch=1, n_hp=1,
+                            gen=torch.Generator().manual_seed(3), mesh=mesh,
+                            stats=st, **phys)
+        kept["loops_stats"] = st
+        st = {}
+        _, eig = workflows.run_loops_wexact(
+            u, geom, nev=2, ncv=12, n_stoch=1, lanczos_tol=1e-6,
+            gen=torch.Generator().manual_seed(4), mesh=mesh, stats=st,
+            **phys)
+        kept["wexact"] = (eig, st)
+    finally:
+        workflows._FORCE_KERNELS = None
+    found, count = _whole_t(kept, geom.T)
+    out["memory/whole|each"] = np.asarray([f"{p} {s}" for p, s in found],
+                                          dtype=str)
+    out["memory/tensors|each"] = np.asarray(count)
+    out["memory/iters|each"] = np.asarray(
+        kept["twop_stats"]["up"]["iters"])
+
+
+def _job_setup(job, data, geom, mesh, out):
+    """``setup_mg`` on this rank's ``make_operator(mesh=…)``: on the null
+    vectors of the inputs (the rank's slabs), and generated from a
+    seeded generator (``chain``: on the fused route, one sharded CG a
+    column, through the plain versions); each preconditioner's coarse X
+    / Y (whole on every rank), its V (the rank's rows) and a
+    ``mg_solve(mesh=…)``."""
+    workflows._FORCE_KERNELS = job.get("chain")
+    try:
+        d = workflows.make_operator(torch.tensor(data[job["u"]]),
+                                    DiracParams(**job["params"]), geom,
+                                    mesh=mesh)
+    finally:
+        workflows._FORCE_KERNELS = None
+    params = MGParams(**job["mg"])
+    b = spinor_slab_from_numpy(data[job["b"]], mesh)
+    setups = {"generated": lambda: setup_mg(
+        d, params, torch.Generator().manual_seed(job["seed"]))}
+    if "nv" in job:
+        nvs = [spinor_slab_from_numpy(v, mesh) for v in data[job["nv"]]]
+        setups["given"] = lambda: setup_mg(d, params, None,
+                                           null_vectors=nvs)
+    for how, setup in setups.items():
+        mg = setup()
+        name = f"{job['name']}/{how}"
+        out[f"{name}/x|same"] = mg.coarse.x.numpy()
+        out[f"{name}/y|same"] = mg.coarse.y.numpy()
+        out[f"{name}/v|each"] = mg.transfer.v.numpy()
+        res = mg_solve(mg, b, mesh=mesh, **job["solve"])
+        out[f"{name}/iters|same"] = np.asarray(res.iters)
+        out[f"{name}/x_sol|cat"] = res.x.numpy()
+
+
 JOBS = {"mg": _job_mg, "mg_vcycle": _job_mg, "bench_mg": _job_bench,
         "schwarz": _job_schwarz,
         "schwarz_block": _job_schwarz, "solve": _job_solve,
         "pieces": _job_pieces, "twop": _job_workflow,
-        "threep": _job_workflow, "loops": _job_workflow}
+        "threep": _job_workflow, "loops": _job_workflow,
+        "eigen": _job_eigen, "wexact": _job_wexact, "build": _job_build,
+        "memory": _job_memory, "setup": _job_setup}
 
 
 def run(rank: int, nt: int, work: Path):

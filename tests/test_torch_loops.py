@@ -38,6 +38,7 @@ from quda_qkxtm_multigrid_tpu_torch import workflows as wf
 from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams, make_dirac
 from quda_qkxtm_multigrid_tpu_torch.io import hdf5 as h5w
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh
 from quda_qkxtm_multigrid_tpu_torch.physics import contract as con
 from quda_qkxtm_multigrid_tpu_torch.physics import loops as lp
 from quda_qkxtm_multigrid_tpu_torch.utils import checkpoint, rng
@@ -160,9 +161,12 @@ def test_run_loops_stats_and_refusals(loops_pair, gauge):
     (xi, x_hi, res, iters), = st["hp"]
     assert res <= 1e-11 and iters > 0
     assert set(st["secs"]) == {"operators", "solve", "one_end", "finalize"}
-    with pytest.raises(ValueError, match="queue 1 item 7"):
+    # the meshed deflated loops refuse a ring that does not divide T,
+    # before anything is sent
+    ring3 = TMesh(nt=3, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="divisible"):
         wf.run_loops_wexact(torch.tensor(gauge), GT, nev=2,
-                            gen=torch.Generator(), mesh=object(),
+                            gen=torch.Generator(), mesh=ring3,
                             **{k: LOOPS[k] for k in ("kappa", "mu", "csw",
                                                      "n_stoch")})
 

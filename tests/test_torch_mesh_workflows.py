@@ -12,8 +12,8 @@ package's ``test_parallel.test_run_{twop,threep,loops}_sharded``:
     and against the port's unsharded workflows at the same tolerances;
   * the whole-lattice results on every rank are the same bytes
     (``_torch_ring.spawn``), the propagators and APE links of the 2pt
-    come back whole, and the 3pt's sink lives on rank 1 (t_sink = 4,
-    T_loc = 4).
+    come back as the ranks' slabs (joined in t to compare), and the
+    3pt's sink lives on rank 1 (t_sink = 4, T_loc = 4).
 
 ~80 s serial.
 """
@@ -176,12 +176,12 @@ def test_run_threep_on_a_ring_is_the_unsharded(rings, part, kind):
 
 
 def test_meshed_workflows_refuse_what_they_cannot_split():
-    """A ring that does not divide T raises before anything is sent, and
-    the deflated loops keep ``MESH_REFUSAL``."""
+    """A ring that does not divide T raises before anything is sent, in
+    the loops and in the deflated loops alike."""
     u = torch.tensor(_inputs()["u_loops"])
     ring3 = TMesh(nt=3, rank=0, device=torch.device("cpu"))
     with pytest.raises(ValueError, match="divisible"):
         wf.run_loops(u, GT, gen=torch.Generator(), mesh=ring3, **LOOPS)
-    with pytest.raises(ValueError, match="Lanczos"):
+    with pytest.raises(ValueError, match="divisible"):
         wf.run_loops_wexact(u, GT, kappa=0.115, mu=0.05, csw=0.0, nev=2,
                             n_stoch=1, gen=torch.Generator(), mesh=ring3)
