@@ -133,8 +133,8 @@ and does not print its last line:
     certified by the plain complex128 doublet, K2's n = 2 bare hop
     against plain, the 16³×32 complex128 identities (τ1γ5-hermiticity,
     Schur, ε → 0); (c) the light-mass point at 24³×48 in complex128 (K1
-    f64): ``IncEigCG(8, 48)`` over a point source's 12 columns with each
-    harvest's restarts and matvecs, every column certified, then the
+    f64): ``IncEigCG(8, 48)`` over a point source's first 4 columns with
+    each harvest's restarts and matvecs, every column certified, then the
     acceleration on the JAX test's isolated spectrum at that size, and
     ``gmresdr`` (capped) against ``gcr``.  Each solve's seconds and K1 /
     K2 launches.
@@ -191,6 +191,29 @@ and does not print its last line:
     iterations, certified in complex128.  Each part's seconds and
     launches.
 
+17. the z / w splits (``phase_box_kernels``, ``phase_box_timing``,
+    ``phase_box_ranks``): (a) at 16³×32 and 32³×64, the box of one rank
+    of the grids (1, 2, 1), (1, 1, 2), (2, 2, 1) and (2, 2, 2) cut from
+    one global field with the t, z and y faces its exchange would
+    receive: K4 on the box (``csrc/dslash_ch_box.cu``) in every form of
+    the sharded chain, float32 and bf16 tier, and the float64 bare hop,
+    against its plain version and against K1 on the global field
+    restricted to the box; then at 32³×64 the boxes of (1, 2, 1),
+    (1, 1, 2) and (1, 2, 2) timed beside K4's t-local hop, with their
+    plain versions and byte bounds; (b) four processes on the card as a
+    (1, 2, 2) grid over gloo (``chip_smoke.py --box-rank R DIR``, each
+    message staged through the host), after unsharded references made
+    here: at 32³×64 ``invert(mesh=…)`` "cg" on the float32 chain and
+    "cg-mixed" in complex128 on the float32 and the bf16-tier chain
+    (iterations, complex128 true residual, the solution against the
+    unsharded, seconds, launches), ``mg_solve(mesh=…)`` on phase 6's
+    preconditioner set up again from its seed and cut by ``shard_mg``
+    (the unsharded outer iterations, certified in complex128), K4 on the
+    box against plain on the path's operands, the staged exchange
+    timed; at 16³×32 Schwarz GCR (phase 16b's) and ``run_twop(mesh=…)``
+    on the CG path against the unsharded run.  Each rank's K4 box
+    launches.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -211,6 +234,8 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -298,6 +323,14 @@ LOCAL_VS_K1 = {"float32": 1e-7, "float64": 1e-14}   # K4 vs K1, normwise
 OVERLAP_VS_K4 = 1e-7             # K5 vs K4, normwise, float32
 MESH_X_LIMIT = 1e-5              # sharded vs unsharded solution, normwise
 P16_SEED = 5                     # phase 16's Schwarz gauge and source
+# phase 17, the z / w splits
+BOX_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch_box.cu"
+BOX_CHECK = ((1, 2, 1), (1, 1, 2), (2, 2, 1), (2, 2, 2))   # 17a's grids
+BOX_TIME = ((1, 2, 1), (1, 1, 2), (1, 2, 2))               # 17a, timed
+BOX_GRID = (1, 2, 2)             # 17b: four processes on the one card
+BOX_NRANKS = 4
+BOX_RANK_TIMEOUT = 600           # seconds for 17b's ranks, start-up included
+K4_T_LOCAL_MS = 0.2241           # K4's bare f32 hop, T_loc 64 (PERF.md, PR 13)
 SCHWARZ = dict(kind="twisted-mass", kappa=0.12, mu=0.04)   # test_parallel
 SCHWARZ_TOL = 1e-8               # GCR(10) with Schwarz (test_parallel.py:93)
 WEXACT_EVALS_LIMIT = 1e-8        # 16d: eigenvalues vs phase 12d, relative
@@ -357,6 +390,9 @@ GMRESDR_RESTARTS = 10
 # (2018) 054518): κ, μσ, μδ; no clover term (the doublet has none)
 NDEG = dict(kappa=0.1394265, mu=0.1246864, epsilon=0.1315052)
 LIGHT_KAPPA = 0.21               # bench_light's κ, with LIGHT_MU
+# 14c's IncEigCG sequence: 4 of a point source's 12 columns since the
+# z / w splits' phase 17 joined the script (12 before, 73.8 s)
+LIGHT_INC_COLUMNS = 4
 # the normal equations to 1e-8: at 1e-7 the full operator's residual is
 # 9.6e-7 here (κ 0.21 on a hot 24³×48 gauge), above TRUE_RES_LIMIT
 LIGHT_TOL, LIGHT_MAXITER, LIGHT_GMRESDR_CAP = 1e-8, 4000, 40
@@ -3631,11 +3667,11 @@ def _inc_eigcg_isolated(n: int):
 def _krylov_light(light_dims, launches: dict) -> float:
     """Phase 14 (c): the light-mass point (κ ``LIGHT_KAPPA``, μ
     ``LIGHT_MU``, c_sw 1.0) at ``light_dims`` in complex128 through K1
-    f64: ``IncEigCG(8, 48)`` over the 12 columns of a point source, each
-    column's iterations, harvests and certificate (the plain Lanczos
-    resolves none of this dense low spectrum, so the sequence does not
-    speed up: ``_inc_eigcg_isolated`` checks the acceleration on the JAX
-    test's spectrum instead); ``gmresdr`` on matpc with ``LIGHT_GMRESDR_CAP`` cycles
+    f64: ``IncEigCG(8, 48)`` over the first ``LIGHT_INC_COLUMNS`` columns
+    of a point source, each column's iterations, harvests and certificate
+    (the plain Lanczos resolves none of this dense low spectrum, so the
+    sequence does not speed up: ``_inc_eigcg_isolated`` checks the
+    acceleration on the JAX test's spectrum instead); ``gmresdr`` on matpc with ``LIGHT_GMRESDR_CAP`` cycles
     against ``gcr`` at about the same matvecs; K1 f64 against plain on
     the operator's operands.  Returns K1's largest absolute error."""
     import torch
@@ -3663,7 +3699,7 @@ def _krylov_light(light_dims, launches: dict) -> float:
     inc = IncEigCG(dl.matpc_dagm, nev_per_solve=8, max_nev=48)
     iters = []
     t0 = time.perf_counter()
-    for col in range(12):
+    for col in range(LIGHT_INC_COLUMNS):
         bc = column(col)
         rc = dl.matpc(dl.prepare(bc), dagger=True)
         n_h = len(inc.harvests)
@@ -3682,7 +3718,8 @@ def _krylov_light(light_dims, launches: dict) -> float:
         _check(f"(c) column {col}: true residual (complex128)", cert,
                TRUE_RES_LIMIT)
     kept = sum(h["kept"] for h in inc.harvests)
-    print(f"  (c) IncEigCG 12 columns {time.perf_counter() - t0:.3f} s, "
+    print(f"  (c) IncEigCG {LIGHT_INC_COLUMNS} columns "
+          f"{time.perf_counter() - t0:.3f} s, "
           f"iterations {iters} (last / first {iters[-1] / iters[0]:.3f}), "
           f"{len(inc.harvests)} harvests kept {kept} pairs, n_deflated "
           f"{inc.n_deflated}", flush=True)
@@ -4549,6 +4586,666 @@ def phase_mesh_rest(twop_refs: dict, u, geom_dims, check_dims):
             "secs": secs, "err": err, **launches}
 
 
+# ---- phase 17: the z / w splits ------------------------------------------
+
+def _virtual_box(field_ch, geom, grid, coords):
+    """The box of the rank at ``coords`` = (it, iz, iw) of ``grid`` cut
+    from a whole channel field [T, C, Z, W] of the lattice ``geom`` on
+    one process, with the faces that rank's exchange would receive:
+    (box, face_m, face_p, zw_faces) as ``parallel.halo.box_faces``
+    returns them, each contiguous (None for an axis the grid does not
+    split; the t faces always, as on a ring of one)."""
+    import torch
+    T, _, Z, W = field_ch.shape
+    tl, zl, wl = T // grid[0], Z // grid[1], W // grid[2]
+    t0, z0, w0 = coords[0] * tl, coords[1] * zl, coords[2] * wl
+    t_idx = torch.arange(t0, t0 + tl, device=field_ch.device)
+    z_idx = torch.arange(z0, z0 + zl, device=field_ch.device)
+    w_idx = torch.arange(w0, w0 + wl, device=field_ch.device)
+
+    def cut(ts, zs, ws):
+        return field_ch.index_select(0, ts % T).index_select(
+            2, zs % Z).index_select(3, ws % W).contiguous()
+    one = torch.ones(1, dtype=torch.long, device=field_ch.device)
+    box = cut(t_idx, z_idx, w_idx)
+    face_m = cut((t0 - 1) * one, z_idx, w_idx)
+    face_p = cut((t0 + tl) * one, z_idx, w_idx)
+    zw = [None] * 4
+    if grid[1] > 1:
+        zw[0] = cut(t_idx, (z0 - 1) * one, w_idx)
+        zw[1] = cut(t_idx, (z0 + zl) * one, w_idx)
+    if grid[2] > 1:
+        xh = geom.Xh
+        row = torch.arange(xh, device=field_ch.device)
+        zw[2] = cut(t_idx, z_idx, w0 - xh + row)
+        zw[3] = cut(t_idx, z_idx, w0 + wl + row)
+    return box, face_m, face_p, tuple(zw)
+
+
+def _box_of(grid):
+    """The coordinates of the rank whose box 17a checks: 1 on every split
+    axis (its neighbours on both sides are other ranks)."""
+    return tuple(1 if n > 1 else 0 for n in grid)
+
+
+def phase_box_kernels(dims_list):
+    """Phase 17a: at each size and on each grid of ``BOX_CHECK``, the box
+    of one rank cut from one global field, with the t, z and y faces its
+    exchange would receive (``_virtual_box``): K4 on the box
+    (``csrc/dslash_ch_box.cu``) in every form of the sharded chain
+    (float32 and the bf16 operand tier) and the float64 bare hop, against
+    its plain version and against K1 on the global field restricted to
+    the box; each launch counted.  Returns the largest absolute errors
+    against the plain versions {"f32": .., "bf16": ..}."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        clover_channels, dslash_ch, dslash_ch_box, dslash_ch_local,
+        dslash_ch_local_reference, gauge_channels, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
+    tiers = {"f32": (f32, f32), "bf16": (b16, f32), "f64": (f64, f64)}
+    counters = {"f32": "launches", "f64": "launches",
+                "bf16": "launches_bf16"}
+    kappa = 0.115
+    a = 2 * kappa * 0.05
+    cases = _local_cases(a, 1 / (1 + a * a), -kappa * kappa)
+    err = {"f32": 0.0, "bf16": 0.0}
+    for dims in dims_list:
+        geom = Geometry(*dims)
+        print(f"phase 17a: K4 on a box (z / y faces) vs plain and vs K1 "
+              f"at {dims}, grids {BOX_CHECK}", flush=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(171)
+        u = rng.random_gauge(gen, geom)
+        _, cinv = make_clover_pair(u, geom, tmc_params())
+        ud = double_gauge(u, geom)
+        del u
+        psi = rng.random_spinor(gen, geom)
+        x = rng.random_spinor(gen, geom)
+        ops = {}
+        for grid in BOX_CHECK:
+            coords = _box_of(grid)
+            gl = Geometry(geom.X, geom.Y // grid[2], geom.Z // grid[1],
+                          geom.T // grid[0])
+            worst = {}
+            for label, c, tier in cases:
+                op, sp = tiers[tier]
+                p, dagger, xc = (c["parity"], c.get("dagger", False),
+                                 c.get("xpay"))
+                if (op, p) not in ops:
+                    ops[(op, p)] = (gauge_channels(ud, p, True, op),
+                                    clover_channels(cinv, p, op))
+                g, ci = ops[(op, p)]
+                v = to_channels(psi[1 - p]).to(sp)
+                xv = to_channels(x[p]).to(sp)
+                kw = dict(dagger=dagger, recon12=True, twist=c.get("twist"),
+                          clover=c.get("clover"), xpay_coef=xc)
+                vb, fm, fp, zw = _virtual_box(v, geom, grid, coords)
+                kwb = dict(
+                    kw, cinv_ch=_virtual_box(ci, geom, grid, coords)[0]
+                    if "clover" in c else None,
+                    x_ch=_virtual_box(xv, geom, grid, coords)[0]
+                    if xc is not None else None)
+                gb = _virtual_box(g, geom, grid, coords)[0]
+                name = counters[tier]
+                before = getattr(dslash_ch_box, name)
+                got = dslash_ch_local(gb, vb, fm, fp, p, gl, zw_faces=zw,
+                                      **kwb)
+                torch.cuda.synchronize()
+                if getattr(dslash_ch_box, name) != before + 1:
+                    raise AssertionError(f"K4 box {grid} {label}: "
+                                         f"dslash_ch_box.{name} did not "
+                                         "count the launch")
+                ref = dslash_ch_local_reference(gb, vb, fm, fp, p, gl,
+                                                zw_faces=zw, **kwb)
+                e = _rel(got, ref)
+                lim = F64_LIMIT if sp == f64 else F32_LIMIT
+                if e > lim:
+                    raise AssertionError(f"K4 box {grid} {label} vs plain: "
+                                         f"{e:.3e} > {lim:.0e}")
+                if tier != "f64":
+                    err[tier] = max(err[tier],
+                                    float((got - ref).abs().max()))
+                k1 = dslash_ch(g, v, p, geom, **dict(
+                    kw, cinv_ch=ci if "clover" in c else None,
+                    x_ch=xv if xc is not None else None))
+                k1 = _virtual_box(k1, geom, grid, coords)[0]
+                e1 = _rel(got, k1)
+                if e1 > LOCAL_VS_K1[str(sp)[6:]]:
+                    raise AssertionError(f"K4 box {grid} {label} vs K1: "
+                                         f"{e1:.3e}")
+                key = f"{tier} vs plain"
+                worst[key] = max(worst.get(key, 0.0), e)
+                worst[f"{tier} vs K1"] = max(worst.get(f"{tier} vs K1", 0.0),
+                                             e1)
+                if not torch.equal(got, k1):
+                    worst["not bit equal to K1"] = worst.get(
+                        "not bit equal to K1", 0) + 1
+            print(f"  grid {grid}, box {coords} ({gl.dims}): {len(cases)} "
+                  f"forms, worst " + ", ".join(
+                      f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in worst.items()), flush=True)
+        del ops, ud, cinv, psi, x
+    return err
+
+
+def phase_box_timing(geom_dims):
+    """Phase 17a's timing at ``geom_dims``: K4's t-local bare float32 hop
+    (T_loc = T, faces of a ring of one) and K4 on the boxes of
+    ``BOX_TIME`` (the rank of ``_box_of``): the float32 bare hop, its
+    float64 and bf16-tier forms on the last grid, and their plain
+    versions, in turns in one call (CUDA events, median of 5), each
+    with its byte bound.  Returns {label: (ms, plain ms, bound)}."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_local, dslash_ch_local_reference, gauge_channels,
+        to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 17a: K4 on boxes timed at {geom_dims} beside K4's t-local "
+          f"hop (median of 5, in turns)", flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(172)
+    u = rng.random_gauge(gen, geom)
+    ud = double_gauge(u, geom)
+    del u
+    psi = to_channels(rng.random_spinor(gen, geom)[1])
+    hop = dict(recon12=True)
+    fns, plain, bounds = {}, {}, {}
+    sites = geom.half_volume
+    g = gauge_channels(ud, 0, True, torch.float32)
+    v = psi.to(torch.float32)
+    f24 = (v[-1:].contiguous(), v[:1].contiguous())
+    fns["K4 t-local"] = lambda: dslash_ch_local(g, v, *f24, 0, geom, **hop)
+    plain["K4 t-local"] = lambda: dslash_ch_local_reference(
+        g, v, *f24, 0, geom, **hop)
+    bounds["K4 t-local"] = _bound(_nbytes(g, v, *f24, v), HOP_FLOPS * sites)
+    tiers = {"f32": (torch.float32, torch.float32),
+             "f64": (torch.float64, torch.float64),
+             "bf16": (torch.bfloat16, torch.float32)}
+    for grid in BOX_TIME:
+        for tier in (("f32", "f64", "bf16") if grid == BOX_TIME[-1]
+                     else ("f32",)):
+            op, sp = tiers[tier]
+            gt = gauge_channels(ud, 0, True, op)
+            coords = _box_of(grid)
+            gl = Geometry(geom.X, geom.Y // grid[2], geom.Z // grid[1],
+                          geom.T // grid[0])
+            gb = _virtual_box(gt, geom, grid, coords)[0]
+            vb, fm, fp, zw = _virtual_box(psi.to(sp), geom, grid,
+                                          coords)
+            label = f"box {grid} {tier}"
+            fns[label] = (lambda gb=gb, vb=vb, fm=fm, fp=fp, zw=zw, gl=gl:
+                          dslash_ch_local(gb, vb, fm, fp, 0, gl, zw_faces=zw,
+                                          **hop))
+            plain[label] = (lambda gb=gb, vb=vb, fm=fm, fp=fp, zw=zw, gl=gl:
+                            dslash_ch_local_reference(gb, vb, fm, fp, 0, gl,
+                                                      zw_faces=zw, **hop))
+            bounds[label] = _bound(_nbytes(gb, vb, fm, fp, *zw, vb),
+                                   HOP_FLOPS * gl.half_volume)
+            got, ref = fns[label](), plain[label]()
+            _check(f"17a {label} bare hop vs plain (timed inputs)",
+                   _rel(got, ref), F64_LIMIT if sp == torch.float64
+                   else F32_LIMIT)
+    del ud
+    runs = {**{k: fn for k, fn in fns.items()},
+            **{f"{k} plain": fn for k, fn in plain.items()}}
+    n_runs = {k: 3 if k.endswith("plain") else 20 for k in runs}
+    med = _turns(runs, n_runs)
+    out = {}
+    for k in fns:
+        ms, pms, (bms, by) = med[k], med[f"{k} plain"], bounds[k]
+        out[k] = (ms, pms, (bms, by))
+        print(f"  {k:<24s} {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}); kernel at {bms / ms:.2f} of it",
+              flush=True)
+    print(f"  K4 t-local hop {out['K4 t-local'][0]:.4f} ms against "
+          f"PERF.md's {K4_T_LOCAL_MS} ms (PR 13, another machine): "
+          f"{out['K4 t-local'][0] / K4_T_LOCAL_MS:.3f}×", flush=True)
+    return out
+
+
+def _box_rank_refs(work: Path, geom_dims, check_dims) -> dict:
+    """17b's references, made on the parent before the ranks start: at
+    ``geom_dims`` phase 4's operator (complex128) solved with "cg" and
+    "cg-mixed", phase 6's complex64 MG set up again from its seed
+    (``bench_mg``), cut by ``shard_mg`` for every rank's box and saved
+    to ``work`` (V, the coarse X / Y), with the solutions; at
+    ``check_dims`` the unsharded ``run_twop`` (CG path) on a complex64
+    gauge of seed 7 with the antiperiodic t boundary.  Returns the
+    unsharded records."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import workflows as wf
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        bench_mg, make_gauge_source, make_problem, tmc_params)
+    from quda_qkxtm_multigrid_tpu_torch.invert import invert
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+        mg_solve, shard_mg)
+    from quda_qkxtm_multigrid_tpu_torch.ops.gauge import apply_t_boundary
+    from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import LatticeMesh
+
+    geom, check = Geometry(*geom_dims), Geometry(*check_dims)
+    refs = {}
+    d, b = make_problem(geom, DEVICE, seed=7)
+    sols = {}
+    for solver, tol in (("cg", SLICE_TOL), ("cg-mixed", MIXED_TOL)):
+        invert(d, b, tol=tol, maxiter=SLICE_MAXITER, solver=solver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = invert(d, b, tol=tol, maxiter=SLICE_MAXITER, solver=solver)
+        torch.cuda.synchronize()
+        refs[solver] = {"iters": res.iters, "true_res": res.true_res,
+                        "secs": time.perf_counter() - t0}
+        sols[solver] = res.x.cpu()
+    del d, b
+    d, b = make_problem(geom, DEVICE, seed=7, dtype=torch.complex64)
+    rec, mg = bench_mg(geom, tol=MG_TOL, nvec=MG_NVEC, block=MG_BLOCK,
+                       n_krylov=MG_NKRYLOV, problem=(d, b))
+    if mg.dirac_pr is not None or mg.params.n_level != 2:
+        raise AssertionError("17b hands over a two-level MG without a "
+                             "δ-scaled smoother operator")
+    refs["mg"] = {"iters": rec["iters"], "true_res": rec["true_res"],
+                  "secs": rec["secs"], "setup_secs": rec["setup_secs"]}
+    sols["mg"] = mg_solve(mg, b, tol=MG_TOL, n_krylov=MG_NKRYLOV).x.cpu()
+    torch.save(sols, work / "solutions.pt")
+    del sols
+    for r in range(BOX_NRANKS):
+        box = LatticeMesh(nt=BOX_GRID[0], rank=r, device=torch.device(DEVICE),
+                          nz=BOX_GRID[1], nw=BOX_GRID[2])
+        ms = shard_mg(mg, box)
+        torch.save({"v": ms.transfer.v.cpu(), "bg": ms.transfer.bg},
+                   work / f"mg_v_{r}.pt")
+        del ms
+    torch.save({"x": mg.coarse.x.cpu(), "y": mg.coarse.y.cpu(),
+                "bg": mg.coarse.bg, "params": mg.params}, work / "mg_c.pt")
+    del d, b, mg
+    gc.collect()
+    torch.cuda.empty_cache()
+    u, _ = make_gauge_source(check, DEVICE, seed=7, dtype=torch.complex64)
+    u = apply_t_boundary(u, check)
+    p = tmc_params()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twop = wf.run_twop(u, check, p.kappa, p.mu, p.csw, source=TWOP_SOURCE,
+                       tol=TWOP_TOL, maxiter=SLICE_MAXITER)
+    torch.cuda.synchronize()
+    refs["twop_secs"] = time.perf_counter() - t0
+    torch.save({k: twop[k].cpu() for k in ("mesons", "baryons")},
+               work / "twop.pt")
+    del u, twop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def phase_box_ranks(geom_dims, check_dims):
+    """Phase 17b: a (1, 2, 2) grid of ``BOX_NRANKS`` processes on the one
+    card over gloo (NCCL refuses two ranks on one card; the caller asks
+    for gloo, and the mesh stages every message through the host), each
+    running ``_box_rank`` (``chip_smoke.py --box-rank R DIR``) on its
+    box, after the parent made the references (``_box_rank_refs``):
+    ``invert(mesh=…)`` "cg" on the float32 chain, "cg-mixed" in
+    complex128 on the float32 and on the bf16-tier chain, and
+    ``mg_solve(mesh=…)`` at ``geom_dims``; Schwarz GCR and
+    ``run_twop(mesh=…)`` at ``check_dims``; the staged exchange timed.
+    The kernels are built (phase 1) before the ranks start.  Any rank
+    that fails fails the phase.  Returns the records and the K4 box
+    launches summed over the ranks."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "phase17"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    print(f"phase 17b: a {BOX_GRID} grid of {BOX_NRANKS} processes on one "
+          f"card over gloo", flush=True)
+    t0 = time.perf_counter()
+    refs = _box_rank_refs(work, geom_dims, check_dims)
+    print(f"  references (unsharded, this process) "
+          f"{time.perf_counter() - t0:.1f} s: cg {refs['cg']}, cg-mixed "
+          f"{refs['cg-mixed']}, MG {refs['mg']}, 2pt at {check_dims} "
+          f"{refs['twop_secs']:.3f} s", flush=True)
+    (work / "spec.json").write_text(json.dumps(
+        {"geom": list(geom_dims), "check": list(check_dims)}))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--box-rank", str(r),
+         str(work)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(BOX_NRANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=BOX_RANK_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        tail = "\n".join(log.splitlines()[-40:])
+        print(f"  --- rank {r} (exit {p.returncode}) ---\n{tail}", flush=True)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"phase 17b: rank exit codes "
+                             f"{[p.returncode for p in procs]}")
+    outs = [json.loads((work / f"out_{r}.json").read_text())
+            for r in range(BOX_NRANKS)]
+    rec = _box_rank_checks(outs, refs)
+    rec["ranks_wall_secs"] = wall
+    rec["secs"] = time.perf_counter() - t_phase
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  phase 17b {rec['secs']:.1f} s (the ranks {wall:.1f} s); K4 "
+          f"box launches by rank {rec['launches_by_rank']}", flush=True)
+    return rec
+
+
+def _box_rank_checks(outs: list, refs: dict) -> dict:
+    """17b's checks on the ranks' records against the parent's
+    references."""
+    r0 = outs[0]
+    for o in outs[1:]:
+        for k in ("cg", "cg-mixed", "cg-mixed-bf16", "mg"):
+            if o[k]["iters"] != r0[k]["iters"]:
+                raise AssertionError(f"17b {k}: ranks disagree on the "
+                                     "iterations")
+        for k, v in o["schwarz"].items():
+            if v["iters"] != r0["schwarz"][k]["iters"]:
+                raise AssertionError(f"17b Schwarz {k}: ranks disagree on "
+                                     "the iterations")
+    for solver, tol_limit in (("cg", TRUE_RES_LIMIT),
+                              ("cg-mixed", MIXED_TRUE_RES_LIMIT),
+                              ("cg-mixed-bf16", MIXED_TRUE_RES_LIMIT)):
+        o = r0[solver]
+        ref = refs[solver.replace("-bf16", "")]
+        x_rel = math.sqrt(sum(r[solver]["diff2"] for r in outs)
+                          / sum(r[solver]["ref2"] for r in outs))
+        print(f"  {solver}: iterations {o['iters']} (unsharded "
+              f"{ref['iters']}), warm {o['secs']:.4f} s (unsharded "
+              f"{ref['secs']:.4f} s), true_res {o['true_res']:.3e} "
+              f"(complex128), solution vs unsharded {x_rel:.3e}", flush=True)
+        _check(f"17b {solver}: true residual (c128)", o["true_res"],
+               tol_limit)
+        _check(f"17b {solver}: solution vs unsharded", x_rel, MESH_X_LIMIT)
+        if solver == "cg" and o["iters"] != ref["iters"]:
+            raise AssertionError(f"17b cg: {o['iters']} iterations, "
+                                 f"unsharded {ref['iters']}")
+    o = r0["mg"]
+    x_rel = math.sqrt(sum(r["mg"]["diff2"] for r in outs)
+                      / sum(r["mg"]["ref2"] for r in outs))
+    print(f"  MG-GCR-PC (phase 6's, cut by shard_mg): iterations "
+          f"{o['iters']} (cold {o['iters_cold']}; unsharded "
+          f"{refs['mg']['iters']}), warm {o['secs']:.4f} s (unsharded "
+          f"{refs['mg']['secs']:.4f} s), true_res {o['true_res']:.3e} "
+          f"(complex128), all-gathers {o['gathers']}, solution vs "
+          f"unsharded {x_rel:.3e}", flush=True)
+    # complex64 ends near tol = 1e-7, so whether a GCR(5) cycle more is
+    # needed turns on the last bits of the residual's sum, whose order
+    # four ranks change: the count may differ by one cycle
+    if abs(o["iters"] - refs["mg"]["iters"]) > MG_NKRYLOV \
+            or o["iters_cold"] != o["iters"]:
+        raise AssertionError(f"17b MG: {o['iters']} iterations, unsharded "
+                             f"{refs['mg']['iters']}")
+    _check("17b MG: true residual (c128)", o["true_res"], TRUE_RES_LIMIT)
+    _check("17b MG: solution vs unsharded", x_rel, MESH_X_LIMIT)
+    sz = r0["schwarz"]
+    print(f"  Schwarz GCR(10) at {CHECK_GEOM}: plain {sz['plain']['iters']}"
+          f", additive {sz['additive']['iters']}, multiplicative "
+          f"{sz['multiplicative']['iters']} iterations; seconds "
+          + ", ".join(f"{k} {v['secs']:.3f}" for k, v in sz.items()),
+          flush=True)
+    for k, v in sz.items():
+        _check(f"17b Schwarz {k}: true residual (c128)", v["true_res"],
+               TRUE_RES_LIMIT)
+        if k != "plain" and not v["iters"] < sz["plain"]["iters"]:
+            raise AssertionError(f"17b Schwarz {k}: {v['iters']} "
+                                 "iterations, not fewer than plain")
+    tw = r0["twop"]
+    print(f"  run_twop (mesh) at {CHECK_GEOM}: {tw['secs']:.3f} s "
+          f"(unsharded {refs['twop_secs']:.3f} s); stages " + ", ".join(
+              f"{k} {v:.3f}" for k, v in tw["stages"].items()), flush=True)
+    for key in ("mesons", "baryons"):
+        _check(f"17b 2pt {key} vs unsharded", tw[key], MESH_X_LIMIT)
+    ex = r0["exchange"]
+    print(f"  the staged exchange at {SLICE_GEOM}, box "
+          f"{ex['box']}: faces {ex['faces_ms']:.4f} ms, the box hop alone "
+          f"{ex['hop_ms']:.4f} ms, the hop with its exchange "
+          f"{ex['halo_hop_ms']:.4f} ms (mean of 3 calls, median of 5 "
+          f"rounds, rank 0's clock)", flush=True)
+    by_rank = [{k: o["launches"][k] for k in ("zw", "zw_bf16")}
+               for o in outs]
+    zw = sum(c["zw"] for c in by_rank)
+    zw16 = sum(c["zw_bf16"] for c in by_rank)
+    if not zw or not zw16:
+        raise AssertionError(f"17b: K4 box launches {by_rank}")
+    return {"ranks": outs, "launches_by_rank": by_rank, "zw": zw,
+            "zw_bf16": zw16, "err": max(o["err"] for o in outs)}
+
+
+def _box_rank(rank: int, work: Path):
+    """One rank of phase 17b (``chip_smoke.py --box-rank RANK DIR``): joins
+    the gloo grid through the file store ``DIR/store``, runs its box of
+    every 17b solve, checks K4 on the box against its plain version on
+    the path's operands, and writes its record to ``DIR/out_RANK.json``.
+    The launch counts are set to 0 before the solves and read after."""
+    import torch
+    import torch.distributed as dist
+    from quda_qkxtm_multigrid_tpu_torch import workflows as wf
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
+        make_gauge_source, tmc_params)
+    from quda_qkxtm_multigrid_tpu_torch.dirac import DiracParams
+    from quda_qkxtm_multigrid_tpu_torch.invert import invert, true_residual
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import CoarseOperator
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import (
+        MGPreconditioner, mg_solve)
+    from quda_qkxtm_multigrid_tpu_torch.mg.transfer import Transfer
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch_box, dslash_ch_local, dslash_ch_local_reference,
+        to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.ops.gauge import apply_t_boundary
+    from quda_qkxtm_multigrid_tpu_torch.parallel.halo import box_faces
+    from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
+        LatticeMesh, box_slab, init_ring)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.schwarz import (
+        schwarz_precond, schwarz_precond_multiplicative)
+    from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
+        halo_hop, make_sharded_dirac)
+    from quda_qkxtm_multigrid_tpu_torch.solvers.gcr import gcr
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    spec = json.loads((work / "spec.json").read_text())
+    geom, check = Geometry(*spec["geom"]), Geometry(*spec["check"])
+    mesh = init_ring(BOX_GRID, rank, f"file://{work / 'store'}",
+                     device=f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE,
+                     backend="gloo")
+    c128 = torch.complex128
+    out = {"rank": rank, "coords": list(mesh.coords)}
+
+    def zero():
+        for fn in (dslash_ch_local, dslash_ch_box):
+            fn.launches = fn.launches_bf16 = 0
+
+    def timed(fn):
+        mesh.allreduce(torch.zeros(1, device=mesh.device))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def versus(x, ref):
+        """(Σ|x − ref|², Σ|ref|²) over this rank's box."""
+        ref = box_slab(ref, mesh).to(x.dtype)
+        return (float((x - ref).abs().pow(2).sum()),
+                float(ref.abs().pow(2).sum()))
+
+    zero()
+    totals = {"zw": 0, "zw_bf16": 0}
+    # the solves at geom, complex128, on the box's own build
+    u, b = make_gauge_source(geom, mesh.device, seed=7)
+    u_box, b_box = box_slab(u, mesh), box_slab(b, mesh)
+    del u, b
+    sols = torch.load(work / "solutions.pt", mmap=True)
+    ops = {bf16: make_sharded_dirac(u_box, tmc_params(bf16=bf16), geom, mesh)
+           for bf16 in (False, True)}
+    # a cold "cg" builds the channel operands of the float32 chain; the
+    # bf16 tier's first solve builds its own, timed with it
+    invert(ops[False], b_box, tol=SLICE_TOL, maxiter=SLICE_MAXITER,
+           mesh=mesh)
+    for solver, tol, bf16 in (("cg", SLICE_TOL, False),
+                              ("cg-mixed", MIXED_TOL, False),
+                              ("cg-mixed-bf16", MIXED_TOL, True)):
+        ds = ops[bf16]
+        kind = solver.replace("-bf16", "")
+        zero()
+        res, secs = timed(lambda: invert(
+            ds, b_box, tol=tol, maxiter=SLICE_MAXITER, solver=kind,
+            mesh=mesh))
+        launches = {"zw": dslash_ch_box.launches,
+                    "zw_bf16": dslash_ch_box.launches_bf16,
+                    "t_local": dslash_ch_local.launches
+                    + dslash_ch_local.launches_bf16}
+        for k in totals:
+            totals[k] += launches[k]
+        d2, r2 = versus(res.x, sols[kind])
+        out[solver] = {"iters": res.iters, "true_res": res.true_res,
+                       "secs": secs, "diff2": d2, "ref2": r2,
+                       "launches": launches,
+                       "restarts": getattr(res.stats, "restarts", None)}
+        print(f"rank {rank} {solver}: {res.iters} iterations, {secs:.3f} s, "
+              f"true_res {res.true_res:.3e}, launches {launches}",
+              flush=True)
+        if launches["t_local"]:
+            raise AssertionError(f"{solver}: t-local K4 launched on a box")
+    del sols, ops, ds
+    # K4 on the box against its plain version on the path's operands
+    ds = make_sharded_dirac(u_box, tmc_params(), geom, mesh)
+    gen = torch.Generator(device=mesh.device).manual_seed(173)
+    psi = box_slab(rng.random_spinor(gen, geom), mesh)
+    err = 0.0
+    kw = ds._hop_kw()
+    for dtype in (torch.float32, torch.float64):
+        g = ds._operands(dtype, exact=True)["g"]
+        for p in (0, 1):
+            v = to_channels(psi[1 - p]).to(dtype)
+            fm, fp, zw = box_faces(v, mesh, ds.geom.Xh)
+            for dagger in (False, True):
+                got = dslash_ch_local(g[p], v, fm, fp, p, ds.geom, dagger,
+                                      zw_faces=zw, **kw)
+                ref = dslash_ch_local_reference(g[p], v, fm, fp, p, ds.geom,
+                                                dagger, zw_faces=zw, **kw)
+                e = _rel(got, ref)
+                lim = F64_LIMIT if dtype == torch.float64 else F32_LIMIT
+                if e > lim:
+                    raise AssertionError(f"K4 box {dtype} p{p} d{dagger} vs "
+                                         f"plain on the path: {e:.3e}")
+                err = max(err, float((got - ref).abs().max()))
+    out["err"] = err
+    # the staged exchange, f32, at geom
+    g = ds._operands(torch.float32)["g"][0]
+    v = to_channels(psi[1]).to(torch.float32)
+    faces = box_faces(v, mesh, ds.geom.Xh)
+    fns = {"faces_ms": lambda: box_faces(v, mesh, ds.geom.Xh),
+           "hop_ms": lambda: dslash_ch_local(g, v, faces[0], faces[1], 0,
+                                             ds.geom, zw_faces=faces[2],
+                                             **kw),
+           "halo_hop_ms": lambda: halo_hop(mesh, False, g, v, 0, ds.geom,
+                                           **kw)}
+    ex = {k: [] for k in fns}
+    for _ in range(5):
+        for k, fn in fns.items():
+            mesh.allreduce(torch.zeros(1, device=mesh.device))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            ex[k].append((time.perf_counter() - t0) * 1e3 / 3)
+    out["exchange"] = {k: statistics.median(t) for k, t in ex.items()}
+    out["exchange"]["box"] = list(ds.geom.dims)
+    del ds, g, v, faces, psi
+    # MG-GCR-PC, complex64: phase 6's preconditioner cut by shard_mg
+    ds64 = make_sharded_dirac(u_box.to(torch.complex64), tmc_params(), geom,
+                              mesh)
+    ds128 = make_sharded_dirac(u_box, tmc_params(), geom, mesh)
+    vb = torch.load(work / f"mg_v_{rank}.pt", weights_only=False)
+    co = torch.load(work / "mg_c.pt", weights_only=False)
+    ms = MGPreconditioner(
+        transfer=Transfer(v=vb["v"].to(mesh.device), bg=vb["bg"]),
+        coarse=CoarseOperator(x=co["x"].to(mesh.device),
+                              y=co["y"].to(mesh.device), bg=co["bg"]),
+        dirac=ds64, params=co["params"])
+    del vb, co
+    b64 = b_box.to(torch.complex64)
+    cold = mg_solve(ms, b64, tol=MG_TOL, n_krylov=MG_NKRYLOV, mesh=mesh)
+    zero()
+    g0 = LatticeMesh.gathers
+    res, secs = timed(lambda: mg_solve(ms, b64, tol=MG_TOL,
+                                       n_krylov=MG_NKRYLOV, mesh=mesh))
+    totals["zw"] += dslash_ch_box.launches
+    _, rel = true_residual(ds128, res.x.to(c128), b_box)
+    d2, r2 = versus(res.x, torch.load(work / "solutions.pt",
+                                      mmap=True)["mg"])
+    out["mg"] = {"iters": res.iters, "iters_cold": cold.iters,
+                 "secs": secs, "true_res": float(rel),
+                 "gathers": LatticeMesh.gathers - g0,
+                 "launches": dslash_ch_box.launches, "diff2": d2,
+                 "ref2": r2}
+    print(f"rank {rank} MG: {res.iters} iterations, {secs:.3f} s, true_res "
+          f"{float(rel):.3e}", flush=True)
+    del ms, ds64, ds128, b64, u_box, b_box, res, cold
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Schwarz GCR at check, complex128, antiperiodic (phase 16b's)
+    u, _ = make_gauge_source(check, mesh.device, seed=P16_SEED, dtype=c128)
+    u = apply_t_boundary(u, check)
+    gen = torch.Generator(device=mesh.device).manual_seed(P16_SEED)
+    b = rng.random_spinor(gen, check, c128)
+    ds = make_sharded_dirac(box_slab(u, mesh), DiracParams(
+        **SCHWARZ, use_kernels=True), check, mesh)
+    bs = box_slab(b, mesh)
+    del u, b
+    pcs = {"plain": None, "additive": schwarz_precond(ds, mesh, niter=4),
+           "multiplicative": schwarz_precond_multiplicative(ds, mesh,
+                                                            niter=4)}
+    out["schwarz"] = {}
+    for name, pc in pcs.items():
+        zero()
+        res, secs = timed(lambda: gcr(ds.m, bs, tol=SCHWARZ_TOL, n_krylov=10,
+                                      max_restarts=40, precond=pc,
+                                      allreduce=mesh.allreduce))
+        totals["zw"] += dslash_ch_box.launches
+        _, rel = true_residual(ds, res.x, bs)
+        out["schwarz"][name] = {"iters": res.iters, "secs": secs,
+                                "true_res": float(rel)}
+    del ds, bs, pcs
+    # run_twop on the box's CG path at check
+    u, _ = make_gauge_source(check, mesh.device, seed=7,
+                             dtype=torch.complex64)
+    u = apply_t_boundary(u, check)
+    p = tmc_params()
+    st = {}
+    zero()
+    twop, secs = timed(lambda: wf.run_twop(
+        box_slab(u, mesh), check, p.kappa, p.mu, p.csw, source=TWOP_SOURCE,
+        tol=TWOP_TOL, maxiter=SLICE_MAXITER, mesh=mesh, stats=st))
+    totals["zw"] += dslash_ch_box.launches
+    ref = torch.load(work / "twop.pt")
+    out["twop"] = {"secs": secs, "stages": st["secs"], **{
+        k: _rel64(twop[k].cpu(), ref[k]) for k in ("mesons", "baryons")}}
+    out["launches"] = totals
+    (work / f"out_{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -4586,6 +5283,9 @@ def main():
                          mg6)
     kr = phase_krylov(SLICE_GEOM, CHECK_GEOM, LIGHT_GEOM)
     dws = phase_dw_staggered(SLICE_GEOM)
+    err_17 = phase_box_kernels((CHECK_GEOM, SLICE_GEOM))
+    t17 = phase_box_timing(SLICE_GEOM)
+    box = phase_box_ranks(SLICE_GEOM, CHECK_GEOM)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"] + m16["k4"]
     k5 = mesh_runs[True]["k5"] + m16["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
@@ -4603,7 +5303,8 @@ def main():
           f"K2 {kr['k2']}; gauge utilities, domain wall and staggered (phase "
           f"15): K1 {dws['k1']}, K2 {dws['k2']}; sharded MG, Schwarz and "
           f"meshed workflows (phase 16): K1 {m16['k1']}, K4 {m16['k4']}, "
-          f"K5 {m16['k5']}")
+          f"K5 {m16['k5']}; K4 on boxes (phase 17b, four ranks): "
+          f"{box['zw']}, bf16 tier {box['zw_bf16']}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -4666,11 +5367,21 @@ def main():
               max(err_9a["k5"], t9["err"]["k5"], tbc["k5"],
                   m16["err"]["k5"]),
               t9["times"]["K5"], t9["times"]["K5 plain"],
-              t9["bounds"]["K5"])]}))
+              t9["bounds"]["K5"]),
+        entry("dslash_ch_box", BOX_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
+              box["zw"], max(err_17["f32"], box["err"]),
+              *t17[f"box {BOX_TIME[-1]} f32"]),
+        entry("dslash_ch_box_bf16", BOX_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
+              box["zw_bf16"], err_17["bf16"],
+              *t17[f"box {BOX_TIME[-1]} bf16"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 4 and sys.argv[1] == "--box-rank":
+        _import_port()
+        _box_rank(int(sys.argv[2]), Path(sys.argv[3]))
+    else:
+        main()

@@ -36,6 +36,10 @@ _MSRC_ARGTYPES = [_P] * 6 + [_I] * 9 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
 #  tstep, nrows, t_first, t_last, dagger, recon12, twist, ta, tb, clover,
 #  xpay, xc, stream)
 _LOCAL_ARGTYPES = [_P] * 7 + [_I] * 14 + [_D, _D, _I, _I, _D, _P]
+# (psi, g, cinv, x, out, face_m, face_p, face_zm, face_zp, face_wm,
+#  face_wp, T, Z, W, Xh, parity, t_first, t_last, dagger, recon12, twist,
+#  ta, tb, clover, xpay, xc, stream)
+_BOX_ARGTYPES = [_P] * 11 + [_I] * 10 + [_D, _D, _I, _I, _D, _P]
 ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f64": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES,
@@ -55,7 +59,12 @@ ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 # (csrc/dslash_ch_local.cu)
                 "qkx_dslash_ch_local_f32": _LOCAL_ARGTYPES,
                 "qkx_dslash_ch_local_f64": _LOCAL_ARGTYPES,
-                "qkx_dslash_ch_local_f32_g16": _LOCAL_ARGTYPES}
+                "qkx_dslash_ch_local_f32_g16": _LOCAL_ARGTYPES,
+                # K4 on a box, with the z and y faces
+                # (csrc/dslash_ch_box.cu)
+                "qkx_dslash_ch_box_f32": _BOX_ARGTYPES,
+                "qkx_dslash_ch_box_f64": _BOX_ARGTYPES,
+                "qkx_dslash_ch_box_f32_g16": _BOX_ARGTYPES}
 
 
 def _sources() -> list[Path]:

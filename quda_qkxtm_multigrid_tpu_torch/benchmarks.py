@@ -4,8 +4,8 @@ MG-GCR-PC solve, and the compact channel operator's paths.
 ``bench_cg`` times ``invert.invert`` on a random SU(3) gauge field and a
 point source: one cold solve, then one timed warm solve, with CG or one
 of the other solvers of ``invert`` (the mixed ones with a bf16 or a
-complex64 sloppy operator); ``bench_cg_mesh`` the same CG t-sharded on a
-ring of ranks (``bench_mg_mesh``: a sharded MG solve).  ``bench_mg``
+complex64 sloppy operator); ``bench_cg_mesh`` the same CG sharded on a
+ring or grid of ranks (``bench_mg_mesh``: a sharded MG solve).  ``bench_mg``
 times the multigrid setup (two to four levels, float32 or bf16 null
 vectors) and then one cold and one warm ``mg_solve``, and certifies the
 warm solution in complex128.  GFLOP/s counts one ``flops_per_mat`` per
@@ -161,10 +161,10 @@ def bench_cg_mesh(geom: Geometry, mesh: TMesh, overlap: bool = False,
                   problem=None) -> tuple[dict, torch.Tensor]:
     """``bench_cg`` for the t-sharded solve: the operator and source of
     ``problem`` (made by ``make_problem`` on the mesh's device if not
-    given), cut to this rank's slab, solved cold and warm with
+    given), cut to this rank's box, solved cold and warm with
     ``invert(mesh=mesh, overlap=overlap)``.  Returns the record (GFLOP/s
     over the whole lattice; seconds on this rank's clock) and this
-    rank's slab of the warm solution."""
+    rank's box of the warm solution."""
     d, b = problem if problem is not None else make_problem(geom,
                                                             mesh.device)
     ds, bs = shard_dirac(d, mesh), shard_spinor(b, mesh)
@@ -265,7 +265,7 @@ def bench_mg_mesh(mesh: TMesh, problem, mg, tol: float = 1e-7,
     iterations and seconds on this rank's clock, the cold one's
     iterations, the complex128 true residual of the gathered warm
     solution, its V-cycles, the coarse-residual all-gathers and the K4
-    launches of the warm solve) and this rank's slab of the warm
+    launches of the warm solve) and this rank's box of the warm
     solution."""
     from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import shard_mg
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (

@@ -17,7 +17,7 @@ from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import CoarseOperator
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     Bf16Transfer, BlockGeometry, CoarseBlockGeometry, CoarseTransfer,
     Transfer, block_orthonormalize_flat, to_blocked_flat)
-from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh, t_slab
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh, box_slab
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
     ShardedDirac, shard_dirac)
 
@@ -78,15 +78,15 @@ def dirac_from_numpy(u, params, geom: Geometry, clover=None,
 
 
 def spinor_slab_from_numpy(a, mesh: TMesh) -> torch.Tensor:
-    """This rank's t-slab of a numpy field (any canonical layout, t the
-    axis −3) on the mesh's device."""
-    return t_slab(torch.tensor(np.asarray(a)), mesh)
+    """This rank's box of a numpy field (any canonical layout, trailing
+    [T, Z, W]) on the mesh's device."""
+    return box_slab(torch.tensor(np.asarray(a)), mesh)
 
 
 def sharded_dirac_from_numpy(u, params, geom: Geometry, mesh: TMesh,
                              clover=None, clover_inv=None) -> ShardedDirac:
     """``dirac_from_numpy`` on the whole lattice, on the mesh's device,
-    then this rank's slab of it (``parallel.sharded.shard_dirac``)."""
+    then this rank's box of it (``parallel.sharded.shard_dirac``)."""
     return shard_dirac(dirac_from_numpy(u, params, geom, clover, clover_inv,
                                         device=mesh.device), mesh)
 

@@ -154,6 +154,29 @@ struct TRows {
   int first, last;
 };
 
+// The z and y faces of K4 on a box (dslash_ch_box.cu), beside the t faces
+// of LocalArgs: zm / zp the z-1 neighbour of plane 0 and the z+1
+// neighbour of plane Z-1, each [T, 24, 1, W] (channel stride W); wm / wp
+// the y-1 neighbour of row 0 and the y+1 neighbour of row Y-1, each
+// [T, 24, Z, Xh] (channel stride Z*Xh), read at the site's k.  Null for
+// an axis that wraps in the box.  Only the box instances take it (ZW of
+// dslash_site), in the trailing parameter pack after their TRows.
+template <typename S>
+struct BoxFaces {
+  const S* zm;
+  const S* zp;
+  const S* wm;
+  const S* wp;
+};
+
+// The members of dslash_site's trailing pack: a TRows, then, in the box
+// instances, a BoxFaces.
+__device__ __forceinline__ TRows rows_of(TRows r) { return r; }
+template <typename F>
+__device__ __forceinline__ TRows rows_of(TRows r, F) { return r; }
+template <typename F>
+__device__ __forceinline__ F faces_of(TRows, F f) { return f; }
+
 // One stored real, widened on load (bf16 -> float is exact).
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ double ld(const double* p) { return *p; }
@@ -269,14 +292,18 @@ __device__ __forceinline__ Cplx<R> g5_rotate(Cplx<R> v, int kk, R a, R b) {
 // true: in the staged tile of shared memory (``tile``, K2 and K2d),
 // stride kMsrcTile<G>.  The arithmetic is the same code either way.
 // APBC: negate the rebuilt row 2 of the boundary's t links (recon-12,
-// see the top of this file), whose rows the one TRows of ``rows`` gives.
+// see the top of this file), whose rows the TRows of ``rows`` gives.
 // The periodic instances take no such argument: their parameter list,
 // and so their code, is the one the hop had before the flag (one more
 // parameter, even unused, moved the registers of the t-local face
 // instances; PERF.md section 6).
+// ZW: K4 on a box (bit 0: z does not wrap, bit 1: y does not wrap); a
+// z or y step off the box reads the BoxFaces that follows the TRows in
+// ``rows``, in that face's own layout (BoxFaces).  0 in every other
+// instance, whose code it leaves as it was.
 template <typename R, typename G, typename C, typename S, typename X,
           typename O, bool DAG, int RECON, int TMODE = 0, bool TILE = false,
-          bool APBC = false, typename... Rows>
+          bool APBC = false, int ZW = 0, typename... Rows>
 __device__ __forceinline__ void dslash_site(
     const DslashArgs<R, G, C, S, X, O>& a, int t, int z, int w,
     int64_t soff, const LocalArgs<S>* l = nullptr,
@@ -315,21 +342,38 @@ __device__ __forceinline__ void dslash_site(
         else
           tn = fwd ? t + 1 : t - 1;   // -1 and T: a face
       } else if (mu == 2) {
-        zn = fwd ? (z + 1 == a.Z ? 0 : z + 1) : (z == 0 ? a.Z - 1 : z - 1);
+        if constexpr ((ZW & 1) != 0)
+          zn = fwd ? z + 1 : z - 1;   // -1 and Z: a face
+        else
+          zn = fwd ? (z + 1 == a.Z ? 0 : z + 1) : (z == 0 ? a.Z - 1 : z - 1);
       } else if (mu == 1) {
-        wn = fwd ? (w + a.Xh >= a.W ? w + a.Xh - a.W : w + a.Xh)
-                 : (w < a.Xh ? w - a.Xh + a.W : w - a.Xh);
+        if constexpr ((ZW & 2) != 0)
+          wn = fwd ? w + a.Xh : w - a.Xh;   // off [0, W): a face
+        else
+          wn = fwd ? (w + a.Xh >= a.W ? w + a.Xh - a.W : w + a.Xh)
+                   : (w < a.Xh ? w - a.Xh + a.W : w - a.Xh);
       } else if (fwd) {   // x: checkerboard rule, wrapping in the row
         wn = s0 ? w : (k == a.Xh - 1 ? w - (a.Xh - 1) : w + 1);
       } else {
         wn = s0 ? (k == 0 ? w + (a.Xh - 1) : w - 1) : w;
       }
       const S* pn = a.psi + soff + (int64_t)tn * 24 * zw + (int64_t)zn * a.W + wn;
+      int64_t pst = zw;         // pn's channel stride
       bool projected = false;   // pn holds the 2-spinor hs itself
       if constexpr (TMODE >= 2) {
         if (mu == 3 && (fwd ? tn == a.T : tn < 0)) {
           pn = (fwd ? l->face_p : l->face_m) + site;
           projected = TMODE == 3;
+        }
+      }
+      if constexpr (ZW != 0) {
+        const auto f = faces_of(rows...);
+        if ((ZW & 1) != 0 && mu == 2 && (fwd ? zn == a.Z : zn < 0)) {
+          pn = (fwd ? f.zp : f.zm) + (int64_t)t * 24 * a.W + w;
+          pst = a.W;
+        } else if ((ZW & 2) != 0 && mu == 1 && (fwd ? wn >= a.W : wn < 0)) {
+          pn = (fwd ? f.wp : f.wm) + ((int64_t)t * 24 * a.Z + z) * a.Xh + k;
+          pst = (int64_t)a.Z * a.Xh;
         }
       }
 
@@ -338,15 +382,15 @@ __device__ __forceinline__ void dslash_site(
 #pragma unroll
         for (int s = 0; s < 2; ++s)
 #pragma unroll
-          for (int c = 0; c < 3; ++c) hs[s][c] = load_c<R>(pn, (s * 3 + c) * 2, zw);
+          for (int c = 0; c < 3; ++c) hs[s][c] = load_c<R>(pn, (s * 3 + c) * 2, pst);
       } else {
 #pragma unroll
         for (int s = 0; s < 2; ++s)
 #pragma unroll
           for (int c = 0; c < 3; ++c)
-            hs[s][c] = cadd(load_c<R>(pn, (s * 3 + c) * 2, zw),
+            hs[s][c] = cadd(load_c<R>(pn, (s * 3 + c) * 2, pst),
                             mul_phase(gamma_phase(mu, s) + sgc,
-                                      load_c<R>(pn, (gamma_col(mu, s) * 3 + c) * 2, zw)));
+                                      load_c<R>(pn, (gamma_col(mu, s) * 3 + c) * 2, pst)));
       }
 
       Cplx<R> u[3][3];
@@ -369,7 +413,7 @@ __device__ __forceinline__ void dslash_site(
         }
         // the boundary's -1
         if constexpr (APBC) {
-          const TRows b{rows...};
+          const TRows b = rows_of(rows...);
           if (mu == 3 && t == (fwd ? b.last : b.first)) {
 #pragma unroll
             for (int c = 0; c < 3; ++c) u[2][c] = {-u[2][c].re, -u[2][c].im};
@@ -565,6 +609,23 @@ __global__ void __launch_bounds__(kThreads)
   dslash_site<R, G, C, S, X, O, DAG, RECON, TMODE, false, true>(
       a, l.t0 + (int)blockIdx.z * l.tstep, (int)blockIdx.y, w, 0, &l, {},
       rows);
+}
+
+// K4 on a box (ZW 1, 2 or 3: z, y or both split; t faces as TMODE 2):
+// one thread per output site, grid (ceil(W / blockDim.x), Z, T).  A
+// kernel of its own, with the z and y faces in one more parameter, so
+// that K4's and K5's parameter lists stay as they were; the TRows is
+// read only by the APBC instances.
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, bool APBC, int ZW>
+__global__ void __launch_bounds__(kThreads)
+    dslash_ch_box_kernel(const DslashArgs<R, G, C, S, X, O> a,
+                         const LocalArgs<S> l, const BoxFaces<S> f,
+                         const TRows rows) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= a.W) return;
+  dslash_site<R, G, C, S, X, O, DAG, 12, 2, false, APBC, ZW>(
+      a, (int)blockIdx.z, (int)blockIdx.y, w, 0, &l, {}, rows, f);
 }
 
 // ---- host side ------------------------------------------------------
@@ -776,6 +837,63 @@ int launch_dslash_local(const void* psi, const void* g, const void* cinv,
     launch_local_mode<R, G, C, S, X, O, true>(mode, ap, grid, block, s, a, l, rows);
   else
     launch_local_mode<R, G, C, S, X, O, false>(mode, ap, grid, block, s, a, l, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O, bool DAG, bool APBC>
+void launch_box_zw(int zw_mode, dim3 grid, dim3 block, cudaStream_t s,
+                   const DslashArgs<R, G, C, S, X, O>& a,
+                   const LocalArgs<S>& l, const BoxFaces<S>& f, TRows rows) {
+  if (zw_mode == 1)
+    dslash_ch_box_kernel<R, G, C, S, X, O, DAG, APBC, 1><<<grid, block, 0, s>>>(a, l, f, rows);
+  else if (zw_mode == 2)
+    dslash_ch_box_kernel<R, G, C, S, X, O, DAG, APBC, 2><<<grid, block, 0, s>>>(a, l, f, rows);
+  else
+    dslash_ch_box_kernel<R, G, C, S, X, O, DAG, APBC, 3><<<grid, block, 0, s>>>(a, l, f, rows);
+}
+
+// K4 on a box (recon-12 only, no second output, every row): the t faces
+// face_m / face_p (24 channels) and the z / y faces of BoxFaces, a pair
+// per split axis; t_first, t_last as in TRows.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue without launching for
+// another gauge form, a missing t face, one face of a pair alone, or no
+// z or y face at all (that hop is K4's own).
+template <typename R, typename G, typename C, typename S, typename X,
+          typename O>
+int launch_dslash_box(const void* psi, const void* g, const void* cinv,
+                      const void* x, void* out, const void* face_m,
+                      const void* face_p, const void* face_zm,
+                      const void* face_zp, const void* face_wm,
+                      const void* face_wp, int T, int Z, int W, int Xh,
+                      int parity, int t_first, int t_last, int dagger,
+                      int recon12, int twist, double ta, double tb,
+                      int clover, int xpay, double xc, void* stream) {
+  const bool zf = face_zm != nullptr, wf = face_wm != nullptr;
+  if (!recon12 || face_m == nullptr || face_p == nullptr ||
+      zf != (face_zp != nullptr) || wf != (face_wp != nullptr) || !(zf || wf))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
+      psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity, twist, ta, tb,
+      clover, xpay, xc, 0, 0.0, 0.0);
+  const LocalArgs<S> l = {static_cast<const S*>(face_m),
+                          static_cast<const S*>(face_p), 0, 1};
+  const BoxFaces<S> f = {
+      static_cast<const S*>(face_zm), static_cast<const S*>(face_zp),
+      static_cast<const S*>(face_wm), static_cast<const S*>(face_wp)};
+  const TRows rows = {t_first, t_last};
+  const dim3 block(kThreads);
+  const dim3 grid((W + kThreads - 1) / kThreads, Z, T);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = (zf ? 1 : 0) | (wf ? 2 : 0);
+  const bool ap = (parity & kAntiperiodicT) != 0;
+  if (dagger) {
+    if (ap) launch_box_zw<R, G, C, S, X, O, true, true>(mode, grid, block, s, a, l, f, rows);
+    else launch_box_zw<R, G, C, S, X, O, true, false>(mode, grid, block, s, a, l, f, rows);
+  } else {
+    if (ap) launch_box_zw<R, G, C, S, X, O, false, true>(mode, grid, block, s, a, l, f, rows);
+    else launch_box_zw<R, G, C, S, X, O, false, false>(mode, grid, block, s, a, l, f, rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

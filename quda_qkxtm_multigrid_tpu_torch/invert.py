@@ -7,7 +7,7 @@ precision.  Solvers: "cg" and its mixed-precision form "cg-mixed" on the
 normal equations M_pc† M_pc x_p = M_pc† src; "bicgstab" and
 "bicgstab-mixed" on M_pc x_p = src.  A ``compact.CompactDirac`` solves
 with "cg" only, through ``compact.invert_compact_full``.  With ``mesh``
-the solve runs t-sharded, one rank's slab per process
+the solve runs sharded, one rank's box per process
 (``parallel.sharded``).
 """
 
@@ -91,10 +91,10 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
     Source preparation, reconstruction and the true residual stay in the
     fields' precision.
 
-    ``mesh`` runs the t-sharded solve (``_invert_sharded``, "cg" or
+    ``mesh`` runs the sharded solve (``_invert_sharded``, "cg" or
     "cg-mixed"): ``dirac`` is this rank's ``parallel.sharded.shard_dirac``
     on that mesh and ``b`` its ``shard_spinor``; the result holds this
-    rank's slab of x and the whole lattice's true residual.  ``overlap`` picks K5 for the chain's
+    rank's box of x and the whole lattice's true residual.  ``overlap`` picks K5 for the chain's
     hops instead of K4 (the JAX package's ``None``, read from its tuned
     policy, has no counterpart: the choice is the caller's)."""
     if solver not in SOLVERS:
@@ -154,17 +154,17 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
 def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,
                     maxiter: int, solver: str, sloppy_dirac, mesh: TMesh,
                     overlap: bool, inner_tol: float) -> InvertResult:
-    """The t-sharded solve (the JAX package's ``invert(mesh=…)``), every
-    reduction summed over the ring.  Prepare, the right-hand side's
+    """The sharded solve (the JAX package's ``invert(mesh=…)``), every
+    reduction summed over the grid.  Prepare, the right-hand side's
     matpc†, reconstruct and the true residual run in the fields'
-    precision through the slab's K4 hop (float64 for complex128).  The
+    precision through the box's K4 hop (float64 for complex128).  The
     normal equations' CG takes one of three routes:
 
       "cg" on the sharded fused chain (``has_sharded_chain``): CG on
         float32 channels, each matvec ``dirac.matpc_ch`` twice (four
         halo hops, K4 or with ``overlap`` K5);
       "cg" without the chain: CG on ``dirac.matpc_dagm`` in the fields'
-        precision, its hops the slab's K4 (float64 for complex128) and
+        precision, its hops the box's K4 (float64 for complex128) and
         its A⁻¹ plain (the JAX package's XLA path on sharded arrays);
       "cg-mixed" on the chain: the float64 outer loop of ``cg_mixed`` on
         ``matpc_dagm`` (K4 float64 hops) over float64 channels, and its
@@ -177,7 +177,7 @@ def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,
     if sloppy_dirac is not None:
         raise ValueError("a sharded solve takes no sloppy operator")
     if not isinstance(dirac, ShardedDirac):
-        raise ValueError("mesh= needs this rank's slab of the operator: "
+        raise ValueError("mesh= needs this rank's box of the operator: "
                          "parallel.sharded.shard_dirac(dirac, mesh)")
     if mesh is not dirac.mesh:
         raise ValueError("a ShardedDirac solves on its own mesh: pass "
@@ -231,7 +231,7 @@ def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
     raises: the multi-source CG has no sharded form yet."""
     if isinstance(dirac, ShardedDirac):
         raise ValueError("invert_msrc has no sharded form: its reductions "
-                         "would stay on this rank's slab")
+                         "would stay on this rank's box")
     rhs = torch.stack([dirac.matpc(dirac.prepare(b), dagger=True)
                        for b in bs])
     if dirac._has_fused_matpc:
@@ -254,7 +254,7 @@ def invert_msrc(dirac: Dirac, bs: torch.Tensor, tol: float = 1e-10,
 
 def true_residual(dirac: Dirac, x: torch.Tensor, b: torch.Tensor):
     """(r, |r|/|b|) of the full operator, |r|/|b| as a 0-d tensor; for a
-    ``ShardedDirac`` r is this rank's slab and the norms the whole
+    ``ShardedDirac`` r is this rank's box and the norms the whole
     lattice's."""
     r = b - dirac.m(x)
     if isinstance(dirac, ShardedDirac):

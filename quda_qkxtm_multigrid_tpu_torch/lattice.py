@@ -103,9 +103,12 @@ def gather_neighbor(f: torch.Tensor, mu: int, forward: bool, parity: int,
     ``f`` lives on the opposite parity, any leading axes, trailing axes
     [T, Z, W].  Returns the same shape, aligned with sites of ``parity``.
     ``t0``: ``f`` holds only the timeslice t0 (trailing [1, Z, W]); the
-    spatial directions only.  ``mesh``: ``f`` is this rank's t-slab on
-    that ring (``parallel.mesh.TMesh``, ``geom`` the slab's), and a t
-    shift crosses to the neighbour ranks (``parallel.halo.gather_t``).
+    spatial directions only.  ``mesh``: ``f`` is this rank's box on that
+    grid (``parallel.mesh.LatticeMesh``, ``geom`` the box's), and a t,
+    z or y shift along a split axis crosses to the neighbour ranks
+    (``parallel.halo.gather_t`` / ``gather_z`` / ``gather_w``); x stays
+    local.  A diagonal neighbour is two such shifts, so the corner
+    arrives through the two exchanges.
     """
     if mu == 3:
         if t0 is not None:
@@ -115,8 +118,14 @@ def gather_neighbor(f: torch.Tensor, mu: int, forward: bool, parity: int,
             return gather_t(f, mesh, forward)
         return torch.roll(f, -1 if forward else 1, dims=-3)
     if mu == 2:
+        if mesh is not None and mesh.nz > 1:
+            from quda_qkxtm_multigrid_tpu_torch.parallel.halo import gather_z
+            return gather_z(f, mesh, forward)
         return torch.roll(f, -1 if forward else 1, dims=-2)
     if mu == 1:                      # y: a roll by Xh of the merged axis
+        if mesh is not None and mesh.nw > 1:
+            from quda_qkxtm_multigrid_tpu_torch.parallel.halo import gather_w
+            return gather_w(f, mesh, forward, geom.Xh)
         return torch.roll(f, -geom.Xh if forward else geom.Xh, dims=-1)
     s0, k_first, k_last = geom._x_mask_tensors(parity, f.device)
     if t0 is not None:

@@ -165,9 +165,9 @@ def coarse_xy_direct(transfer: Transfer, diag_apply: Callable,
     aggregate (the link Y_d), the others from the same aggregate (part
     of X).  ``diag_apply`` is the fine site-diagonal term; ``hop_terms``
     are the 8 directional hops, each with its −κ.  A plain loop over
-    the 2·nvec columns.  On a rank's slab of a t-ring (``transfer`` the
-    rank's aggregates, the hops reading across the slab faces) it gives
-    the slab's rows of X and Y."""
+    the 2·nvec columns.  On a rank's box of a process grid (``transfer`` the
+    rank's aggregates, the hops reading across the box faces) it gives
+    the box's rows of X and Y."""
     if len(hop_terms) != 8:
         raise ValueError(f"expected 8 hop terms, got {len(hop_terms)}")
     bg = transfer.bg

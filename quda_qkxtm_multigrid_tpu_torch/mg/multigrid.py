@@ -31,17 +31,18 @@ the full operator, "mr-richardson" V-cycle steps with a minimal-residual
 step length.  Every restart recomputes the true residual of its system
 and reads it on the host once.
 
-On a t-ring the fine level runs on each rank's slab through the
+On a process grid the fine level runs on each rank's box through the
 sharded operator, and the coarse levels are replicated:
 ``vcycle(mesh=…)`` gathers the coarse residual and every rank runs the
 whole coarse solve.  ``setup_mg`` on a ``ShardedDirac`` sets the
-preconditioner up on the slabs: the null vectors by the sharded solves
+preconditioner up on the boxes: the null vectors by the sharded solves
 (``invert(mesh=…)`` a column on the fused chain, else
 ``bicgstab(allreduce=…)``) from sources drawn whole and sliced, the
-block orthonormalisation on the rank's aggregates (the block's t extent
-divides T_loc), the level-1 Galerkin build on the slab with the fine
-hops' t shifts across the ring, and its X / Y all-gathered in t; levels
-2–4 are then built from the replicated level 1 alike on every rank.
+block orthonormalisation on the rank's aggregates (the block's t, z
+and y extents divide the box's), the level-1 Galerkin build on the box
+with the fine hops' shifts across the box faces, and its X / Y
+all-gathered by grid coordinates; levels 2–4 are then built from the
+replicated level 1 alike on every rank.
 ``shard_mg`` cuts a preconditioner set up on the whole lattice
 instead.  Either feeds ``mg_solve(mesh=…)``.
 """
@@ -66,7 +67,7 @@ from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     slab_block_geometry, to_blocked_coarse, to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct, norm2
-from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import t_slab
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import box_slab
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
     ShardedDirac, make_sharded_dirac)
 from quda_qkxtm_multigrid_tpu_torch.solvers.bicgstab import bicgstab
@@ -228,7 +229,7 @@ class MGPreconditioner:
                 allreduce=None) -> torch.Tensor:
         """``niter`` MR steps on M x = r, on the full operator or (with
         ``smoother_pc``) on the Schur system via prepare/reconstruct;
-        ``allreduce`` sums MR's reductions over the ring of a sharded
+        ``allreduce`` sums MR's reductions over the grid of a sharded
         operator."""
         p = self.params
         d = self._dirac_smooth
@@ -243,18 +244,19 @@ class MGPreconditioner:
         """One V(nu_pre, nu_post) cycle approximating M⁻¹ r on the full
         field [2,4,3,T,Z,W].
 
-        ``mesh``: ``r`` is this rank's t-slab of a field on that ring and
+        ``mesh``: ``r`` is this rank's box of a field on that grid and
         the preconditioner a sharded one (``setup_mg`` on a
         ``ShardedDirac``, or ``shard_mg``'s), with the coarse levels
         replicated (the JAX package's ``vcycle_resharded``): smooth on the
-        slab through the sharded operator (MR's reductions summed over
-        the ring), restrict to the rank's aggregates, gather the coarse
-        residual of every rank (``TMesh.allgather_t`` on the coarse t
-        axis), run the whole coarse solve on every rank with no further
-        communication, and prolong the rank's coarse t rows.  The
-        gathered residual is the same bytes on every rank, so the coarse
-        solves agree to the bit and the prolonged corrections meet at the
-        slab edges; the gather stays outside the CUDA graph of the coarse
+        box through the sharded operator (MR's reductions summed over
+        the grid), restrict to the rank's aggregates, gather the coarse
+        residual of every rank by its grid coordinates
+        (``LatticeMesh.allgather_box`` on the coarse t, z and y axes),
+        run the whole coarse solve on every rank with no further
+        communication, and prolong the rank's coarse rows.  The gathered
+        residual is the same bytes on every rank, so the coarse solves
+        agree to the bit and the prolonged corrections meet at the box
+        faces; the gather stays outside the CUDA graph of the coarse
         levels (``_graphed``)."""
         p = self.params
         m = self.dirac.m
@@ -267,8 +269,11 @@ class MGPreconditioner:
         if mesh is None:
             xc = self.coarse_solve(rc)
         else:
-            rc = mesh.allgather_t(rc, axis=2)
-            xc = self.coarse_solve(rc).narrow(2, *mesh.t_range(rc.shape[2]))
+            rc = mesh.allgather_box(rc, (2, 3, 4))
+            xc = self.coarse_solve(rc)
+            for axis in range(3):
+                xc = xc.narrow(axis + 2, *mesh.box_range(
+                    axis, rc.shape[axis + 2]))
         x = x + self.transfer.prolong(xc)
         if p.nu_post > 0:
             x = x + self._smooth(r - m(x), p.nu_post, red)
@@ -304,7 +309,7 @@ def _mesh(dirac: Dirac):
 
 def _level1_terms(dirac: Dirac):
     """(diagonal term, 8 hop terms with their −κ) of the fine operator on
-    full fields, for the coarse build; on a sharded operator's slab the
+    full fields, for the coarse build; on a sharded operator's box the
     t hops read the neighbours' planes."""
     geom, kappa, mesh = dirac.geom, dirac.params.kappa, _mesh(dirac)
 
@@ -321,9 +326,9 @@ def _level1_terms(dirac: Dirac):
 
 def _build_level1(transfer: Transfer, dirac: Dirac) -> CoarseOperator:
     """The Galerkin operator V†MV.  On a sharded operator (``transfer``
-    the rank's aggregates): the slab's rows of X and Y, whose t links
-    across a slab face see the neighbour's fine rows, then all-gathered
-    in t, the whole coarse operator on every rank."""
+    the rank's aggregates): the box's rows of X and Y, whose links
+    across a box face see the neighbour's fine rows, then all-gathered
+    by grid coordinates, the whole coarse operator on every rank."""
     diag_apply, hop_terms = _level1_terms(dirac)
     mesh = _mesh(dirac)
     if mesh is None:
@@ -334,9 +339,9 @@ def _build_level1(transfer: Transfer, dirac: Dirac) -> CoarseOperator:
     bl = transfer.bg
     bg = BlockGeometry(dirac.global_geom, bl.bx, bl.by, bl.bz, bl.bt,
                        bl.nvec)
-    tc = bl.coarse_shape[0]
-    x = mesh.allgather_t(x.unflatten(0, (tc, -1)), axis=0).flatten(0, 1)
-    y = mesh.allgather_t(y.unflatten(1, (tc, -1)), axis=1).flatten(1, 2)
+    cs = bl.coarse_shape
+    x = mesh.allgather_box(x.unflatten(0, cs), (0, 1, 2)).flatten(0, 3)
+    y = mesh.allgather_box(y.unflatten(1, cs), (1, 2, 3)).flatten(1, 4)
     return CoarseOperator(x=x, y=y, bg=bg)
 
 
@@ -364,7 +369,7 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
     (``msrc_iters``, or ``bicgstab_iters`` per vector) and, for the
     multi-source path, the worst solve's true residual.
 
-    On a ``ShardedDirac`` (``bg`` the slab's blocking): the sources are
+    On a ``ShardedDirac`` (``bg`` the box's blocking): the sources are
     drawn whole, as the unsharded setup draws them, and sliced at once;
     on the sharded fused chain each column is one ``invert(mesh=…)``
     "cg" (the normal equations' CG of a column of ``invert_msrc``;
@@ -379,7 +384,7 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
         whole, fused = dirac.global_geom, dirac.has_sharded_chain
 
     def sliced(b):
-        return b if mesh is None else t_slab(b, mesh)
+        return b if mesh is None else box_slab(b, mesh)
 
     t0 = time.perf_counter()
     flat = torch.empty((bg.nvec, 2) + tuple(bg.coarse_shape) + (bg.bdof,),
@@ -432,7 +437,7 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
 def _delta_scaled(dirac: Dirac, dmu: float, dkappa: float,
                   dcsw: float) -> Dirac:
     """The operator with (mu, kappa, csw) rescaled, clover term rebuilt
-    (on a sharded operator's slab, from its slab of the links)."""
+    (on a sharded operator's box, from its box of the links)."""
     if dmu == 1.0 and dkappa == 1.0 and dcsw == 1.0:
         return dirac
     p = dirac.params
@@ -587,7 +592,7 @@ def _vec_storage_cast(transfer: Transfer,
 
 
 def _fine_blocking(dirac: Dirac, params: MGParams) -> BlockGeometry:
-    """The blocking of the fine lattice, or of the slab of a sharded
+    """The blocking of the fine lattice, or of the box of a sharded
     operator (whose T_loc the block's t extent must divide)."""
     mesh = _mesh(dirac)
     whole = dirac.geom if mesh is None else dirac.global_geom
@@ -604,9 +609,9 @@ def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
     fine generation and is orthonormalised as given.  With
     ``vec_dtype="bf16"`` the level-1 V is cast after every build.
 
-    A ``ShardedDirac`` sets up on the slabs of its ring (module
+    A ``ShardedDirac`` sets up on the boxes of its ring (module
     docstring; ``gen`` in the same state on every rank, ``null_vectors``
-    the rank's slabs): the result is what ``shard_mg`` makes of the
+    the rank's boxes): the result is what ``shard_mg`` makes of the
     whole lattice's setup, for ``mg_solve(mesh=…)``, and no rank holds
     a fine field of the whole lattice."""
     bg = _fine_blocking(dirac, params)
@@ -636,7 +641,7 @@ def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
     hands both the same key).  With ``vec_dtype="bf16"`` the one shared
     V is cast after both flavours' builds.  Each preconditioner's
     ``setup_stats`` holds the shared null-vector seconds and its own
-    build seconds.  Two ``ShardedDirac`` set up on their slabs, as
+    build seconds.  Two ``ShardedDirac`` set up on their boxes, as
     ``setup_mg`` does."""
     bg = _fine_blocking(dirac_up, params)
     shared = {}
@@ -662,9 +667,9 @@ def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
 
 def shard_mg(mg: MGPreconditioner, mesh) -> MGPreconditioner:
     """This rank's part of a preconditioner set up on the whole lattice,
-    for ``mg_solve(mesh=…)``: the operator's slab
+    for ``mg_solve(mesh=…)``: the operator's box
     (``parallel.sharded.shard_dirac``), that of the δ-scaled smoother
-    operator, the transfer's aggregates on the slab (``t_slab``), and the
+    operator, the transfer's aggregates on the box (``t_slab``), and the
     coarse levels whole, replicated on every rank.  The block's t extent
     must divide T_loc.  ``setup_mg`` on a ``ShardedDirac`` gives the same
     without a whole-lattice operator."""
@@ -693,10 +698,10 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
     "mr-richardson": x += ω z, z = V-cycle(r), ω = <Mz, r>/|Mz|².
     ``iters`` counts n_krylov per GCR cycle, 1 per Richardson step.
 
-    ``mesh``: the t-sharded solve on that ring (the JAX package's
+    ``mesh``: the sharded solve on that grid (the JAX package's
     ``mg_solve(mesh=…)``): ``mg`` a sharded preconditioner, ``b`` and the
-    returned x this rank's slab; the V-cycle is ``vcycle(mesh=…)``,
-    every reduction of the outer solve is summed over the ring, and
+    returned x this rank's box; the V-cycle is ``vcycle(mesh=…)``,
+    every reduction of the outer solve is summed over the grid, and
     ``r2`` is the whole lattice's.
 
     ``telemetry=True`` returns ``(result, utils.profiling.SolveTelemetry)``

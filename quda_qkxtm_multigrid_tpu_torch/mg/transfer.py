@@ -38,7 +38,7 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.lattice import (
     Geometry, spinor_from_lex_dof_leading, spinor_to_lex_dof_leading)
-from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import local_t
+from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import local_geometry
 from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
 
 
@@ -141,18 +141,28 @@ def block_orthonormalize_flat(v_stacked: torch.Tensor) -> torch.Tensor:
 
 
 def slab_block_geometry(bg: BlockGeometry, mesh) -> tuple:
-    """(the blocking of this rank's t-slab, (first, count) of its coarse t
-    rows): aggregates do not straddle slabs, so the block's t extent must
-    divide T_loc.  The slab's origin is even, so its blocked layout is
-    the whole lattice's restricted to those rows."""
-    f = bg.fine
-    t_loc = local_t(f.T, mesh)
-    if t_loc % bg.bt:
-        raise ValueError(f"the block's t extent {bg.bt} does not divide "
-                         f"the slab's T_loc = {t_loc}")
-    slab = BlockGeometry(Geometry(f.X, f.Y, f.Z, t_loc), bg.bx, bg.by,
-                         bg.bz, bg.bt, bg.nvec)
-    return slab, mesh.t_range(bg.coarse_shape[0])
+    """(the blocking of this rank's box, ((first, count) of its coarse t,
+    z and y rows)): aggregates do not straddle boxes, so the block's t, z
+    and y extents must divide the box's.  The box's origin is even, so
+    its blocked layout is the whole lattice's restricted to those
+    rows."""
+    gl = local_geometry(bg.fine, mesh)
+    for name, b, n in (("t", bg.bt, gl.T), ("z", bg.bz, gl.Z),
+                       ("y", bg.by, gl.Y)):
+        if n % b:
+            raise ValueError(f"the block's {name} extent {b} does not "
+                             f"divide the box's {n}")
+    box = BlockGeometry(gl, bg.bx, bg.by, bg.bz, bg.bt, bg.nvec)
+    tc, zc, yc, _ = bg.coarse_shape
+    return box, tuple(mesh.box_range(a, n)
+                      for a, n in enumerate((tc, zc, yc)))
+
+
+def _narrow_box(v: torch.Tensor, ranges) -> torch.Tensor:
+    """V [2, Tc, Zc, Yc, ...] narrowed to a box's coarse rows."""
+    for axis, (first, count) in enumerate(ranges, start=1):
+        v = v.narrow(axis, first, count)
+    return v.contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,12 +178,12 @@ class Transfer:
         return self.v.reshape(2 * bg.coarse_volume, bg.nvec, bg.bdof)
 
     def t_slab(self, mesh) -> "Transfer":
-        """This rank's aggregates on a t-ring ``mesh``
-        (``parallel.mesh.TMesh``): V narrowed to the rank's coarse t rows
-        (the whole V itself on a ring of one), on the slab's fine
-        geometry (``slab_block_geometry``)."""
-        bg, (t0, n) = slab_block_geometry(self.bg, mesh)
-        return Transfer(v=self.v.narrow(1, t0, n).contiguous(), bg=bg)
+        """This rank's aggregates on ``mesh``
+        (``parallel.mesh.LatticeMesh``): V narrowed to the rank's coarse
+        t, z and y rows (the whole V itself on a mesh of one), on the
+        box's fine geometry (``slab_block_geometry``)."""
+        bg, ranges = slab_block_geometry(self.bg, mesh)
+        return Transfer(v=_narrow_box(self.v, ranges), bg=bg)
 
     @full_float32()
     def restrict_flat(self, flat: torch.Tensor) -> torch.Tensor:
@@ -207,10 +217,10 @@ class Bf16Transfer:
     """The bf16 storage tier of ``Transfer``: V as the planar pair
     (``vr``, ``vi``) of bf16 tensors [2(ch), Tc,Zc,Yc,Xc, nvec, bdof],
     half the bytes of the complex64 V.  Restrict and prolong round the
-    field to bf16 too, and accumulate and return float32: per tc slab,
-    the slab of V is widened to float32 (a product of two bf16 values is
+    field to bf16 too, and accumulate and return float32: per tc box,
+    the box of V is widened to float32 (a product of two bf16 values is
     exact in float32), so no float32 copy of the whole V exists (the
-    JAX package's ``lax.map`` over tc slabs)."""
+    JAX package's ``lax.map`` over tc boxes)."""
 
     vr: torch.Tensor
     vi: torch.Tensor
@@ -228,12 +238,12 @@ class Bf16Transfer:
 
     def t_slab(self, mesh) -> "Bf16Transfer":
         """``Transfer.t_slab`` of the bf16 pair: both planes narrowed."""
-        bg, (t0, n) = slab_block_geometry(self.bg, mesh)
-        return Bf16Transfer(vr=self.vr.narrow(1, t0, n).contiguous(),
-                            vi=self.vi.narrow(1, t0, n).contiguous(), bg=bg)
+        bg, ranges = slab_block_geometry(self.bg, mesh)
+        return Bf16Transfer(vr=_narrow_box(self.vr, ranges),
+                            vi=_narrow_box(self.vi, ranges), bg=bg)
 
     def _slab(self, a: int) -> torch.Tensor:
-        """tc slab ``a`` of V, complex64 from the bf16 pair:
+        """tc box ``a`` of V, complex64 from the bf16 pair:
         [2, Zc,Yc,Xc, nvec, bdof]."""
         return torch.complex(self.vr[:, a].float(), self.vi[:, a].float())
 

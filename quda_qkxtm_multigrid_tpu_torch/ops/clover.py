@@ -37,8 +37,9 @@ def _mm(*ms):
 def _field_strength_plane(u, geom: Geometry, mu: int, nu: int, p: int,
                           mesh=None):
     """F_{mu nu} on the sites of parity ``p``: [3, 3, T, Z, W].  ``mesh``:
-    ``u`` is this rank's t-slab on that ring; a leaf reaches one plane
-    in t at most, and each t shift reads it from the neighbour
+    ``u`` is this rank's box on that grid; a leaf reaches one plane
+    along each of two axes, each shift along a split axis reads it from
+    the neighbour, and the corner arrives through two such shifts
     (``lattice.gather_neighbor``)."""
     def g(mat_on_parity_q, d, fwd, target_p):
         return gather_neighbor(mat_on_parity_q, d, fwd, target_p, geom,
@@ -92,7 +93,7 @@ def make_clover(u, geom: Geometry, coeff: float, mesh=None):
 
     Built one parity at a time, so the six F components of only one
     parity are alive at once (each [3,3,T,Z,W] c128 temporary is 151 MB
-    at 32³×64).  ``mesh``: on this rank's t-slab of ``u``, its t-faces
+    at 32³×64).  ``mesh``: on this rank's box of ``u``, its t-faces
     exchanged (``_field_strength_plane``)."""
     return torch.stack([
         _clover_parity(torch.stack([_field_strength_plane(u, geom, mu, nu, p,

@@ -80,9 +80,9 @@ def double_gauge(u, geom: Geometry, mesh=None):
     """ud[mu, parity, 0] = U_mu(x) and ud[mu, parity, 1] = U_mu(x-mu) for
     x of ``parity``: both hop directions addressable at the output site,
     so the hop reads no gathered links.  [4, 2, 2, 3, 3, T, Z, W].
-    ``mesh``: ``u`` is this rank's t-slab on that ring, and the backward
-    t links of row 0 come from the t−1 neighbour's last plane
-    (``lattice.gather_neighbor``)."""
+    ``mesh``: ``u`` is this rank's box on that grid, and the backward
+    links of the first row of each split axis come from the neighbour's
+    last plane (``lattice.gather_neighbor``)."""
     return torch.stack([doubled_links(u, geom, p, mesh) for p in range(2)],
                        dim=1)
 
@@ -107,8 +107,9 @@ def hop_apply(u, psi, mu: int, sign: int, geom: Geometry, mesh=None):
       sign=+1: out(x) = (1 − γ_mu) U_mu(x) psi(x+mu)
       sign=-1: out(x) = (1 + γ_mu) U_mu†(x-mu) psi(x-mu)
     The coarse-operator build restricts each term separately.  ``mesh``:
-    ``u`` and ``psi`` are this rank's t-slabs on that ring, and a t hop
-    reads the neighbour's plane (``lattice.gather_neighbor``)."""
+    ``u`` and ``psi`` are this rank's boxes on that grid, and a hop along
+    a split axis reads the neighbour's plane
+    (``lattice.gather_neighbor``)."""
     outs = []
     for parity in (0, 1):
         src = psi[1 - parity]

@@ -43,7 +43,7 @@ operand dtypes pick the kernel instance (``_kernel_form``, the table
 ``csrc/dslash_ch_bf16.cu`` or ``csrc/dslash_ch_bf16s.cu`` or raises,
 never a float32 kernel on widened copies.
 
-The t-sharded solve (``parallel/``) runs the t-local hop of
+The sharded solve (``parallel/``) runs the t-local hop of
 ``csrc/dslash_ch_local.cu``, the counterparts of the JAX package's
 ``dslash_ch_pallas5_local`` (K4) and ``dslash_ch_pallas5_overlap_local``
 (K5): ``dslash_ch_local`` on a t-slab [T_loc, 24, Z, W] and the
@@ -51,14 +51,17 @@ neighbour ranks' two planes, in one launch, and ``dslash_ch_overlap``,
 which launches the interior rows before the faces have to be there and
 the two edge rows after.  Same hop and epilogues (no ``post_op``), no
 wrap in t; recon-12, in float32, float64 (bare) or the bf16 operand
-tier; one plain version, ``dslash_ch_local_reference``.
+tier.  On a grid that splits z or y, ``dslash_ch_local(zw_faces=…)``
+launches K4's box instances (``csrc/dslash_ch_box.cu``), which read
+the z and y faces as well and wrap no split axis.  One plain version,
+``dslash_ch_local_reference``.
 
 The antiperiodic t boundary: a gauge that carries it (the t links of
 the last global t row multiplied by −1, the JAX package's
 ``apply_t_boundary``) loses the sign in recon-12, which rebuilds row 2
 as conj(r0 × r1).  ``antiperiodic_t`` reads the boundary from the
 doubled links; the recon-12 hops then take ``antiperiodic=True`` (the
-t-local hops ``t_boundary``, the slab's rows of global t = 0 and T−1)
+t-local hops ``t_boundary``, the box's rows of global t = 0 and T−1)
 and negate the rebuilt row 2 of those links, in the kernels
 (``csrc/dslash_ch.cuh``) and in their plain versions alike.  The
 recon-18 forms read the sign with the links; recon-8 refuses such a
@@ -165,11 +168,11 @@ def antiperiodic_t(ud: torch.Tensor, t_rows=None, allmax=None) -> bool:
     another phase) raises ``ValueError``: recon-12 would give another
     operator than the links.  One read of the result on the host.
 
-    On a t-slab of the doubled links (``parallel.sharded``): ``t_rows``
+    On a box of the doubled links (``parallel.sharded``): ``t_rows``
     = (the local row of global t = 0, that of global T−1), either
-    outside the slab where this rank holds neither, and ``allmax`` the
+    outside the box where this rank holds neither, and ``allmax`` the
     ring's maximum (``TMesh.allmax``) of the three offsets, so every
-    rank reads the whole lattice's boundary from its slab alone."""
+    rank reads the whole lattice's boundary from its box alone."""
     if ud.dim() == 7:
         ud = ud[:, None]
     tol = _SU3_TOL.get(ud.dtype)
@@ -320,18 +323,22 @@ def _project(nb: torch.Tensor, mu: int, plus: bool) -> torch.Tensor:
 
 
 def _hop_plain(psi, u, parity: int, geom: Geometry, dagger: bool,
-               t_halves=None) -> torch.Tensor:
+               t_halves=None, shifted=None) -> torch.Tensor:
     """The rank-2 projected hop of a complex spinor ψ [4, 3, T, Z, W] on
     the links ``u`` [4, 2, 3, 3, T, Z, W] of ``_links``.  ``t_halves``
     gives the projected t neighbours (``_project`` of ψ(x+t̂) and of
     ψ(x−t̂), [2, 3, T, Z, W] each) of a block that does not wrap in t;
-    None wraps t periodically."""
+    None wraps t periodically.  ``shifted``: {mu: (ψ(x+μ̂), ψ(x−μ̂))}
+    for the directions of a box that do not wrap (z, y); the others
+    wrap."""
     acc = [None] * 4
     for mu in range(4):
         for fb, (fwd, plus) in enumerate(((True, dagger),
                                           (False, not dagger))):
             if mu == 3 and t_halves is not None:
                 h = t_halves[fb]
+            elif shifted is not None and mu in shifted:
+                h = _project(shifted[mu][fb], mu, plus)
             else:
                 h = _project(gather_neighbor(psi, mu, fwd, parity, geom), mu,
                              plus)
@@ -398,8 +405,9 @@ class _Form(NamedTuple):
     operand must be absent), whether it takes the bare hop only, the
     gauge forms it is built for (8, 12, 18), the counter on its wrapper
     that its launches add to, and the hop it is an instance of: "k1"
-    (``dslash_ch``) or "local" (the t-local hop of ``dslash_ch_local``
-    and ``dslash_ch_overlap``)."""
+    (``dslash_ch``), "local" (the t-local hop of ``dslash_ch_local``
+    and ``dslash_ch_overlap``) or "box" (``dslash_ch_box``, K4 with the
+    z and y faces)."""
     name: str
     dtypes: tuple
     bare: bool
@@ -437,6 +445,12 @@ _FORMS = (
     _Form("local_f64", (_F64,) * 5, True, (12,), "launches", "local"),
     _Form("local_f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False, (12,),
           "launches_bf16", "local"),
+    # K4 on a box, with the z and y faces (csrc/dslash_ch_box.cu): the
+    # same three
+    _Form("box_f32", (_F32,) * 5, False, (12,), "launches", "box"),
+    _Form("box_f64", (_F64,) * 5, True, (12,), "launches", "box"),
+    _Form("box_f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False, (12,),
+          "launches_bf16", "box"),
 )
 _FORM_BY_NAME = {f.name: f for f in _FORMS}
 
@@ -731,7 +745,7 @@ def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
                               recon12: bool = False, twist=None,
                               xpay_coef=None, x_ch=None, clover=None,
                               cinv_ch=None, faces_projected: bool = False,
-                              t_boundary=None):
+                              t_boundary=None, zw_faces=None):
     """Plain PyTorch version of ``dslash_ch_local`` and, with the same
     arguments, of ``dslash_ch_overlap``: the hop of the local rows ψ
     [T, 24, Z, W], whose t−1 neighbour of row 0 is ``face_m`` and t+1
@@ -739,9 +753,21 @@ def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
     2-spinors [1, 12, Z, W] of ``halo.project_face`` with
     ``faces_projected``), no wrap in t; then the epilogues, x
     [T, 24, Z, W].  bf16 operands are widened to float32.
-    ``t_boundary`` as in ``dslash_ch_local``."""
+    ``t_boundary`` and ``zw_faces`` as in ``dslash_ch_local``: z and y
+    do not wrap where their faces are given."""
     g_ch, psi_ch, cinv_ch = _widen(g_ch), _widen(psi_ch), _widen(cinv_ch)
     psi = from_channels(psi_ch, (4, 3))
+    shifted = {}
+    zm, zp, wm, wp = (None,) * 4 if zw_faces is None else (
+        None if f is None else from_channels(_widen(f), (4, 3))
+        for f in zw_faces)
+    if zm is not None:
+        shifted[2] = (torch.cat([psi[..., 1:, :], zp], dim=-2),
+                      torch.cat([zm, psi[..., :-1, :]], dim=-2))
+    if wm is not None:
+        xh = geom_local.Xh
+        shifted[1] = (torch.cat([psi[..., xh:], wp], dim=-1),
+                      torch.cat([wm, psi[..., :-xh]], dim=-1))
 
     def face(f, plus):
         if faces_projected:
@@ -751,7 +777,7 @@ def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
     halves = (torch.cat([up, face(face_p, dagger)], dim=2),
               torch.cat([face(face_m, not dagger), down], dim=2))
     res = _hop_plain(psi, _links(g_ch, recon12, t_boundary=t_boundary),
-                     parity, geom_local, dagger, halves)
+                     parity, geom_local, dagger, halves, shifted or None)
     return to_channels(_epilogues(res, cinv_ch, clover, twist, xpay_coef,
                                   _widen(x_ch)))
 
@@ -853,10 +879,60 @@ def _check_faces(face_m, face_p, psi_ch, faces_projected: bool):
             raise ValueError(f"{name} is not contiguous")
 
 
+def _check_zw_faces(zw_faces, psi_ch, geom: Geometry):
+    """Raise unless ``zw_faces`` = (z−1, z+1, y−1, y+1) faces holds a
+    pair for z or y (or both), each [T, 24, 1, W] or [T, 24, Z, Xh] in
+    ψ's storage, both of a pair or neither."""
+    if len(zw_faces) != 4:
+        raise ValueError("zw_faces is (face_zm, face_zp, face_wm, face_wp)")
+    shapes = ((geom.T, 24, 1, geom.W), (geom.T, 24, geom.Z, geom.Xh))
+    for k, shape in enumerate(shapes):
+        pair = zw_faces[2 * k:2 * k + 2]
+        if (pair[0] is None) != (pair[1] is None):
+            raise ValueError(f"the {'zy'[k]} faces go together")
+        for f in pair:
+            if f is None:
+                continue
+            if tuple(f.shape) != shape:
+                raise ValueError(f"a {'zy'[k]} face has shape "
+                                 f"{tuple(f.shape)}, not {shape}")
+            if f.dtype != psi_ch.dtype or f.device != psi_ch.device:
+                raise ValueError(f"a {'zy'[k]} face is {f.dtype} on "
+                                 f"{f.device}: the faces are in ψ's "
+                                 f"storage, {psi_ch.dtype} on "
+                                 f"{psi_ch.device}")
+            if not f.is_contiguous():
+                raise ValueError(f"a {'zy'[k]} face is not contiguous")
+    if all(f is None for f in zw_faces):
+        raise ValueError("zw_faces holds no face: the t-local hop takes "
+                         "zw_faces=None")
+
+
+def _launch_box(lib, form: str, g_ch, psi_ch, out, face_m, face_p, zw_faces,
+                parity: int, geom: Geometry, dagger, twist, xpay_coef, x_ch,
+                clover, cinv_ch, t_boundary, stream: int) -> int:
+    """Call the C entry point ``qkx_dslash_ch_<form>`` of K4 on a box
+    (every row; the t faces and the z / y faces of ``zw_faces``, None
+    for an axis that wraps).  Returns its CUDA error code."""
+    fn = getattr(lib, f"qkx_dslash_ch_{form}")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ta, tb = twist if twist is not None else (0.0, 0.0)
+    t_first, t_last = (-1, -1) if t_boundary is None else t_boundary
+    return fn(ptr(psi_ch), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
+              ptr(face_m), ptr(face_p), *(ptr(f) for f in zw_faces),
+              geom.T, geom.Z, geom.W, geom.Xh,
+              _parity_arg(parity, t_boundary is not None), t_first, t_last,
+              int(dagger), 1, int(twist is not None), ta, tb,
+              _CLOVER_MODES[clover], int(xpay_coef is not None),
+              0.0 if xpay_coef is None else xpay_coef,
+              ctypes.c_void_p(stream))
+
+
 def dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity: int,
                     geom_local: Geometry, dagger: bool = False,
                     recon12: bool = False, twist=None, xpay_coef=None,
-                    x_ch=None, clover=None, cinv_ch=None, t_boundary=None):
+                    x_ch=None, clover=None, cinv_ch=None, t_boundary=None,
+                    zw_faces=None):
     """K4: the fused hop with epilogues on the local rows ψ
     [T, 24, Z, W] of a t-slab, whose t−1 neighbour of row 0 is
     ``face_m`` and t+1 neighbour of row T−1 is ``face_p`` ([1, 24, Z, W]
@@ -867,13 +943,18 @@ def dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity: int,
     for a periodic gauge; for one with the antiperiodic t boundary
     (``antiperiodic_t`` of the whole lattice's links), the local rows
     (t_first, t_last) of global t = 0 and T−1, which may lie outside the
-    slab (``sharded.ShardedDirac`` gives them).
+    slab (``sharded.ShardedDirac`` gives them).  ``zw_faces``: the box of
+    a grid that splits z or y, whose hop is ``dslash_ch_box``'s.
 
     A CUDA ψ makes one launch of ``csrc/dslash_ch_local.cu`` over every
     row, the faces read where they lie (the instance from ``_FORMS``:
     float32, float64 bare, or the bf16 operand tier), adding one to
     ``dslash_ch_local.launches`` or ``.launches_bf16``; a CPU ψ runs
     ``dslash_ch_local_reference``.  Anything else raises."""
+    if zw_faces is not None:
+        return dslash_ch_box(g_ch, psi_ch, face_m, face_p, zw_faces, parity,
+                             geom_local, dagger, recon12, twist, xpay_coef,
+                             x_ch, clover, cinv_ch, t_boundary)
     form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
                            xpay_coef, x_ch, clover, cinv_ch, None,
                            kernel="local")
@@ -890,6 +971,56 @@ def dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity: int,
         g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger, twist,
         xpay_coef, x_ch, clover, cinv_ch), t_boundary=t_boundary)
     return out
+
+
+def dslash_ch_box(g_ch, psi_ch, face_m, face_p, zw_faces, parity: int,
+                  geom_local: Geometry, dagger: bool = False,
+                  recon12: bool = False, twist=None, xpay_coef=None,
+                  x_ch=None, clover=None, cinv_ch=None, t_boundary=None):
+    """K4 on a box of a grid that splits z or y: ``dslash_ch_local``'s
+    hop and arguments on the box ψ [T, 24, Z, W], with its t faces, and
+    ``zw_faces`` = (z−1, z+1, y−1, y+1) from ``parallel.halo.box_faces``:
+    the neighbours' z planes [T, 24, 1, W] of row z = 0 and z = Z−1, and
+    their y rows [T, 24, Z, Xh] of y = 0 and y = Y−1 (entries k of the
+    merged axis), None for an axis that wraps inside the box.
+
+    A CUDA ψ makes one launch of ``csrc/dslash_ch_box.cu``'s instance for
+    the split axes (``_FORMS``: float32, float64 bare, or the bf16
+    operand tier), adding one to ``dslash_ch_box.launches`` or
+    ``.launches_bf16``; a CPU ψ runs ``dslash_ch_local_reference``.
+    Anything else raises."""
+    form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
+                           xpay_coef, x_ch, clover, cinv_ch, None,
+                           kernel="box")
+    _check_faces(face_m, face_p, psi_ch, False)
+    _check_zw_faces(zw_faces, psi_ch, geom_local)
+    if psi_ch.device.type == "cpu":
+        return dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p,
+                                         parity, geom_local, dagger, recon12,
+                                         twist, xpay_coef, x_ch, clover,
+                                         cinv_ch, t_boundary=t_boundary,
+                                         zw_faces=zw_faces)
+    _device_check("dslash_ch_box", psi_ch)
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    lib = _build.load_library()
+    out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
+                      device=psi_ch.device)
+    stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
+    with torch.cuda.device(psi_ch.device):
+        err = _launch_box(lib, form, g_ch, psi_ch, out, face_m, face_p,
+                          zw_faces, parity, geom_local, dagger, twist,
+                          xpay_coef, x_ch, clover, cinv_ch, t_boundary,
+                          stream)
+    if err != 0:
+        raise RuntimeError(f"dslash_ch_box kernel launch failed "
+                           f"(qkx_dslash_ch_{form}): CUDA error {err}")
+    counter = _FORM_BY_NAME[form].counter
+    setattr(dslash_ch_box, counter, getattr(dslash_ch_box, counter) + 1)
+    return out
+
+
+dslash_ch_box.launches = 0
+dslash_ch_box.launches_bf16 = 0
 
 
 dslash_ch_local.launches = 0

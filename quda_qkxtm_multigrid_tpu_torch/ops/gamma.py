@@ -48,3 +48,15 @@ def apply_gamma5(psi: torch.Tensor) -> torch.Tensor:
     sign = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=psi.real.dtype,
                         device=psi.device).reshape(4, 1, 1, 1, 1)
     return psi * sign
+
+
+def apply_gamma(mu_or_matrix, psi: torch.Tensor) -> torch.Tensor:
+    """A 4×4 spin matrix (an index into ``GAMMA``, or an explicit matrix)
+    over the spin axis of a spinor [..., 4, 3, T, Z, W] (axis −5): Σ_t
+    m[s, t] ψ[t], each output spin a sum of four terms, in ψ's
+    precision."""
+    m = GAMMA[mu_or_matrix] if isinstance(mu_or_matrix, int) \
+        else np.asarray(mu_or_matrix)
+    g = torch.as_tensor(m, dtype=psi.dtype, device=psi.device)
+    return sum(g[:, t].reshape(4, 1, 1, 1, 1) * psi.narrow(-5, t, 1)
+               for t in range(4))

@@ -33,8 +33,8 @@ def _staple_sum(u: torch.Tensor, mu: int, geom: Geometry, dirs, mesh=None):
     """Sum of the upper and lower staples of U_mu over nu in ``dirs``, per
     parity [2, 3, 3, T, Z, W]:
     upper U_nu(x) U_mu(x+nu) U_nu†(x+mu), lower U_nu†(x−nu) U_mu(x−nu)
-    U_nu(x−nu+mu).  ``mesh``: ``u`` is this rank's t-slab on that ring,
-    and a t shift reads the neighbour's face."""
+    U_nu(x−nu+mu).  ``mesh``: ``u`` is this rank's box on that grid,
+    and a shift along a split axis reads the neighbour's face."""
     def g(f, d, fwd, parity):
         return gather_neighbor(f, d, fwd, parity, geom, mesh=mesh)
 
@@ -78,8 +78,8 @@ def ape_smear_step(u: torch.Tensor, geom: Geometry, alpha: float,
 
 def ape_smear(u: torch.Tensor, geom: Geometry, alpha: float, n_steps: int,
               spatial_only: bool = True, mesh=None) -> torch.Tensor:
-    """``n_steps`` APE steps.  ``mesh``: ``u`` is this rank's t-slab on
-    that ring (``geom`` the slab's), and each step exchanges the t-faces
+    """``n_steps`` APE steps.  ``mesh``: ``u`` is this rank's box on
+    that ring (``geom`` the box's), and each step exchanges the t-faces
     its staples read; the spatial staples read none, so the default
     smearing sends nothing."""
     for _ in range(n_steps):
@@ -113,7 +113,7 @@ def stout_smear_step(u: torch.Tensor, geom: Geometry, rho: float,
 
 
 def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry,
-               t0):
+               t0, mesh=None):
     """H v over the spatial directions for v [..., 2, 4, 3, T, Z, W];
     ``u_bwd[p][i]`` = U_i(x−i) at the sites x of parity p."""
     outs = []
@@ -121,8 +121,8 @@ def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry,
         src = v.select(-6, 1 - p)
         acc = None
         for i in (0, 1, 2):
-            fwd = gather_neighbor(src, i, True, p, geom, t0)
-            bwd = gather_neighbor(src, i, False, p, geom, t0)
+            fwd = gather_neighbor(src, i, True, p, geom, t0, mesh)
+            bwd = gather_neighbor(src, i, False, p, geom, t0, mesh)
             term = su3_mul(u[i, p], fwd) + su3_dag_mul(u_bwd[p][i], bwd)
             acc = term if acc is None else acc + term
         outs.append(acc)
@@ -131,20 +131,24 @@ def _gauss_hop(v: torch.Tensor, u: torch.Tensor, u_bwd, geom: Geometry,
 
 def gaussian_smear(psi: torch.Tensor, u_smeared: torch.Tensor,
                    geom: Geometry, alpha: float, n: int,
-                   t0: int | None = None) -> torch.Tensor:
+                   t0: int | None = None, mesh=None) -> torch.Tensor:
     """``n`` iterations of ψ ← (ψ + α H ψ)/(1 + 6α) over the (APE-)
     smeared links, on a full field [..., 2, 4, 3, T, Z, W]; leading axes
     batch sources.  With ``t0``, ``psi`` is the timeslice t0 alone
     [..., 2, 4, 3, 1, Z, W] (``u_smeared`` stays the whole gauge).  The
-    backward links are gathered once for all iterations."""
+    backward links are gathered once for all iterations.  ``mesh``:
+    ``psi`` and the links are this rank's box, and the z and y hops
+    cross ranks on a split axis (every rank of the box's t rows takes
+    part)."""
     norm = 1.0 / (1.0 + 6.0 * alpha)
     if t0 is not None:
         u_smeared = u_smeared[..., t0:t0 + 1, :, :]
-    u_bwd = [[gather_neighbor(u_smeared[i, 1 - p], i, False, p, geom, t0)
+    u_bwd = [[gather_neighbor(u_smeared[i, 1 - p], i, False, p, geom, t0,
+                              mesh)
               for i in (0, 1, 2)] for p in (0, 1)]
     for _ in range(n):
         psi = norm * (psi + alpha * _gauss_hop(psi, u_smeared, u_bwd, geom,
-                                               t0))
+                                               t0, mesh))
     return psi
 
 
@@ -153,8 +157,9 @@ def covdev_apply(u: torch.Tensor, psi: torch.Tensor, mu: int,
     """Gauge-covariant shift of a full spinor field [2, 4, 3, T, Z, W]:
     U_mu(x) ψ(x+mu) forward, U_mu†(x−mu) ψ(x−mu) backward (the
     reference's ``covDev.cu``).  ``mesh``: ``u`` and ``psi`` are this
-    rank's t-slabs on that ring, and for mu = t the shifted field and
-    the backward link U_t(x−t̂) cross ranks (``lattice.gather_neighbor``)."""
+    rank's boxes on that grid, and along a split axis the shifted field
+    and the backward link U_mu(x−mu) cross ranks
+    (``lattice.gather_neighbor``)."""
     outs = []
     for p in (0, 1):
         src = psi[1 - p]

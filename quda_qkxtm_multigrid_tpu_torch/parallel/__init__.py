@@ -1,3 +1,3 @@
-"""The t-sharded solve on ``torch.distributed``: the ring (``mesh``), the
-halo exchange (``halo``) and the rank's slab of the operator
-(``sharded``)."""
+"""The sharded solve on ``torch.distributed``: the t-ring or (Gt, Gz, Gw)
+grid (``mesh``), the halo exchange (``halo``), the rank's box of the
+operator (``sharded``) and the Schwarz preconditioners (``schwarz``)."""

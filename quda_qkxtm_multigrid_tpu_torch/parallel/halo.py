@@ -1,8 +1,10 @@
-"""The t-halo exchange of the sharded hop: the counterpart of the JAX
+"""The halo exchange of the sharded hop: the counterpart of the JAX
 package's ``_t_extend``, ``_project_face`` and ``_t_faces``
 (``ops/dslash_pallas5.py:1059-1117``), on ``torch.distributed``
-point-to-point messages instead of a ppermute.  No t-extended block is
-built: the hop kernels read the two received planes where they lie.
+point-to-point messages instead of a ppermute.  No extended block is
+built: the hop kernels read the received planes where they lie.
+
+On a t-ring (the grid (nt, 1, 1)):
 
 Per hop a rank sends its first t-plane to rank − 1 (there it is the
 t+1 face of the last row) and its last t-plane to rank + 1 (the t−1 face
@@ -13,6 +15,12 @@ On a ring of one nothing is sent: the faces are the rank's own edge
 planes, the periodic wrap, as in the JAX package.  On NCCL the messages
 run on NCCL's own stream, so a kernel launched before ``Exchange.wait``
 overlaps with them (``ops.dslash_kernel.dslash_ch_overlap``).
+
+On a box (a z or y split, ``box_faces``) the z planes and the y
+rows of the split axes travel beside the t planes, in one batch whose
+order is fixed (``_TAGS``).  ``shift`` is the mesh form of a neighbour
+gather along any split axis.  A staged mesh (card fields over gloo)
+copies every message through the host.
 """
 
 from __future__ import annotations
@@ -49,15 +57,20 @@ class Exchange:
     buffers; ``wait`` returns them once they have arrived (on NCCL: once
     the current stream waits for them)."""
 
-    def __init__(self, face_m, face_p, works=(), sent=()):
+    def __init__(self, face_m, face_p, works=(), sent=(), mesh=None):
         self.face_m, self.face_p = face_m, face_p
         # the send buffers stay referenced until the messages are out
         self._works, self._sent = list(works), sent
+        self._mesh = mesh
 
     def wait(self):
         for w in self._works:
             w.wait()
         self._works, self._sent = [], ()
+        if self._mesh is not None and self._mesh.staged:
+            self.face_m = self._mesh.from_wire(self.face_m)
+            self.face_p = self._mesh.from_wire(self.face_p)
+            self._mesh = None
         return self.face_m, self.face_p
 
 
@@ -74,7 +87,7 @@ def start_t_faces(psi_ch: torch.Tensor, mesh: TMesh, project: bool = False,
         send_m = project_face(send_m, plus=not dagger)
     if mesh.nt == 1:
         return Exchange(send_m.contiguous(), send_p.contiguous())
-    send_p, send_m = send_p.contiguous(), send_m.contiguous()
+    send_p, send_m = mesh.to_wire(send_p), mesh.to_wire(send_m)
     recv_p, recv_m = torch.empty_like(send_p), torch.empty_like(send_m)
     g = mesh.group
     works = dist.batch_isend_irecv([
@@ -82,7 +95,7 @@ def start_t_faces(psi_ch: torch.Tensor, mesh: TMesh, project: bool = False,
         dist.P2POp(dist.isend, send_m, mesh.next, g, _TAG_M),
         dist.P2POp(dist.irecv, recv_p, mesh.next, g, _TAG_P),
         dist.P2POp(dist.irecv, recv_m, mesh.prev, g, _TAG_M)])
-    return Exchange(recv_m, recv_p, works, (send_p, send_m))
+    return Exchange(recv_m, recv_p, works, (send_p, send_m), mesh)
 
 
 def t_faces(psi_ch: torch.Tensor, mesh: TMesh, project: bool = False,
@@ -92,6 +105,60 @@ def t_faces(psi_ch: torch.Tensor, mesh: TMesh, project: bool = False,
     return start_t_faces(psi_ch, mesh, project, dagger).wait()
 
 
+# ---- the box: z and w faces beside the t faces -----------------------
+
+# The tags of the box exchange, (the receiver's minus face, its plus
+# face) for each grid axis.  NCCL ignores tags and pairs a peer's
+# messages by the order they are issued in; every rank issues them in
+# one order, t, then z, then w, minus before plus, so the pairs match on
+# tags and on order alike (a grid axis of 2 has one peer both ways).
+_TAGS = {0: (1, 0), 1: (3, 2), 2: (5, 4)}
+
+
+def _ends(f: torch.Tensor, axis: int, xh: int):
+    """(the first, the last) plane of a field with trailing [T, C, Z, W]
+    along grid axis ``axis``: a t plane [1, C, Z, W], a z plane
+    [T, C, 1, W], or a y row [T, C, Z, Xh] of the merged axis."""
+    if axis == 0:
+        return f[:1], f[-1:]
+    if axis == 1:
+        return f[:, :, :1], f[:, :, -1:]
+    return f[..., :xh], f[..., -xh:]
+
+
+def box_faces(psi_ch: torch.Tensor, mesh: TMesh, xh: int):
+    """Every face that the hop of a box reads, received: (face_m, face_p,
+    zw_faces), the t planes [1, 24, Z, W] (a rank's own edge planes where
+    Gt = 1, the periodic wrap) and ``zw_faces`` = (z−1, z+1, y−1, y+1),
+    the z planes [T, 24, 1, W] and the y rows [T, 24, Z, Xh] of the split
+    axes (None for an axis the grid does not split).  A rank sends its
+    last plane to the next rank of the axis (there it is the minus face)
+    and its first to the previous one, and receives the two it reads, in
+    one ``dist.batch_isend_irecv`` issued in the order of ``_TAGS``."""
+    ops, faces = [], {}
+    g = mesh.group
+    for axis in (0, 1, 2):
+        first, last = _ends(psi_ch, axis, xh)
+        if mesh.grid[axis] == 1:
+            if axis == 0:
+                faces[0] = (last.contiguous(), first.contiguous())
+            continue
+        prev, nxt = mesh.neighbours(axis)
+        send_m, send_p = mesh.to_wire(last), mesh.to_wire(first)
+        recv_m, recv_p = torch.empty_like(send_m), torch.empty_like(send_p)
+        tag_m, tag_p = _TAGS[axis]
+        ops += [dist.P2POp(dist.isend, send_m, nxt, g, tag_m),
+                dist.P2POp(dist.isend, send_p, prev, g, tag_p),
+                dist.P2POp(dist.irecv, recv_m, prev, g, tag_m),
+                dist.P2POp(dist.irecv, recv_p, nxt, g, tag_p)]
+        faces[axis] = (recv_m, recv_p)
+    for w in (dist.batch_isend_irecv(ops) if ops else []):
+        w.wait()
+    faces = {a: tuple(mesh.from_wire(f) for f in pair)
+             for a, pair in faces.items()}
+    zw = faces.get(1, (None, None)) + faces.get(2, (None, None))
+    return faces[0][0], faces[0][1], zw
+
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """A contiguous real view of a message (complex as its real pairs)."""
@@ -99,27 +166,55 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(t) if t.is_complex() else t
 
 
-def gather_t(f: torch.Tensor, mesh: TMesh, forward: bool) -> torch.Tensor:
-    """The ring form of ``lattice.gather_neighbor`` for mu = t: f(x ± t̂)
-    of a field with trailing [T_loc, Z, W] (any leading axes; a gauge
-    link or a spinor).  The even-odd index w does not change under a t
-    shift, so this is ``torch.roll`` along −3 with the plane that crosses
-    the slab's edge taken from the neighbour: forward, each rank sends its
-    first plane to rank − 1 and receives rank + 1's as its last row;
-    backward, the last plane to rank + 1 and rank − 1's as its first.
-    One send and one receive a rank (a ring of two pairs them with one
-    peer); on a ring of one, the roll."""
-    if mesh.nt == 1:
-        return torch.roll(f, -1 if forward else 1, dims=-3)
-    send = f[..., :1, :, :] if forward else f[..., -1:, :, :]
-    wire = _wire(send)
+def shift(f: torch.Tensor, mesh: TMesh, axis: int, forward: bool,
+          xh: int = 1) -> torch.Tensor:
+    """The mesh form of ``lattice.gather_neighbor`` along grid axis
+    ``axis`` (0 t, 1 z, 2 y): f(x ± μ̂) of a field with trailing
+    [T_loc, Z_loc, W_loc] (any leading axes; a gauge link or a spinor).
+    A t, z or y shift does not change the checkerboard index k, so this
+    is ``torch.roll`` along −3, −2, or −1 by ``xh`` (a y row of the
+    merged axis), with the plane or row that crosses the box's edge
+    taken from the neighbour: forward, each rank sends its first to the
+    previous rank of the axis and receives the next rank's as its last;
+    backward, its last to the next rank and the previous rank's as its
+    first.  One send and one receive a rank (an axis of two pairs them
+    with one peer); on an axis of one, the roll."""
+    dim, width = {0: (-3, 1), 1: (-2, 1), 2: (-1, xh)}[axis]
+    if mesh.grid[axis] == 1:
+        return torch.roll(f, -width if forward else width, dims=dim)
+    n = f.shape[dim]
+    send = f.narrow(dim, 0 if forward else n - width, width)
+    wire = mesh.to_wire(_wire(send))
     recv = torch.empty_like(wire)
-    to, frm = (mesh.prev, mesh.next) if forward else (mesh.next, mesh.prev)
+    prev, nxt = mesh.neighbours(axis)
+    to, frm = (prev, nxt) if forward else (nxt, prev)
     for w in dist.batch_isend_irecv([
             dist.P2POp(dist.isend, wire, to, mesh.group, _TAG_P),
             dist.P2POp(dist.irecv, recv, frm, mesh.group, _TAG_P)]):
         w.wait()
+    recv = mesh.from_wire(recv)
     plane = torch.view_as_complex(recv) if send.is_complex() else recv
     if forward:
-        return torch.cat([f[..., 1:, :, :], plane], dim=-3)
-    return torch.cat([plane, f[..., :-1, :, :]], dim=-3)
+        return torch.cat([f.narrow(dim, width, n - width), plane], dim=dim)
+    return torch.cat([plane, f.narrow(dim, 0, n - width)], dim=dim)
+
+
+def gather_t(f: torch.Tensor, mesh: TMesh, forward: bool) -> torch.Tensor:
+    """The mesh form of ``lattice.gather_neighbor`` for mu = t
+    (``shift`` along t)."""
+    return shift(f, mesh, 0, forward)
+
+
+def gather_z(f: torch.Tensor, mesh: TMesh, forward: bool) -> torch.Tensor:
+    """The mesh form of ``lattice.gather_neighbor`` for mu = z
+    (``shift`` along z)."""
+    return shift(f, mesh, 1, forward)
+
+
+def gather_w(f: torch.Tensor, mesh: TMesh, forward: bool,
+             xh: int) -> torch.Tensor:
+    """The mesh form of ``lattice.gather_neighbor`` for mu = y: a roll by
+    a y row (``xh`` entries) of the merged axis, the row that crosses
+    the box's edge from the neighbour (``shift`` along y)."""
+    return shift(f, mesh, 2, forward, xh)
+

@@ -1,13 +1,13 @@
-"""Schwarz domain-decomposition preconditioners on a t-ring: the
+"""Schwarz domain-decomposition preconditioners on a process grid: the
 counterpart of the JAX package's ``parallel/schwarz.py`` (the
 reference's QudaSchwarzType additive / multiplicative, quda.h:250).
 
-Each rank's block is its slab's own operator with the t wrap inside the
-slab (``parallel.sharded.local_block``): a preconditioner application is
-``niter`` MR steps of that block, with no communication (on the card
-every hop is K1 on the local geometry).  Any fixed local approximation
-is an admissible block inverse, and the flexible outer GCR (on the
-sharded operator, ``solvers.gcr.gcr(allreduce=mesh.allreduce)``)
+Each rank's block is its box's own operator with the t, z and y wraps
+inside the box (``parallel.sharded.local_block``): a preconditioner
+application is ``niter`` MR steps of that block, with no communication
+(on the card every hop is K1 on the local geometry).  Any fixed local
+approximation is an admissible block inverse, and the flexible outer GCR
+(on the sharded operator, ``solvers.gcr.gcr(allreduce=mesh.allreduce)``)
 absorbs its nonlinearity.
 """
 
@@ -24,7 +24,7 @@ from quda_qkxtm_multigrid_tpu_torch.solvers.mr import mr
 def schwarz_precond(dirac: ShardedDirac, mesh: TMesh, niter: int = 4,
                     omega: float = 0.85):
     """Additive Schwarz: r → ``niter`` MR steps of this rank's block on
-    its slab of r (blockdiag(M)⁻¹ r approximately), no communication."""
+    its box of r (blockdiag(M)⁻¹ r approximately), no communication."""
     if dirac.mesh is not mesh:
         raise ValueError("a ShardedDirac's Schwarz blocks are on its own "
                          "mesh")
@@ -37,15 +37,15 @@ def schwarz_precond(dirac: ShardedDirac, mesh: TMesh, niter: int = 4,
 
 def schwarz_precond_multiplicative(dirac: ShardedDirac, mesh: TMesh,
                                    niter: int = 4, omega: float = 0.85):
-    """Two-colour multiplicative Schwarz: the ranks are coloured by
-    parity (red: rank mod 2 = 0, the JAX package's even sum of mesh
-    coordinates on a (nt, 1, 1) mesh); the red blocks solve r, then the
+    """Two-colour multiplicative Schwarz: the ranks are coloured by the
+    parity of the sum of their grid coordinates (red: it + iz + iw even,
+    the JAX package's ``_shard_color_mask``); the red blocks solve r, then the
     black blocks solve the residual that the red half-sweep left, at the
     cost of one more application of the whole sharded operator.  The
     JAX package masks both halves on every shard; here a rank runs only
     its own colour's block (the other half is exactly zero there)."""
     block = schwarz_precond(dirac, mesh, niter=niter, omega=omega)
-    red = mesh.rank % 2 == 0
+    red = sum(mesh.coords) % 2 == 0
 
     def k(r: torch.Tensor) -> torch.Tensor:
         z1 = block(r) if red else torch.zeros_like(r)

@@ -139,25 +139,31 @@ def momentum_list(q_sq_max: int) -> np.ndarray:
     return np.asarray(moms)
 
 
-def _phases(geom: Geometry, moms, source_coords) -> np.ndarray:
-    """exp(−2πi Σ p_i (x_i − x0_i)/L_i) [nmom, Z, Y, X]."""
+def _phases(geom: Geometry, moms, source_coords, box=None) -> np.ndarray:
+    """exp(−2πi Σ p_i (x_i − x0_i)/L_i) [nmom, Z, Y, X] over the sites of
+    ``geom``; ``box`` = (the whole lattice's geometry, this box's first
+    global z, its first global y): the sites' global coordinates, and L
+    the whole lattice's."""
     x0, y0, z0, _ = source_coords
+    whole, z_first, y_first = (geom, 0, 0) if box is None else box
     x = np.arange(geom.X) - x0
-    y = np.arange(geom.Y) - y0
-    z = np.arange(geom.Z) - z0
+    y = np.arange(geom.Y) + y_first - y0
+    z = np.arange(geom.Z) + z_first - z0
     px = moms[:, 0].reshape(-1, 1, 1, 1)
     py = moms[:, 1].reshape(-1, 1, 1, 1)
     pz = moms[:, 2].reshape(-1, 1, 1, 1)
-    return np.exp(-2j * np.pi * (px * x.reshape(1, 1, 1, -1) / geom.X
-                                 + py * y.reshape(1, 1, -1, 1) / geom.Y
-                                 + pz * z.reshape(1, -1, 1, 1) / geom.Z))
+    return np.exp(-2j * np.pi * (px * x.reshape(1, 1, 1, -1) / whole.X
+                                 + py * y.reshape(1, 1, -1, 1) / whole.Y
+                                 + pz * z.reshape(1, -1, 1, 1) / whole.Z))
 
 
 def momentum_project(c_lex: torch.Tensor, geom: Geometry, moms,
-                     source_coords=(0, 0, 0, 0)) -> torch.Tensor:
+                     source_coords=(0, 0, 0, 0), box=None) -> torch.Tensor:
     """[..., T, Z, Y, X] → [..., T, nmom] with the phases
-    exp(−2πi Σ p_i (x_i − x0_i)/L_i)."""
-    ph = torch.as_tensor(_phases(geom, np.asarray(moms), source_coords),
+    exp(−2πi Σ p_i (x_i − x0_i)/L_i); ``box`` as in ``_phases`` (the
+    box's partial sum)."""
+    ph = torch.as_tensor(_phases(geom, np.asarray(moms), source_coords,
+                                 box),
                          dtype=c_lex.dtype, device=c_lex.device)
     flat = c_lex.reshape(tuple(c_lex.shape[:-3]) + (-1,))
     with full_float32():
@@ -165,35 +171,61 @@ def momentum_project(c_lex: torch.Tensor, geom: Geometry, moms,
 
 
 def momentum_project_dyn(c_lex: torch.Tensor, geom: Geometry, moms,
-                         source) -> torch.Tensor:
+                         source, box=None) -> torch.Tensor:
     """``momentum_project`` with the source shift as a per-momentum
     factor, e^{−2πi p·(x−x0)/L} = e^{−2πi p·x/L} e^{+2πi p·x0/L}
     (the JAX package's form for a traced source; ``source`` any
-    length-4 integers)."""
-    base = momentum_project(c_lex, geom, moms, (0, 0, 0, 0))
+    length-4 integers).  ``box`` as in ``_phases``."""
+    base = momentum_project(c_lex, geom, moms, (0, 0, 0, 0), box)
+    whole = geom if box is None else box[0]
     m = np.asarray(moms, dtype=np.float64)
     x0, y0, z0 = (float(int(v)) for v in list(source)[:3])
-    phase = np.exp(2j * np.pi * (m[:, 0] * x0 / geom.X + m[:, 1] * y0 / geom.Y
-                                 + m[:, 2] * z0 / geom.Z))
+    phase = np.exp(2j * np.pi * (m[:, 0] * x0 / whole.X
+                                 + m[:, 1] * y0 / whole.Y
+                                 + m[:, 2] * z0 / whole.Z))
     return base * torch.as_tensor(phase, dtype=base.dtype,
                                   device=base.device)
 
 
+def box_of(geom: Geometry, mesh):
+    """``_phases``' ``box`` of this rank on ``mesh`` for the whole
+    lattice ``geom`` (None without a mesh)."""
+    if mesh is None:
+        return None
+    return (geom, mesh.box_range(1, geom.Z)[0], mesh.box_range(2, geom.Y)[0])
+
+
 def t_gather(c: torch.Tensor, mesh, space: str = "momentum") -> torch.Tensor:
-    """A correlator of this rank's t rows joined with every rank's along
-    its t axis (``parallel.mesh.TMesh.allgather_t``): [..., T, nmom] in
-    momentum space, [..., T, Z, Y, X] in position space.  The momentum
+    """A correlator of this rank's box joined whole on every rank:
+    [..., T, nmom] in momentum space, each box's partial sum over its
+    sites (projected with the global coordinates' phases) summed over
+    the spatial ranks and joined along t (``LatticeMesh.join_t``; on a
+    t-ring the all-gather in t), [..., T, Z, Y, X] in position space
+    joined by grid coordinates (``allgather_box``).  The momentum
     projection has no t dependence, so each rank projects its own rows
     first.  ``c`` itself when ``mesh`` is None."""
     if mesh is None:
         return c
-    return mesh.allgather_t(c, axis=-2 if space == "momentum" else -4)
+    if space == "momentum":
+        return mesh.join_t(c, -2, partial=True)
+    return mesh.allgather_box(c, (-4, -3, -2))
 
 
 def fft_project(c_lex: torch.Tensor) -> torch.Tensor:
     """The full momentum grid by a spatial FFT (the reference's batched
     CUFFT projection)."""
     return torch.fft.fftn(c_lex, dim=(-3, -2, -1))
+
+
+def fft_join(c_lex: torch.Tensor, mesh) -> torch.Tensor:
+    """``fft_project`` of a field of this rank's box [..., T, Z, Y, X],
+    joined whole on every rank: the rank's t rows gathered over its
+    spatial ranks only (``allgather_spatial``; never the whole lattice),
+    their FFT, then the t rows joined (``join_t``)."""
+    if mesh is None:
+        return fft_project(c_lex)
+    whole = mesh.allgather_spatial(c_lex, (-3, -2))
+    return mesh.join_t(fft_project(whole), -4)
 
 
 # ---- mesons -------------------------------------------------------------

@@ -67,9 +67,9 @@ def one_end_trick(x: torch.Tensor, dirac_plain: Dirac,
     """One noise sample's loop contributions from the solution x = M⁻¹ξ;
     ``dirac_plain`` is the untwisted partner (``plain_wilson_partner``).
     A sharded partner (``parallel.sharded.ShardedDirac``) takes this
-    rank's t-slab of x, ``geom`` the slab's: its ``m`` hops through the
+    rank's box of x, ``geom`` the box's: its ``m`` hops through the
     halo exchange and the t shifts cross ranks on its mesh; the loops
-    are then the slab's rows."""
+    are then the box's rows."""
     u = dirac_plain.u
     mesh = getattr(dirac_plain, "mesh", None)
     tmp3 = apply_gamma5(dirac_plain.m(x))
@@ -110,7 +110,7 @@ def plain_wilson_partner(dirac: Dirac) -> Dirac:
     for twisted mass, clover for twisted clover): the same links, doubled
     links, clover term and, with ``use_kernels``, the same gauge channels
     (one cache), no clover inverse.  The partner of a ``ShardedDirac`` is
-    the same slab's, on its mesh."""
+    the same box's, on its mesh."""
     p = _partner_params(dirac.params, dirac.params.use_kernels)
     clover = dirac.clover if p.has_clover else None
     if isinstance(dirac, ShardedDirac):

@@ -68,9 +68,10 @@ def propagator_gamma5_dag(prop: torch.Tensor) -> torch.Tensor:
 
 def smear_propagator(prop: torch.Tensor, u_smeared: torch.Tensor,
                      geom: Geometry, alpha: float, n: int,
-                     t0: int | None = None) -> torch.Tensor:
+                     t0: int | None = None, mesh=None) -> torch.Tensor:
     """Gaussian-smear the sink of all 12 columns at once (with ``t0``:
-    ``prop`` is the timeslice t0 alone, ``gaussian_smear``'s)."""
+    ``prop`` is the timeslice t0 alone, ``gaussian_smear``'s; ``mesh``
+    as there)."""
     p = prop.permute(2, 4, 0, 1, 3, 5, 6, 7)   # [src_s, src_c, 2, 4, 3, ...]
-    p = gaussian_smear(p, u_smeared, geom, alpha, n, t0)
+    p = gaussian_smear(p, u_smeared, geom, alpha, n, t0, mesh)
     return p.permute(2, 3, 0, 4, 1, 5, 6, 7)

@@ -191,7 +191,7 @@ def fixsink_local(seq: torch.Tensor, fwd: torch.Tensor, particle: int,
 def _shift_col_fwd(u, prop, mu, geom, mesh=None):
     """U_mu(x) P(x+mu) on the sink colour axis; ``prop`` arranged
     [2, 4(src s), 3(src c), 4(snk s), 3(snk c), T, Z, W].  ``mesh``: the
-    fields are t-slabs on that ring (``lattice.gather_neighbor``)."""
+    fields are boxes on that grid (``lattice.gather_neighbor``)."""
     return torch.stack([su3_mul(u[mu, p],
                                 gather_neighbor(prop[1 - p], mu, True, p,
                                                 geom, mesh=mesh))
@@ -236,7 +236,7 @@ def _shifted_terms(seq, fwd, u, geom: Geometry, particle: int,
     """The conserved current [4, 2, T, Z, W] and the one-derivative
     insertions [16, 4, 2, T, Z, W] (either None unless asked for), from
     one set of the four covariant shifts a direction (``mesh``: on the
-    t-slabs of that ring, the t shifts crossing ranks)."""
+    boxes of that ring, the t shifts crossing ranks)."""
     ops = _const(insertion_ops(particle, partflag), fwd)
     eye = _const(np.eye(4), fwd)
     fwd_s, seq_s = _to_shiftable(fwd), _to_shiftable(seq)
@@ -289,7 +289,7 @@ def fixsink_all(seq, fwd, u, geom: Geometry, particle: int, partflag: int,
                 mesh=None):
     """(``fixsink_local``, ``fixsink_noether``, ``fixsink_oneD``), the
     last two from one set of covariant shifts; ``mesh``: the fields are
-    t-slabs on that ring, the t shifts crossing ranks."""
+    boxes on that grid, the shifts along split axes crossing ranks."""
     noe, oned = _shifted_terms(seq, fwd, u, geom, particle, partflag, True,
                                True, mesh)
     return fixsink_local(seq, fwd, particle, partflag), noe, oned

@@ -40,7 +40,7 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     """Solve M x = b; stops on |r|² ≤ tol²|b|² or after ``maxiter``.
     On a real (planar-channel) b the complex products are the channel
     forms.  ``allreduce`` sums each reduction over the ranks of a
-    t-sharded field (``parallel.mesh.TMesh.allreduce``; ω's two dots as
+    sharded field (``parallel.mesh.TMesh.allreduce``; ω's two dots as
     one vector); None leaves them local."""
     dot, scale = ((cDotProduct, _scale) if b.is_complex()
                   else (cDotProduct_ch, cscale_ch))

@@ -43,7 +43,7 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     None leaves them local."""
     if tol_hq is not None and allreduce is not None:
         raise ValueError("tol_hq has no sharded form: its site mean would "
-                         "stay on this rank's slab")
+                         "stay on this rank's box")
     red = (lambda v: v) if allreduce is None else allreduce
     if x0 is None:
         x = torch.zeros_like(b)

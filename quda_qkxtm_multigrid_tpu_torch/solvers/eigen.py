@@ -22,8 +22,8 @@ resolves in a few restarts.  The eigenvalues are then the Rayleigh
 quotients of the operator itself.  ``spectrum_bounds`` gives amin and
 amax from one short unfiltered cycle.
 
-On a t-ring (``allreduce=``, ``parallel.mesh.TMesh.allreduce``) the
-fields are this rank's t-slabs and every inner product is summed over
+On a process grid (``allreduce=``, ``parallel.mesh.TMesh.allreduce``) the
+fields are this rank's boxes and every inner product is summed over
 the ring: a CGS2 pass's dots as one vector, the diagonal entry and the
 norm of a Lanczos step as one scalar each, the Rayleigh quotients and
 residuals of a restart as one vector each.  The projected problem is
@@ -31,7 +31,7 @@ then the same bytes on every rank, and so are its ``eigh`` and the
 restart's rotation of the basis rows.  ``chebyshev_op`` sums nothing:
 the matvec carries its own exchange.  The start vector is drawn by the
 caller (``v0``): the whole field from the generator, then this rank's
-slab of it, so a ring takes the unsharded start.  ``allreduce=None``
+box of it, so a grid takes the unsharded start.  ``allreduce=None``
 leaves every path as it was.
 """
 
@@ -69,7 +69,7 @@ def _start_vector(example: torch.Tensor,
 def _dots(rows: torch.Tensor, w: torch.Tensor,
           allreduce: Optional[Callable] = None) -> torch.Tensor:
     """<rows_j, w> for every row (the conjugate falls on the one vector,
-    never on the basis), summed over the ring by one ``allreduce`` of
+    never on the basis), summed over the grid by one ``allreduce`` of
     the vector."""
     d = torch.mv(rows, w.conj()).conj()
     return d if allreduce is None else allreduce(d)
@@ -84,7 +84,7 @@ def _orthogonalise(w: torch.Tensor, rows: torch.Tensor,
 
 
 def _norm(w: torch.Tensor, allreduce: Optional[Callable]) -> float:
-    """|w| on the host, summed over the ring."""
+    """|w| on the host, summed over the grid."""
     if allreduce is None:
         return float(torch.linalg.vector_norm(w))
     return math.sqrt(float(allreduce(torch.vdot(w, w).real)))
@@ -126,7 +126,7 @@ def _cycle_tmat(op: Callable, basis: torch.Tensor, tmat: torch.Tensor,
 
 def _residual_norms(triples, allreduce: Optional[Callable]) -> torch.Tensor:
     """|a − λ v| for each (a, λ, v) of ``triples`` (an iterable, made one
-    at a time), summed over the ring as one vector of squares."""
+    at a time), summed over the grid as one vector of squares."""
     if allreduce is None:
         return torch.stack([torch.linalg.vector_norm(a - lam_i * v)
                             for a, lam_i, v in triples])
@@ -151,7 +151,7 @@ def _rayleigh_ritz(matvec: Callable, ritz: torch.Tensor, shape,
 
 
 def _first_row(example: torch.Tensor, gen, v0) -> torch.Tensor:
-    """The normalised start vector, flat: ``v0`` (this rank's slab of a
+    """The normalised start vector, flat: ``v0`` (this rank's box of a
     whole normalised field) or ``_start_vector(example, gen)``."""
     return (_start_vector(example, gen) if v0 is None else v0).reshape(-1)
 
@@ -193,7 +193,7 @@ def lanczos(matvec: Callable, example: torch.Tensor, nev: int,
     given, receives the cycles (``restarts``), the applications of
     ``matvec`` (``matvecs``) and the host seconds (``secs``, the device
     synchronised).  ``allreduce`` sums every inner product over the
-    ranks of a t-sharded field (module docstring); ``v0``, the start
+    ranks of a sharded field (module docstring); ``v0``, the start
     vector, replaces the draw from ``gen``."""
     if ncv is None:
         ncv = max(2 * nev + 8, nev + 16)

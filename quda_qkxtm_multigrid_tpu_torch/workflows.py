@@ -29,19 +29,22 @@ instance, the inner one on its float32 instance.  A gauge on the CPU
 takes the plain operator.  The JAX package's gate (2.2 M sites) was a
 rule for a 16 GB TPU.
 
-With ``mesh`` (a t-ring, ``parallel.mesh.TMesh``) every workflow runs
-t-sharded: each rank takes its slab of the gauge (the whole gauge given
-is read once and not kept; a slab is taken as it is), builds its slab
-of the operator from it (``make_operator(mesh=…)``, through
+With ``mesh`` (a t-ring or a (Gt, Gz, Gw) grid,
+``parallel.mesh.LatticeMesh``) every workflow runs sharded: each rank
+takes its box of the gauge (the whole gauge given is read once and not
+kept; a box is taken as it is), builds its box of the operator from it
+(``make_operator(mesh=…)``, through
 ``parallel.sharded.make_sharded_dirac``), solves each column through
 ``invert(mesh=…)`` (the sharded chain's CG, its ``cg-mixed`` in
 complex128, or the plain sharded CG off the card) or the pair of MG
-preconditioners set up on the slabs, and gathers the correlators and
-loops whole on every rank.  No field that a rank keeps has the whole
-lattice's t extent: the propagators and smeared links come back as
-slabs, and the one whole field made on a rank is a source or noise
-vector drawn from a generator, sliced at once (so a ring draws the
-unsharded numbers).
+preconditioners set up on the boxes, and joins the correlators and
+loops whole on every rank (the momentum projection with the sites'
+global coordinates, summed over the spatial ranks; the loops' FFT over
+the spatial ranks of each t row).  No field that a rank keeps has the
+whole lattice's extent on a split axis: the propagators and smeared
+links come back as boxes, and the one whole field made on a rank is a
+source or noise vector drawn from a generator, cut at once (so a grid
+draws the unsharded numbers).
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.ops.gamma import apply_gamma5
 from quda_qkxtm_multigrid_tpu_torch.ops.smear import ape_smear, gaussian_smear
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
-    local_geometry, t_slab)
+    box_slab, local_geometry)
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
     ShardedDirac, make_sharded_dirac)
 from quda_qkxtm_multigrid_tpu_torch.physics import contract as con
@@ -113,9 +116,9 @@ def make_operator(u: torch.Tensor, params: DiracParams, geom: Geometry,
     """The production operator on ``u``'s device (module docstring):
     ``compact.make_compact`` (bf16 tier) where a complex64 bundle does
     not fit, else ``make_dirac`` with ``use_kernels`` on the card and
-    without on the CPU.  With ``mesh`` (a t-ring), this rank's slab of
-    that operator, built from this rank's slab of ``u`` (``u`` the whole
-    gauge or the slab; ``parallel.sharded.make_sharded_dirac``)."""
+    without on the CPU.  With ``mesh`` (a process grid), this rank's box of
+    that operator, built from this rank's box of ``u`` (``u`` the whole
+    gauge or the box; ``parallel.sharded.make_sharded_dirac``)."""
     if mesh is not None:
         return make_sharded_dirac(_slab(u, geom, mesh), dataclasses.replace(
             params, use_kernels=_use_kernels(u)), geom, mesh)
@@ -167,21 +170,22 @@ def _solver(dirac) -> str:
 
 
 def _slab(f: torch.Tensor, geom: Geometry, mesh) -> torch.Tensor:
-    """This rank's t-slab (t the axis −3) of ``f``, a field of the whole
-    lattice ``geom`` or already this rank's slab, on the mesh's device."""
-    if f.shape[-3] == geom.T:
-        return t_slab(f, mesh)
-    t_loc = local_geometry(geom, mesh).T
-    if f.shape[-3] != t_loc:
-        raise ValueError(f"a field with {f.shape[-3]} t rows is neither "
-                         f"the whole lattice's (T = {geom.T}) nor this "
-                         f"rank's slab (T_loc = {t_loc})")
+    """This rank's box (trailing [T, Z, W]) of ``f``, a field of the whole
+    lattice ``geom`` or already this rank's box, on the mesh's device."""
+    lat = tuple(f.shape[-3:])
+    if lat == geom.lat_shape:
+        return box_slab(f, mesh)
+    loc = local_geometry(geom, mesh).lat_shape
+    if lat != loc:
+        raise ValueError(f"a field with the lattice axes {lat} is neither "
+                         f"the whole lattice's {geom.lat_shape} nor this "
+                         f"rank's box {loc}")
     return f.to(mesh.device)
 
 
 def _slabs(mesh, geom: Geometry, *fields):
-    """(the local geometry, each field's t-slab by ``_slab``) on
-    ``mesh``, or (``geom``, the fields) when ``mesh`` is None."""
+    """(the local geometry, each field's box by ``_slab``) on ``mesh``, or
+    (``geom``, the fields) when ``mesh`` is None."""
     if mesh is None:
         return (geom,) + fields
     return (local_geometry(geom, mesh),) + tuple(
@@ -193,19 +197,30 @@ def smeared_sources(u_ape: torch.Tensor, geom: Geometry, coords,
                     mesh=None) -> torch.Tensor:
     """The twelve Gaussian-smeared point sources of ``coords``
     [12 (spin-major), 2, 4, 3, T, Z, W], smeared as one batch.  With
-    ``mesh``: this rank's t-slabs, made on the slab (zero off the rank
-    that holds the source's t) and smeared over ``u_ape``, the slab's
-    smeared links (the smearing is spatial)."""
+    ``mesh``: this rank's boxes, the point made on the rank whose box
+    holds its global coordinates, at its local ones, and smeared over
+    ``u_ape``, the box's smeared links, by every rank of the source's t
+    rows (the smearing is spatial: its z and y hops cross ranks); the
+    ranks of other t rows hold zeros."""
     dev = u_ape.device
     if mesh is not None:
-        t_first, _ = mesh.t_range(geom.T)
         x, y, z, t = (int(c) for c in coords)
+        firsts = [mesh.box_range(a, n)[0]
+                  for a, n in enumerate((geom.T, geom.Z, geom.Y))]
         geom = local_geometry(geom, mesh)
-        if not 0 <= t - t_first < geom.T:
+        local = (x, y - firsts[2], z - firsts[1], t - firsts[0])
+        if not 0 <= local[3] < geom.T:
             return torch.zeros((12, 2, 4, 3) + geom.lat_shape, dtype=dtype,
                                device=dev)
-        # the slab's origin is even: its local sites keep their parity
-        coords = (x, y, z, t - t_first)
+        # the box's origin is even: its local sites keep their parity
+        if 0 <= local[1] < geom.Y and 0 <= local[2] < geom.Z:
+            bs = torch.stack([fields.point_source_dyn(geom, local, s, c,
+                                                      dtype, dev)
+                              for s in range(4) for c in range(3)])
+        else:
+            bs = torch.zeros((12, 2, 4, 3) + geom.lat_shape, dtype=dtype,
+                             device=dev)
+        return gaussian_smear(bs, u_ape, geom, alpha, nsmear, mesh=mesh)
     bs = torch.stack([fields.point_source_dyn(geom, coords, s, c, dtype, dev)
                       for s in range(4) for c in range(3)])
     return gaussian_smear(bs, u_ape, geom, alpha, nsmear)
@@ -216,8 +231,8 @@ def mg_solve_fn(mg, tol: float = 1e-8, n_krylov: int = 10,
     """An MG preconditioner as a workflow solver b → (x, true_rel) (the
     reference's per-column GCR-MG solve); each solve appends its outer
     iterations to the returned function's ``iters``.  ``mesh``: ``mg`` is
-    a sharded preconditioner on that ring (``setup_mg`` on a
-    ``ShardedDirac``, or ``shard_mg``'s) and b this rank's slab."""
+    a sharded preconditioner on that grid (``setup_mg`` on a
+    ``ShardedDirac``, or ``shard_mg``'s) and b this rank's box."""
     from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import mg_solve
 
     def solve(b):
@@ -293,12 +308,13 @@ def forward_prop(dirac, u_ape, geom: Geometry, coords, alpha: float = 4.0,
 
 
 def _contract(pu, pd, geom: Geometry, moms, source, space: str,
-              t_batch: int = 4, mesh=None):
+              t_batch: int = 4, mesh=None, whole=None):
     """Mesons and baryons of the two propagators, ``t_batch`` timeslices
     at a time (the contraction is site-local; the baryon terms'
     intermediates grow with the batch), then to lexicographic order and,
     in momentum space, projected.  With ``mesh`` the propagators are this
-    rank's t-slabs (``geom`` the slab's), and the correlators come back
+    rank's boxes (``geom`` the box's, ``whole`` the lattice's; the
+    phases take the global coordinates), and the correlators come back
     whole (``physics.contract.t_gather``)."""
     mes, bar = [], []
     for t0 in range(0, geom.T, t_batch):
@@ -310,7 +326,8 @@ def _contract(pu, pd, geom: Geometry, moms, source, space: str,
     for c in (torch.cat(mes, dim=-3), torch.cat(bar, dim=-3)):
         lex = con.corr_to_lex(c, geom)
         if space == "momentum":
-            lex = con.momentum_project_dyn(lex, geom, moms, source)
+            lex = con.momentum_project_dyn(lex, geom, moms, source,
+                                           con.box_of(whole, mesh))
         out.append(con.t_gather(lex, mesh, space))
     return tuple(out)
 
@@ -339,16 +356,16 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     synchronised around each), each flavour's ``forward_prop`` stats
     under "up" / "dn", the smeared ``sources`` and the MG setup split.
 
-    ``mesh`` (a t-ring, ``parallel.mesh.TMesh``; ``u`` the whole gauge or
-    this rank's slab): each rank runs the workflow on its t-slab.  APE
-    and the Gaussian smearing are spatial, so slab-local; the point
-    sources are made on the slab; every column solves through
+    ``mesh`` (a process grid, ``parallel.mesh.TMesh``; ``u`` the whole gauge or
+    this rank's box): each rank runs the workflow on its box.  APE
+    and the Gaussian smearing are spatial, so box-local; the point
+    sources are made on the box; every column solves through
     ``invert(mesh=…)`` on the rank's ``make_operator(mesh=…)``, or with
     ``mg_params`` through ``mg_solve(mesh=…)`` on the pair set up on the
-    slabs (``setup_mg_pair`` on the sharded operators).  The contraction
-    runs on the slab and the correlators come back whole on every rank;
+    boxes (``setup_mg_pair`` on the sharded operators).  The contraction
+    runs on the box and the correlators come back whole on every rank;
     the propagators, ``u_ape`` and ``stats``' fields are the rank's
-    slabs (``run_threep`` and ``run_loops`` take them so)."""
+    boxes (``run_threep`` and ``run_loops`` take them so)."""
     _check_space(corr_space)
     dev = u.device
     secs = {}
@@ -394,7 +411,7 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
         flavour_stats[name] = st
     moms = con.momentum_list(q_sq_max)
     mes, bar = _contract(props["up"], props["dn"], geom_l, moms, source,
-                         corr_space, mesh=mesh)
+                         corr_space, mesh=mesh, whole=geom)
     lap("contract")
     if stats is not None:
         stats.update(secs=secs, sources=sources, **flavour_stats)
@@ -406,34 +423,41 @@ def run_twop(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
 
 
 def _sink_timeslice(prop, u_ape, geom: Geometry, t: int, alpha: float,
-                    n: int):
+                    n: int, mesh=None):
     """The sink-smeared propagator's timeslice t in lexicographic order
     [4, 4, 3, 3, Z, Y, X], smearing that timeslice alone (the Gaussian
-    hop is spatial)."""
+    hop is spatial; ``mesh``: across the ranks of the box's t rows)."""
     p_t = smear_propagator(prop[..., t:t + 1, :, :], u_ape, geom, alpha, n,
-                           t0=t)
+                           t0=t, mesh=mesh)
     return tp.timeslice_to_lex(p_t[..., 0, :, :], geom, t)
 
 
-def _pow2_scale(t: torch.Tensor) -> float:
+def _pow2_scale(t: Optional[torch.Tensor], mesh=None) -> float:
     """The power of two that brings ``t``'s largest entry to [1, 2):
     multiplying by it is exact, and every solve and smearing step is
     linear, so scaling a source and unscaling the solution changes no
-    bit of the result unless the unscaled one had underflowed."""
-    m = float(t.abs().max())
+    bit of the result unless the unscaled one had underflowed.  With
+    ``mesh``: the largest entry over every rank (``t`` None where a rank
+    holds none of it)."""
+    m = 0.0 if t is None else float(t.abs().max())
+    if mesh is not None:
+        m = float(mesh.allmax(torch.tensor(m, dtype=torch.float64,
+                                           device=mesh.device)))
     if m == 0.0 or not math.isfinite(m):
         return 1.0
     return 2.0 ** -math.floor(math.log2(m))
 
 
 def _seq_sources(seq, u_ape, geom: Geometry, t: int, alpha: float,
-                 n: int) -> torch.Tensor:
+                 n: int, mesh=None) -> torch.Tensor:
     """The twelve solves' sources of a sequential source [4(q), 3(s), 4,
-    3, Z, Y, X]: γ5, Gaussian smearing of the sink timeslice alone, and
-    the full fields [12, 2, 4, 3, T, Z, W], zero off the timeslice."""
+    3, Z, Y, X]: γ5, Gaussian smearing of the sink timeslice alone
+    (``mesh`` as in ``_sink_timeslice``), and the full fields [12, 2, 4,
+    3, T, Z, W], zero off the timeslice."""
     ts = tp.timeslice_sources(seq, geom, t).reshape(
         (12, 2, 4, 3, 1, geom.Z, geom.W))
-    ts = gaussian_smear(apply_gamma5(ts), u_ape, geom, alpha, n, t0=t)
+    ts = gaussian_smear(apply_gamma5(ts), u_ape, geom, alpha, n, t0=t,
+                        mesh=mesh)
     full = torch.zeros((12, 2, 4, 3) + geom.lat_shape, dtype=ts.dtype,
                        device=ts.device)
     full[..., t:t + 1, :, :] = ts
@@ -471,9 +495,9 @@ def run_threep(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     ``sources`` and ``flavor`` (the sources and solutions of the scaled
     sequential source, and its ``scale``).
 
-    ``mesh`` (a t-ring; ``u``, ``u_ape`` and the propagators each whole
-    or this rank's slab, as the meshed ``run_twop`` returns them): each
-    rank works on its t-slabs.  The sink timeslice and
+    ``mesh`` (a process grid; ``u``, ``u_ape`` and the propagators each whole
+    or this rank's box, as the meshed ``run_twop`` returns them): each
+    rank works on its boxes.  The sink timeslice and
     its sequential sources live on the rank that holds ``tsink`` (the
     other ranks hold zeros there, and the scale is summed over the
     ring); the columns solve through ``invert(mesh=…)`` (or the
@@ -493,14 +517,15 @@ def run_threep(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     sink = None
     if owner:
         sink = {name: _sink_timeslice(p, u_ape, geom_l, ts, gauss_alpha,
-                                      gauss_n)
+                                      gauss_n, mesh)
                 for name, p in (("up", prop_up), ("dn", prop_dn))}
     lap("smear")
 
     def project(c, scale):
         lex = con.corr_to_lex(c, geom_l)
         if corr_space == "momentum":
-            lex = con.momentum_project_dyn(lex, geom_l, -moms, source)
+            lex = con.momentum_project_dyn(lex, geom_l, -moms, source,
+                                           con.box_of(geom, mesh))
         return con.t_gather(lex, mesh, corr_space).to(torch.complex128) \
             / scale
 
@@ -509,30 +534,26 @@ def run_threep(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
         proj = tp.projector(proj_name, particle)
         results[proj_name] = {}
         for partflag in (1, 2):
-            scale, bs = 0.0, None
+            bs, seq = None, None
             if owner:
                 seq = (tp.seq_source_part1(sink["up"], sink["dn"], proj)
                        if partflag == 1 else tp.seq_source_part2(sink["up"],
                                                                  proj))
                 lap("seq_source")
-                # a sequential source is ~|S(t_sink)|², whose |r|² far
-                # from the source underflows float32: smear, solve and
-                # contract a power-of-two multiple (the reference scales
-                # by 1e10) and take the scale off in complex128, where
-                # the 3pt (~1e-36 at t_sink = 12 on a hot 32³×64 gauge)
-                # keeps its digits
-                scale = _pow2_scale(seq)
+            # a sequential source is ~|S(t_sink)|², whose |r|² far from
+            # the source underflows float32: smear, solve and contract a
+            # power-of-two multiple (the reference scales by 1e10) and
+            # take the scale off in complex128, where the 3pt (~1e-36 at
+            # t_sink = 12 on a hot 32³×64 gauge) keeps its digits; on a
+            # mesh the scale of the largest entry of every rank's part
+            scale = _pow2_scale(seq, mesh)
+            if owner:
                 bs = _seq_sources(seq * scale, u_ape, geom_l, ts,
-                                  gauss_alpha, gauss_n)
+                                  gauss_alpha, gauss_n, mesh)
                 del seq
-            if mesh is not None:
-                # one rank adds its scale to zeros: the sum is exact
-                scale = float(mesh.allreduce(torch.tensor(
-                    scale, dtype=torch.float64, device=mesh.device)))
-                if bs is None:
-                    bs = torch.zeros((12, 2, 4, 3) + geom_l.lat_shape,
-                                     dtype=prop_up.dtype,
-                                     device=prop_up.device)
+            elif mesh is not None:
+                bs = torch.zeros((12, 2, 4, 3) + geom_l.lat_shape,
+                                 dtype=prop_up.dtype, device=prop_up.device)
             lap("smear")
             # the opposite twist: part 1 of the proton solves with the
             # minus flavour
@@ -581,13 +602,14 @@ def _finalize_loops(first, n_first: float, second, n_second: float,
                     mesh=None) -> dict:
     """{type: fft_project(first / n_first + second / n_second)}, the
     second term left out where ``second`` is None; with ``mesh``, each
-    rank's t rows joined whole (the FFT is spatial)."""
+    rank's box gathered over its spatial ranks, transformed, and the t
+    rows joined whole (``physics.contract.fft_join``)."""
     out = {}
     for name, field in LOOP_NAMES.items():
         a = getattr(first, field) / n_first
         if second is not None:
             a = a + getattr(second, field) / n_second
-        out[name] = con.t_gather(con.fft_project(a), mesh, "position")
+        out[name] = con.fft_join(a, mesh)
     return out
 
 
@@ -617,13 +639,13 @@ def run_loops(u: torch.Tensor, geom: Geometry, kappa: float, mu: float,
     high-precision solution, its true residual, iterations), and the
     ``partner``.
 
-    ``mesh`` (a t-ring; ``u`` whole or this rank's slab, ``gen`` in the
-    same state on every rank): each rank solves and contracts its t-slab.
-    The noise is drawn on the whole lattice and sliced, so a ring gives
+    ``mesh`` (a process grid; ``u`` whole or this rank's box, ``gen`` in the
+    same state on every rank): each rank solves and contracts its box.
+    The noise is drawn on the whole lattice and cut, so a grid gives
     the unsharded numbers; the partner is the sharded operator's
     (``plain_wilson_partner``), the one-end trick's t shifts cross
     ranks, and the loops come back whole on every rank (``stats``' fields
-    are the rank's slabs)."""
+    are the rank's boxes)."""
     dev = u.device
     secs = {}
     lap = _stage_clock(dev, secs)
@@ -695,17 +717,17 @@ def run_loops_wexact(u: torch.Tensor, geom: Geometry, kappa: float,
     stage (``secs``: operators, lanczos, exact, stochastic,
     finalize).
 
-    ``mesh`` (a t-ring; ``u`` whole or this rank's slab, ``gen`` in the
-    same state on every rank): the Lanczos runs on the rank's slab of
+    ``mesh`` (a process grid; ``u`` whole or this rank's box, ``gen`` in the
+    same state on every rank): the Lanczos runs on the rank's box of
     the normal operator (``ShardedDirac.matpc_dagm`` or ``mdagm``, its
     hops K4 in the fields' precision), every inner product summed over
-    the ring (``solvers.eigen``, ``allreduce=``); its start vectors and
-    the noise are drawn whole from ``gen`` and sliced, so a ring takes
+    the grid (``solvers.eigen``, ``allreduce=``); its start vectors and
+    the noise are drawn whole from ``gen`` and cut, so a grid takes
     the unsharded draws.  The modes' contributions and the stochastic
     remainder (the sharded CG from ``deflate_guess``) go through the
     sharded one-end trick, and the loops come back whole on every rank,
     as ``run_loops(mesh=…)`` returns them; the returned ``EigResult``
-    holds the rank's slabs of the modes."""
+    holds the rank's boxes of the modes."""
     dev = u.device
     secs = {}
     lap = _stage_clock(dev, secs)
@@ -722,7 +744,7 @@ def run_loops_wexact(u: torch.Tensor, geom: Geometry, kappa: float,
         example = example[0]
 
     def start():
-        """The start vector of a ring: drawn whole, this rank's slab."""
+        """The start vector on a mesh: drawn whole, this rank's box."""
         if mesh is None:
             return None
         whole = torch.zeros((), dtype=u.dtype, device=dev).expand(

@@ -2,18 +2,19 @@
 ``tests/test_torch_mesh_*.py`` files (MG, workflows, eigen, the deflated
 loops, the slab-local build and what a rank keeps, the sharded setup).
 
-    python tests/_torch_mesh_worker.py RANK NT WORKDIR
+    python tests/_torch_mesh_worker.py RANK GT[,GZ,GW] WORKDIR
 
 Reads ``WORKDIR/spec.json`` (the geometries and the jobs) and
 ``WORKDIR/inputs.npz`` (the whole lattice's fields, made by the test
-from the JAX package), joins the ring of NT ranks through the file store
-``WORKDIR/store``, runs every job on this rank's t-slab with the port
-alone, and writes its results to ``WORKDIR/out_RANK.npz``.  The
-"matpc" and "invert" jobs write their slabs under plain names; the
-other jobs (``JOBS``) name each result with how the test joins the
-ranks' values (``tests/_torch_ring.py``): "...|cat" a t-slab [..., T, Z,
-W], "...|same" a value every rank holds whole (it must be the same on
-every rank), "...|each" one rank's own value.  It imports neither JAX
+from the JAX package), joins the ring of GT ranks, or the grid (GT, GZ,
+GW), through the file store ``WORKDIR/store``, runs every job on this
+rank's t-slab or box with the port alone, and writes its results to
+``WORKDIR/out_RANK.npz``.  The "matpc" and "invert" jobs write their
+slabs under plain names; the other jobs (``JOBS``) name each result
+with how the test joins the ranks' values (``tests/_torch_ring.py``):
+"...|cat" a box [..., T, Z, W], "...|same" a value every rank holds
+whole (it must be the same on every rank), "...|each" one rank's own
+value.  It imports neither JAX
 nor the JAX package.
 """
 
@@ -39,8 +40,9 @@ from quda_qkxtm_multigrid_tpu_torch.mg.transfer import BlockGeometry
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     from_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.ops.smear import ape_smear, covdev_apply
+from quda_qkxtm_multigrid_tpu_torch.parallel import halo
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
-    init_ring, local_geometry, t_slab)
+    init_ring, local_geometry, make_lattice_mesh, t_slab)
 from quda_qkxtm_multigrid_tpu_torch.parallel.schwarz import (
     schwarz_precond, schwarz_precond_multiplicative)
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
@@ -167,6 +169,62 @@ def _job_pieces(job, data, geom, mesh, out):
     out["prolong|cat"] = ts.prolong(vc.narrow(2, t0, n)).numpy()
 
 
+def _job_hop(job, data, geom, mesh, out):
+    """The bare hop of this rank's box (``ShardedDirac.dslash``: the face
+    exchange, then K4's plain version on the CPU) of the whole lattice's
+    spinor ``psi`` [2, 4, 3, T, Z, W], parity 0 from parity 1; with
+    ``equal_tags`` every halo message carries one tag, so only the order
+    in which they are issued pairs them."""
+    ds = shard_dirac(_dirac(data, job, geom, mesh), mesh)
+    psi = spinor_slab_from_numpy(data[job["psi"]], mesh)
+    tags = dict(halo._TAGS)
+    if job.get("equal_tags"):
+        halo._TAGS.update({a: (0, 0) for a in halo._TAGS})
+    try:
+        out[f"{job['name']}|cat"] = ds.dslash(psi[1], 0).numpy()
+    finally:
+        halo._TAGS.update(tags)
+
+
+def _job_refusals(job, data, geom, mesh, out):
+    """What ``make_lattice_mesh`` refuses on this group: a grid of
+    another size, and a backend other than the group's (each error's
+    message, or "" where it did not raise)."""
+    cases = {"size": dict(grid=(mesh.nt, mesh.nz, 1) if mesh.nw > 1
+                          else (mesh.nt, mesh.nz, 2)),
+             "backend": dict(grid=mesh.grid, backend="nccl")}
+    for name, kw in cases.items():
+        try:
+            make_lattice_mesh(device="cpu", **kw)
+            msg = ""
+        except ValueError as e:
+            msg = str(e)
+        out[f"refusals/{name}|same"] = np.asarray(msg)
+
+
+def _job_box_pieces(job, data, geom, mesh, out):
+    """The box pieces: the neighbour gather of every direction both ways,
+    the covariant shifts, and a transfer's restrict (the box's coarse
+    rows) and prolong (of the whole coarse field's box) on the box."""
+    u = spinor_slab_from_numpy(data["u"], mesh)
+    psi = spinor_slab_from_numpy(data["psi"], mesh)
+    gl = local_geometry(geom, mesh)
+    for fwd in (True, False):
+        for mu in range(4):
+            out[f"gather/{mu}/{fwd}|cat"] = gather_neighbor(
+                psi[0], mu, fwd, 1, gl, mesh=mesh).numpy()
+            out[f"covdev/{mu}/{fwd}|cat"] = covdev_apply(
+                u, psi, mu, fwd, gl, mesh=mesh).numpy()
+    bg = BlockGeometry(geom, *job["block"], nvec=job["nvec"])
+    tr = convert.transfer_from_numpy(data["mg_v"], bg, device="cpu")
+    ts = tr.t_slab(mesh)
+    out["restrict|each"] = ts.restrict(psi).numpy()
+    vc = torch.tensor(data["coarse_vec"])
+    for axis in range(3):
+        vc = vc.narrow(axis + 2, *mesh.box_range(axis, vc.shape[axis + 2]))
+    out["prolong|cat"] = ts.prolong(vc).numpy()
+
+
 def _job_workflow(job, data, geom, mesh, out):
     """``run_twop``, ``run_threep`` or ``run_loops`` with ``mesh``: the
     correlators and loops whole on every rank, the 2pt's propagators and
@@ -270,18 +328,20 @@ def _job_build(job, data, geom, mesh, out):
                 u, gl, 0.5, 2, spatial_only=spatial, mesh=mesh).numpy()
 
 
-def _whole_t(obj, t_whole: int, path: str = "", seen=None) -> list:
+def _whole_t(obj, t_whole, path: str = "", seen=None) -> list:
     """The paths of the tensors reachable from ``obj`` (attributes,
     buffers, dict / sequence items, dataclass fields) that have an axis
-    of the whole lattice's t extent ``t_whole``, and how many tensors
-    were seen (as ``[(path, shape)], count``)."""
+    of the whole lattice's t extent ``t_whole`` (or of any extent of a
+    sequence of them), and how many tensors were seen (as
+    ``[(path, shape)], count``)."""
     seen = set() if seen is None else seen
     if id(obj) in seen:
         return [], 0
     seen.add(id(obj))
+    wholes = (t_whole,) if isinstance(t_whole, int) else tuple(t_whole)
     if torch.is_tensor(obj):
         return ([(path, tuple(obj.shape))]
-                if t_whole in obj.shape else []), 1
+                if any(n in obj.shape for n in wholes) else []), 1
     if isinstance(obj, dict):
         items = obj.items()
     elif isinstance(obj, (list, tuple)):
@@ -347,7 +407,7 @@ def _job_memory(job, data, geom, mesh, out):
         kept["wexact"] = (eig, st)
     finally:
         workflows._FORCE_KERNELS = None
-    found, count = _whole_t(kept, geom.T)
+    found, count = _whole_t(kept, job.get("whole", geom.T))
     out["memory/whole|each"] = np.asarray([f"{p} {s}" for p, s in found],
                                           dtype=str)
     out["memory/tensors|each"] = np.asarray(count)
@@ -394,14 +454,15 @@ JOBS = {"mg": _job_mg, "mg_vcycle": _job_mg, "bench_mg": _job_bench,
         "pieces": _job_pieces, "twop": _job_workflow,
         "threep": _job_workflow, "loops": _job_workflow,
         "eigen": _job_eigen, "wexact": _job_wexact, "build": _job_build,
-        "memory": _job_memory, "setup": _job_setup}
+        "memory": _job_memory, "setup": _job_setup, "hop": _job_hop,
+        "box_pieces": _job_box_pieces, "refusals": _job_refusals}
 
 
-def run(rank: int, nt: int, work: Path):
+def run(rank: int, grid: tuple, work: Path):
     torch.set_num_threads(1)
     spec = json.loads((work / "spec.json").read_text())
     data = np.load(work / "inputs.npz")
-    mesh = init_ring(nt, rank, f"file://{work / 'store'}", device="cpu")
+    mesh = init_ring(grid, rank, f"file://{work / 'store'}", device="cpu")
     ops, out = {}, {}
     for job in spec["jobs"]:
         grp, name = job["group"], job["name"]
@@ -433,4 +494,6 @@ def run(rank: int, nt: int, work: Path):
 
 
 if __name__ == "__main__":
-    run(int(sys.argv[1]), int(sys.argv[2]), Path(sys.argv[3]))
+    grid = tuple(int(g) for g in sys.argv[2].split(","))
+    run(int(sys.argv[1]), grid if len(grid) == 3 else (grid[0], 1, 1),
+        Path(sys.argv[3]))

@@ -381,7 +381,9 @@ def test_odd_local_t_raises():
 
 @pytest.mark.parametrize("grid", [(2, 2, 1), (2, 1, 2), (1, 1, 4)])
 def test_z_or_w_split_raises(grid):
-    with pytest.raises(ValueError, match="splits t only"):
+    """A z or w split is a grid the mesh takes (since the box path): what
+    raises here is the missing process group, not the grid."""
+    with pytest.raises(RuntimeError, match="not initialised"):
         make_lattice_mesh(grid, device="cpu")
 
 
