@@ -73,10 +73,14 @@ and does not print its last line:
    and 12-channel faces against K4 and its plain version; (b) at 32³×64
    ``invert(mesh=…)`` on a ring of one rank over NCCL, with K4 and with
    K5, against the unsharded CG (iterations, complex128 true residual,
-   solution, warm seconds, launch counts); (c) K4 and K5 against their
-   plain versions on (b)'s operands at T_loc = 64 (the chain's float32
-   forms, the float64 hop), then K4, K5, K1 and the plain versions timed
-   in one call at 32³×64, with the byte bounds;
+   solution, warm seconds, launch counts, K4's second output's); (c) K4
+   and K5 against their plain versions on (b)'s operands at T_loc = 64
+   (the chain's float32 forms, the float64 hop), the sharded
+   matpc†matpc on K4 with its second output against the unsharded K1
+   chain in float32 and complex128 (four K4 launches, no plain A⁻¹†),
+   then K4 (bare and with the second output), K5, K1, the sharded and
+   unsharded chains and the plain versions timed in one call at
+   32³×64, with the bounds;
 10. the JAX package's stand-alone Pallas hops V1–V4 as instances of K1
     (recon-18 and recon-12 float) and K1d (bf16-ψ ``g16s16``): against
     their plain versions at 16³×32, timed at 32³×64 with their bounds;
@@ -179,9 +183,11 @@ and does not print its last line:
     plain on the path's sharded operator, each run's peak memory; (d)
     ``run_loops_wexact(mesh=…)`` at 32³×64 in complex128 with phase
     12d's settings and generator seed, its Lanczos on the slab's
-    M_pc†M_pc through K4 float64 hops: eigenvalues within 1e-8 of phase
-    12d's, the worst Ritz residual, the loops against phase 12d's, no
-    K1 launch, its K4 float64 launches and stage seconds, then the K4
+    M_pc†M_pc through the fused chain of K4 float64 hops (the seconds
+    beside PR 13's, with the unfused operator): eigenvalues within 1e-8
+    of phase 12d's, the worst Ritz residual, the loops against phase
+    12d's, no K1 launch, its K4 float64 launches and stage seconds, then
+    the K4
     float64 hop on the path's operands against plain and timed with its
     byte bound; (e) (run right after (a), on its whole-lattice setup)
     ``setup_mg`` on the slab's operator at 32³×64 in complex64 with
@@ -196,11 +202,13 @@ and does not print its last line:
     of the grids (1, 2, 1), (1, 1, 2), (2, 2, 1) and (2, 2, 2) cut from
     one global field with the t, z and y faces its exchange would
     receive: K4 on the box (``csrc/dslash_ch_box.cu``) in every form of
-    the sharded chain, float32 and bf16 tier, and the float64 bare hop,
-    against its plain version and against K1 on the global field
-    restricted to the box; then at 32³×64 the boxes of (1, 2, 1),
-    (1, 1, 2) and (1, 2, 2) timed beside K4's t-local hop, with their
-    plain versions and byte bounds; (b) four processes on the card as a
+    the sharded chain, float32, bf16 tier and float64, with and without
+    the second output, and the float64 bare hop, against its plain
+    version and bit for bit against K1 on the global field restricted to
+    the box; then at 32³×64 the boxes of (1, 2, 1), (1, 1, 2) and
+    (1, 2, 2) timed beside K4's t-local hop, call by call and on the
+    card alone (CUDA graphs), with their plain versions and bounds, and
+    the box instances' registers; (b) four processes on the card as a
     (1, 2, 2) grid over gloo (``chip_smoke.py --box-rank R DIR``, each
     message staged through the host), after unsharded references made
     here: at 32³×64 ``invert(mesh=…)`` "cg" on the float32 chain and
@@ -212,7 +220,8 @@ and does not print its last line:
     box against plain on the path's operands, the staged exchange
     timed; at 16³×32 Schwarz GCR (phase 16b's) and ``run_twop(mesh=…)``
     on the CG path against the unsharded run.  Each rank's K4 box
-    launches.
+    launches (those with the second output too); the seconds beside PR
+    14's.
 
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
@@ -276,6 +285,7 @@ BF16_PATH_TRUE_RES = 1e-2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12    # float32 outside the tensor cores, published
+F64_FLOPS_PER_S = 34e12    # float64 outside the tensor cores, published
 HOP_FLOPS, CLOVER_FLOPS, XPAY_FLOPS = 1320, 504, 48   # per site
 
 KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/dslash_ch.cu"
@@ -331,6 +341,16 @@ BOX_GRID = (1, 2, 2)             # 17b: four processes on the one card
 BOX_NRANKS = 4
 BOX_RANK_TIMEOUT = 600           # seconds for 17b's ranks, start-up included
 K4_T_LOCAL_MS = 0.2241           # K4's bare f32 hop, T_loc 64 (PERF.md, PR 13)
+# the sharded matpc†matpc before K4 had a second output (PERF.md: f32 PR 5
+# call 10, complex128 PR 13), ring of one at 32³×64
+CHAIN_PARENT_MS = {"f32": 3.8554, "c128": 17.3}
+# phase 16 and 17b before the sharded chain (PERF.md): 16a's sharded
+# V-cycle and 16d's seconds in PR 13 call 1, 17b's in PR 14's final call
+MESH_PARENT = {"vcycle_ms": 40.37, "wexact_s": 100.3, "box_ranks_s": 68.2}
+# K4 on a box as one launch (PR 14's final call, PERF.md), 32³×64
+BOX_PARENT_MS = {"box (1, 2, 1) f32": 0.1212, "box (1, 1, 2) f32": 0.1378,
+                 "box (1, 2, 2) f32": 0.0723, "box (1, 2, 2) f64": 0.1148,
+                 "box (1, 2, 2) bf16": 0.0673}
 SCHWARZ = dict(kind="twisted-mass", kappa=0.12, mu=0.04)   # test_parallel
 SCHWARZ_TOL = 1e-8               # GCR(10) with Schwarz (test_parallel.py:93)
 WEXACT_EVALS_LIMIT = 1e-8        # 16d: eigenvalues vs phase 12d, relative
@@ -471,12 +491,12 @@ def _turns(fns: dict, n_runs: dict, reps: int = 5) -> dict:
     return {k: statistics.median(t) for k, t in times.items()}
 
 
-def _bound(nbytes: int, flops: int):
+def _bound(nbytes: int, flops: int, f64: bool = False):
     """(least ms, "bytes" or "operations") of a kernel that moves
     ``nbytes`` (each input read once, each output written once) and does
-    ``flops`` float32 operations."""
+    ``flops`` float32 (``f64``: float64) operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / (F64_FLOPS_PER_S if f64 else F32_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2303,12 +2323,12 @@ def phase_mesh_solve(geom_dims, unsharded_secs: float):
     runs = {}
     try:
         for overlap in (False, True):
-            dslash_ch.launches = 0
-            dslash_ch_local.launches = dslash_ch_overlap.launches = 0
+            _counts_zero()
             rec, x = bench_cg_mesh(geom, mesh, overlap, tol=SLICE_TOL,
                                    maxiter=SLICE_MAXITER, problem=(d, b))
             rec.update(k4=dslash_ch_local.launches,
                        k5=dslash_ch_overlap.launches, k1=dslash_ch.launches,
+                       k4_post=dslash_ch_local.launches_post,
                        x_rel=_rel(x, ref.x))
             runs[overlap] = rec
             del x
@@ -2319,7 +2339,9 @@ def phase_mesh_solve(geom_dims, unsharded_secs: float):
                   f"(complex128; cold {rec['true_res_cold']:.3e}), solution "
                   f"vs unsharded {rec['x_rel']:.3e}, peak memory "
                   f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB, launches K4 "
-                  f"{rec['k4']} K5 {rec['k5']} K1 {rec['k1']}", flush=True)
+                  f"{rec['k4']} ({rec['k4_post']} with the second "
+                  f"output) K5 {rec['k5']} K1 "
+                  f"{rec['k1']}", flush=True)
             for key in ("iters", "iters_cold"):
                 if abs(rec[key] - ref.iters) > 1:
                     raise AssertionError(f"sharded {key} {rec[key]} not "
@@ -2330,13 +2352,18 @@ def phase_mesh_solve(geom_dims, unsharded_secs: float):
             _check("sharded solution vs unsharded", rec["x_rel"],
                    MESH_X_LIMIT)
             # per solve: 4 chain hops an iteration (K4: one launch each,
-            # or K5: two, interior and edges) and 6 float64 K4 hops:
-            # prepare 1, rhs matpc† 2, reconstruct 1, true residual 2
+            # the second with its second output, or K5: two, interior and
+            # edges) and 6 float64 K4 hops: prepare 1, rhs matpc† 2 (the
+            # float64 chain's), reconstruct 1, true residual 2
             n = rec["iters"] + rec["iters_cold"]
             want = ((12, 8 * n) if overlap else (4 * n + 12, 0)) + (0,)
-            if (rec["k4"], rec["k5"], rec["k1"]) != want:
+            post = 0 if overlap else n
+            if ((rec["k4"], rec["k5"], rec["k1"]) != want
+                    or rec["k4_post"] != post):
                 raise AssertionError(f"sharded launches K4 {rec['k4']} K5 "
-                                     f"{rec['k5']} K1 {rec['k1']} != {want}")
+                                     f"{rec['k5']} K1 {rec['k1']} != {want}, "
+                                     f"K4 with the second output "
+                                     f"{rec['k4_post']} != {post}")
         timing = phase_local_timing(geom, d, mesh)
     finally:
         dist.destroy_process_group()
@@ -2402,17 +2429,85 @@ def _main_path_local_checks(ds, mesh, gen):
     return err
 
 
+def _sharded_chain_checks(ds, d, v, psi128):
+    """9c: the sharded matpc†matpc on K4 with its second output against
+    the unsharded K1 chain, on a ring of one: the float32 chain on
+    channels ``v`` (``matpc_dagm_ch``) within ``F32_SUM_BOUND`` of the
+    largest value, the complex128 one (``matpc_dagm``, K4's float64
+    forms) within 1e-14 normwise; each four K4 launches, no K1 and no
+    plain A⁻¹† or twist (the chain's helpers in ``dirac`` counted)."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch import dirac as dmod
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_local)
+
+    plain = ("_ch_matrix_apply", "_ch_clover_apply", "_ch_twist")
+    saved = {n: getattr(dmod, n) for n in plain}
+    calls = []
+
+    def counted(fn):
+        dslash_ch.launches = dslash_ch_local.launches = 0
+        dslash_ch_local.launches_post = 0
+        calls.clear()
+        for n, f in saved.items():
+            setattr(dmod, n, lambda *a, f=f, n=n, **k: calls.append(n)
+                    or f(*a, **k))
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for n, f in saved.items():
+                setattr(dmod, n, f)
+        return out, (dslash_ch_local.launches,
+                     dslash_ch_local.launches_post), dslash_ch.launches
+
+    rec = {}
+    for label, fn, ref_fn in (
+            ("f32", lambda: ds.matpc_dagm_ch(v),
+             lambda: d._fused_matpc_dagm_ch(v)),
+            ("c128", lambda: ds.matpc_dagm(psi128),
+             lambda: d.matpc_dagm(psi128))):
+        # four K4 launches, the second with the second output
+        got, k4, k1 = counted(fn)
+        ref = ref_fn()
+        if k4 != (4, 1) or k1 or calls:
+            raise AssertionError(f"9c sharded matpc†matpc {label}: K4 "
+                                 f"launches (all, with the second output) "
+                                 f"{k4} (want (4, 1)), K1 {k1}, plain "
+                                 f"applies {calls}")
+        if label == "f32":
+            _check("9c sharded matpc†matpc f32, K4 + post, vs K1 chain "
+                   "(of max)", float((got - ref).abs().max())
+                   / float(ref.abs().max()), F32_SUM_BOUND)
+        else:
+            _check("9c sharded matpc†matpc c128, K4 f64 + post, vs K1 f64 "
+                   "chain", _rel(got, ref), 1e-14)
+        rec[label] = {"bit_equal": bool(torch.equal(got, ref)),
+                      "launches": k4}
+        print(f"  sharded matpc†matpc {label}: K4 launches {k4[0]} ("
+              f"{k4[1]} with the second output), no "
+              f"plain A⁻¹†, bit for bit the unsharded chain: "
+              f"{rec[label]['bit_equal']}", flush=True)
+    return rec
+
+
 def phase_local_timing(geom, d, mesh):
     """Phase 9c: K4 and K5 against their plain versions on the sharded
-    path's operands (``_main_path_local_checks``); then the bare float32
-    K4 hop, K5 (interior and edges, projected faces), K1 and the two
-    plain versions, timed in turns in one call (median of 5) at the size
-    of 9b, ring of one, with each kernel's output held against its plain
-    version's; then each hop with its exchange as the chain runs it, one
-    sharded matpc†matpc with each against the unsharded four-hop chain
-    and against the sharded chain's own form run unsharded (two matpc
-    halves through K1), and that chain's plain leading A⁻¹†.  Returns
-    the medians, the byte bounds of K4 and K5 and the largest absolute
+    path's operands (``_main_path_local_checks``); the sharded
+    matpc†matpc on K4 with its second output against the unsharded K1
+    chain, float32 and complex128, with its launches
+    (``_sharded_chain_checks``); then the bare float32 K4 hop, K4 with
+    the second output (clover fwd + xpay + post), K5 (interior and
+    edges, projected faces), K1 and the plain versions, timed in turns
+    in one call (median of 5) at the size of 9b, ring of one, with each
+    kernel's output held against its plain version's; then each hop
+    with its exchange as the chain runs it, one sharded matpc†matpc
+    with each (K4 + post, K4 with the plain leading A⁻¹†, K5) against
+    the unsharded four-hop chain and against the sharded chain's own
+    form run unsharded (two matpc halves through K1), the complex128
+    sharded and unsharded matpc†matpc, and the K5 chain's plain leading
+    A⁻¹†.  Returns the medians, the bounds of K4 (bare and with the
+    second output) and K5, the chain checks and the largest absolute
     errors against the plain versions."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.dirac import _ch_matrix_apply
@@ -2431,11 +2526,17 @@ def phase_local_timing(geom, d, mesh):
     gen = torch.Generator(device=DEVICE).manual_seed(53)
     err = _main_path_local_checks(ds, mesh, gen)
     pr = ds.params.matpc_parity
-    g = ds._operands(f32)["g"][pr]
-    v = to_channels(rng.random_spinor(gen, geom)[0]).to(f32)
+    g, ci = ds._operands(f32)["g"][pr], ds._operands(f32)["ci"][pr]
+    psi = rng.random_spinor(gen, geom)
+    v, x = (to_channels(psi[i]).to(f32) for i in (0, 1))
+    psi128 = psi[0].to(torch.complex128)
+    del psi
+    chain = _sharded_chain_checks(ds, d, v, psi128)
     f24 = t_faces(v, mesh)
     fm, fp = t_faces(v, mesh, project=True)
     hop = dict(recon12=True)
+    post = dict(hop, clover="fwd", cinv_ch=ci, xpay_coef=-ds.params.kappa
+                ** 2, x_ch=x, post_op=("clover",))
     fns = {
         "K4": lambda: dslash_ch_local(g, v, *f24, pr, geom, **hop),
         "K5": lambda: dslash_ch_overlap(g, v, fm, fp, pr, geom,
@@ -2443,12 +2544,16 @@ def phase_local_timing(geom, d, mesh):
         "K1": lambda: dslash_ch(g, v, pr, geom, **hop),
         "K4 plain": lambda: dslash_ch_local_reference(g, v, *f24, pr, geom,
                                                       **hop),
+        "K4 + post": lambda: dslash_ch_local(g, v, *f24, pr, geom, **post),
+        "K4 + post plain": lambda: dslash_ch_local_reference(
+            g, v, *f24, pr, geom, **post),
         "K5 plain": lambda: dslash_ch_local_reference(
             g, v, fm, fp, pr, geom, faces_projected=True, **hop),
         "K4 hop with its exchange": lambda: halo_hop(mesh, False, g, v, pr,
                                                      geom, **hop),
         "K5 hop with its exchange": lambda: halo_hop(mesh, True, g, v, pr,
                                                      geom, **hop),
+        "sharded matpc†matpc, K4 + post": lambda: ds.matpc_dagm_ch(v),
         "sharded matpc†matpc, K4": lambda: ds.matpc_ch(
             ds.matpc_ch(v, False, False), True, False),
         "sharded matpc†matpc, K5": lambda: ds.matpc_ch(
@@ -2456,15 +2561,20 @@ def phase_local_timing(geom, d, mesh):
         "unsharded matpc†matpc, K1": lambda: d._fused_matpc_dagm_ch(v),
         "unsharded, the sharded chain": lambda: d._fused_matpc_ch(
             d._fused_matpc_ch(v, False), True),
+        "sharded matpc†matpc c128, K4 f64 + post": lambda: ds.matpc_dagm(
+            psi128),
+        "unsharded matpc†matpc c128, K1 f64": lambda: d.matpc_dagm(psi128),
         "its plain A⁻¹† (kept matrices)": lambda: _ch_matrix_apply(
             v, ds._clover_matrix(f32, pr), dag=True)}
     n_runs = {k: (3 if "plain" in k else 10 if "matpc" in k else 20)
               for k in fns}
-    out = {k: fns[k]() for k in ("K4", "K5", "K4 plain", "K5 plain")}
+    out = {k: fns[k]() for k in ("K4", "K5", "K4 + post", "K4 plain",
+                                 "K5 plain", "K4 + post plain")}
     torch.cuda.synchronize()
-    for k in ("K4", "K5"):
-        err[k.lower()] = max(err[k.lower()], _compare(
-            out[k], out[f"{k} plain"], f"{k} bare hop (timed inputs)",
+    err["k4_post"] = 0.0
+    for k, key in (("K4", "k4"), ("K5", "k5"), ("K4 + post", "k4_post")):
+        err[key] = max(err[key], _compare(
+            out[k], out[f"{k} plain"], f"{k} hop (timed inputs)",
             F32_LIMIT))
     del out
     for fn in fns.values():
@@ -2476,14 +2586,29 @@ def phase_local_timing(geom, d, mesh):
             times[k].append(_time_ms(fn, n_runs[k]))
     med = {k: statistics.median(t) for k, t in times.items()}
     for k, t in med.items():
-        print(f"  {k:<28s} {t:.4f} ms", flush=True)
+        print(f"  {k:<40s} {t:.4f} ms", flush=True)
     sites = geom.half_volume
     bounds = {"K4": _bound(_nbytes(g, v, *f24, v), HOP_FLOPS * sites),
+              "K4 + post": _bound(_nbytes(g, ci, v, *f24, x, v, v),
+                                  (HOP_FLOPS + 2 * CLOVER_FLOPS
+                                   + XPAY_FLOPS) * sites),
               "K5": _bound(_nbytes(g, v, fm, fp, v), HOP_FLOPS * sites)}
     for k, (ms, by) in bounds.items():
         print(f"  {k} bound {ms:.4f} ms ({by}); kernel at "
               f"{ms / med[k]:.2f} of it", flush=True)
-    return {"times": med, "bounds": bounds, "err": err}
+    # the chain: K1's four-hop bound (the faces of a ring of one are two
+    # planes a hop, 2 / T of psi's bytes)
+    k1, f32c, c128 = (med["unsharded matpc†matpc, K1"],
+                      med["sharded matpc†matpc, K4 + post"],
+                      med["sharded matpc†matpc c128, K4 f64 + post"])
+    k1_64 = med["unsharded matpc†matpc c128, K1 f64"]
+    print(f"  sharded matpc†matpc f32, K4 + post: {f32c:.4f} ms, "
+          f"{f32c / k1:.3f}× the unsharded K1 chain ({k1:.4f} ms); "
+          f"complex128 {c128:.4f} ms, {c128 / k1_64:.3f}× the unsharded "
+          f"fused f64 chain ({k1_64:.4f} ms); before the second output, PR 5 "
+          f"call 10: K4 {CHAIN_PARENT_MS['f32']} ms, PR 13 complex128 "
+          f"{CHAIN_PARENT_MS['c128']} ms", flush=True)
+    return {"times": med, "bounds": bounds, "err": err, "chain": chain}
 
 
 def phase_v_kernels(check_dims, time_dims):
@@ -4089,20 +4214,24 @@ def phase_dw_staggered(geom_dims):
 
 
 def _counts_zero():
-    """Set the K1, K2, K4 and K5 launch counts to 0."""
+    """Set the K1, K2, K4 and K5 launch counts to 0 (K4's with the second
+    output too)."""
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_local, dslash_ch_msrc, dslash_ch_overlap)
     for fn in (dslash_ch, dslash_ch_msrc, dslash_ch_local,
                dslash_ch_overlap):
         fn.launches = 0
+    dslash_ch_local.launches_post = 0
 
 
 def _counts() -> dict:
-    """The K1, K2, K4 and K5 launch counts."""
+    """The K1, K2, K4 and K5 launch counts; "k4_post": K4's launches with
+    the second output (counted in "k4" too)."""
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_local, dslash_ch_msrc, dslash_ch_overlap)
     return {"k1": dslash_ch.launches, "k2": dslash_ch_msrc.launches,
-            "k4": dslash_ch_local.launches, "k5": dslash_ch_overlap.launches}
+            "k4": dslash_ch_local.launches, "k5": dslash_ch_overlap.launches,
+            "k4_post": dslash_ch_local.launches_post}
 
 
 def _mesh_mg(mesh, geom, dtype, solvers, tol, launches: dict,
@@ -4140,7 +4269,7 @@ def _mesh_mg(mesh, geom, dtype, solvers, tol, launches: dict,
         r, x = bench_mg_mesh(mesh, (d, b), mg, tol=tol, solver=solver,
                              n_krylov=MG_NKRYLOV)
         c = _counts()
-        for k in ("k1", "k4", "k5"):
+        for k in ("k1", "k4", "k5", "k4_post"):
             launches[k] += c[k]
         r["x_rel"] = _rel(x, shard_spinor(ref.x, mesh))
         print(f"  {solver}: sharded iterations {r['iters']} (cold "
@@ -4168,9 +4297,11 @@ def _mesh_mg(mesh, geom, dtype, solvers, tol, launches: dict,
     vms = {"unsharded": _vcycle_ms(mg.vcycle, b),
            "sharded": _vcycle_ms(
                functools.partial(ms.vcycle, mesh=mesh), bs)}
-    print(f"  V-cycle {vms['sharded']:.2f} ms sharded (K4 hops, unfused "
+    print(f"  V-cycle {vms['sharded']:.2f} ms sharded (the K4 fused chain "
           f"smoother, one all-gather) against {vms['unsharded']:.2f} ms "
-          f"unsharded (K1 fused chain)", flush=True)
+          f"unsharded (K1 fused chain); PR 13 call 1: "
+          f"{MESH_PARENT['vcycle_ms']} ms sharded with the unfused "
+          f"smoother (PR 14 recorded none)", flush=True)
     out[solvers[0]]["vcycle_ms"] = vms
     del ms, bs
     if setup:
@@ -4237,7 +4368,7 @@ def _mesh_setup(mesh, geom, d, b, mg, rec: dict, launches: dict) -> dict:
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     c = _counts()
-    for k in ("k1", "k4", "k5"):
+    for k in ("k1", "k4", "k5", "k4_post"):
         launches[k] += c[k]
     tr = c128_true_res(d, mesh.allgather_t(warm.x), b)
     print(f"  mg_solve(mesh=…) on it: {warm.iters} outer iterations (cold "
@@ -4365,7 +4496,7 @@ def _mesh_workflows(mesh, u, geom, refs: dict, launches: dict) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         c = _counts()
-        for k in ("k1", "k4", "k5"):
+        for k in ("k1", "k4", "k5", "k4_post"):
             launches[k] += c[k]
         out["secs"][label] = secs
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -4472,11 +4603,13 @@ def _mesh_wexact(mesh, u, geom, refs: dict, launches: dict) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     c = _counts()
-    for k in ("k1", "k4", "k5"):
+    for k in ("k1", "k4", "k5", "k4_post"):
         launches[k] += c[k]
     peak = torch.cuda.max_memory_allocated() / 2**30
     es = st["eig"]
-    print(f"  run_loops_wexact (mesh, complex128): {secs:.3f} s, launches "
+    print(f"  run_loops_wexact (mesh, complex128): {secs:.3f} s (PR 13 "
+          f"call 1: {MESH_PARENT['wexact_s']} s with the unfused complex128 "
+          f"operator; PR 14 recorded none), launches "
           f"{c} (every K4 a float64 hop), peak memory {peak:.2f} GiB "
           f"({start:.2f} GiB in use at its start); "
           f"Lanczos: Chebyshev degree {WEXACT['cheb_degree']} on "
@@ -4562,7 +4695,7 @@ def phase_mesh_rest(twop_refs: dict, u, geom_dims, check_dims):
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     mesh = init_ring(1, 0, f"tcp://localhost:{port}", device=DEVICE)
-    launches = {"k1": 0, "k4": 0, "k5": 0}
+    launches = {"k1": 0, "k4": 0, "k5": 0, "k4_post": 0}
     try:
         print("  (a) sharded MG", flush=True)
         mg = _mesh_mg(mesh, geom, torch.complex64, ("gcr-pc",), MG_TOL,
@@ -4588,64 +4721,49 @@ def phase_mesh_rest(twop_refs: dict, u, geom_dims, check_dims):
 
 # ---- phase 17: the z / w splits ------------------------------------------
 
-def _virtual_box(field_ch, geom, grid, coords):
-    """The box of the rank at ``coords`` = (it, iz, iw) of ``grid`` cut
-    from a whole channel field [T, C, Z, W] of the lattice ``geom`` on
-    one process, with the faces that rank's exchange would receive:
-    (box, face_m, face_p, zw_faces) as ``parallel.halo.box_faces``
-    returns them, each contiguous (None for an axis the grid does not
-    split; the t faces always, as on a ring of one)."""
-    import torch
-    T, _, Z, W = field_ch.shape
-    tl, zl, wl = T // grid[0], Z // grid[1], W // grid[2]
-    t0, z0, w0 = coords[0] * tl, coords[1] * zl, coords[2] * wl
-    t_idx = torch.arange(t0, t0 + tl, device=field_ch.device)
-    z_idx = torch.arange(z0, z0 + zl, device=field_ch.device)
-    w_idx = torch.arange(w0, w0 + wl, device=field_ch.device)
-
-    def cut(ts, zs, ws):
-        return field_ch.index_select(0, ts % T).index_select(
-            2, zs % Z).index_select(3, ws % W).contiguous()
-    one = torch.ones(1, dtype=torch.long, device=field_ch.device)
-    box = cut(t_idx, z_idx, w_idx)
-    face_m = cut((t0 - 1) * one, z_idx, w_idx)
-    face_p = cut((t0 + tl) * one, z_idx, w_idx)
-    zw = [None] * 4
-    if grid[1] > 1:
-        zw[0] = cut(t_idx, (z0 - 1) * one, w_idx)
-        zw[1] = cut(t_idx, (z0 + zl) * one, w_idx)
-    if grid[2] > 1:
-        xh = geom.Xh
-        row = torch.arange(xh, device=field_ch.device)
-        zw[2] = cut(t_idx, z_idx, w0 - xh + row)
-        zw[3] = cut(t_idx, z_idx, w0 + wl + row)
-    return box, face_m, face_p, tuple(zw)
-
-
 def _box_of(grid):
     """The coordinates of the rank whose box 17a checks: 1 on every split
     axis (its neighbours on both sides are other ranks)."""
     return tuple(1 if n > 1 else 0 for n in grid)
 
 
+def _box_cases(twist_a: float, twist_b: float, xc: float):
+    """17a's forms of K4 on a box: those of the t-local hop
+    (``_local_cases``), the second output in float32, the bf16 operand
+    tier and float64, and the sharded chain's forms in float64 (the
+    complex128 operator's)."""
+    posts = _msrc_post_cases(twist_a, twist_b, xc)
+    return (_local_cases(twist_a, twist_b, xc)
+            + [(f"{tier} {label}", c, tier) for tier in ("f32", "bf16", "f64")
+               for label, c in posts]
+            + [(f"f64 {label}", c, "f64")
+               for label, c in _msrc_cases(twist_a, twist_b, xc)])
+
+
 def phase_box_kernels(dims_list):
     """Phase 17a: at each size and on each grid of ``BOX_CHECK``, the box
     of one rank cut from one global field, with the t, z and y faces its
-    exchange would receive (``_virtual_box``): K4 on the box
-    (``csrc/dslash_ch_box.cu``) in every form of the sharded chain
-    (float32 and the bf16 operand tier) and the float64 bare hop, against
-    its plain version and against K1 on the global field restricted to
-    the box; each launch counted.  Returns the largest absolute errors
-    against the plain versions {"f32": .., "bf16": ..}."""
+    exchange would receive (``utils.kernel_bench.virtual_box``): K4 on
+    the box (``csrc/dslash_ch_box.cu``, one launch) in every form of
+    ``_box_cases`` (the sharded
+    chain in float32, the bf16 operand tier and float64, with and
+    without the second output, and the float64 bare hop), against its
+    plain version and bit for bit against K1 on the global field
+    restricted to the box; each launch counted.  Returns the largest
+    absolute errors against the plain versions {"f32": .., "bf16": ..,
+    "post": .. (the second-output forms, float32 and bf16 tier)}."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
     from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
     from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-        clover_channels, dslash_ch, dslash_ch_box, dslash_ch_local,
-        dslash_ch_local_reference, gauge_channels, to_channels)
+        clover_channels, dslash_ch, dslash_ch_box,
+        dslash_ch_local, dslash_ch_local_reference, gauge_channels,
+        to_channels)
     from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    from quda_qkxtm_multigrid_tpu_torch.utils.kernel_bench import (
+        virtual_box)
 
     f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
     tiers = {"f32": (f32, f32), "bf16": (b16, f32), "f64": (f64, f64)}
@@ -4653,8 +4771,8 @@ def phase_box_kernels(dims_list):
                 "bf16": "launches_bf16"}
     kappa = 0.115
     a = 2 * kappa * 0.05
-    cases = _local_cases(a, 1 / (1 + a * a), -kappa * kappa)
-    err = {"f32": 0.0, "bf16": 0.0}
+    cases = _box_cases(a, 1 / (1 + a * a), -kappa * kappa)
+    err = {"f32": 0.0, "bf16": 0.0, "post": 0.0}
     for dims in dims_list:
         geom = Geometry(*dims)
         print(f"phase 17a: K4 on a box (z / y faces) vs plain and vs K1 "
@@ -4683,14 +4801,15 @@ def phase_box_kernels(dims_list):
                 v = to_channels(psi[1 - p]).to(sp)
                 xv = to_channels(x[p]).to(sp)
                 kw = dict(dagger=dagger, recon12=True, twist=c.get("twist"),
-                          clover=c.get("clover"), xpay_coef=xc)
-                vb, fm, fp, zw = _virtual_box(v, geom, grid, coords)
+                          clover=c.get("clover"), xpay_coef=xc,
+                          post_op=c.get("post_op"))
+                vb, fm, fp, zw = virtual_box(v, grid, coords, geom.Xh)
                 kwb = dict(
-                    kw, cinv_ch=_virtual_box(ci, geom, grid, coords)[0]
+                    kw, cinv_ch=virtual_box(ci, grid, coords, geom.Xh)[0]
                     if "clover" in c else None,
-                    x_ch=_virtual_box(xv, geom, grid, coords)[0]
+                    x_ch=virtual_box(xv, grid, coords, geom.Xh)[0]
                     if xc is not None else None)
-                gb = _virtual_box(g, geom, grid, coords)[0]
+                gb = virtual_box(g, grid, coords, geom.Xh)[0]
                 name = counters[tier]
                 before = getattr(dslash_ch_box, name)
                 got = dslash_ch_local(gb, vb, fm, fp, p, gl, zw_faces=zw,
@@ -4702,60 +4821,99 @@ def phase_box_kernels(dims_list):
                                          "count the launch")
                 ref = dslash_ch_local_reference(gb, vb, fm, fp, p, gl,
                                                 zw_faces=zw, **kwb)
-                e = _rel(got, ref)
+                k1 = dslash_ch(g, v, p, geom, **dict(
+                    kw, cinv_ch=ci if "clover" in c else None,
+                    x_ch=xv if xc is not None else None))
+                got, ref, k1 = (t if isinstance(t, tuple) else (t,)
+                                for t in (got, ref, k1))
+                k1 = tuple(virtual_box(o, grid, coords, geom.Xh)[0]
+                           for o in k1)
+                e = max(_rel(o, r) for o, r in zip(got, ref))
                 lim = F64_LIMIT if sp == f64 else F32_LIMIT
                 if e > lim:
                     raise AssertionError(f"K4 box {grid} {label} vs plain: "
                                          f"{e:.3e} > {lim:.0e}")
                 if tier != "f64":
-                    err[tier] = max(err[tier],
-                                    float((got - ref).abs().max()))
-                k1 = dslash_ch(g, v, p, geom, **dict(
-                    kw, cinv_ch=ci if "clover" in c else None,
-                    x_ch=xv if xc is not None else None))
-                k1 = _virtual_box(k1, geom, grid, coords)[0]
-                e1 = _rel(got, k1)
+                    ea = max(float((o - r).abs().max())
+                             for o, r in zip(got, ref))
+                    key = "post" if "post_op" in c else tier
+                    err[key] = max(err[key], ea)
+                e1 = max(_rel(o, r) for o, r in zip(got, k1))
                 if e1 > LOCAL_VS_K1[str(sp)[6:]]:
                     raise AssertionError(f"K4 box {grid} {label} vs K1: "
                                          f"{e1:.3e}")
+                if not all(torch.equal(o, r) for o, r in zip(got, k1)):
+                    raise AssertionError(f"K4 box {grid} {label}: not bit "
+                                         f"for bit K1 restricted to the box "
+                                         f"({e1:.3e})")
                 key = f"{tier} vs plain"
                 worst[key] = max(worst.get(key, 0.0), e)
                 worst[f"{tier} vs K1"] = max(worst.get(f"{tier} vs K1", 0.0),
                                              e1)
-                if not torch.equal(got, k1):
-                    worst["not bit equal to K1"] = worst.get(
-                        "not bit equal to K1", 0) + 1
             print(f"  grid {grid}, box {coords} ({gl.dims}): {len(cases)} "
-                  f"forms, worst " + ", ".join(
-                      f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
-                      for k, v in worst.items()), flush=True)
+                  f"forms, every one bit for bit K1's; worst " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in worst.items()), flush=True)
         del ops, ud, cinv, psi, x
     return err
+
+
+def _box_registers() -> dict:
+    """K4 on a box's kernel instances (``csrc/dslash_ch_box.cu``) →
+    "registers" or "registers, spill stores", from the build's ptxas
+    log."""
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    regs, spills, kernel = {}, {}, "?"
+    log = _build.library_dir() / "dslash_ch_box.log"
+    for line in log.read_text().splitlines():
+        m = re.search(r"entry function '_ZN3qkx\d+(\w+?)I(\w*?)EEvNS", line)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs[kernel] = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and int(m.group(1)):
+            spills[kernel] = m.group(1)
+    return {k: r + (f", {spills[k]} B spilled" if k in spills else "")
+            for k, r in regs.items()}
 
 
 def phase_box_timing(geom_dims):
     """Phase 17a's timing at ``geom_dims``: K4's t-local bare float32 hop
     (T_loc = T, faces of a ring of one) and K4 on the boxes of
-    ``BOX_TIME`` (the rank of ``_box_of``): the float32 bare hop, its
-    float64 and bf16-tier forms on the last grid, and their plain
-    versions, in turns in one call (CUDA events, median of 5), each
-    with its byte bound.  Returns {label: (ms, plain ms, bound)}."""
+    ``BOX_TIME`` (the rank of ``_box_of``):
+    the float32 bare hop, its float64 and bf16-tier forms on the last
+    grid and there the chain's hop with the second output (clover fwd +
+    xpay + post) in each, and their plain versions, in turns in one call
+    (CUDA events, median of 5, call by call as every kernel of the
+    ``kernels`` line), each with its bound, beside PR 14's times
+    (``BOX_PARENT_MS``); the kernels again on the card alone, printed
+    beside (``graph_turns``: the wrapper's host time a call is about the
+    box hop's own); then the instances' ptxas registers.  Returns
+    {label: (ms a call, plain ms, bound)}."""
     import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import tmc_params
     from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover_pair
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash import double_gauge
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-        dslash_ch_local, dslash_ch_local_reference, gauge_channels,
-        to_channels)
+        clover_channels, dslash_ch_local, dslash_ch_local_reference,
+        gauge_channels, to_channels)
     from quda_qkxtm_multigrid_tpu_torch.utils import rng
+    from quda_qkxtm_multigrid_tpu_torch.utils.kernel_bench import (
+        graph_turns, virtual_box)
 
     geom = Geometry(*geom_dims)
     print(f"phase 17a: K4 on boxes timed at {geom_dims} beside K4's t-local "
           f"hop (median of 5, in turns)", flush=True)
     gen = torch.Generator(device=DEVICE).manual_seed(172)
     u = rng.random_gauge(gen, geom)
+    _, cinv = make_clover_pair(u, geom, tmc_params())
     ud = double_gauge(u, geom)
     del u
-    psi = to_channels(rng.random_spinor(gen, geom)[1])
+    spinors = rng.random_spinor(gen, geom)
+    psi, x = to_channels(spinors[1]), to_channels(spinors[0])
+    del spinors
     hop = dict(recon12=True)
     fns, plain, bounds = {}, {}, {}
     sites = geom.half_volume
@@ -4770,44 +4928,63 @@ def phase_box_timing(geom_dims):
              "f64": (torch.float64, torch.float64),
              "bf16": (torch.bfloat16, torch.float32)}
     for grid in BOX_TIME:
-        for tier in (("f32", "f64", "bf16") if grid == BOX_TIME[-1]
-                     else ("f32",)):
+        last = grid == BOX_TIME[-1]
+        for tier in (("f32", "f64", "bf16") if last else ("f32",)):
             op, sp = tiers[tier]
             gt = gauge_channels(ud, 0, True, op)
             coords = _box_of(grid)
             gl = Geometry(geom.X, geom.Y // grid[2], geom.Z // grid[1],
                           geom.T // grid[0])
-            gb = _virtual_box(gt, geom, grid, coords)[0]
-            vb, fm, fp, zw = _virtual_box(psi.to(sp), geom, grid,
-                                          coords)
-            label = f"box {grid} {tier}"
-            fns[label] = (lambda gb=gb, vb=vb, fm=fm, fp=fp, zw=zw, gl=gl:
-                          dslash_ch_local(gb, vb, fm, fp, 0, gl, zw_faces=zw,
-                                          **hop))
-            plain[label] = (lambda gb=gb, vb=vb, fm=fm, fp=fp, zw=zw, gl=gl:
-                            dslash_ch_local_reference(gb, vb, fm, fp, 0, gl,
-                                                      zw_faces=zw, **hop))
-            bounds[label] = _bound(_nbytes(gb, vb, fm, fp, *zw, vb),
-                                   HOP_FLOPS * gl.half_volume)
-            got, ref = fns[label](), plain[label]()
-            _check(f"17a {label} bare hop vs plain (timed inputs)",
-                   _rel(got, ref), F64_LIMIT if sp == torch.float64
-                   else F32_LIMIT)
-    del ud
+            gb = virtual_box(gt, grid, coords, geom.Xh)[0]
+            vb, fm, fp, zw = virtual_box(psi.to(sp), grid, coords,
+                                         geom.Xh)
+            cib = virtual_box(clover_channels(cinv, 0, op), grid, coords,
+                              geom.Xh)[0]
+            xb = virtual_box(x.to(sp), grid, coords, geom.Xh)[0]
+            chain = dict(hop, clover="fwd", cinv_ch=cib, xpay_coef=-0.115
+                         ** 2, x_ch=xb, post_op=("clover",))
+            sites, f64 = gl.half_volume, sp == torch.float64
+            forms = {f"box {grid} {tier}": (
+                hop, _bound(_nbytes(gb, vb, fm, fp, *zw, vb),
+                            HOP_FLOPS * sites, f64))}
+            if last:
+                forms[f"box {grid} {tier} post"] = (chain, _bound(
+                    _nbytes(gb, cib, vb, fm, fp, *zw, xb, vb, vb),
+                    (HOP_FLOPS + 2 * CLOVER_FLOPS + XPAY_FLOPS) * sites, f64))
+            for label, (kw, bound) in forms.items():
+                fns[label] = (lambda gb=gb, vb=vb, fm=fm, fp=fp, zw=zw,
+                              gl=gl, kw=kw: dslash_ch_local(
+                                  gb, vb, fm, fp, 0, gl, zw_faces=zw, **kw))
+                plain[label] = (lambda gb=gb, vb=vb, fm=fm, fp=fp, zw=zw,
+                                gl=gl, kw=kw: dslash_ch_local_reference(
+                                    gb, vb, fm, fp, 0, gl, zw_faces=zw,
+                                    **kw))
+                bounds[label] = bound
+                got, ref = fns[label](), plain[label]()
+                _compare(got, ref, f"17a {label} vs plain (timed inputs)",
+                         F64_LIMIT if f64 else F32_LIMIT)
+    del ud, cinv
     runs = {**{k: fn for k, fn in fns.items()},
             **{f"{k} plain": fn for k, fn in plain.items()}}
     n_runs = {k: 3 if k.endswith("plain") else 20 for k in runs}
     med = _turns(runs, n_runs)
+    card = graph_turns(fns)
     out = {}
     for k in fns:
         ms, pms, (bms, by) = med[k], med[f"{k} plain"], bounds[k]
         out[k] = (ms, pms, (bms, by))
-        print(f"  {k:<24s} {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}); kernel at {bms / ms:.2f} of it",
+        parent = BOX_PARENT_MS.get(k)
+        print(f"  {k:<28s} {ms:.4f} ms a call, plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}); kernel at {bms / ms:.2f} of it (on the "
+              f"card alone {card[k]:.4f} ms, {bms / card[k]:.2f})"
+              + ("" if parent is None else f"; PR 14's {parent} ms"),
               flush=True)
-    print(f"  K4 t-local hop {out['K4 t-local'][0]:.4f} ms against "
+    for kernel, regs in _box_registers().items():
+        print(f"  ptxas dslash_ch_box {kernel}: {regs} registers",
+              flush=True)
+    print(f"  K4 t-local hop a call {med['K4 t-local']:.4f} ms against "
           f"PERF.md's {K4_T_LOCAL_MS} ms (PR 13, another machine): "
-          f"{out['K4 t-local'][0] / K4_T_LOCAL_MS:.3f}×", flush=True)
+          f"{med['K4 t-local'] / K4_T_LOCAL_MS:.3f}×", flush=True)
     return out
 
 
@@ -4942,8 +5119,9 @@ def phase_box_ranks(geom_dims, check_dims):
     rec["ranks_wall_secs"] = wall
     rec["secs"] = time.perf_counter() - t_phase
     shutil.rmtree(work, ignore_errors=True)
-    print(f"  phase 17b {rec['secs']:.1f} s (the ranks {wall:.1f} s); K4 "
-          f"box launches by rank {rec['launches_by_rank']}", flush=True)
+    print(f"  phase 17b {rec['secs']:.1f} s (the ranks {wall:.1f} s; PR 14's "
+          f"final call {MESH_PARENT['box_ranks_s']} s); K4 box launches by "
+          f"rank {rec['launches_by_rank']}", flush=True)
     return rec
 
 
@@ -5019,14 +5197,15 @@ def _box_rank_checks(outs: list, refs: dict) -> dict:
           f"{ex['hop_ms']:.4f} ms, the hop with its exchange "
           f"{ex['halo_hop_ms']:.4f} ms (mean of 3 calls, median of 5 "
           f"rounds, rank 0's clock)", flush=True)
-    by_rank = [{k: o["launches"][k] for k in ("zw", "zw_bf16")}
+    by_rank = [{k: o["launches"][k] for k in ("zw", "zw_bf16", "zw_post")}
                for o in outs]
-    zw = sum(c["zw"] for c in by_rank)
-    zw16 = sum(c["zw_bf16"] for c in by_rank)
-    if not zw or not zw16:
+    zw, zw16, zwp = (sum(c[k] for c in by_rank)
+                     for k in ("zw", "zw_bf16", "zw_post"))
+    if not zw or not zw16 or not zwp:
         raise AssertionError(f"17b: K4 box launches {by_rank}")
     return {"ranks": outs, "launches_by_rank": by_rank, "zw": zw,
-            "zw_bf16": zw16, "err": max(o["err"] for o in outs)}
+            "zw_bf16": zw16, "zw_post": zwp,
+            "err": max(o["err"] for o in outs)}
 
 
 def _box_rank(rank: int, work: Path):
@@ -5071,7 +5250,18 @@ def _box_rank(rank: int, work: Path):
 
     def zero():
         for fn in (dslash_ch_local, dslash_ch_box):
-            fn.launches = fn.launches_bf16 = 0
+            fn.launches = fn.launches_bf16 = fn.launches_post = 0
+
+    def count() -> dict:
+        """The box launches since ``zero``: every one, the bf16 tier's, and
+        those with the second output."""
+        return {"zw": dslash_ch_box.launches,
+                "zw_bf16": dslash_ch_box.launches_bf16,
+                "zw_post": dslash_ch_box.launches_post}
+
+    def add():
+        for k, n in count().items():
+            totals[k] += n
 
     def timed(fn):
         mesh.allreduce(torch.zeros(1, device=mesh.device))
@@ -5088,7 +5278,7 @@ def _box_rank(rank: int, work: Path):
                 float(ref.abs().pow(2).sum()))
 
     zero()
-    totals = {"zw": 0, "zw_bf16": 0}
+    totals = {"zw": 0, "zw_bf16": 0, "zw_post": 0}
     # the solves at geom, complex128, on the box's own build
     u, b = make_gauge_source(geom, mesh.device, seed=7)
     u_box, b_box = box_slab(u, mesh), box_slab(b, mesh)
@@ -5109,12 +5299,9 @@ def _box_rank(rank: int, work: Path):
         res, secs = timed(lambda: invert(
             ds, b_box, tol=tol, maxiter=SLICE_MAXITER, solver=kind,
             mesh=mesh))
-        launches = {"zw": dslash_ch_box.launches,
-                    "zw_bf16": dslash_ch_box.launches_bf16,
-                    "t_local": dslash_ch_local.launches
-                    + dslash_ch_local.launches_bf16}
-        for k in totals:
-            totals[k] += launches[k]
+        launches = dict(count(), t_local=dslash_ch_local.launches
+                        + dslash_ch_local.launches_bf16)
+        add()
         d2, r2 = versus(res.x, sols[kind])
         out[solver] = {"iters": res.iters, "true_res": res.true_res,
                        "secs": secs, "diff2": d2, "ref2": r2,
@@ -5190,7 +5377,7 @@ def _box_rank(rank: int, work: Path):
     g0 = LatticeMesh.gathers
     res, secs = timed(lambda: mg_solve(ms, b64, tol=MG_TOL,
                                        n_krylov=MG_NKRYLOV, mesh=mesh))
-    totals["zw"] += dslash_ch_box.launches
+    add()
     _, rel = true_residual(ds128, res.x.to(c128), b_box)
     d2, r2 = versus(res.x, torch.load(work / "solutions.pt",
                                       mmap=True)["mg"])
@@ -5222,7 +5409,7 @@ def _box_rank(rank: int, work: Path):
         res, secs = timed(lambda: gcr(ds.m, bs, tol=SCHWARZ_TOL, n_krylov=10,
                                       max_restarts=40, precond=pc,
                                       allreduce=mesh.allreduce))
-        totals["zw"] += dslash_ch_box.launches
+        add()
         _, rel = true_residual(ds, res.x, bs)
         out["schwarz"][name] = {"iters": res.iters, "secs": secs,
                                 "true_res": float(rel)}
@@ -5237,7 +5424,7 @@ def _box_rank(rank: int, work: Path):
     twop, secs = timed(lambda: wf.run_twop(
         box_slab(u, mesh), check, p.kappa, p.mu, p.csw, source=TWOP_SOURCE,
         tol=TWOP_TOL, maxiter=SLICE_MAXITER, mesh=mesh, stats=st))
-    totals["zw"] += dslash_ch_box.launches
+    add()
     ref = torch.load(work / "twop.pt")
     out["twop"] = {"secs": secs, "stages": st["secs"], **{
         k: _rel64(twop[k].cpu(), ref[k]) for k in ("mesons", "baryons")}}
@@ -5287,6 +5474,11 @@ def main():
     t17 = phase_box_timing(SLICE_GEOM)
     box = phase_box_ranks(SLICE_GEOM, CHECK_GEOM)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"] + m16["k4"]
+    k4_post = (mesh_runs[False]["k4_post"] + mesh_runs[True]["k4_post"]
+               + m16["k4_post"])
+    if not k4_post:
+        raise AssertionError("K4 with the second output: no launch on the "
+                             "sharded paths")
     k5 = mesh_runs[True]["k5"] + m16["k5"]
     k1_8 = cmix["k1"] + cmix["k1d_sloppy_run"]["k1"] + big["k1"]
     k1d_8 = cmix["k1d"] + cmix["k1d_sloppy_run"]["k1d"] + big["k1d"]
@@ -5299,12 +5491,14 @@ def main():
           f"path {k4}; K5: sharded path {k5}; 2pt path: K1 {twop['k1']}, "
           f"K2 {twop['k2']}; 3pt and loops: K1 {thrp['k1']}, K2 "
           f"{thrp['k2']}; production MG (phase 13): K1 {lv['k1']}, K2 "
-          f"{lv['k2']}; Krylov tail and doublet (phase 14): K1 {kr['k1']}, "
+          f"{lv['k2']}; K4 with the second output (of K4's): {k4_post}; "
+          f"Krylov tail and doublet (phase 14): K1 {kr['k1']}, "
           f"K2 {kr['k2']}; gauge utilities, domain wall and staggered (phase "
           f"15): K1 {dws['k1']}, K2 {dws['k2']}; sharded MG, Schwarz and "
           f"meshed workflows (phase 16): K1 {m16['k1']}, K4 {m16['k4']}, "
           f"K5 {m16['k5']}; K4 on boxes (phase 17b, four ranks): "
-          f"{box['zw']}, bf16 tier {box['zw_bf16']}")
+          f"{box['zw']}, bf16 tier {box['zw_bf16']}, with the second "
+          f"output {box['zw_post']}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -5368,9 +5562,16 @@ def main():
                   m16["err"]["k5"]),
               t9["times"]["K5"], t9["times"]["K5 plain"],
               t9["bounds"]["K5"]),
+        entry("dslash_ch_local_post", LOCAL_KERNEL_SOURCE,
+              LOCAL_KERNEL_REPLACES, k4_post, t9["err"]["k4_post"],
+              t9["times"]["K4 + post"], t9["times"]["K4 + post plain"],
+              t9["bounds"]["K4 + post"]),
         entry("dslash_ch_box", BOX_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
               box["zw"], max(err_17["f32"], box["err"]),
               *t17[f"box {BOX_TIME[-1]} f32"]),
+        entry("dslash_ch_box_post", BOX_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
+              box["zw_post"], err_17["post"],
+              *t17[f"box {BOX_TIME[-1]} f32 post"]),
         entry("dslash_ch_box_bf16", BOX_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
               box["zw_bf16"], err_17["bf16"],
               *t17[f"box {BOX_TIME[-1]} bf16"])]}))

@@ -36,10 +36,16 @@ _MSRC_ARGTYPES = [_P] * 6 + [_I] * 9 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
 #  tstep, nrows, t_first, t_last, dagger, recon12, twist, ta, tb, clover,
 #  xpay, xc, stream)
 _LOCAL_ARGTYPES = [_P] * 7 + [_I] * 14 + [_D, _D, _I, _I, _D, _P]
-# (psi, g, cinv, x, out, face_m, face_p, face_zm, face_zp, face_wm,
+# (psi, g, cinv, x, out, out2, face_m, face_p, T, Z, W, Xh, parity,
+#  t_first, t_last, dagger, recon12, twist, ta, tb, clover, xpay, xc,
+#  post, pa, pb, stream)
+_LOCAL_POST_ARGTYPES = [_P] * 8 + [_I] * 10 + [_D, _D, _I, _I, _D, _I, _D,
+                                               _D, _P]
+# (psi, g, cinv, x, out, out2, face_m, face_p, face_zm, face_zp, face_wm,
 #  face_wp, T, Z, W, Xh, parity, t_first, t_last, dagger, recon12, twist,
-#  ta, tb, clover, xpay, xc, stream)
-_BOX_ARGTYPES = [_P] * 11 + [_I] * 10 + [_D, _D, _I, _I, _D, _P]
+#  ta, tb, clover, xpay, xc, post, pa, pb, stream)
+_BOX_POST_ARGTYPES = [_P] * 12 + [_I] * 10 + [_D, _D, _I, _I, _D, _I, _D,
+                                              _D, _P]
 ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_f64": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_msrc_f32": _MSRC_ARGTYPES,
@@ -60,11 +66,14 @@ ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_local_f32": _LOCAL_ARGTYPES,
                 "qkx_dslash_ch_local_f64": _LOCAL_ARGTYPES,
                 "qkx_dslash_ch_local_f32_g16": _LOCAL_ARGTYPES,
-                # K4 on a box, with the z and y faces
-                # (csrc/dslash_ch_box.cu)
-                "qkx_dslash_ch_box_f32": _BOX_ARGTYPES,
-                "qkx_dslash_ch_box_f64": _BOX_ARGTYPES,
-                "qkx_dslash_ch_box_f32_g16": _BOX_ARGTYPES}
+                # K4 with K1's second output and float64 epilogues
+                "qkx_dslash_ch_local_post_f32": _LOCAL_POST_ARGTYPES,
+                "qkx_dslash_ch_local_post_f64": _LOCAL_POST_ARGTYPES,
+                "qkx_dslash_ch_local_post_f32_g16": _LOCAL_POST_ARGTYPES,
+                # K4 on a box, with the z and y faces (csrc/dslash_ch_box.cu)
+                "qkx_dslash_ch_box_post_f32": _BOX_POST_ARGTYPES,
+                "qkx_dslash_ch_box_post_f64": _BOX_POST_ARGTYPES,
+                "qkx_dslash_ch_box_post_f32_g16": _BOX_POST_ARGTYPES}
 
 
 def _sources() -> list[Path]:

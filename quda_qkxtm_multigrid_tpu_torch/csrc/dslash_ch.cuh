@@ -802,29 +802,33 @@ void launch_local_mode(int mode, bool apbc, dim3 grid, dim3 block,
     launch_local_instance<R, G, C, S, X, O, DAG, 3>(apbc, grid, block, s, a, l, rows);
 }
 
-// The t-local hop (recon-12 only, no second output): ``nrows`` output
-// rows t0, t0 + tstep, ... of a block of T rows; faces as in LocalArgs,
-// both given or both null (then no output row may be 0 or T-1: K5's
-// interior); t_first, t_last as in TRows.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue without launching for
-// another gauge form, no rows, one face alone or a face of neither 24
-// nor 12 channels.
+// The t-local hop (recon-12 only): ``nrows`` output rows t0, t0 + tstep,
+// ... of a block of T rows; faces as in LocalArgs, both given or both
+// null (then no output row may be 0 or T-1: K5's interior); t_first,
+// t_last as in TRows; K1's second output (out2: post 1 A^dag of the
+// clover inverse, 2 the twist (pa, pb), as dslash_ch.cu; post 0 and no
+// out2 without it).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue without launching for another gauge form, no
+// rows, one face alone, a face of neither 24 nor 12 channels, or a
+// second output without out2.
 template <typename R, typename G, typename C, typename S, typename X,
           typename O>
 int launch_dslash_local(const void* psi, const void* g, const void* cinv,
-                        const void* x, void* out, const void* face_m,
-                        const void* face_p, int face_ch, int T, int Z, int W,
-                        int Xh, int parity, int t0, int tstep, int nrows,
-                        int t_first, int t_last, int dagger, int recon12,
-                        int twist, double ta, double tb, int clover,
-                        int xpay, double xc, void* stream) {
+                        const void* x, void* out, void* out2,
+                        const void* face_m, const void* face_p, int face_ch,
+                        int T, int Z, int W, int Xh, int parity, int t0,
+                        int tstep, int nrows, int t_first, int t_last,
+                        int dagger, int recon12, int twist, double ta,
+                        double tb, int clover, int xpay, double xc, int post,
+                        double pa, double pb, void* stream) {
   const bool faces = face_m != nullptr;
   if (!recon12 || nrows < 1 || faces != (face_p != nullptr) ||
-      (face_ch != 24 && face_ch != 12))
+      (face_ch != 24 && face_ch != 12) || post < 0 || post > 2 ||
+      (post != 0 && out2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
-      psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity, twist, ta, tb,
-      clover, xpay, xc, 0, 0.0, 0.0);
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, twist, ta, tb, clover,
+      xpay, xc, post, pa, pb);
   const LocalArgs<S> l = {static_cast<const S*>(face_m),
                           static_cast<const S*>(face_p), t0, tstep};
   const TRows rows = {t_first, t_last};
@@ -853,29 +857,32 @@ void launch_box_zw(int zw_mode, dim3 grid, dim3 block, cudaStream_t s,
     dslash_ch_box_kernel<R, G, C, S, X, O, DAG, APBC, 3><<<grid, block, 0, s>>>(a, l, f, rows);
 }
 
-// K4 on a box (recon-12 only, no second output, every row): the t faces
-// face_m / face_p (24 channels) and the z / y faces of BoxFaces, a pair
-// per split axis; t_first, t_last as in TRows.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue without launching for
-// another gauge form, a missing t face, one face of a pair alone, or no
-// z or y face at all (that hop is K4's own).
+// K4 on a box (recon-12 only, every row): the t faces face_m / face_p
+// (24 channels) and the z / y faces of BoxFaces, a pair per split axis;
+// t_first, t_last as in TRows; K1's second output (out2, post, pa, pb as
+// launch_dslash_local).  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// without launching for another gauge form, a missing t face, one face
+// of a pair alone, no z or y face at all (that hop is K4's own), or a
+// second output without out2.
 template <typename R, typename G, typename C, typename S, typename X,
           typename O>
 int launch_dslash_box(const void* psi, const void* g, const void* cinv,
-                      const void* x, void* out, const void* face_m,
-                      const void* face_p, const void* face_zm,
-                      const void* face_zp, const void* face_wm,
-                      const void* face_wp, int T, int Z, int W, int Xh,
-                      int parity, int t_first, int t_last, int dagger,
-                      int recon12, int twist, double ta, double tb,
-                      int clover, int xpay, double xc, void* stream) {
+                      const void* x, void* out, void* out2,
+                      const void* face_m, const void* face_p,
+                      const void* face_zm, const void* face_zp,
+                      const void* face_wm, const void* face_wp, int T, int Z,
+                      int W, int Xh, int parity, int t_first, int t_last,
+                      int dagger, int recon12, int twist, double ta,
+                      double tb, int clover, int xpay, double xc, int post,
+                      double pa, double pb, void* stream) {
   const bool zf = face_zm != nullptr, wf = face_wm != nullptr;
   if (!recon12 || face_m == nullptr || face_p == nullptr ||
-      zf != (face_zp != nullptr) || wf != (face_wp != nullptr) || !(zf || wf))
+      zf != (face_zp != nullptr) || wf != (face_wp != nullptr) ||
+      !(zf || wf) || post < 0 || post > 2 || (post != 0 && out2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const DslashArgs<R, G, C, S, X, O> a = make_args<R, G, C, S, X, O>(
-      psi, g, cinv, x, out, nullptr, T, Z, W, Xh, parity, twist, ta, tb,
-      clover, xpay, xc, 0, 0.0, 0.0);
+      psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, twist, ta, tb, clover,
+      xpay, xc, post, pa, pb);
   const LocalArgs<S> l = {static_cast<const S*>(face_m),
                           static_cast<const S*>(face_p), 0, 1};
   const BoxFaces<S> f = {

@@ -261,13 +261,15 @@ class Dirac(nn.Module):
         return _dsl.dslash_parity(self.u, psi_opp, parity, self.geom, dagger)
 
     def _matpc_tm_ch(self, psi_ch: torch.Tensor, dagger: bool,
-                     hop=dslash_ch):
+                     hop=dslash_ch, exact: bool = False):
         """Fused twisted-mass symmetric matpc on channels: the A⁻¹ twists
         and the final −κ² xpay run in the hop epilogues.  ``hop`` is
-        ``dslash_ch`` or, on a batch of sources, ``dslash_ch_msrc``."""
+        ``dslash_ch``, on a batch of sources ``dslash_ch_msrc``, or the
+        sharded operator's halo hop; ``exact`` reads the operands in the
+        spinors' precision in the bf16 tier too (``_operands``)."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
-        ops = self._operands(psi_ch.dtype)
+        ops = self._operands(psi_ch.dtype, exact)
         g, kw = ops["g"], self._hop_kw()
         a = 2.0 * p.kappa * p.mu * p.flavor
         if dagger:
@@ -284,24 +286,26 @@ class Dirac(nn.Module):
                    xpay_coef=-(k * k), x_ch=psi_ch, **kw)
 
     def _matpc_clover_ch(self, psi_ch: torch.Tensor, dagger: bool,
-                         hop=dslash_ch):
+                         hop=dslash_ch, exact: bool = False):
         """Fused (twisted-)clover symmetric matpc on channels: the A⁻¹
-        chiral 6×6 matvecs run in the hop epilogues (``hop`` as in
-        ``_matpc_tm_ch``)."""
+        chiral 6×6 matvecs run in the hop epilogues (``hop`` and
+        ``exact`` as in ``_matpc_tm_ch``)."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
-        ops = self._operands(psi_ch.dtype)
+        ops = self._operands(psi_ch.dtype, exact)
         g, ci, kw = ops["g"], ops["ci"], self._hop_kw()
         if not dagger:
             t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, clover="fwd",
                     cinv_ch=ci[1 - pr], **kw)
             return hop(g[pr], t, pr, self.geom, clover="fwd",
                        cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch, **kw)
-        if hop is dslash_ch:
+        if hop is dslash_ch or exact:
+            # K1's chain, and the sharded operator's one-off matpc† on a
+            # complex field: no kept matrices
             t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
         else:
             # every matvec of the multi-source CG or of the sharded CG
-            # (its halo hop): keep the matrices
+            # with K5 (its halo hop): keep the matrices
             t = _ch_matrix_apply(psi_ch,
                                  self._clover_matrix(psi_ch.dtype, pr),
                                  dag=True)
@@ -311,10 +315,10 @@ class Dirac(nn.Module):
                    xpay_coef=-(k * k), x_ch=psi_ch, **kw)
 
     def _fused_matpc_ch(self, psi_ch: torch.Tensor, dagger: bool,
-                        hop=dslash_ch):
+                        hop=dslash_ch, exact: bool = False):
         if self.params.has_clover:
-            return self._matpc_clover_ch(psi_ch, dagger, hop)
-        return self._matpc_tm_ch(psi_ch, dagger, hop)
+            return self._matpc_clover_ch(psi_ch, dagger, hop, exact)
+        return self._matpc_tm_ch(psi_ch, dagger, hop, exact)
 
     def _fused_matpc_ch_msrc(self, psi_ch_b: torch.Tensor, dagger: bool):
         """Multi-source fused matpc on float32 channels [n, T, 24, Z, W]:
@@ -326,16 +330,18 @@ class Dirac(nn.Module):
         output instead."""
         return self._fused_matpc_ch(psi_ch_b, dagger, hop=dslash_ch_msrc)
 
-    def _fused_matpc_dagm_ch(self, psi_ch: torch.Tensor, hop=dslash_ch):
+    def _fused_matpc_dagm_ch(self, psi_ch: torch.Tensor, hop=dslash_ch,
+                             exact: bool = False):
         """matpc†·matpc as four fused hops: the leading A⁻¹† of the dagger
         half is the second output (``post_op``) of the forward half's
         last hop.  ``hop`` is the hop function: ``dslash_ch``,
-        ``dslash_ch_msrc`` on a batch of sources [n, T, 24, Z, W], or
-        the plain ``dslash_ch_reference`` where a caller times the
-        chain."""
+        ``dslash_ch_msrc`` on a batch of sources [n, T, 24, Z, W], the
+        sharded operator's halo hop (K4), or the plain
+        ``dslash_ch_reference`` where a caller times the chain;
+        ``exact`` as in ``_matpc_tm_ch``."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
-        ops = self._operands(psi_ch.dtype)
+        ops = self._operands(psi_ch.dtype, exact)
         g, kw = ops["g"], self._hop_kw()
         if p.has_clover:
             ci = ops["ci"]

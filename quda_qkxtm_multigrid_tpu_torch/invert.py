@@ -157,18 +157,22 @@ def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,
     """The sharded solve (the JAX package's ``invert(mesh=…)``), every
     reduction summed over the grid.  Prepare, the right-hand side's
     matpc†, reconstruct and the true residual run in the fields'
-    precision through the box's K4 hop (float64 for complex128).  The
-    normal equations' CG takes one of three routes:
+    precision through the box's K4 hop (float64 for complex128; the
+    matpc† on the sharded chain).  The normal equations' CG takes one of
+    three routes:
 
       "cg" on the sharded fused chain (``has_sharded_chain``): CG on
-        float32 channels, each matvec ``dirac.matpc_ch`` twice (four
-        halo hops, K4 or with ``overlap`` K5);
+        float32 channels, each matvec ``dirac.matpc_dagm_ch``: four K4
+        halo hops, the dagger half's A⁻¹† K4's second output, or with
+        ``overlap`` ``matpc_ch`` twice (eight K5 launches, a plain
+        A⁻¹†);
       "cg" without the chain: CG on ``dirac.matpc_dagm`` in the fields'
         precision, its hops the box's K4 (float64 for complex128) and
         its A⁻¹ plain (the JAX package's XLA path on sharded arrays);
       "cg-mixed" on the chain: the float64 outer loop of ``cg_mixed`` on
-        ``matpc_dagm`` (K4 float64 hops) over float64 channels, and its
-        float32 inner loop on the chain to ``inner_tol``.
+        ``matpc_dagm`` (the chain of four float64 K4 hops) over float64
+        channels, and its float32 inner loop on the chain to
+        ``inner_tol``.
 
     Other solvers and a sloppy operator raise."""
     if solver not in ("cg", "cg-mixed"):
@@ -190,8 +194,7 @@ def _invert_sharded(dirac: ShardedDirac, b: torch.Tensor, tol: float,
     rhs = dirac.matpc(src, dagger=True)
 
     def chain(v):
-        return dirac.matpc_ch(dirac.matpc_ch(v, False, overlap), True,
-                              overlap)
+        return dirac.matpc_dagm_ch(v, overlap)
 
     red = mesh.allreduce
     if solver == "cg-mixed":

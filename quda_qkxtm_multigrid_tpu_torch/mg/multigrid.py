@@ -32,7 +32,8 @@ step length.  Every restart recomputes the true residual of its system
 and reads it on the host once.
 
 On a process grid the fine level runs on each rank's box through the
-sharded operator, and the coarse levels are replicated:
+sharded operator (its ``matpc``, the smoother's and the outer GCR's, the
+sharded fused chain of K4 hops), and the coarse levels are replicated:
 ``vcycle(mesh=…)`` gathers the coarse residual and every rank runs the
 whole coarse solve.  ``setup_mg`` on a ``ShardedDirac`` sets the
 preconditioner up on the boxes: the null vectors by the sharded solves

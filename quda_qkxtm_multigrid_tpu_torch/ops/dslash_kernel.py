@@ -49,12 +49,15 @@ The sharded solve (``parallel/``) runs the t-local hop of
 (K5): ``dslash_ch_local`` on a t-slab [T_loc, 24, Z, W] and the
 neighbour ranks' two planes, in one launch, and ``dslash_ch_overlap``,
 which launches the interior rows before the faces have to be there and
-the two edge rows after.  Same hop and epilogues (no ``post_op``), no
-wrap in t; recon-12, in float32, float64 (bare) or the bf16 operand
-tier.  On a grid that splits z or y, ``dslash_ch_local(zw_faces=…)``
-launches K4's box instances (``csrc/dslash_ch_box.cu``), which read
-the z and y faces as well and wrap no split axis.  One plain version,
-``dslash_ch_local_reference``.
+the two edge rows after.  Same hop and epilogues, no wrap in t;
+recon-12, in float32, float64 or the bf16 operand tier.  K4 also takes
+K1's second output ``post_op`` and, in float64, every epilogue (its
+``local_post`` entry points), so the sharded M_pc†M_pc is four K4 hops
+as K1's is four K1 hops; K5 takes neither (float64 bare only).  On a
+grid that splits z or y, ``dslash_ch_local(zw_faces=…)`` launches K4's
+box instances (``csrc/dslash_ch_box.cu``), which read the z and y faces
+as well and wrap no split axis, with the same second output and float64
+forms.  One plain version, ``dslash_ch_local_reference``.
 
 The antiperiodic t boundary: a gauge that carries it (the t links of
 the last global t row multiplied by −1, the JAX package's
@@ -362,6 +365,21 @@ def _epilogues(res, cinv_ch, clover, twist, xpay_coef, x_ch):
     return res
 
 
+def _with_post(res, cinv_ch, post_op):
+    """The channels of a hop's result ``res`` [4, 3, T, Z, W] and, with
+    ``post_op``, ``(out, out2)``: ("clover",) A† of the result with the
+    clover inverse ``cinv_ch``, ("twist", a, b) b(1 + i a γ5) of it."""
+    out = to_channels(res)
+    if post_op is None:
+        return out
+    if post_op[0] == "clover":
+        res2 = clover_apply(from_channels(cinv_ch, (2, 6, 6)), res,
+                            dagger=True)
+    else:
+        res2 = _g5_rotate(res, post_op[1], post_op[2])
+    return out, to_channels(res2)
+
+
 def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
                         dagger: bool = False, recon12: bool = False,
                         twist=None, xpay_coef=None, x_ch=None, clover=None,
@@ -388,15 +406,7 @@ def dslash_ch_reference(g_ch, psi_ch, parity: int, geom: Geometry,
                      _links(g_ch, recon12, recon8, rows), parity, geom,
                      dagger)
     res = _epilogues(res, cinv_ch, clover, twist, xpay_coef, x_ch)
-    out = to_channels(res)
-    if post_op is None:
-        return out
-    if post_op[0] == "clover":
-        res2 = clover_apply(from_channels(cinv_ch, (2, 6, 6)), res,
-                            dagger=True)
-    else:
-        res2 = _g5_rotate(res, post_op[1], post_op[2])
-    return out, to_channels(res2)
+    return _with_post(res, cinv_ch, post_op)
 
 
 class _Form(NamedTuple):
@@ -405,9 +415,9 @@ class _Form(NamedTuple):
     operand must be absent), whether it takes the bare hop only, the
     gauge forms it is built for (8, 12, 18), the counter on its wrapper
     that its launches add to, and the hop it is an instance of: "k1"
-    (``dslash_ch``), "local" (the t-local hop of ``dslash_ch_local``
-    and ``dslash_ch_overlap``) or "box" (``dslash_ch_box``, K4 with the
-    z and y faces)."""
+    (``dslash_ch``), "k4" (``dslash_ch_local``), "k5"
+    (``dslash_ch_overlap``) or "box" (``dslash_ch_box``, K4 with the z
+    and y faces).  Every form takes ``post_op`` but K5's."""
     name: str
     dtypes: tuple
     bare: bool
@@ -438,21 +448,28 @@ _FORMS = (
           "launches_bf16s"),
     # K3, the recon-8 gauge (csrc/dslash_ch_r8.cu)
     _Form("f32_r8", (_F32,) * 5, False, (8,), "launches_r8"),
-    # K4 and K5, the t-local hop of the sharded solve
-    # (csrc/dslash_ch_local.cu): the float32 chain, the float64 full
-    # operator (bare), the chain in the bf16 operand tier
-    _Form("local_f32", (_F32,) * 5, False, (12,), "launches", "local"),
-    _Form("local_f64", (_F64,) * 5, True, (12,), "launches", "local"),
+    # the t-local hop of the sharded solve (csrc/dslash_ch_local.cu):
+    # K5's entry points (the float32 chain, the float64 full operator's
+    # bare hop, the chain in the bf16 operand tier), then K4's, one
+    # launch with K1's second output and every epilogue in float64 too
+    _Form("local_f32", (_F32,) * 5, False, (12,), "launches", "k5"),
+    _Form("local_f64", (_F64,) * 5, True, (12,), "launches", "k5"),
     _Form("local_f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False, (12,),
-          "launches_bf16", "local"),
-    # K4 on a box, with the z and y faces (csrc/dslash_ch_box.cu): the
-    # same three
-    _Form("box_f32", (_F32,) * 5, False, (12,), "launches", "box"),
-    _Form("box_f64", (_F64,) * 5, True, (12,), "launches", "box"),
-    _Form("box_f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False, (12,),
-          "launches_bf16", "box"),
+          "launches_bf16", "k5"),
+    _Form("local_post_f32", (_F32,) * 5, False, (12,), "launches", "k4"),
+    _Form("local_post_f64", (_F64,) * 5, False, (12,), "launches", "k4"),
+    _Form("local_post_f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False,
+          (12,), "launches_bf16", "k4"),
+    # K4 on a box, with the z and y faces (csrc/dslash_ch_box.cu): K4's
+    # three
+    _Form("box_post_f32", (_F32,) * 5, False, (12,), "launches", "box"),
+    _Form("box_post_f64", (_F64,) * 5, False, (12,), "launches", "box"),
+    _Form("box_post_f32_g16", (_BF16, _BF16, _F32, _F32, _F32), False,
+          (12,), "launches_bf16", "box"),
 )
 _FORM_BY_NAME = {f.name: f for f in _FORMS}
+_FORMS_OF = {k: [f for f in _FORMS if f.kernel == k]
+             for k in dict.fromkeys(f.kernel for f in _FORMS)}
 
 
 def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool,
@@ -468,7 +485,7 @@ def _kernel_form(g_ch, psi_ch, cinv_ch, x_ch, bare: bool,
         out_dtype = _F64 if psi_ch.dtype == _F64 else _F32
     have = (g_ch.dtype, None if cinv_ch is None else cinv_ch.dtype,
             psi_ch.dtype, None if x_ch is None else x_ch.dtype, out_dtype)
-    forms = [f for f in _FORMS if f.kernel == kernel]
+    forms = _FORMS_OF[kernel]
     for form in forms:
         if recon not in form.recons or (form.bare and not bare):
             continue
@@ -745,16 +762,18 @@ def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
                               recon12: bool = False, twist=None,
                               xpay_coef=None, x_ch=None, clover=None,
                               cinv_ch=None, faces_projected: bool = False,
-                              t_boundary=None, zw_faces=None):
+                              t_boundary=None, zw_faces=None, post_op=None):
     """Plain PyTorch version of ``dslash_ch_local`` and, with the same
-    arguments, of ``dslash_ch_overlap``: the hop of the local rows ψ
-    [T, 24, Z, W], whose t−1 neighbour of row 0 is ``face_m`` and t+1
-    neighbour of row T−1 is ``face_p`` ([1, 24, Z, W], or the projected
-    2-spinors [1, 12, Z, W] of ``halo.project_face`` with
-    ``faces_projected``), no wrap in t; then the epilogues, x
-    [T, 24, Z, W].  bf16 operands are widened to float32.
-    ``t_boundary`` and ``zw_faces`` as in ``dslash_ch_local``: z and y
-    do not wrap where their faces are given."""
+    arguments, of ``dslash_ch_overlap`` and ``dslash_ch_box``: the hop of
+    the local rows ψ [T, 24, Z, W], whose t−1 neighbour of row 0 is
+    ``face_m`` and t+1 neighbour of row T−1 is ``face_p`` ([1, 24, Z, W],
+    or the projected 2-spinors [1, 12, Z, W] of ``halo.project_face``
+    with ``faces_projected``), no wrap in t; then the epilogues, x
+    [T, 24, Z, W], and with ``post_op`` the second output, as
+    ``dslash_ch_reference``'s: returns ``out`` or ``(out, out2)``.  bf16
+    operands are widened to float32.  ``t_boundary`` and ``zw_faces`` as
+    in ``dslash_ch_local``: z and y do not wrap where their faces are
+    given."""
     g_ch, psi_ch, cinv_ch = _widen(g_ch), _widen(psi_ch), _widen(cinv_ch)
     psi = from_channels(psi_ch, (4, 3))
     shifted = {}
@@ -778,15 +797,15 @@ def dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p, parity: int,
               torch.cat([face(face_m, not dagger), down], dim=2))
     res = _hop_plain(psi, _links(g_ch, recon12, t_boundary=t_boundary),
                      parity, geom_local, dagger, halves, shifted or None)
-    return to_channels(_epilogues(res, cinv_ch, clover, twist, xpay_coef,
-                                  _widen(x_ch)))
+    res = _epilogues(res, cinv_ch, clover, twist, xpay_coef, _widen(x_ch))
+    return _with_post(res, cinv_ch, post_op)
 
 
 def _launch_local(lib, form: str, g_ch, psi_ch, out, face_m, face_p,
                   face_ch: int, rows, parity: int, geom: Geometry, dagger,
                   twist, xpay_coef, x_ch, clover, cinv_ch, t_boundary,
                   stream: int) -> int:
-    """Call the C entry point ``qkx_dslash_ch_<form>`` of the t-local hop
+    """Call K5's C entry point ``qkx_dslash_ch_<form>`` of the t-local hop
     for the output ``rows`` = (t0, tstep, nrows), the faces of
     ``face_ch`` channels (both None: no output row may read one) and
     ``t_boundary`` as in ``dslash_ch_local``.  Returns its CUDA error
@@ -805,16 +824,6 @@ def _launch_local(lib, form: str, g_ch, psi_ch, out, face_m, face_p,
               int(xpay_coef is not None),
               0.0 if xpay_coef is None else xpay_coef,
               ctypes.c_void_p(stream))
-
-
-def _k4_launches(g_ch, psi_ch, face_m, face_p, parity, geom, dagger, twist,
-                 xpay_coef, x_ch, clover, cinv_ch):
-    """K4's one launch (keywords of ``_launch_local``): every row, the
-    24-channel faces read in place."""
-    return [dict(g_ch=g_ch, psi_ch=psi_ch, face_m=face_m, face_p=face_p,
-                 face_ch=24, rows=(0, 1, geom.T), parity=parity, geom=geom,
-                 dagger=dagger, twist=twist, xpay_coef=xpay_coef, x_ch=x_ch,
-                 clover=clover, cinv_ch=cinv_ch)]
 
 
 def _k5_launches(g_ch, psi_ch, face_m, face_p, parity, geom, dagger, twist,
@@ -908,89 +917,126 @@ def _check_zw_faces(zw_faces, psi_ch, geom: Geometry):
                          "zw_faces=None")
 
 
-def _launch_box(lib, form: str, g_ch, psi_ch, out, face_m, face_p, zw_faces,
-                parity: int, geom: Geometry, dagger, twist, xpay_coef, x_ch,
-                clover, cinv_ch, t_boundary, stream: int) -> int:
-    """Call the C entry point ``qkx_dslash_ch_<form>`` of K4 on a box
-    (every row; the t faces and the z / y faces of ``zw_faces``, None
-    for an axis that wraps).  Returns its CUDA error code."""
+def _launch_k4(lib, form: str, g_ch, psi_ch, out, out2, face_m, face_p,
+               zw_faces, parity: int, geom: Geometry, dagger, twist,
+               xpay_coef, x_ch, clover, cinv_ch, post_op, t_boundary,
+               stream: int) -> int:
+    """Call K4's C entry point ``qkx_dslash_ch_<form>``: one launch over
+    every row, the 24-channel t faces read where they lie; on a box (a
+    ``box_post`` form) also the z / y faces of ``zw_faces`` (None for an
+    axis that wraps; ``zw_faces`` None for a ``local_post`` form);
+    ``out2`` and ``post_op`` the second output (both None: none).
+    Returns its CUDA error code."""
     fn = getattr(lib, f"qkx_dslash_ch_{form}")
     ptr = lambda t: None if t is None else t.data_ptr()
     ta, tb = twist if twist is not None else (0.0, 0.0)
     t_first, t_last = (-1, -1) if t_boundary is None else t_boundary
     return fn(ptr(psi_ch), ptr(g_ch), ptr(cinv_ch), ptr(x_ch), ptr(out),
-              ptr(face_m), ptr(face_p), *(ptr(f) for f in zw_faces),
+              ptr(out2), ptr(face_m), ptr(face_p),
+              *(() if zw_faces is None else map(ptr, zw_faces)),
               geom.T, geom.Z, geom.W, geom.Xh,
               _parity_arg(parity, t_boundary is not None), t_first, t_last,
               int(dagger), 1, int(twist is not None), ta, tb,
               _CLOVER_MODES[clover], int(xpay_coef is not None),
-              0.0 if xpay_coef is None else xpay_coef,
+              0.0 if xpay_coef is None else xpay_coef, *_post_args(post_op),
               ctypes.c_void_p(stream))
+
+
+def _run_k4(wrapper, form: str, g_ch, psi_ch, face_m, face_p, zw_faces,
+            parity, geom, dagger, twist, xpay_coef, x_ch, clover, cinv_ch,
+            post_op, t_boundary):
+    """``_launch_k4`` on ``psi_ch``'s card and current stream, into new
+    outputs; adds one to ``wrapper``'s counter and, with the second
+    output, to ``wrapper.launches_post``.  Returns ``out`` or
+    ``(out, out2)``."""
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    lib = _build.load_library()
+    out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
+                      device=psi_ch.device)
+    out2 = None if post_op is None else torch.empty_like(out)
+    stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
+    with torch.cuda.device(psi_ch.device):
+        err = _launch_k4(lib, form, g_ch, psi_ch, out, out2, face_m, face_p,
+                         zw_faces, parity, geom, dagger, twist, xpay_coef,
+                         x_ch, clover, cinv_ch, post_op, t_boundary, stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed "
+                           f"(qkx_dslash_ch_{form}): CUDA error {err}")
+    counter = _FORM_BY_NAME[form].counter
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+    if out2 is None:
+        return out
+    wrapper.launches_post += 1
+    return out, out2
 
 
 def dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity: int,
                     geom_local: Geometry, dagger: bool = False,
                     recon12: bool = False, twist=None, xpay_coef=None,
                     x_ch=None, clover=None, cinv_ch=None, t_boundary=None,
-                    zw_faces=None):
+                    zw_faces=None, post_op=None):
     """K4: the fused hop with epilogues on the local rows ψ
     [T, 24, Z, W] of a t-slab, whose t−1 neighbour of row 0 is
     ``face_m`` and t+1 neighbour of row T−1 is ``face_p`` ([1, 24, Z, W]
     each, in ψ's dtype: the planes of the t−1 and t+1 ranks), out and x
     [T, 24, Z, W]; gauge and clover inverse [T, C, Z, W] of the slab.
-    Recon-12, no second output; the slab's origin must be even (T even),
-    so the checkerboard phase is the global one.  ``t_boundary``: None
-    for a periodic gauge; for one with the antiperiodic t boundary
+    Recon-12; the slab's origin must be even (T even), so the
+    checkerboard phase is the global one.  ``post_op`` as in
+    ``dslash_ch``: returns ``out`` or ``(out, out2)``.  ``t_boundary``:
+    None for a periodic gauge; for one with the antiperiodic t boundary
     (``antiperiodic_t`` of the whole lattice's links), the local rows
     (t_first, t_last) of global t = 0 and T−1, which may lie outside the
     slab (``sharded.ShardedDirac`` gives them).  ``zw_faces``: the box of
     a grid that splits z or y, whose hop is ``dslash_ch_box``'s.
 
-    A CUDA ψ makes one launch of ``csrc/dslash_ch_local.cu`` over every
-    row, the faces read where they lie (the instance from ``_FORMS``:
-    float32, float64 bare, or the bf16 operand tier), adding one to
-    ``dslash_ch_local.launches`` or ``.launches_bf16``; a CPU ψ runs
-    ``dslash_ch_local_reference``.  Anything else raises."""
+    A CUDA ψ makes one launch of ``csrc/dslash_ch_local.cu``'s K4 over
+    every row, the faces read where they lie (the ``local_post``
+    instance from ``_FORMS``: float32, float64 or the bf16 operand
+    tier), adding one to ``dslash_ch_local.launches`` or
+    ``.launches_bf16``, and with ``post_op`` to ``.launches_post``; a CPU
+    ψ runs ``dslash_ch_local_reference``.
+    Anything else raises."""
     if zw_faces is not None:
         return dslash_ch_box(g_ch, psi_ch, face_m, face_p, zw_faces, parity,
                              geom_local, dagger, recon12, twist, xpay_coef,
-                             x_ch, clover, cinv_ch, t_boundary)
+                             x_ch, clover, cinv_ch, t_boundary, post_op)
     form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
-                           xpay_coef, x_ch, clover, cinv_ch, None,
-                           kernel="local")
+                           xpay_coef, x_ch, clover, cinv_ch, post_op,
+                           kernel="k4")
     _check_faces(face_m, face_p, psi_ch, False)
     if psi_ch.device.type == "cpu":
         return dslash_ch_local_reference(g_ch, psi_ch, face_m, face_p,
                                          parity, geom_local, dagger, recon12,
                                          twist, xpay_coef, x_ch, clover,
-                                         cinv_ch, t_boundary=t_boundary)
+                                         cinv_ch, t_boundary=t_boundary,
+                                         post_op=post_op)
     _device_check("dslash_ch_local", psi_ch)
-    out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
-                      device=psi_ch.device)
-    _run_local(dslash_ch_local, form, psi_ch, out, _k4_launches(
-        g_ch, psi_ch, face_m, face_p, parity, geom_local, dagger, twist,
-        xpay_coef, x_ch, clover, cinv_ch), t_boundary=t_boundary)
-    return out
+    return _run_k4(dslash_ch_local, form, g_ch, psi_ch, face_m, face_p, None,
+                   parity, geom_local, dagger, twist, xpay_coef, x_ch,
+                   clover, cinv_ch, post_op, t_boundary)
 
 
 def dslash_ch_box(g_ch, psi_ch, face_m, face_p, zw_faces, parity: int,
                   geom_local: Geometry, dagger: bool = False,
                   recon12: bool = False, twist=None, xpay_coef=None,
-                  x_ch=None, clover=None, cinv_ch=None, t_boundary=None):
+                  x_ch=None, clover=None, cinv_ch=None, t_boundary=None,
+                  post_op=None):
     """K4 on a box of a grid that splits z or y: ``dslash_ch_local``'s
     hop and arguments on the box ψ [T, 24, Z, W], with its t faces, and
     ``zw_faces`` = (z−1, z+1, y−1, y+1) from ``parallel.halo.box_faces``:
     the neighbours' z planes [T, 24, 1, W] of row z = 0 and z = Z−1, and
     their y rows [T, 24, Z, Xh] of y = 0 and y = Y−1 (entries k of the
     merged axis), None for an axis that wraps inside the box.
+    ``post_op`` as in ``dslash_ch``: returns ``out`` or ``(out, out2)``.
 
-    A CUDA ψ makes one launch of ``csrc/dslash_ch_box.cu``'s instance for
-    the split axes (``_FORMS``: float32, float64 bare, or the bf16
-    operand tier), adding one to ``dslash_ch_box.launches`` or
-    ``.launches_bf16``; a CPU ψ runs ``dslash_ch_local_reference``.
+    A CUDA ψ makes one launch of ``csrc/dslash_ch_box.cu``'s instance
+    for the split axes (``_FORMS``: float32, float64 or the bf16 operand
+    tier), adding one to ``dslash_ch_box.launches`` or
+    ``.launches_bf16``, and with ``post_op`` to ``.launches_post``; a CPU
+    ψ runs ``dslash_ch_local_reference``.
     Anything else raises."""
     form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
-                           xpay_coef, x_ch, clover, cinv_ch, None,
+                           xpay_coef, x_ch, clover, cinv_ch, post_op,
                            kernel="box")
     _check_faces(face_m, face_p, psi_ch, False)
     _check_zw_faces(zw_faces, psi_ch, geom_local)
@@ -999,32 +1045,21 @@ def dslash_ch_box(g_ch, psi_ch, face_m, face_p, zw_faces, parity: int,
                                          parity, geom_local, dagger, recon12,
                                          twist, xpay_coef, x_ch, clover,
                                          cinv_ch, t_boundary=t_boundary,
-                                         zw_faces=zw_faces)
+                                         zw_faces=zw_faces, post_op=post_op)
     _device_check("dslash_ch_box", psi_ch)
-    from quda_qkxtm_multigrid_tpu_torch import _build
-    lib = _build.load_library()
-    out = torch.empty(psi_ch.shape, dtype=_FORM_BY_NAME[form].dtypes[4],
-                      device=psi_ch.device)
-    stream = torch.cuda.current_stream(psi_ch.device).cuda_stream
-    with torch.cuda.device(psi_ch.device):
-        err = _launch_box(lib, form, g_ch, psi_ch, out, face_m, face_p,
-                          zw_faces, parity, geom_local, dagger, twist,
-                          xpay_coef, x_ch, clover, cinv_ch, t_boundary,
-                          stream)
-    if err != 0:
-        raise RuntimeError(f"dslash_ch_box kernel launch failed "
-                           f"(qkx_dslash_ch_{form}): CUDA error {err}")
-    counter = _FORM_BY_NAME[form].counter
-    setattr(dslash_ch_box, counter, getattr(dslash_ch_box, counter) + 1)
-    return out
+    return _run_k4(dslash_ch_box, form, g_ch, psi_ch, face_m, face_p,
+                   zw_faces, parity, geom_local, dagger, twist, xpay_coef,
+                   x_ch, clover, cinv_ch, post_op, t_boundary)
 
 
 dslash_ch_box.launches = 0
 dslash_ch_box.launches_bf16 = 0
+dslash_ch_box.launches_post = 0
 
 
 dslash_ch_local.launches = 0
 dslash_ch_local.launches_bf16 = 0
+dslash_ch_local.launches_post = 0
 
 
 def dslash_ch_overlap(g_ch, psi_ch, face_m, face_p, parity: int,
@@ -1059,7 +1094,7 @@ def dslash_ch_overlap(g_ch, psi_ch, face_m, face_p, parity: int,
                                xpay_coef, x_ch, clover, cinv_ch, t_boundary)
     form = _check_operands(g_ch, psi_ch, geom_local, recon12, twist,
                            xpay_coef, x_ch, clover, cinv_ch, None,
-                           kernel="local")
+                           kernel="k5")
     _check_faces(face_m, face_p, psi_ch, faces_projected)
     if psi_ch.device.type == "cpu":
         if wait is not None:

@@ -20,14 +20,22 @@ whose hop ``dslash`` is K4 on the channel field and its faces, in the
 field's precision (float64 for complex128: the counterpart of
 ``Dirac.dslash`` through K1 f64), so ``m``, ``matpc``, ``prepare`` and
 ``reconstruct`` are the full-lattice operator's on this box.  Every
-parity-diagonal term is local.  ``matpc_ch`` is the sharded fused chain,
-two hops per application with a face exchange before each: on a t-ring
-K4, which reads the received t faces in place, or with ``overlap`` K5,
-whose interior runs while the faces, spin-projected when T_loc > 2, are
-in flight; on a grid that splits z or y, K4's box instances, which read
-the z and y faces too (``halo_hop``).  The chain reads the operator's
-channel operands (bf16 in the bf16 operand tier); the hop of
-``dslash`` reads them in the field's precision always.
+parity-diagonal term is local.
+
+The sharded fused chain is the unsharded one (``Dirac._fused_matpc_ch``,
+``_fused_matpc_dagm_ch``) with ``halo_hop`` for its hop, a face exchange
+before each: on a t-ring K4, which reads the received t faces in place,
+or with ``overlap`` K5, whose interior runs while the faces,
+spin-projected when T_loc > 2, are in flight; on a grid that splits z
+or y, K4's box instances, which read the z and y faces too.  K4 takes
+K1's second output, so M_pc†M_pc is four K4 hops, the dagger half's
+leading A⁻¹† the second output of the forward half's last hop; K5 has
+none, so its chain keeps that A⁻¹† plain.  ``matpc`` and ``matpc_dagm``
+run the chain on complex fields in their precision (float64 for
+complex128, on K4's float64 forms), on operands of that precision in
+the bf16 operand tier too; ``matpc_ch`` and ``matpc_dagm_ch`` run it on
+float32 channels and the tier's operands (bf16 there): the CG's
+matvec.
 
 The t boundary is read from the doubled links
 (``ops.dslash_kernel.antiperiodic_t``): ``shard_dirac`` reads the whole
@@ -61,7 +69,7 @@ from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
 def halo_hop(mesh: TMesh, overlap: bool, g_ch, psi_ch, parity: int,
              geom: Geometry, dagger: bool = False, recon12: bool = False,
              twist=None, xpay_coef=None, x_ch=None, clover=None,
-             cinv_ch=None, t_boundary=None):
+             cinv_ch=None, t_boundary=None, post_op=None):
     """One sharded hop with ``dslash_ch_local``'s arguments on the local
     box: the face exchange, then K4, or with ``overlap`` K5 with the
     exchange's wait between its interior and its edges (the faces
@@ -69,7 +77,8 @@ def halo_hop(mesh: TMesh, overlap: bool, g_ch, psi_ch, parity: int,
     exchange carries the z and y faces too and K4 reads them
     (``halo.box_faces``); ``overlap`` raises there.  ``t_boundary``:
     None (periodic), or the box's rows of global t = 0 and T−1
-    (``ShardedDirac.t_rows``)."""
+    (``ShardedDirac.t_rows``).  ``post_op``: K4's second output, as
+    ``dslash_ch``'s (returns ``(out, out2)``); K5 has none and raises."""
     kw = dict(dagger=dagger, recon12=recon12, twist=twist,
               xpay_coef=xpay_coef, x_ch=x_ch, clover=clover, cinv_ch=cinv_ch,
               t_boundary=t_boundary)
@@ -79,10 +88,13 @@ def halo_hop(mesh: TMesh, overlap: bool, g_ch, psi_ch, parity: int,
                              f"{mesh.grid} splits z or y")
         face_m, face_p, zw = box_faces(psi_ch, mesh, geom.Xh)
         return dslash_ch_local(g_ch, psi_ch, face_m, face_p, parity, geom,
-                               zw_faces=zw, **kw)
+                               zw_faces=zw, post_op=post_op, **kw)
     if not overlap:
         return dslash_ch_local(g_ch, psi_ch, *t_faces(psi_ch, mesh), parity,
-                               geom, **kw)
+                               geom, post_op=post_op, **kw)
+    if post_op is not None:
+        raise ValueError("overlap=True (K5) has no second output: its "
+                         "chain runs the dagger half's A⁻¹† plain")
     project = geom.T > 2
     ex = start_t_faces(psi_ch, mesh, project=project, dagger=dagger)
     return dslash_ch_overlap(g_ch, psi_ch, ex.face_m, ex.face_p, parity,
@@ -118,16 +130,27 @@ class ShardedDirac(Dirac):
 
     @property
     def _has_fused_matpc(self) -> bool:
-        # the unsharded chain would wrap inside the box: matpc and
-        # matpc_dagm compose through the halo hop of ``dslash``
+        # the unsharded chain (K1, and K2 on a batch) would wrap inside
+        # the box; the sharded chain's own routing is has_sharded_chain
         return False
 
     @property
     def has_sharded_chain(self) -> bool:
-        """Whether ``matpc_ch`` applies: the conditions of the unsharded
-        fused chain (use_kernels, symmetric Schur form, a twisted or
-        clover kind)."""
+        """Whether the sharded fused chain applies (``matpc``,
+        ``matpc_dagm``, ``matpc_ch``, ``matpc_dagm_ch``): the conditions
+        of the unsharded fused chain (use_kernels, symmetric Schur form,
+        a twisted or clover kind)."""
         return Dirac._has_fused_matpc.fget(self)
+
+    def _require_chain(self):
+        if not self.has_sharded_chain:
+            raise ValueError("the sharded chain needs use_kernels, the "
+                             "symmetric Schur form and a twisted or clover "
+                             "kind")
+
+    def _halo(self, overlap: bool = False):
+        """The chain's hop: ``halo_hop`` on this operator's mesh."""
+        return functools.partial(halo_hop, self.mesh, overlap)
 
     def dslash(self, psi_opp: torch.Tensor, parity: int,
                dagger: bool = False) -> torch.Tensor:
@@ -137,18 +160,50 @@ class ShardedDirac(Dirac):
                        self.geom, dagger, **self._hop_kw())
         return from_channels(out, (4, 3))
 
+    def matpc(self, psi_p: torch.Tensor, dagger: bool = False):
+        """M_pc (or M_pc†) of a complex field on this box: on the sharded
+        chain two halo hops with their epilogues (the dagger half after
+        its leading A⁻¹† or twist), in the field's precision on operands
+        of that precision; otherwise ``Dirac``'s composition of
+        ``dslash`` and the plain A⁻¹."""
+        if not self.has_sharded_chain:
+            return super().matpc(psi_p, dagger)
+        out = self._fused_matpc_ch(to_channels(psi_p), dagger,
+                                   hop=self._halo(), exact=True)
+        return from_channels(out, (4, 3))
+
+    def matpc_dagm(self, psi_p: torch.Tensor) -> torch.Tensor:
+        """M_pc†M_pc of a complex field on this box: on the sharded chain
+        four K4 hops, no plain A⁻¹† (``matpc``'s precision and
+        operands); otherwise ``matpc`` twice."""
+        if not self.has_sharded_chain:
+            return super().matpc_dagm(psi_p)
+        out = self._fused_matpc_dagm_ch(to_channels(psi_p),
+                                        hop=self._halo(), exact=True)
+        return from_channels(out, (4, 3))
+
     def matpc_ch(self, psi_ch: torch.Tensor, dagger: bool = False,
                  overlap: bool = False) -> torch.Tensor:
         """The sharded fused matpc (or matpc†) on this box's channel
-        field [T_loc, 24, Z_loc, W_loc], the JAX package's chain: two
-        halo hops (K4, or K5 with ``overlap`` on a t-ring), the dagger
-        half after a plain A⁻¹† or twist."""
-        if not self.has_sharded_chain:
-            raise ValueError("the sharded chain needs use_kernels, the "
-                             "symmetric Schur form and a twisted or clover "
-                             "kind")
-        hop = functools.partial(halo_hop, self.mesh, overlap)
-        return self._fused_matpc_ch(psi_ch, dagger, hop=hop)
+        field [T_loc, 24, Z_loc, W_loc] and the tier's operands, the JAX
+        package's chain: two halo hops (K4, or K5 with ``overlap`` on a
+        t-ring), the dagger half after a plain A⁻¹† or twist."""
+        self._require_chain()
+        return self._fused_matpc_ch(psi_ch, dagger, hop=self._halo(overlap))
+
+    def matpc_dagm_ch(self, psi_ch: torch.Tensor,
+                      overlap: bool = False) -> torch.Tensor:
+        """The sharded fused matpc†·matpc on this box's channel field and
+        the tier's operands, the sharded CG's matvec: four K4 hops, the
+        dagger half's leading A⁻¹† the second output of the forward
+        half's last hop (``Dirac._fused_matpc_dagm_ch``); with
+        ``overlap`` K5, which has no second output: ``matpc_ch`` twice,
+        the dagger half after a plain A⁻¹†."""
+        if overlap:
+            return self.matpc_ch(self.matpc_ch(psi_ch, False, True), True,
+                                 True)
+        self._require_chain()
+        return self._fused_matpc_dagm_ch(psi_ch, hop=self._halo())
 
     def flops_per_mat(self) -> int:
         """Analytic flops of one application of the whole lattice's

@@ -719,8 +719,9 @@ def run_loops_wexact(u: torch.Tensor, geom: Geometry, kappa: float,
 
     ``mesh`` (a process grid; ``u`` whole or this rank's box, ``gen`` in the
     same state on every rank): the Lanczos runs on the rank's box of
-    the normal operator (``ShardedDirac.matpc_dagm`` or ``mdagm``, its
-    hops K4 in the fields' precision), every inner product summed over
+    the normal operator (``ShardedDirac.matpc_dagm``, the sharded fused
+    chain of four K4 hops in the fields' precision, or ``mdagm``), every
+    inner product summed over
     the grid (``solvers.eigen``, ``allreduce=``); its start vectors and
     the noise are drawn whole from ``gen`` and cut, so a grid takes
     the unsharded draws.  The modes' contributions and the stochastic

@@ -225,6 +225,24 @@ def _job_box_pieces(job, data, geom, mesh, out):
     out["prolong|cat"] = ts.prolong(vc).numpy()
 
 
+def _job_op(job, data, geom, mesh, out):
+    """The sharded operator's fused chain on the rank's box:
+    ``ShardedDirac.matpc`` both ways and ``matpc_dagm`` of the first
+    parity of ``job["psi"]``, with the operator and the field in each
+    precision of ``job["precs"]`` ("c128", "c64")."""
+    types = {"c128": np.complex128, "c64": np.complex64}
+    for prec in job["precs"]:
+        dtype = types[prec]
+        ds = sharded_dirac_from_numpy(
+            data[job["u"]].astype(dtype),
+            DiracParams(**job["params"], use_kernels=True), geom, mesh)
+        psi = spinor_slab_from_numpy(data[job["psi"]][0].astype(dtype), mesh)
+        name = f"{job['name']}/{prec}"
+        for dagger in (False, True):
+            out[f"{name}/matpc/{dagger}|cat"] = ds.matpc(psi, dagger).numpy()
+        out[f"{name}/dagm|cat"] = ds.matpc_dagm(psi).numpy()
+
+
 def _job_workflow(job, data, geom, mesh, out):
     """``run_twop``, ``run_threep`` or ``run_loops`` with ``mesh``: the
     correlators and loops whole on every rank, the 2pt's propagators and
@@ -455,7 +473,8 @@ JOBS = {"mg": _job_mg, "mg_vcycle": _job_mg, "bench_mg": _job_bench,
         "threep": _job_workflow, "loops": _job_workflow,
         "eigen": _job_eigen, "wexact": _job_wexact, "build": _job_build,
         "memory": _job_memory, "setup": _job_setup, "hop": _job_hop,
-        "box_pieces": _job_box_pieces, "refusals": _job_refusals}
+        "box_pieces": _job_box_pieces, "refusals": _job_refusals,
+        "op": _job_op}
 
 
 def run(rank: int, grid: tuple, work: Path):

@@ -286,17 +286,19 @@ def test_k4_launch_plan_reads_from_row_one(flds):
     psi, fm, fp = _split(ext)
     lib, calls = _recording_lib()
     out = torch.empty((TL, 24, GT.Z, GT.W))
-    dk._run_launches(lib, "local_f32", out, dk._k4_launches(
-        g, psi, fm, fp, 0, GL, False, None, XC, xs, "fwd", ci), None, 0,
-        "K4")
+    assert dk._launch_k4(lib, "local_post_f32", g, psi, out, None, fm, fp,
+                         None, 0, GL, False, None, XC, xs, "fwd", ci, None,
+                         None, 0) == 0
     (name, a), = calls
-    assert name == "qkx_dslash_ch_local_f32"
+    assert name == "qkx_dslash_ch_local_post_f32"   # every row, 24 channels
+    assert len(a) == len(_build.ENTRY_POINTS[name])
     assert a[0] == psi.data_ptr() and a[3] == xs.data_ptr()
     assert a[1:3] == (g.data_ptr(), ci.data_ptr()) and a[4] == out.data_ptr()
-    assert a[5:8] == (fm.data_ptr(), fp.data_ptr(), 24)
-    assert a[8:16] == (TL, GT.Z, GT.W, GT.Xh, 0, 0, 1, TL)
-    assert a[16:18] == (-1, -1)          # periodic: no boundary rows
-    assert a[18:21] == (0, 1, 0) and a[23:25] == (1, 1)
+    assert a[5:8] == (None, fm.data_ptr(), fp.data_ptr())   # no out2
+    assert a[8:13] == (TL, GT.Z, GT.W, GT.Xh, 0)
+    assert a[13:15] == (-1, -1)          # periodic: no boundary rows
+    assert a[15:18] == (0, 1, 0) and a[20:22] == (1, 1)
+    assert a[23:26] == (0, 0.0, 0.0)     # no second output
 
 
 def test_k5_launch_plan_waits_between_interior_and_edges(flds):
@@ -352,8 +354,15 @@ def _bad_mixes(flds):
 @pytest.mark.parametrize("name", ["float64 with epilogues", "full gauge",
                                   "bf16 psi", "bf16 gauge, float32 clover"])
 def test_local_refuses_unlisted_mixes(flds, name):
+    """K5 refuses every mix; K4 takes epilogues in float64 (its
+    ``local_post_f64`` instance) and refuses the rest."""
     g, ext, kw = _bad_mixes(flds)[name]
     kw = {"recon12": True, **kw}
+    with pytest.raises(TypeError, match="no kernel takes"):
+        dk.dslash_ch_overlap(g, *_split(ext), 0, GL, **kw)
+    if name == "float64 with epilogues":
+        dk.dslash_ch_local(g, *_split(ext), 0, GL, **kw)
+        return
     with pytest.raises(TypeError, match="no kernel takes"):
         dk.dslash_ch_local(g, *_split(ext), 0, GL, **kw)
 

@@ -9,7 +9,12 @@ JAX package's XLA ``Dirac.matpc`` in complex128 (atol 1e-5, the float32
 chain); ``invert(mesh=…, tol=1e-12, maxiter=2)`` against the JAX
 package's ``invert`` as in ``test_parallel.test_fused_invert_sharded``;
 one converged solve on each ring against the port's unsharded fused CG;
-the bf16 operand tier's sharded chain against its unsharded one.
+the bf16 operand tier's sharded chain against its unsharded one.  The
+sharded operator's ``matpc`` (both ways) and ``matpc_dagm`` through the
+fused chain of K4 hops with K1's second output, on an antiperiodic
+gauge, in complex128 (and in the bf16 operand tier, which stays float64
+there) against the JAX package's XLA operator to 1e-12 normwise, and in
+complex64 (the float32 chain) to 1e-5.
 The ring of 1 exchanges nothing (its faces are its own edge planes) but
 sums through the process group; the ring of 2 has T_loc = 4 at 4³×8
 (projected faces, both messages to one peer); the ring of 4 has
@@ -26,6 +31,7 @@ from pathlib import Path
 
 import numpy as np
 import jax
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -33,6 +39,7 @@ from quda_qkxtm_multigrid_tpu import dirac as jd
 from quda_qkxtm_multigrid_tpu import fields as jfields
 from quda_qkxtm_multigrid_tpu import lattice as jlat
 from quda_qkxtm_multigrid_tpu.invert import invert as j_invert
+from quda_qkxtm_multigrid_tpu.ops.gauge import apply_t_boundary
 from quda_qkxtm_multigrid_tpu.utils import rng as jrng
 
 from quda_qkxtm_multigrid_tpu_torch import convert
@@ -72,6 +79,12 @@ def _jobs(nt: int):
     jobs += [dict(type="matpc", group=matpc_group, name=f"bf16/{dg}",
                   params=dict(TMC, kernel_bf16=True), overlap=True,
                   dagger=dg) for dg in (False, True)]
+    jobs += [dict(type="op", group=matpc_group, name=f"op/{k}",
+                  u=f"{matpc_group}_uap", psi=f"{matpc_group}_psi",
+                  params=KINDS[k], precs=["c128", "c64"]) for k in KINDS]
+    jobs.append(dict(type="op", group=matpc_group, name="op/bf16",
+                     u=f"{matpc_group}_uap", psi=f"{matpc_group}_psi",
+                     params=dict(TMC, kernel_bf16=True), precs=["c128"]))
     if nt == 4:   # T_loc = 2: the overlap form's fallback to K4
         jobs += [dict(type="matpc", group="A", name=f"fallback/{k}/{dg}",
                       params=KINDS[k], overlap=True, dagger=dg)
@@ -115,8 +128,9 @@ def _spawn(nt: int, work: Path, inputs: dict) -> dict:
             vals = {float(o[k]) for o in outs}
             assert len(vals) == 1, (k, vals)     # every rank agrees
             res[k] = vals.pop()
-        else:
-            res[k] = np.concatenate([o[k] for o in outs], axis=-3)
+        else:     # a slab, under its name (a job's "|cat" dropped)
+            res[k.split("|")[0]] = np.concatenate([o[k] for o in outs],
+                                                  axis=-3)
     return res
 
 
@@ -125,7 +139,8 @@ def inputs():
     data = {}
     for grp, dims in GEOMS.items():
         u, psi, b = _fields(dims, 61 if grp == "A" else 62)
-        data.update({f"{grp}_u": u, f"{grp}_psi": psi, f"{grp}_b": b})
+        data.update({f"{grp}_u": u, f"{grp}_psi": psi, f"{grp}_b": b,
+                     f"{grp}_uap": _antiperiodic(grp)})
     return data
 
 
@@ -143,12 +158,68 @@ def rings(inputs, tmp_path_factory):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_dirac(kind: str, grp: str, c64: bool = False):
+def _antiperiodic(grp: str) -> np.ndarray:
+    """The gauge of group ``grp`` with the antiperiodic t boundary."""
     u = _fields(GEOMS[grp], 61 if grp == "A" else 62)[0]
+    return np.asarray(apply_t_boundary(jnp.asarray(u),
+                                       jlat.Geometry(*GEOMS[grp])))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dirac(kind: str, grp: str, c64: bool = False,
+               antiperiodic: bool = False):
+    u = (_antiperiodic(grp) if antiperiodic
+         else _fields(GEOMS[grp], 61 if grp == "A" else 62)[0])
     if c64:
         u = u.astype(np.complex64)
     return jd.make_dirac(u, jd.DiracParams(**KINDS[kind]),
                          jlat.Geometry(*GEOMS[grp]))
+
+
+def _rel(got, ref) -> float:
+    return float(np.linalg.norm((got - ref).ravel())
+                 / np.linalg.norm(ref.ravel()))
+
+
+OPS = ["matpc/False", "matpc/True", "dagm"]
+
+
+def _jax_op(d, op: str, psi) -> np.ndarray:
+    """The JAX package's XLA ``matpc`` (``op`` "matpc/<dagger>") or
+    ``matpc_dagm`` of ``psi``."""
+    if op == "dagm":
+        return np.asarray(d.matpc_dagm(psi))
+    return np.asarray(d.matpc(psi, op.endswith("True")))
+
+
+@pytest.mark.parametrize("nt", [1, 2, 4])
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("prec,limit", [("c128", 1e-12), ("c64", 1e-5)])
+@pytest.mark.parametrize("op", OPS)
+def test_sharded_operator_is_the_fused_chain(rings, inputs, nt, kind, prec,
+                                             limit, op):
+    """``ShardedDirac.matpc`` / ``matpc_dagm`` (four K4 hops, the dagger
+    half's A⁻¹† K4's second output; here the plain versions) on an
+    antiperiodic gauge against the JAX package's XLA operator."""
+    grp = "B" if nt == 4 else "A"
+    got = rings(nt)[f"op/{kind}/{prec}/{op}"]
+    ref = _jax_op(_jax_dirac(kind, grp, antiperiodic=True), op,
+                  inputs[f"{grp}_psi"][0])
+    assert got.dtype == (np.complex128 if prec == "c128" else np.complex64)
+    assert _rel(got, ref) <= limit
+
+
+@pytest.mark.parametrize("nt", [1, 2, 4])
+@pytest.mark.parametrize("op", OPS)
+def test_sharded_operator_stays_float64_in_the_bf16_tier(rings, inputs, nt,
+                                                         op):
+    """The bf16 operand tier's chain reads bf16 operands; the complex128
+    operator of that tier runs its own float64 operands end to end."""
+    grp = "B" if nt == 4 else "A"
+    got = rings(nt)[f"op/bf16/c128/{op}"]
+    ref = _jax_op(_jax_dirac("tmc", grp, antiperiodic=True), op,
+                  inputs[f"{grp}_psi"][0])
+    assert _rel(got, ref) <= 1e-12
 
 
 @pytest.mark.parametrize("nt", [1, 2, 4])

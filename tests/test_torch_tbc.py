@@ -298,12 +298,12 @@ def test_wrappers_hand_the_kernels_the_boundary(channels, antiperiodic):
     assert dk._parity_arg(0, antiperiodic) == (2 if antiperiodic else 0)
     gl = Geometry(GT.X, GT.Y, GT.Z, 4)
     rows = (-4, 3) if antiperiodic else None
-    dk._run_launches(lib, "local_f64", out[:4], dk._k4_launches(
-        g12[1][:4], v[0][0][:4], v[0][0][:1], v[0][0][:1], 1, gl, False,
-        None, None, None, None, None), None, 0, "K4", rows)
+    dk._launch_k4(lib, "local_post_f64", g12[1][:4], v[0][0][:4], out[:4],
+                  None, v[0][0][:1], v[0][0][:1], None, 1, gl, False, None,
+                  None, None, None, None, None, rows, 0)
     a = calls[1][1]
     assert a[12] == 1 | (2 if antiperiodic else 0)
-    assert a[16:18] == ((-4, 3) if antiperiodic else (-1, -1))
+    assert a[13:15] == ((-4, 3) if antiperiodic else (-1, -1))
 
 
 @pytest.mark.cuda

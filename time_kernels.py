@@ -2,26 +2,30 @@
 turns on one NVIDIA GPU, with each kernel's registers and spills.
 
     python3 time_kernels.py ROOT [ROOT ...] [--dims X Y Z T] [--mg]
-                            [--json PATH]
+                            [--graph] [--only REGEX] [--json PATH]
 
 Each ROOT is the root of a checkout (``.`` for this one).  The roots are
 run in the order given, each in a process of its own (the checkouts'
 packages share a name), so ``old new new old`` times two versions in
 turns on the same card.  Every process builds its checkout's kernels
 (``_build.build``), makes the same fields from the same seed at
-``--dims`` (default 32³×64) and times each form with CUDA events: the
-median of 5 runs of 20 launches (10 for the multi-source forms).  The
-forms use only the wrappers every version of the port has had since
-the t-sharded slice; a form a checkout lacks (the multi-source
-``post_op``, the antiperiodic t boundary's sign) is left out of its
-column.  The summary gives each form's
-mean time per root, the ratio of each root to the first, and the
-``ptxas`` registers and spill stores of every kernel instance.  With
-``--mg`` each process then runs ``benchmarks.bench_mg`` with the
-settings of ``chip_smoke.py`` phase 6 on the same card (setup and its
-parts, the warm MG-GCR-PC solve) and times restrict, prolong and the
-coarse operator's apply on its transfer.  Without a CUDA device it exits
-non-zero.
+``--dims`` (default 32³×64) and times each form call by call with CUDA
+events (the median of 5 runs of 20 calls, 10 for the multi-source
+forms), with the host time of those calls (the wrappers' Python and
+launches, enqueued without a wait).  ``--graph`` adds each form's time
+on the card alone: the same calls captured in a CUDA graph and replayed
+(``utils/kernel_bench.graph_turns``).  ``--only`` keeps the forms whose
+name matches REGEX.  The forms use only the wrappers every version of
+the port has had since the t-sharded slice; a form a checkout lacks
+(the multi-source ``post_op``, the antiperiodic t boundary's sign, K4
+on a box, K4's second output) is left out of its column.  The summary
+gives each form's mean time per root, the ratio of each root to the
+first, and the ``ptxas`` registers and spill stores of every kernel
+instance.  With ``--mg`` each process then runs ``benchmarks.bench_mg``
+with the settings of ``chip_smoke.py`` phase 6 on the same card (setup
+and its parts, the warm MG-GCR-PC solve) and times restrict, prolong
+and the coarse operator's apply on its transfer.  Without a CUDA device
+it exits non-zero.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 N_TIME = (1, 3, 8, 12)   # the multi-source batch widths timed
@@ -60,7 +65,7 @@ def _forms(torch, dims) -> dict:
     g = {(dt, r): dk.gauge_channels(ud, 0, r == 12, dt)
          for dt in (f32, f64, b16) for r in (12, 18)}
     g8 = dk.gauge_channels(ud, 0, False, f32, recon8=True)
-    ci = {dt: dk.clover_channels(cinv, 0, dt) for dt in (f32, b16)}
+    ci = {dt: dk.clover_channels(cinv, 0, dt) for dt in (f32, f64, b16)}
     del ud, cinv
     psi = rng.random_spinor(gen, geom)
     v64 = dk.to_channels(psi[1])
@@ -118,6 +123,68 @@ def _forms(torch, dims) -> dict:
     if "antiperiodic" in inspect.signature(dk.dslash_ch).parameters:
         forms.update(_antiperiodic_forms(dk, geom, g, ci, v, v64, v16, vb,
                                          xb, fm, fp, clov))
+    local = inspect.signature(dk.dslash_ch_local).parameters
+    if "post_op" in local:
+        forms["K4 clover fwd + xpay + post"] = lambda: dk.dslash_ch_local(
+            g[f32, 12], v, v[-1:], v[:1], 0, geom, post_op=("clover",),
+            **clov(f32))
+    if "zw_faces" in local:
+        forms.update(_box_forms(dk, geom, g, ci, v64, x64, xc,
+                                "post_op" in local))
+    return forms
+
+
+BOX_GRIDS = ((1, 2, 1), (1, 1, 2), (1, 2, 2))   # chip_smoke.BOX_TIME
+
+
+def _kernel_bench():
+    """``utils/kernel_bench.py`` of this checkout, loaded by path: the
+    roots timed may predate it."""
+    import importlib.util
+    path = (Path(__file__).resolve().parent / "quda_qkxtm_multigrid_tpu_torch"
+            / "utils" / "kernel_bench.py")
+    spec = importlib.util.spec_from_file_location("_kernel_bench", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _box_forms(dk, geom, g, ci, v64, x64, xc, post: bool) -> dict:
+    """K4 on the boxes of ``BOX_GRIDS``: the float32 bare hop on each, the
+    float64 and bf16-tier bare hops on the last, and with ``post`` the
+    chain's hop with the second output (clover fwd + xpay + post) in
+    each of the three on the last."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
+    tiers = {"f32": (f32, f32), "f64": (f64, f64), "bf16": (b16, f32)}
+    forms = {}
+    kb = _kernel_bench()
+    for grid in BOX_GRIDS:
+        last = grid == BOX_GRIDS[-1]
+        coords = tuple(1 if n > 1 else 0 for n in grid)   # chip_smoke's
+
+        def cut(f, grid=grid, coords=coords):
+            return kb.virtual_box(f, grid, coords, geom.Xh)
+        gl = Geometry(geom.X, geom.Y // grid[2], geom.Z // grid[1],
+                      geom.T // grid[0])
+        for tier in (("f32", "f64", "bf16") if last else ("f32",)):
+            op, sp = tiers[tier]
+            vb, fm, fp, zw = cut(v64.to(sp))
+            gb = cut(g[op, 12])[0]
+            forms[f"K4 box {grid} {tier} hop"] = (
+                lambda gb=gb, vb=vb, fm=fm, fp=fp, gl=gl, zw=zw:
+                dk.dslash_ch_local(gb, vb, fm, fp, 0, gl, recon12=True,
+                                   zw_faces=zw))
+            if post and last:
+                cib = cut(ci[op])[0]
+                xb = cut(x64.to(sp))[0]
+                forms[f"K4 box {grid} {tier} clover fwd + xpay + post"] = (
+                    lambda gb=gb, vb=vb, fm=fm, fp=fp, gl=gl, zw=zw,
+                    cib=cib, xb=xb: dk.dslash_ch_local(
+                        gb, vb, fm, fp, 0, gl, recon12=True, zw_faces=zw,
+                        clover="fwd", cinv_ch=cib, xpay_coef=xc, x_ch=xb,
+                        post_op=("clover",)))
     return forms
 
 
@@ -213,29 +280,52 @@ def _mg(torch, dims) -> dict:
     return out
 
 
-def worker(root: Path, dims, mg: bool) -> dict:
+def _time_calls(torch, fn, n: int):
+    """(ms a call by CUDA events, µs of host time a call) of ``n``
+    back-to-back calls of ``fn``: the host time is the wrappers' Python
+    and launches alone, the calls enqueued without a wait."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n, host / n * 1e6
+
+
+def worker(root: Path, dims, mg: bool, graph: bool = False,
+           only: str | None = None) -> dict:
     sys.path.insert(0, str(root))
     import torch
     import quda_qkxtm_multigrid_tpu_torch as pkg
     if Path(pkg.__file__).resolve().parent.parent != root:
         raise RuntimeError(f"imported {pkg.__file__}, not from {root}")
     from quda_qkxtm_multigrid_tpu_torch import _build
-    from quda_qkxtm_multigrid_tpu_torch.benchmarks import time_ms
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
     _build.build()
-    forms = _forms(torch, dims)
+    forms = {k: fn for k, fn in _forms(torch, dims).items()
+             if only is None or re.search(only, k)}
     for fn in forms.values():
         fn()
     torch.cuda.synchronize()
+    n_runs = {k: 10 if k.startswith("K2") else 20 for k in forms}
     times = {k: [] for k in forms}
+    host = {k: [] for k in forms}
     for _ in range(5):
         for k, fn in forms.items():
-            times[k].append(time_ms(fn, "cuda",
-                                    10 if k.startswith("K2") else 20))
+            ms, us = _time_calls(torch, fn, n_runs[k])
+            times[k].append(ms)
+            host[k].append(us)
     out = {"root": str(root), "device": torch.cuda.get_device_name(0),
            "ms": {k: statistics.median(t) for k, t in times.items()},
+           "host_us": {k: statistics.median(t) for k, t in host.items()},
            "registers": _registers(_build.library_dir())}
+    if graph:
+        out["graph_ms"] = _kernel_bench().graph_turns(forms, n_runs)
     if mg:
         del forms, fn
         torch.cuda.empty_cache()
@@ -267,12 +357,15 @@ def main():
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--dims", nargs=4, type=int, default=(32, 32, 32, 64))
     ap.add_argument("--mg", action="store_true")
+    ap.add_argument("--graph", action="store_true")
+    ap.add_argument("--only", default=None)
     ap.add_argument("--json", default=None)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [Path(r).resolve() for r in args.roots]
     if args.worker:
-        print(json.dumps(worker(roots[0], tuple(args.dims), args.mg)))
+        print(json.dumps(worker(roots[0], tuple(args.dims), args.mg,
+                                args.graph, args.only)))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -282,7 +375,9 @@ def main():
     for root in roots:
         proc = subprocess.run(
             [sys.executable, __file__, str(root), "--worker", "--dims",
-             *map(str, args.dims)] + (["--mg"] if args.mg else []),
+             *map(str, args.dims)] + (["--mg"] if args.mg else [])
+            + (["--graph"] if args.graph else [])
+            + ([] if args.only is None else ["--only", args.only]),
             capture_output=True, text=True)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout + proc.stderr)
@@ -290,9 +385,15 @@ def main():
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(f"timed {root}", flush=True)
     order = list(dict.fromkeys(r["root"] for r in runs))
-    print(f"ms at {tuple(args.dims)}, mean over the runs of each root; "
-          f"ratio to {order[0]}")
+    print(f"ms a call at {tuple(args.dims)}, mean over the runs of each "
+          f"root; ratio to {order[0]}")
     _table(runs, "ms", order, ".4f")
+    print("host µs a call (the wrappers, the calls enqueued without a "
+          "wait)")
+    _table(runs, "host_us", order, ".1f")
+    if args.graph:
+        print("ms a call on the card alone (CUDA graphs)")
+        _table(runs, "graph_ms", order, ".4f")
     if args.mg:
         print("bench_mg (seconds unless marked), mean over the runs of "
               "each root")
