@@ -223,6 +223,24 @@ and does not print its last line:
     launches (those with the second output too); the seconds beside PR
     14's.
 
+18. the compact MG solve tiers and the HBM-gated setup
+    (``phase_mg_compact``, ``phase_mg48``): (a) the JAX package's
+    north-star configuration at 32³×64 on phase 6's problem
+    (``NORTH_STAR``: nvec 24, 4⁴ blocks, bf16 V,
+    ``solve_operator="compact"`` with the step tier's A⁻¹ in bf16 and
+    the residual tier without its clover, GCR(5), tol 1e-7) through
+    ``bench_mg``: the setup split, the iterations beside JAX's 15 and
+    phase 6's, the complex128 true residual, the peak, the K1 / K1d / K2
+    launches, the step tier's four hops (K1d ``f32_g16``) against plain;
+    (b) ``bench_mg48_dc`` at 48³×96, nvec 24: ``setup_mg_hbm`` (null
+    vectors on the compact bf16 tier, CholQR² in place, the coarse build
+    against a lean complex64 operator, bf16 V), MG-GCR-PC inner solves
+    under a float64 defect-correction outer certified in complex128; the
+    setup split, restarts, inner iterations, ``diverged``, the peak in
+    GiB and GB (under 80 GB), the K1 f64 / K1d launches, the bf16 tier's
+    four hops against plain at that size and its clover fwd + xpay hop
+    timed with its bound.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -419,6 +437,17 @@ LIGHT_TOL, LIGHT_MAXITER, LIGHT_GMRESDR_CAP = 1e-8, 4000, 40
 
 # phase 15, the gauge utilities, domain-wall / Möbius and staggered
 P15_SEED = 15
+# phase 18: the compact MG solve tiers (18a, the JAX package's north-star
+# configuration, BENCH_SESSION.jsonl:9: 15 iterations, true residual
+# 1.43e-7) and the 48³×96 MG through the HBM-gated setup (18b, the JAX
+# package's bench_mg48_hostdc at the reference's nvec 24)
+NORTH_STAR = dict(nvec=24, block=(4, 4, 4, 4), vec_dtype="bf16",
+                  solve_operator="compact")
+NORTH_STAR_NKRYLOV = 5
+NORTH_STAR_JAX = {"iters": 15, "true_res": 1.43e-7}
+MG48 = dict(nvec=24, n_krylov=3, inner_tol=5e-3, tol=1e-8, setup_tol=1e-3,
+            setup_maxiter=60)
+MG48_TRUE_RES = 1e-8
 CHARGE_LIMIT, PLAQ_LIMIT = 1e-10, 1e-12
 # the JAX tests' iteration counts and θ gates (tests/test_io.py:195-220)
 OVR_ITERS, OVR_DROP = 40, 0.5
@@ -1276,7 +1305,7 @@ def phase_mg(geom_dims):
         split = _split(
             "a second null-vector generation",
             [(d, "_fused_matpc_dagm_ch", "msrc matvecs (K2, four hops)"),
-             (multigrid_module, "block_orthonormalize_flat",
+             (multigrid_module, "block_orthonormalize",
               "orthonormalisation")] + [
                 (d, name, "complex64 stages (prepare, rhs, reconstruct, "
                  "true residual)") for name in ("prepare", "matpc",
@@ -5433,6 +5462,147 @@ def _box_rank(rank: int, work: Path):
     dist.destroy_process_group()
 
 
+def phase_mg_compact(geom_dims, mg6: dict):
+    """Phase 18a: the JAX package's north-star configuration at
+    ``geom_dims`` (``NORTH_STAR``: nvec 24, 4⁴ blocks, bf16 V, the
+    compact solve tiers with the step tier's A⁻¹ in bf16 and the
+    residual tier without its clover, GCR(5), tol 1e-7) on phase 6's
+    complex64 problem through ``benchmarks.bench_mg``: setup (the solve
+    tiers built after the coarse build and the cast of V), a cold and a
+    warm ``mg_solve(final_resid=False)``, the warm solution certified in
+    complex128 on the card; then the step tier's four chain hops (K1d
+    ``f32_g16``) on its own channels against their plain version.
+    Returns the record, the launches and the kernels' largest errors."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import bench_mg
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        dslash_ch, dslash_ch_msrc, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 18a: the north star at {geom_dims}: {NORTH_STAR}, "
+          f"GCR({NORTH_STAR_NKRYLOV}), tol {MG_TOL}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dslash_ch.launches = dslash_ch.launches_bf16 = 0
+    dslash_ch_msrc.launches = 0
+    rec, mg = bench_mg(geom, tol=MG_TOL, n_krylov=NORTH_STAR_NKRYLOV,
+                       **NORTH_STAR)
+    launches = {"k1": dslash_ch.launches, "k1d": dslash_ch.launches_bf16,
+                "k2": dslash_ch_msrc.launches}
+    print(f"  setup {rec['setup_secs']:.3f} s: null vectors "
+          f"{rec['null_vector_secs']:.3f} s (multi-source CG iterations "
+          f"{rec['msrc_iters']}), "
+          f"orthonormalisation {rec['ortho_secs']:.3f} s, coarse build "
+          f"{rec['coarse_build_secs']:.3f} s, solve tiers "
+          f"{rec['solve_tiers_secs']:.3f} s", flush=True)
+    print(f"  outer iterations {rec['iters']} (cold {rec['iters_cold']}; "
+          f"JAX north star {NORTH_STAR_JAX['iters']}, true_res "
+          f"{NORTH_STAR_JAX['true_res']:.2e}; phase 6, canonical, "
+          f"{mg6['iters']})  warm secs {rec['secs']:.4f} (cold "
+          f"{rec['secs_cold']:.4f}; phase 6 {mg6['secs']:.4f})  true_res "
+          f"{rec['true_res']:.3e} (complex128)", flush=True)
+    print(f"  peak memory {rec['peak_mem_bytes'] / 2**30:.2f} GiB  "
+          f"launches {launches} (warm solve: K1 {rec['k1_launches_solve']}, "
+          f"K1d {rec['k1d_launches_solve']})", flush=True)
+    _check("north star true residual (complex128)", rec["true_res"],
+           TRUE_RES_LIMIT)
+    if rec["k1d_launches_solve"] == 0 or rec["k1_launches_solve"] == 0:
+        raise AssertionError("the compact tiers' solve launched no K1d or "
+                             f"no K1: {launches}")
+    if launches["k2"] != 4 * sum(rec["msrc_iters"]):
+        raise AssertionError(f"K2 launches {launches['k2']} != 4 × "
+                             f"{sum(rec['msrc_iters'])}")
+    cd = mg.dirac_sloppy
+    psi = rng.random_spinor(torch.Generator(device=DEVICE).manual_seed(41),
+                            geom, torch.complex64)
+    v, x = (to_channels(psi[p]) for p in (0, 1))
+    err = _compact_forms_check(cd, _compact_chain_forms(cd, v, x, None),
+                               f"at {geom_dims} (18a)")
+    del mg, cd, psi, v, x
+    return rec, launches, err
+
+
+def phase_mg48(geom_dims):
+    """Phase 18b: ``benchmarks.bench_mg48_dc`` at ``geom_dims`` (48³×96,
+    ``MG48``: nvec 24): ``mg.hbm_setup.setup_mg_hbm`` on the compact bf16
+    tier with A⁻¹ in bf16 (null vectors one at a time, CholQR² in place,
+    the coarse build against a lean complex64 operator, V cast to bf16),
+    then MG-GCR-PC inner solves under a float64 defect-correction outer,
+    certified in complex128; the setup split, restarts, inner
+    iterations, the peak memory and the launches; then the bf16 tier's
+    four chain hops (K1d ``f32_g16``) on its own channels against their
+    plain version at this size, and its clover fwd + xpay hop timed
+    against its plain version with its bound.  Returns the record, the
+    launches, the peak, the kernels' largest errors and that timing."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.benchmarks import bench_mg48_dc
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
+        _kernel_form, dslash_ch, dslash_ch_reference, to_channels)
+    from quda_qkxtm_multigrid_tpu_torch.utils import rng
+
+    geom = Geometry(*geom_dims)
+    print(f"phase 18b: MG-GCR-PC at {geom_dims} through the HBM-gated "
+          f"setup, {MG48}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dslash_ch.launches = dslash_ch.launches_bf16 = 0
+    rec, mg = bench_mg48_dc(geom, device=DEVICE, **MG48)
+    launches = {"k1 f64": dslash_ch.launches, "k1d": dslash_ch.launches_bf16}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  setup {rec['setup_secs']:.2f} s: bf16 tier "
+          f"{rec['build_compact_secs']:.2f} s, null vectors "
+          f"{rec['null_vectors_secs']:.2f} s (CG iterations "
+          f"{rec['cg_iters']}, worst true_res {rec['null_true_res']:.2e}), "
+          f"CholQR² in place {rec['ortho_secs']:.2f} s, coarse build "
+          f"{rec['coarse_secs']:.2f} s, bf16 V {rec['cast_secs']:.2f} s; "
+          f"float64 operator {rec['exact_build_secs']:.2f} s", flush=True)
+    print(f"  restarts {rec['restarts']}, inner iterations "
+          f"{rec['inner_iters']} ({rec['inner_iters_each']}), history "
+          f"{[f'{h:.2e}' for h in rec['history']]}, diverged "
+          f"{rec['diverged']}, true_res {rec['true_res']:.3e} (complex128, "
+          f"exact operator); solve {rec['secs']:.2f} s (outer residuals "
+          f"{rec['resid_secs']:.2f} s)", flush=True)
+    print(f"  peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); "
+          f"launches {launches}", flush=True)
+    if rec["diverged"]:
+        raise AssertionError("bench_mg48_dc diverged")
+    _check("48³×96 MG true residual (complex128)", rec["true_res"],
+           MG48_TRUE_RES)
+    if peak >= CARD_BYTES:
+        raise AssertionError(f"peak memory {peak / 1e9:.2f} GB >= 80 GB")
+    if launches["k1d"] == 0 or launches["k1 f64"] == 0:
+        raise AssertionError(f"48³×96 MG launches {launches}")
+    cd = mg.dirac_sloppy
+    psi = rng.random_spinor(torch.Generator(device=DEVICE).manual_seed(47),
+                            geom, torch.complex64)
+    v, x = (to_channels(psi[p]) for p in (0, 1))
+    del psi
+    err = _compact_forms_check(cd, _compact_chain_forms(cd, v, x, None),
+                               f"at {geom_dims} (18b)")
+    pr, k = cd.params.matpc_parity, cd.params.kappa
+    kw = dict(clover="fwd", cinv_ch=cd.cinv_ch[pr], xpay_coef=-k * k,
+              x_ch=x)
+    form = _kernel_form(cd.g_ch[pr], v, cd.cinv_ch[pr], x, bare=False)
+    if form != "f32_g16":
+        raise AssertionError(f"the bf16 tier's hop is {form}, not f32_g16")
+    ms, plain_ms = _compare_timed(
+        lambda: cd._hop(pr, v, **kw),
+        lambda: dslash_ch_reference(cd.g_ch[pr], v, pr, geom, recon12=True,
+                                    **kw))
+    bound = _bound(_nbytes(cd.g_ch[pr], cd.cinv_ch[pr], v, x, v),
+                   (HOP_FLOPS + CLOVER_FLOPS + XPAY_FLOPS)
+                   * geom.half_volume)
+    print(f"  K1d f32_g16 clover fwd + xpay at {geom_dims}: {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+          f"the kernel at {bound[0] / ms:.2f} of it)", flush=True)
+    del mg, cd, v, x
+    return rec, launches, peak, err, (ms, plain_ms, bound)
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -5473,6 +5643,10 @@ def main():
     err_17 = phase_box_kernels((CHECK_GEOM, SLICE_GEOM))
     t17 = phase_box_timing(SLICE_GEOM)
     box = phase_box_ranks(SLICE_GEOM, CHECK_GEOM)
+    t18 = time.perf_counter()
+    ns, ns_launches, err_18a = phase_mg_compact(SLICE_GEOM, mg6)
+    mg48, mg48_launches, _, err_18b, t18b = phase_mg48(BIG_GEOM)
+    print(f"phase 18 {time.perf_counter() - t18:.1f} s", flush=True)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"] + m16["k4"]
     k4_post = (mesh_runs[False]["k4_post"] + mesh_runs[True]["k4_post"]
                + m16["k4_post"])
@@ -5498,7 +5672,10 @@ def main():
           f"meshed workflows (phase 16): K1 {m16['k1']}, K4 {m16['k4']}, "
           f"K5 {m16['k5']}; K4 on boxes (phase 17b, four ranks): "
           f"{box['zw']}, bf16 tier {box['zw_bf16']}, with the second "
-          f"output {box['zw_post']}")
+          f"output {box['zw_post']}; the compact MG tiers (phase 18a): "
+          f"K1 {ns_launches['k1']}, K1d {ns_launches['k1d']}, K2 "
+          f"{ns_launches['k2']}; MG at 48³×96 (phase 18b): K1 f64 "
+          f"{mg48_launches['k1 f64']}, K1d f32_g16 {mg48_launches['k1d']}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -5514,7 +5691,7 @@ def main():
               f"{KERNEL_REPLACES}; {V1_REPLACES}; {V2_REPLACES}",
               k["launches"] + launches["dslash_ch"] + mixed["k1"] + k1_8
               + twop["k1"] + thrp["k1"] + lv["k1"] + kr["k1"] + dws["k1"]
-              + m16["k1"],
+              + m16["k1"] + ns_launches["k1"] + mg48_launches["k1 f64"],
               max(max_abs, k["max_abs_err"], err_48["K1"], vk["v1"][3],
                   vk["v2"][3], tbc["k1"], twop["err"]["k1"],
                   thrp["err"]["k1"], lv["err"]["k1"], kr["err"]["k1"],
@@ -5524,18 +5701,21 @@ def main():
               k["bound"]),
         entry("dslash_ch_msrc", MSRC_KERNEL_SOURCE, MSRC_KERNEL_REPLACES,
               launches["dslash_ch_msrc"] + twop["k2"] + thrp["k2"]
-              + lv["k2"] + kr["k2"] + dws["k2"],
+              + lv["k2"] + kr["k2"] + dws["k2"] + ns_launches["k2"],
               max(k2["max_abs_err"], err_time["chain f32"], tbc["k2"],
                   twop["err"]["k2"], thrp["err"]["k2"], lv["err"]["k2"],
                   kr["err"]["k2"], dws["err"]["k2"]),
               k2["ms"], k2["plain_ms"], k2["bound"]),
         entry("dslash_ch_bf16", BF16_KERNEL_SOURCE,
               f"{BF16_KERNEL_REPLACES}; {V2_BF16_REPLACES}",
-              mixed["k1d"] + k1d_paths + k1d_8,
+              mixed["k1d"] + k1d_paths + k1d_8 + ns_launches["k1d"],
               max(err_16["k1d"], err_time["k1d"], err_8a["k1d"],
                   cmix["err"]["K1d"], err_48["K1d"], vk["v2 bf16"][3],
-                  tbc["k1d"]),
+                  tbc["k1d"], err_18a["K1d"]),
               hop16["bf16"], hop16["plain"], bounds["K1d bare hop"]),
+        entry("dslash_ch_bf16 f32_g16 clover fwd + xpay at 48³×96",
+              BF16_KERNEL_SOURCE, BF16_KERNEL_REPLACES,
+              mg48_launches["k1d"], err_18b["K1d"], *t18b),
         entry("dslash_ch_msrc_bf16", BF16_KERNEL_SOURCE,
               BF16_MSRC_KERNEL_REPLACES, k2d_paths,
               max(err_16["k2d"], err_time["k2d"], err_time["chain bf16"],

@@ -7,8 +7,9 @@ of the other solvers of ``invert`` (the mixed ones with a bf16 or a
 complex64 sloppy operator); ``bench_cg_mesh`` the same CG sharded on a
 ring or grid of ranks (``bench_mg_mesh``: a sharded MG solve).  ``bench_mg``
 times the multigrid setup (two to four levels, float32 or bf16 null
-vectors) and then one cold and one warm ``mg_solve``, and certifies the
-warm solution in complex128.  GFLOP/s counts one ``flops_per_mat`` per
+vectors, the canonical or the compact solve operators) and then one cold
+and one warm ``mg_solve``, and certifies the warm solution in
+complex128.  GFLOP/s counts one ``flops_per_mat`` per
 outer iteration, the JAX package's convention (the V-cycle's work is
 not counted).  ``bench_light`` and ``bench_light2`` put CG and MG side
 by side at a light quark mass, and ``bench_mg_vecs`` times the setup
@@ -20,8 +21,10 @@ floor and its mixed recovery), ``bench_compact_sloppy`` (the mixed CG of
 ``bench_cg`` with the compact bf16 tier as its sloppy operator),
 ``bench_compact`` (the bf16 tier's CG at an HBM-limited volume) and
 ``bench_cg48_dc`` (that solve certified in complex128 by a
-defect-correction outer on the card); ``bench_recon8`` times the recon-8
-hop against recon-12.  Kernel times come from CUDA events on a CUDA
+defect-correction outer on the card), ``bench_mg48_dc`` (the MG-GCR-PC
+solve at that volume, set up by ``mg.hbm_setup.setup_mg_hbm`` and
+certified the same way); ``bench_recon8`` times the recon-8 hop against
+recon-12.  Kernel times come from CUDA events on a CUDA
 device (``time_ms``); on the CPU the same functions run with the host
 clock, for rehearsal only.
 """
@@ -182,33 +185,56 @@ def c128_true_res(d: Dirac, x: torch.Tensor, b: torch.Tensor) -> float:
     """|b − M x| / |b| with M the complex128 operator on ``d``'s gauge and
     parameters (every hop through the double-precision kernel where the
     operator uses the kernels), x and b widened to complex128."""
-    d128 = make_dirac(d.u.to(torch.complex128), d.params, d.geom)
+    return _c128_true_res(d.u, d.params, d.geom, x, b)
+
+
+def _c128_true_res(u: torch.Tensor, params: DiracParams, geom: Geometry,
+                   x: torch.Tensor, b: torch.Tensor) -> float:
+    """``c128_true_res`` of the operator of ``u`` and ``params``."""
+    d128 = make_dirac(u.to(torch.complex128), params, geom)
     _, rel = true_residual(d128, x.to(torch.complex128),
                            b.to(torch.complex128))
     return float(rel)
 
 
+def _launch_counts() -> tuple:
+    """(K1, K1d, K2) launches so far."""
+    return (dslash_ch.launches, dslash_ch.launches_bf16,
+            dslash_ch_msrc.launches)
+
+
 def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
              block=(4, 4, 4, 4), solver: str = "gcr-pc", n_krylov: int = 5,
              problem=None, seed: int = 3, n_level: int = 2,
-             vec_dtype: str = "f32", mg_params: MGParams | None = None
+             vec_dtype: str = "f32", mg_params: MGParams | None = None,
+             solve_operator: str = "canonical"
              ) -> tuple[dict, MGPreconditioner]:
     """MG setup, then one cold and one warm ``mg_solve`` (``problem`` is
     a ``(dirac, b)`` pair, the complex64 problem of ``make_problem`` on
     the GPU if not given; ``seed`` seeds the setup sources).  The
     reference MG settings: ``block``, ``nvec``, ``smoother_pc``,
-    ``n_level`` levels, the level-1 V stored as ``vec_dtype``; every other
-    field from ``mg_params`` (the level-2 and level-3 fields, the deltas)
-    or the ``MGParams`` defaults.
+    ``n_level`` levels, the level-1 V stored as ``vec_dtype``, the solve
+    operators ``solve_operator`` (the JAX package's ``bench_mg``
+    options; "compact" is its north star's tiers); every other field
+    from ``mg_params`` (the level-2 and level-3 fields, the deltas) or
+    the ``MGParams`` defaults.
+
+    With the compact solve tiers the solves run with
+    ``final_resid=False`` (the residual tier has no clover) and the warm
+    solution is certified by the complex128 operator of the gauge built
+    on the card after the solves (the JAX package certifies on the
+    host); the canonical operator is not kept beside the preconditioner
+    where the caller does not hold ``problem``.
 
     Returns the record and the preconditioner.  The record holds the
     setup's host seconds and their split (each coarser level's under
     "level2" / "level3"), the multi-source CG iterations of each
-    null-vector batch, each solve's outer iterations and seconds,
-    GFLOP/s, the warm solve's ``SolveTelemetry`` (``telemetry``), the
-    warm solution's true residual in complex128 (``c128_true_res``), the
-    kernel launches of the setup and of the warm solve, and the peak
-    device memory (None on the CPU)."""
+    null-vector batch, each solve's outer
+    iterations and seconds, GFLOP/s, the warm solve's ``SolveTelemetry``
+    (``telemetry``), the warm solution's true residual in complex128
+    (``c128_true_res``) and the solve's own (None without a final
+    residual), the K1, K1d and K2 launches of the setup and of the
+    solves, and the peak device memory (None on the CPU)."""
     d, b = problem if problem is not None else make_problem(
         geom, dtype=torch.complex64)
     dev = b.device
@@ -217,40 +243,48 @@ def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
     params = dataclasses.replace(
         mg_params if mg_params is not None else MGParams(),
         block=tuple(block), nvec=nvec, smoother_pc=True,
-        outer_solver=solver, n_level=n_level, vec_dtype=vec_dtype)
+        outer_solver=solver, n_level=n_level, vec_dtype=vec_dtype,
+        solve_operator=solve_operator)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    k1_0, k2_0 = dslash_ch.launches, dslash_ch_msrc.launches
+    n0 = _launch_counts()
     t0 = time.perf_counter()
     mg = setup_mg(d, params, gen)
     _sync(dev)
     setup_secs = time.perf_counter() - t0
-    k1_1, k2_1 = dslash_ch.launches, dslash_ch_msrc.launches
+    u, dparams = d.u, d.params
+    del d, problem
+    n1 = _launch_counts()
+    kw = dict(tol=tol, n_krylov=n_krylov,
+              final_resid=solve_operator != "compact")
     t0 = time.perf_counter()
-    cold = mg_solve(mg, b, tol=tol, n_krylov=n_krylov)
+    cold = mg_solve(mg, b, **kw)
     _sync(dev)
     secs_cold = time.perf_counter() - t0
-    k1_2, k2_2 = dslash_ch.launches, dslash_ch_msrc.launches
+    n2 = _launch_counts()
     t0 = time.perf_counter()
-    out, tel = mg_solve(mg, b, tol=tol, n_krylov=n_krylov, telemetry=True)
+    out, tel = mg_solve(mg, b, telemetry=True, **kw)
     _sync(dev)
     secs = time.perf_counter() - t0
-    k1_3, k2_3 = dslash_ch.launches, dslash_ch_msrc.launches
+    n3 = _launch_counts()
     b2 = float(norm2(b))
     record = {
         "solver": f"mg-{solver}", "nvec": nvec, "block": list(block),
         "n_level": n_level, "vec_dtype": vec_dtype,
+        "solve_operator": solve_operator,
         "n_krylov": n_krylov, "setup_secs": setup_secs,
         **{k: v for k, v in mg.setup_stats.items()},
         "iters": out.iters, "iters_cold": cold.iters, "secs": secs,
         "secs_cold": secs_cold,
-        "gflops": d.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
+        "gflops": mg.dirac.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
         "telemetry": tel.as_dict(),
-        "true_res": c128_true_res(d, out.x, b),
-        "true_res_solve": (float(out.r2) / b2) ** 0.5,
-        "k1_launches_setup": k1_1 - k1_0, "k2_launches_setup": k2_1 - k2_0,
-        "k1_launches_solve": k1_3 - k1_2, "k2_launches_solve": k2_3 - k2_2,
-        "k1_launches_cold_solve": k1_2 - k1_1,
-        "peak_mem_bytes": _peak(dev)}
+        "true_res": _c128_true_res(u, dparams, geom, out.x, b),
+        "true_res_solve": ((float(out.r2) / b2) ** 0.5
+                           if kw["final_resid"] else None)}
+    for i, name in enumerate(("k1", "k1d", "k2")):
+        record.update({f"{name}_launches_setup": n1[i] - n0[i],
+                       f"{name}_launches_cold_solve": n2[i] - n1[i],
+                       f"{name}_launches_solve": n3[i] - n2[i]})
+    record["peak_mem_bytes"] = _peak(dev)
     return record, mg
 
 
@@ -750,6 +784,97 @@ def bench_cg48_dc(geom: Geometry, inner_tol: float = 1e-6,
             "exact_build_secs": pb.exact_build_secs,
             "peak_mem_bytes": _peak(dev),
             "solver": "cg-compact-bf16 + float64 defect-correction outer"}
+
+
+def bench_mg48_dc(geom: Geometry, nvec: int = 24, n_krylov: int = 3,
+                  inner_tol: float = 5e-3, tol: float = 1e-8,
+                  setup_tol: float = 1e-3, setup_maxiter: int = 60,
+                  inner_solver: str = "gcr-pc", device="cuda",
+                  seed: int = 7, setup_seed: int = 3
+                  ) -> tuple[dict, MGPreconditioner]:
+    """The 48³×96 MG-GCR-PC solve certified in complex128 on the card:
+    the counterpart of the JAX package's ``bench_mg48_hostdc``, with its
+    parameters and defaults (block 4⁴, ``smoother_pc``, ``nu_post`` 2,
+    bf16 V, at most 4 inner restarts, at most 12 outer ones), at the
+    reference's nvec 24 (JAX cut it to 4 for a 16 GB chip).
+
+    The gauge and source of ``make_gauge_source`` (complex128, ``seed``);
+    ``mg.hbm_setup.setup_mg_hbm`` on the compact step tier, bf16 with
+    A⁻¹ in bf16 (sources from ``setup_seed``); then the float64 exact
+    operator (``make_compact(inverse=False)``) and the gauge freed.  The outer is
+    ``solvers.support.defect_correction`` with the residual b − M x of
+    the exact operator on the card (complex128 arithmetic), the inner
+    ``mg.multigrid.inner_mg``: ``mg_solve`` "gcr-pc" (``inner_solver``)
+    in complex64 to ``inner_tol``.
+
+    Returns the record and the preconditioner (the exact operator
+    freed).  The record holds the setup's seconds and their split, the
+    null vectors' CG iterations, the exact operator's build seconds, the
+    complex128 ``true_res``, restarts, summed inner iterations (and each
+    restart's), ``diverged``, the relative residual before each inner
+    solve (``history``), the seconds of the solve and of its outer
+    residuals, and the peak device memory."""
+    from quda_qkxtm_multigrid_tpu_torch.mg.hbm_setup import setup_mg_hbm
+    from quda_qkxtm_multigrid_tpu_torch.mg.multigrid import inner_mg
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = tmc_params(bf16=True)
+    u, b = make_gauge_source(geom, device, seed)
+    mgp = MGParams(block=(4, 4, 4, 4), nvec=nvec, setup_tol=setup_tol,
+                   setup_maxiter=setup_maxiter, smoother_pc=True, nu_post=2,
+                   vec_dtype="bf16", solve_operator="compact")
+    gen = torch.Generator(device=device).manual_seed(setup_seed)
+    _sync(device)
+    t0 = time.perf_counter()
+    mg, timings = setup_mg_hbm(u, params, geom, mgp, gen)
+    _sync(device)
+    setup_secs = time.perf_counter() - t0
+    exact = make_compact(u, params, geom, torch.float64, inverse=False)
+    _sync(device)
+    exact_build_secs = time.perf_counter() - t0 - setup_secs
+    del u
+    b2 = float(norm2(b))
+    resid = {"secs": 0.0}
+    history, inner_iters = [], []
+
+    def matvec_hi(x):
+        _sync(device)
+        t = time.perf_counter()
+        out = exact.m(x)
+        _sync(device)
+        resid["secs"] += time.perf_counter() - t
+        return out
+
+    inner = inner_mg(mg, tol=inner_tol, solver=inner_solver, max_restarts=4,
+                     n_krylov=n_krylov)
+
+    def solve_lo(r, cap):
+        history.append((float(norm2(r)) / b2) ** 0.5)
+        e = inner(r, cap)
+        inner_iters.append(e.iters)
+        return e
+
+    _sync(device)
+    t0 = time.perf_counter()
+    _, r2, iters, stats = defect_correction(
+        matvec_hi, solve_lo, b, torch.complex64, tol, maxiter=100000,
+        max_restarts=12, max_res_increase=1, max_res_increase_total=10)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    del exact
+    return {"geom": list(geom.dims), "nvec": nvec, "n_krylov": n_krylov,
+            "vec_dtype": "bf16", "setup_secs": setup_secs, **timings,
+            "cg_iters": mg.setup_stats["cg_iters"],
+            "null_true_res": mg.setup_stats["null_true_res"],
+            "exact_build_secs": exact_build_secs,
+            "true_res": (float(r2) / b2) ** 0.5,
+            "restarts": stats.restarts, "inner_iters": iters,
+            "inner_iters_each": inner_iters, "diverged": stats.diverged,
+            "history": history, "secs": secs, "resid_secs": resid["secs"],
+            "peak_mem_bytes": _peak(device),
+            "solver": f"mg-{inner_solver}-compact-bf16 + float64 "
+                      "defect-correction outer"}, mg
 
 
 # ---- host I/O -------------------------------------------------------------

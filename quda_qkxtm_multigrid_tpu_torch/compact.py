@@ -15,7 +15,13 @@ Tiers, the channel dtype of ``make_compact``:
   bfloat16  bf16 gauge, float32 A⁻¹ of the bf16-rounded clover, bf16
             clover (the JAX package's ``bf16=True``); float32 spinors,
             or bf16 spinor storage through ``matpc_ch(out_dtype=
-            torch.bfloat16)`` (kernel K1e);
+            torch.bfloat16)`` (kernel K1e).  ``cinv_bf16=True`` stores
+            that A⁻¹ in bf16 as well (K1d's ``f32_g16`` form): 1.5 GB
+            less at 48³×96, but the stored A and A⁻¹ then agree only to
+            bf16, so the Schur chain floors at ~4e-3 and the tier serves
+            only under an outer that certifies in a wider precision (the
+            MG step tier of ``MGParams(solve_operator="compact")``,
+            ``mg.multigrid.step_tier``);
   float32   float32 operands and spinors (``bf16=False``);
   float64   float64 operands and spinors: the port's stand-in for the
             host complex128 operator of the JAX package's
@@ -29,8 +35,14 @@ Full-operator residuals use the symmetric even-odd identity
     r = b − M x  with  M_pp = A_p, M_po = −κ D_po,
 one xpay hop and one clover apply per parity (``m_ch``).
 
+A clover operator may drop its clover channels (``without_clover``,
+``cl_ch`` None; the JAX package's ``cl_ch=(None, None)``): the Schur
+chain, prepare and reconstruct read only A⁻¹, and what needs A
+(``m_ch``, ``a_apply``) raises.  It is the restart-residual tier of
+``MGParams(solve_operator="compact")``.
+
 Left out on purpose, as TPU squeezes: host staging of the build
-(``host=``), ``cinv_bf16`` and ``interpret``.
+(``host=``) and ``interpret``.
 """
 
 from __future__ import annotations
@@ -46,8 +58,7 @@ from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
 from quda_qkxtm_multigrid_tpu_torch.ops.clover import (
-    CLOVER_APPLY_FLOPS_PER_SITE, FMUNU_PAIRS, _clover_parity,
-    _field_strength_plane)
+    CLOVER_APPLY_FLOPS_PER_SITE, _clover_parity, field_strength_parity)
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     antiperiodic_t, cast_channels, dslash_ch, from_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import mat6_inv_blocks
@@ -59,9 +70,10 @@ CHANNEL_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 class CompactDirac(nn.Module):
     """Channel-operand bundle (module docstring): buffers ``g_ch``,
     ``cinv_ch`` and ``cl_ch`` ([2, T, C, Z, W], parity first; the clover
-    pair is None for twisted mass, and ``cinv_ch`` is None for an
-    operator built with ``inverse=False``, which has ``m_ch`` and
-    ``mdag_ch`` only).
+    pair is None for twisted mass, ``cinv_ch`` is None for an operator
+    built with ``inverse=False``, which has ``m_ch`` and ``mdag_ch``
+    only, and ``cl_ch`` is None for a clover operator after
+    ``without_clover``, which has no ``m_ch``).
 
     A solver backend without the fused extras of the full ``Dirac``
     (multi-source chain, MG): ``_has_fused_matpc`` is False, as in the
@@ -116,6 +128,13 @@ class CompactDirac(nn.Module):
                             cast(self.cl_ch),
                             dataclasses.replace(self.params,
                                                 kernel_bf16=False),
+                            self.geom, self.antiperiodic)
+
+    def without_clover(self) -> "CompactDirac":
+        """The same operator without its clover channels (``cl_ch``
+        None), sharing the gauge and A⁻¹: what the Schur chain, prepare
+        and reconstruct read (the JAX package's ``resid_drop_clover``)."""
+        return CompactDirac(self.g_ch, self.cinv_ch, None, self.params,
                             self.geom, self.antiperiodic)
 
     # ---- fused hot path (the chain of Dirac._fused_matpc_*_ch) ----------
@@ -178,6 +197,10 @@ class CompactDirac(nn.Module):
         if dag:
             a = -a
         if p.has_clover:
+            if self.cl_ch is None:
+                raise ValueError("this CompactDirac holds no clover channels "
+                                 "(without_clover): it has the Schur chain, "
+                                 "prepare and reconstruct, not A or m_ch")
             out = _ch_clover_apply(v_ch, self.cl_ch[parity], dag=dag)
             if p.has_twist:
                 out = out + (_ch_twist(v_ch, a, 1.0) - v_ch)
@@ -282,7 +305,8 @@ def _twisted_inverse(clov_p, params: DiracParams) -> torch.Tensor:
 
 def make_compact(u: torch.Tensor, params: DiracParams, geom: Geometry,
                  dtype: torch.dtype = torch.bfloat16,
-                 inverse: bool = True) -> CompactDirac:
+                 inverse: bool = True,
+                 cinv_bf16: bool = False) -> CompactDirac:
     """Build the channel bundle from a gauge field ``u`` [4,2,3,3,T,Z,W]
     on ``u``'s device, in ``u``'s precision, then cast to the channel
     ``dtype`` (``CHANNEL_DTYPES``; the JAX package's ``bf16`` flag).
@@ -292,9 +316,14 @@ def make_compact(u: torch.Tensor, params: DiracParams, geom: Geometry,
     inverted, and that inverse is kept in float32.  The stored A and A⁻¹
     then agree to float32, and the Schur solve certifies; independently
     rounded bf16 A and A⁻¹ floor the reconstructed residual at ~1e-3.
+    ``cinv_bf16=True`` (bfloat16 tier only) rounds that inverse to bf16
+    too, the JAX package's ``make_compact(cinv_bf16=True)``: the floor
+    is then paid on purpose, for an outer that certifies.
 
-    The build goes one parity at a time, the inverse in t-slabs, so only
-    ``u`` and one parity's temporaries are alive beside the channels.
+    The build goes one parity at a time, the clover blocks and their
+    inverse in t-slabs of the parity's field strength, so only ``u``,
+    one parity's field strength and one slab's temporaries are alive
+    beside the channels.
     ``inverse=False`` leaves out A⁻¹ (``cinv_ch`` None): an operator for
     ``m_ch`` / ``mdag_ch`` only, such as a defect-correction outer's
     residual.  The t boundary is read from each parity's links before
@@ -302,6 +331,9 @@ def make_compact(u: torch.Tensor, params: DiracParams, geom: Geometry,
     periodic nor antiperiodic raises)."""
     if dtype not in CHANNEL_DTYPES:
         raise ValueError(f"channel dtype {dtype} not in {CHANNEL_DTYPES}")
+    if cinv_bf16 and dtype != torch.bfloat16:
+        raise ValueError(f"cinv_bf16 is a form of the bfloat16 tier; no "
+                         f"kernel takes a bf16 A⁻¹ with {dtype} channels")
     params = dataclasses.replace(params, use_kernels=True,
                                  kernel_bf16=dtype == torch.bfloat16)
     t_, z_, w_ = geom.lat_shape
@@ -319,26 +351,28 @@ def make_compact(u: torch.Tensor, params: DiracParams, geom: Geometry,
                          "boundary")
     if not params.has_clover:
         return CompactDirac(g, None, None, params, geom, antiperiodic)
-    cinv_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    cinv_dtype = (dtype if cinv_bf16 or dtype != torch.bfloat16
+                  else torch.float32)
     cl = torch.empty((2, t_, 144, z_, w_), dtype=dtype, device=dev)
     cinv = (torch.empty((2, t_, 144, z_, w_), dtype=cinv_dtype, device=dev)
             if inverse else None)
     tb = max(1, t_ // 8)
     for p in (0, 1):
-        clov = _clover_parity(torch.stack([
-            _field_strength_plane(u, geom, mu, nu, p)
-            for mu, nu in FMUNU_PAIRS]), params.csw * params.kappa)
-        if dtype == torch.bfloat16:
-            clov = torch.complex(
-                clov.real.to(torch.bfloat16).to(torch.float32),
-                clov.imag.to(torch.bfloat16).to(torch.float32)).to(clov.dtype)
-        cl[p] = cast_channels(to_channels(clov), dtype)
-        if inverse:
-            for t0 in range(0, t_, tb):
+        f = field_strength_parity(u, geom, p)
+        for t0 in range(0, t_, tb):
+            clov = _clover_parity(f[..., t0:t0 + tb, :, :],
+                                  params.csw * params.kappa)
+            if dtype == torch.bfloat16:
+                clov = torch.complex(
+                    clov.real.to(torch.bfloat16).to(torch.float32),
+                    clov.imag.to(torch.bfloat16).to(torch.float32)).to(
+                        clov.dtype)
+            cl[p, t0:t0 + tb] = cast_channels(to_channels(clov), dtype)
+            if inverse:
                 cinv[p, t0:t0 + tb] = cast_channels(to_channels(
-                    _twisted_inverse(clov[..., t0:t0 + tb, :, :], params)),
-                    cinv_dtype)
-        del clov
+                    _twisted_inverse(clov, params)), cinv_dtype)
+            del clov
+        del f
     return CompactDirac(g, cinv, cl, params, geom, antiperiodic)
 
 

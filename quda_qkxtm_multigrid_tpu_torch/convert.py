@@ -16,7 +16,7 @@ from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import CoarseOperator
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     Bf16Transfer, BlockGeometry, CoarseBlockGeometry, CoarseTransfer,
-    Transfer, block_orthonormalize_flat, to_blocked_flat)
+    Transfer, block_orthonormalize, to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh, box_slab
 from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import (
     ShardedDirac, shard_dirac)
@@ -121,7 +121,8 @@ def transfer_from_numpy(v, bg: BlockGeometry, dtype=torch.complex128,
         raise ValueError(f"V shape {a.shape} is neither {vshape} nor raw "
                          f"null vectors {raw}")
     flat = to_blocked_flat(torch.tensor(a, dtype=dtype, device=device), bg)
-    return Transfer(v=block_orthonormalize_flat(flat), bg=bg)
+    v = torch.movedim(flat, 0, -2).contiguous()
+    return Transfer(v=block_orthonormalize(v), bg=bg)
 
 
 def coarse_transfer_from_numpy(v, bg2: CoarseBlockGeometry,

@@ -25,6 +25,21 @@ preconditioned through level 3 when there is one (``_coarse2_vcycle``).
 (``transfer.Bf16Transfer``) once every coarse operator has been built
 from the complex V.
 
+``solve_operator="compact"`` (the JAX package's north-star solve tiers,
+QUDA's ``precision`` / ``precision_sloppy`` split): after the coarse
+build and the cast of V, ``setup_mg`` replaces the canonical operator by
+two ``compact.CompactDirac`` tiers built from its gauge.  The V-cycle
+(its smoother and its residual) and the outer GCR's directions run on
+the step tier ``dirac_sloppy``: bf16 gauge and clover, A⁻¹ in bf16 (the
+JAX package's ``step_cinv_bf16``).  ``prepare``, the restart residuals
+and ``reconstruct`` run on the residual tier ``dirac``: float32, without
+its clover channels (JAX's ``resid_drop_clover``), so ``mg_solve`` needs
+``final_resid=False`` and a certificate of the caller's.  The
+preconditioner holds no canonical operator: the caller keeps the gauge
+to certify.  ``mg.hbm_setup.setup_mg_hbm`` sets up the same step tier
+at a volume where the residual tier does not fit beside the caller's
+certificate; its residuals run on the step tier.
+
 ``mg_solve``: "gcr-pc" runs GCR on the Schur system with the V-cycle
 through the Schur embedding (the production path), "gcr" runs GCR on
 the full operator, "mr-richardson" V-cycle steps with a minimal-residual
@@ -45,7 +60,8 @@ with the fine hops' shifts across the box faces, and its X / Y
 all-gathered by grid coordinates; levels 2–4 are then built from the
 replicated level 1 alike on every rank.
 ``shard_mg`` cuts a preconditioner set up on the whole lattice
-instead.  Either feeds ``mg_solve(mesh=…)``.
+instead.  Either feeds ``mg_solve(mesh=…)``.  The compact solve tiers
+have no sharded form: a sharded setup or ``shard_mg`` of them raises.
 """
 
 from __future__ import annotations
@@ -53,10 +69,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
+import types
 from typing import Optional
 
 import torch
 
+from quda_qkxtm_multigrid_tpu_torch.compact import CompactDirac, make_compact
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac, make_dirac
 from quda_qkxtm_multigrid_tpu_torch.invert import invert, invert_msrc
 from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import (
@@ -64,7 +82,7 @@ from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import (
     coarse_diag_hops, coarse_xy_direct)
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     Bf16Transfer, BlockGeometry, CoarseBlockGeometry, CoarseTransfer,
-    Transfer, block_orthonormalize_coarse, block_orthonormalize_flat,
+    Transfer, block_orthonormalize, block_orthonormalize_coarse,
     slab_block_geometry, to_blocked_coarse, to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct, norm2
@@ -80,6 +98,8 @@ from quda_qkxtm_multigrid_tpu_torch.utils import rng as _rng
 from quda_qkxtm_multigrid_tpu_torch.utils.profiling import solve_telemetry
 
 QUDA_MAX_MG_LEVEL = 4    # the reference's deepest hierarchy
+SOLVE_OPERATORS = ("canonical", "compact")
+NULL_BATCH = 8           # sources a multi-source solve of the setup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +144,11 @@ class MGParams:
     # storage of the level-1 V in the V-cycle: "f32" (complex) or "bf16"
     # (a planar bf16 pair; the coarse operators are built before the cast)
     vec_dtype: str = "f32"
+    # the solve's operators: "canonical" (the Dirac of setup_mg) or
+    # "compact" (the bf16 step tier, A⁻¹ in bf16 too, whose Schur chain
+    # floors at ~4e-3 a cycle, and the float32 residual tier without
+    # clover channels, whose restarts absorb that floor; module
+    # docstring)
     solve_operator: str = "canonical"
 
     def __post_init__(self):
@@ -134,11 +159,9 @@ class MGParams:
         if self.vec_dtype not in ("f32", "bf16"):
             raise ValueError(f"vec_dtype={self.vec_dtype!r}: 'f32' or "
                              "'bf16'")
-        if self.solve_operator != "canonical":
-            raise ValueError(
-                f"solve_operator={self.solve_operator!r}: the compact "
-                "operator is a 16 GB-HBM squeeze, not ported on purpose "
-                "(ROADMAP queue 1, 'Not ported on purpose')")
+        if self.solve_operator not in SOLVE_OPERATORS:
+            raise ValueError(f"solve_operator={self.solve_operator!r}: "
+                             f"one of {SOLVE_OPERATORS}")
         if self.outer_solver not in ("gcr", "gcr-pc", "mr-richardson"):
             raise ValueError(f"unknown outer_solver {self.outer_solver!r}")
 
@@ -147,7 +170,7 @@ class MGParams:
 class MGPreconditioner:
     transfer: Transfer | Bf16Transfer
     coarse: CoarseOperator
-    dirac: Dirac
+    dirac: Dirac | CompactDirac       # prepare, residuals, reconstruct
     params: MGParams
     dirac_pr: Optional[Dirac] = None  # delta-scaled smoother operator
     # what setup_mg measured: host seconds of each part, the multi-source
@@ -159,13 +182,22 @@ class MGPreconditioner:
     coarse2: Optional[CoarseOperator] = None
     transfer3: Optional[CoarseTransfer] = None    # n_level = 4
     coarse3: Optional[CoarseOperator] = None
+    # solve_operator="compact": the bf16 tier of the V-cycle and the
+    # outer GCR's directions (``dirac`` is then the float32 tier)
+    dirac_sloppy: Optional[CompactDirac] = None
     # the level-1 V-cycle's CUDA graphs, by (shape, dtype, device)
     _graphs: dict = dataclasses.field(default_factory=dict, init=False,
                                       repr=False, compare=False)
 
     @property
-    def _dirac_smooth(self) -> Dirac:
-        return self.dirac if self.dirac_pr is None else self.dirac_pr
+    def _dirac_step(self) -> Dirac | CompactDirac:
+        """The operator of the V-cycle and of the outer GCR's
+        directions: the sloppy tier where there is one."""
+        return self.dirac if self.dirac_sloppy is None else self.dirac_sloppy
+
+    @property
+    def _dirac_smooth(self) -> Dirac | CompactDirac:
+        return self._dirac_step if self.dirac_pr is None else self.dirac_pr
 
     def _coarse2_vcycle(self, r2: torch.Tensor) -> torch.Tensor:
         """Level-2 V-cycle through level 3: GCR(coarse3_nkrylov) on the
@@ -243,7 +275,8 @@ class MGPreconditioner:
 
     def vcycle(self, r: torch.Tensor, mesh=None) -> torch.Tensor:
         """One V(nu_pre, nu_post) cycle approximating M⁻¹ r on the full
-        field [2,4,3,T,Z,W].
+        field [2,4,3,T,Z,W]; its residuals and smoother run on the step
+        operator (``dirac_sloppy`` where there is one).
 
         ``mesh``: ``r`` is this rank's box of a field on that grid and
         the preconditioner a sharded one (``setup_mg`` on a
@@ -260,7 +293,7 @@ class MGPreconditioner:
         faces; the gather stays outside the CUDA graph of the coarse
         levels (``_graphed``)."""
         p = self.params
-        m = self.dirac.m
+        m = self._dirac_step.m
         red = None if mesh is None else mesh.allreduce
         x = torch.zeros_like(r)
         if p.nu_pre > 0:
@@ -355,18 +388,18 @@ def _sync(t: torch.Tensor):
 
 def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
                           gen: torch.Generator, params: MGParams,
-                          batch: int = 8,
                           stats: Optional[dict] = None) -> torch.Tensor:
     """Near-kernel vectors — loose solves of M x = ξ to ``setup_tol`` on
     Gaussian sources ξ — block-orthonormalised (CholQR²) into V
     [2, Tc,Zc,Yc,Xc, nvec, bdof].
 
-    On the fused kernel chain the solves run ``batch`` at a time through
-    ``invert_msrc`` and the multi-source kernel; each solved batch goes
-    straight into the blocked accumulator, so one batch at a time is
-    alive beside it.  Otherwise each is one BiCGstab on M.  ``stats``,
-    if given, receives the host seconds of the solves and of the
-    orthonormalisation, the solver iterations of each batch
+    On the fused kernel chain the solves run ``NULL_BATCH`` at a time
+    through ``invert_msrc`` and the multi-source kernel; each solved
+    batch goes straight into its columns of V, so one batch at a time is
+    alive beside it, and V is orthonormalised in place
+    (``transfer.block_orthonormalize``).  Otherwise each is one BiCGstab
+    on M.  ``stats``, if given, receives the host seconds of the solves
+    and of the orthonormalisation, the solver iterations of each batch
     (``msrc_iters``, or ``bicgstab_iters`` per vector) and, for the
     multi-source path, the worst solve's true residual.
 
@@ -387,27 +420,35 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
     def sliced(b):
         return b if mesh is None else box_slab(b, mesh)
 
+    def put(i0, x):
+        """Solutions [n, 2,4,3,T,Z,W] (or one) into columns i0… of V."""
+        f = to_blocked_flat(x, bg)
+        if x.dim() == 6:
+            v[..., i0, :] = f
+        else:
+            v[..., i0:i0 + x.shape[0], :] = torch.movedim(f, 0, -2)
+
     t0 = time.perf_counter()
-    flat = torch.empty((bg.nvec, 2) + tuple(bg.coarse_shape) + (bg.bdof,),
-                       dtype=dtype, device=dirac.u.device)
+    v = torch.empty((2,) + tuple(bg.coarse_shape) + (bg.nvec, bg.bdof),
+                    dtype=dtype, device=dirac.u.device)
     iters, worst = [], 0.0
     if fused:
-        for i0 in range(0, bg.nvec, batch):
-            nb = min(batch, bg.nvec - i0)
+        for i0 in range(0, bg.nvec, NULL_BATCH):
+            nb = min(NULL_BATCH, bg.nvec - i0)
             bs = sliced(_rng.random_spinor(gen, whole, dtype,
                                            batch_shape=(nb,)))
             if mesh is None:
                 res = invert_msrc(dirac, bs, tol=params.setup_tol,
                                   maxiter=params.setup_maxiter)
                 del bs
-                flat[i0:i0 + nb] = to_blocked_flat(res.x, bg)
+                put(i0, res.x)
                 iters.append(res.iters)
                 worst = max(worst, res.true_res)
                 continue
             for i, b in enumerate(bs):
                 res = invert(dirac, b, tol=params.setup_tol,
                              maxiter=params.setup_maxiter, mesh=mesh)
-                flat[i0 + i] = to_blocked_flat(res.x, bg)
+                put(i0 + i, res.x)
                 iters.append(res.iters)
                 worst = max(worst, res.true_res)
             del bs
@@ -417,12 +458,11 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
             b = sliced(_rng.random_spinor(gen, whole, dtype))
             res = bicgstab(dirac.m, b, tol=params.setup_tol,
                            maxiter=params.setup_maxiter, allreduce=red)
-            flat[i] = to_blocked_flat(res.x, bg)
+            put(i, res.x)
             iters.append(res.iters)
-    _sync(flat)
+    _sync(v)
     t1 = time.perf_counter()
-    v = block_orthonormalize_flat(flat)
-    del flat
+    block_orthonormalize(v)
     _sync(v)
     if stats is not None:
         stats["null_vector_secs"] = t1 - t0
@@ -608,25 +648,57 @@ def setup_mg(dirac: Dirac, params: MGParams, gen: torch.Generator,
     device): the fine null vectors, then level 2's and level 3's;
     ``null_vectors`` (a sequence of nvec fields [2,4,3,T,Z,W]) skips the
     fine generation and is orthonormalised as given.  With
-    ``vec_dtype="bf16"`` the level-1 V is cast after every build.
+    ``vec_dtype="bf16"`` the level-1 V is cast after every build.  With
+    ``solve_operator="compact"`` the solve tiers are built last, from
+    ``dirac``'s gauge (``_solve_tier_operators``, their seconds in
+    ``setup_stats["solve_tiers_secs"]``), and replace ``dirac`` in the
+    preconditioner.
 
     A ``ShardedDirac`` sets up on the boxes of its ring (module
     docstring; ``gen`` in the same state on every rank, ``null_vectors``
     the rank's boxes): the result is what ``shard_mg`` makes of the
     whole lattice's setup, for ``mg_solve(mesh=…)``, and no rank holds
     a fine field of the whole lattice."""
+    if params.solve_operator == "compact" and _mesh(dirac) is not None:
+        raise ValueError("the compact solve tiers have no sharded form: "
+                         "solve_operator='canonical' on a ShardedDirac")
     bg = _fine_blocking(dirac, params)
     stats = {}
     if null_vectors is None:
         v = _null_vectors_for(dirac, bg, gen, params, stats)
     else:
-        v = block_orthonormalize_flat(torch.stack(
-            [to_blocked_flat(x, bg) for x in null_vectors]))
+        v = block_orthonormalize(torch.stack(
+            [to_blocked_flat(x, bg) for x in null_vectors], dim=-2))
     mg = _preconditioner(Transfer(v=v, bg=bg), dirac, params, stats)
     del v
     _add_coarse_levels(mg, gen)
     mg.transfer = _vec_storage_cast(mg.transfer, params)
+    if params.solve_operator == "compact":
+        t0 = time.perf_counter()
+        mg.dirac, mg.dirac_sloppy = _solve_tier_operators(dirac)
+        _sync(mg.dirac_sloppy.g_ch)
+        stats["solve_tiers_secs"] = time.perf_counter() - t0
     return mg
+
+
+def step_tier(u: torch.Tensor, params, geom) -> CompactDirac:
+    """The step tier of ``solve_operator="compact"``:
+    ``compact.make_compact`` of the gauge ``u`` in the bf16 operand tier
+    with A⁻¹ in bf16 too (K1d's ``f32_g16`` form)."""
+    return make_compact(u, params, geom, torch.bfloat16, cinv_bf16=True)
+
+
+def _solve_tier_operators(dirac: Dirac) -> tuple:
+    """(residual tier, step tier) of ``solve_operator="compact"`` (the
+    JAX package's ``_solve_tier_operators`` with ``step_cinv_bf16`` and
+    ``resid_drop_clover``): ``compact.make_compact`` of ``dirac``'s
+    gauge and parameters in float32 channels without the clover
+    channels, and ``step_tier``.  Each is built on the gauge's device,
+    one parity at a time; the JAX package builds them on the host only
+    because a 16 GB chip holds no build beside the preconditioner."""
+    d_resid = make_compact(dirac.u, dirac.params, dirac.geom,
+                           torch.float32).without_clover()
+    return d_resid, step_tier(dirac.u, dirac.params, dirac.geom)
 
 
 def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
@@ -643,7 +715,12 @@ def setup_mg_pair(dirac_up: Dirac, dirac_dn: Dirac, params: MGParams,
     V is cast after both flavours' builds.  Each preconditioner's
     ``setup_stats`` holds the shared null-vector seconds and its own
     build seconds.  Two ``ShardedDirac`` set up on their boxes, as
-    ``setup_mg`` does."""
+    ``setup_mg`` does.  The compact solve tiers are ``setup_mg``'s only
+    (the JAX package's pair keeps its canonical operators): they
+    raise here."""
+    if params.solve_operator != "canonical":
+        raise ValueError("setup_mg_pair keeps the canonical operators: "
+                         "solve_operator='compact' is setup_mg's")
     bg = _fine_blocking(dirac_up, params)
     shared = {}
     transfer = Transfer(v=_null_vectors_for(dirac_up, bg, gen, params,
@@ -673,8 +750,11 @@ def shard_mg(mg: MGPreconditioner, mesh) -> MGPreconditioner:
     operator, the transfer's aggregates on the box (``t_slab``), and the
     coarse levels whole, replicated on every rank.  The block's t extent
     must divide T_loc.  ``setup_mg`` on a ``ShardedDirac`` gives the same
-    without a whole-lattice operator."""
+    without a whole-lattice operator.  The compact solve tiers have no
+    sharded form: a preconditioner with them raises."""
     from quda_qkxtm_multigrid_tpu_torch.parallel.sharded import shard_dirac
+    if mg.dirac_sloppy is not None:
+        raise ValueError("the compact solve tiers have no sharded form")
     return dataclasses.replace(
         mg, dirac=shard_dirac(mg.dirac, mesh),
         dirac_pr=None if mg.dirac_pr is None else shard_dirac(mg.dirac_pr,
@@ -685,7 +765,7 @@ def shard_mg(mg: MGPreconditioner, mesh) -> MGPreconditioner:
 def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
              n_krylov: int = 10, max_restarts: int = 50,
              solver: Optional[str] = None, telemetry: bool = False,
-             mesh=None):
+             mesh=None, final_resid: bool = True):
     """MG-preconditioned outer solve of M x = b.
 
     "gcr-pc": restarted GCR(n_krylov) on the even-odd Schur system
@@ -694,10 +774,18 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
     full system with right-hand side (A_p r on parity p, 0 on the other)
     prepares to exactly that, so K(r) = [V-cycle((A_p r, 0))]_p.
     Convergence is tested on the Schur residual; x is reconstructed and
-    ``r2`` is the full system's |b − M x|².
+    ``r2`` is the full system's |b − M x|², or with ``final_resid=False``
+    the converged Schur |r_p|² (for a residual tier without A, which
+    the caller certifies on an operator of its own).
     "gcr": restarted GCR(n_krylov) on M x = b with the V-cycle.
     "mr-richardson": x += ω z, z = V-cycle(r), ω = <Mz, r>/|Mz|².
     ``iters`` counts n_krylov per GCR cycle, 1 per Richardson step.
+
+    With the compact solve tiers (``mg.dirac_sloppy``) each GCR cycle,
+    its preconditioner's A_p and the V-cycle run on the bf16 step tier,
+    and ``prepare``, every restart's residual and ``reconstruct`` on the
+    float32 tier ``mg.dirac`` (the JAX package's step / residual split,
+    reliable updates against the wider operator).
 
     ``mesh``: the sharded solve on that grid (the JAX package's
     ``mg_solve(mesh=…)``): ``mg`` a sharded preconditioner, ``b`` and the
@@ -717,7 +805,8 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
                          "shard_mg(mg, mesh)) and mg_solve(mesh=mesh)")
     _sync(b)
     t0 = time.perf_counter()
-    res = _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver, mesh)
+    res = _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver, mesh,
+                    final_resid)
     if not telemetry:
         return res
     _sync(res.x)
@@ -726,8 +815,10 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
 
 def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
               n_krylov: int, max_restarts: int, solver: str,
-              mesh=None) -> GCRResult:
-    """The outer solve of ``mg_solve``."""
+              mesh=None, final_resid: bool = True) -> GCRResult:
+    """The outer solve of ``mg_solve``: residuals on ``d``, GCR cycles
+    on the step operator ``mg._dirac_step``."""
+    ds = mg._dirac_step
     if mesh is None:
         allreduce, vcycle = None, mg.vcycle
         red = lambda v: v       # noqa: E731
@@ -745,20 +836,21 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
         def precond(rp):
             full = torch.zeros((2,) + tuple(rp.shape), dtype=rp.dtype,
                                device=rp.device)
-            full[pr] = d.a_apply(rp, pr)
+            full[pr] = ds.a_apply(rp, pr)
             return vcycle(full)[pr]
 
         iters = 0
         for _ in range(max_restarts):
             if float(r2) <= tol * tol * b2:
                 break
-            x_p = x_p + gcr_cycle(d.matpc, r_p, n_krylov=n_krylov,
+            x_p = x_p + gcr_cycle(ds.matpc, r_p, n_krylov=n_krylov,
                                   precond=precond, allreduce=allreduce)
             iters += n_krylov
             r_p = src - d.matpc(x_p)
             r2 = red(norm2(r_p))
         x = d.reconstruct(x_p, b)
-        return GCRResult(x, iters, red(norm2(b - d.m(x))))
+        return GCRResult(x, iters,
+                         red(norm2(b - d.m(x))) if final_resid else r2)
 
     x = torch.zeros_like(b)
     r = b - d.m(x)
@@ -770,7 +862,7 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
             if float(r2) <= tol * tol * b2:
                 break
             z = vcycle(r)
-            w = d.m(z)
+            w = ds.m(z)
             denom, num = summed(allreduce, norm2(w), cDotProduct(w, r))
             omega = torch.where(
                 denom > 0, num / denom,
@@ -783,7 +875,7 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
         for _ in range(max_restarts):
             if float(r2) <= tol * tol * b2:
                 break
-            x = x + gcr_cycle(d.m, r, n_krylov=n_krylov, precond=vcycle,
+            x = x + gcr_cycle(ds.m, r, n_krylov=n_krylov, precond=vcycle,
                               allreduce=allreduce)
             iters += n_krylov
             r = b - d.m(x)
@@ -791,3 +883,26 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
     else:
         raise ValueError(f"unknown mg_solve solver {solver!r}")
     return GCRResult(x, iters, r2)
+
+
+def inner_mg(mg: MGPreconditioner, tol: float = 1e-5,
+             solver: str = "gcr-pc", max_restarts: int = 20,
+             n_krylov: int = 10):
+    """The inner solve of a defect-correction outer
+    (``solvers.support.defect_correction``) by ``mg_solve`` on ``mg``:
+    the JAX package's ``solvers/host_dc.device_inner_mg``, whose outer
+    residual came from the host.  Returns ``solve_lo(r, cap)``: ``r``
+    the outer's residual on the card, a field [2,4,3,T,Z,W] (complex128,
+    or already complex64), solved in complex64 to ``tol`` with at most
+    ``max_restarts`` GCR(``n_krylov``) cycles, fewer where ``cap``
+    iterations are left; returns the correction (complex64) and the
+    outer GCR iterations, as ``.x`` and ``.iters`` (the outer computes
+    its own residual, so the inner skips its final one).  ``n_krylov``
+    bounds the GCR's stored directions (2·n_krylov Schur fields)."""
+    def solve_lo(r: torch.Tensor, cap: int):
+        restarts = min(max_restarts, max(1, cap // n_krylov))
+        out = mg_solve(mg, r.to(torch.complex64), tol=tol, solver=solver,
+                       max_restarts=restarts, n_krylov=n_krylov,
+                       final_resid=False)
+        return types.SimpleNamespace(x=out.x, iters=out.iters)
+    return solve_lo

@@ -133,11 +133,15 @@ def cholqr_pass(v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(linv.conj(), v).reshape(shp)
 
 
-def block_orthonormalize_flat(v_stacked: torch.Tensor) -> torch.Tensor:
-    """CholQR² of stacked flat null vectors [nvec, 2, Tc,Zc,Yc,Xc, bdof]
-    → V [2, Tc,Zc,Yc,Xc, nvec, bdof], orthonormal within every
-    (chirality, aggregate)."""
-    return cholqr_pass(cholqr_pass(torch.movedim(v_stacked, 0, -2)))
+def block_orthonormalize(v: torch.Tensor) -> torch.Tensor:
+    """CholQR² of the null vectors in V [2, Tc,Zc,Yc,Xc, nvec, bdof], in
+    place, one coarse t row of aggregates at a time: the aggregates are
+    independent, so only one row's temporaries are alive beside V.
+    Returns V, orthonormal within every (chirality, aggregate)."""
+    for t in range(v.shape[1]):
+        row = v[:, t]
+        row.copy_(cholqr_pass(cholqr_pass(row)))
+    return v
 
 
 def slab_block_geometry(bg: BlockGeometry, mesh) -> tuple:

@@ -88,18 +88,36 @@ def _clover_parity(f, coeff: float):
     return torch.cat([top, bot], dim=1)
 
 
+def field_strength_parity(u, geom: Geometry, p: int, mesh=None):
+    """The six F components of parity ``p``, [6, 3, 3, T, Z, W], written
+    plane by plane into one buffer; ``mesh`` as in
+    ``_field_strength_plane``."""
+    f = torch.empty((6, 3, 3) + tuple(u.shape[-3:]), dtype=u.dtype,
+                    device=u.device)
+    for i, (mu, nu) in enumerate(FMUNU_PAIRS):
+        f[i] = _field_strength_plane(u, geom, mu, nu, p, mesh)
+    return f
+
+
 def make_clover(u, geom: Geometry, coeff: float, mesh=None):
     """Build A [2(parity),2(ch),6,6,T,Z,W], coeff = csw * kappa.
 
     Built one parity at a time, so the six F components of only one
     parity are alive at once (each [3,3,T,Z,W] c128 temporary is 151 MB
-    at 32³×64).  ``mesh``: on this rank's box of ``u``, its t-faces
+    at 32³×64), and the chiral blocks from them a t-slab at a time into
+    the output.  ``mesh``: on this rank's box of ``u``, its t-faces
     exchanged (``_field_strength_plane``)."""
-    return torch.stack([
-        _clover_parity(torch.stack([_field_strength_plane(u, geom, mu, nu, p,
-                                                          mesh)
-                                    for mu, nu in FMUNU_PAIRS]), coeff)
-        for p in (0, 1)])
+    t_ = u.shape[-3]
+    out = torch.empty((2, 2, 6, 6) + tuple(u.shape[-3:]), dtype=u.dtype,
+                      device=u.device)
+    tb = max(1, t_ // 8)
+    for p in (0, 1):
+        f = field_strength_parity(u, geom, p, mesh)
+        for t0 in range(0, t_, tb):
+            out[p, ..., t0:t0 + tb, :, :] = _clover_parity(
+                f[..., t0:t0 + tb, :, :], coeff)
+        del f
+    return out
 
 
 def clover_with_twist(clover, kappa: float, mu: float, flavor: int):

@@ -6,8 +6,9 @@ against JAX and against the probing oracle, and its application), the
 V-cycle, and ``mg_solve`` with the three outer solvers from the same
 null vectors (same iteration count, solution to 1e-8).  Also: a JAX
 ``vec_outfile`` read by the port, the converter for the JAX package's MG
-state, the MG options that are refused, and ``bench_mg`` at a tiny
-size.  Tolerances are normwise relative.
+state, the MG options that are refused (an unknown ``solve_operator``
+among them; the compact one is ``tests/test_torch_mg_compact.py``'s),
+and ``bench_mg`` at a tiny size.  Tolerances are normwise relative.
 """
 
 import functools
@@ -288,7 +289,7 @@ def test_vec_outfile_round_trip(tmp_path, flds):
     (dict(n_level=1), "QUDA_MAX_MG_LEVEL = 4"),
     (dict(n_level=5), "QUDA_MAX_MG_LEVEL = 4"),
     (dict(vec_dtype="f16"), "'f32' or 'bf16'"),
-    (dict(solve_operator="compact"), "not ported on purpose"),
+    (dict(solve_operator="sloppy"), "solve_operator='sloppy'"),
     (dict(outer_solver="cg"), "outer_solver")])
 def test_mg_params_refuse_what_is_not_ported(kw, match):
     with pytest.raises(ValueError, match=match):

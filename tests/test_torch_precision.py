@@ -19,7 +19,7 @@ import torch
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.mg.coarse_op import CoarseOperator
 from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
-    BlockGeometry, Transfer, block_orthonormalize_flat)
+    BlockGeometry, Transfer, block_orthonormalize)
 from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -55,17 +55,18 @@ def test_mg_products_run_without_tf32(caller_allows_tf32):
         return torch.tensor(rng.standard_normal(shape)
                             + 1j * rng.standard_normal(shape),
                             dtype=torch.complex64)
-    flat = cplx(BG.nvec, 2, *BG.coarse_shape, BG.bdof)
-    tr = Transfer(v=block_orthonormalize_flat(flat), bg=BG)
+    v = cplx(2, *BG.coarse_shape, BG.nvec, BG.bdof)
+    tr = Transfer(v=block_orthonormalize(v), bg=BG)
     f = cplx(2, 4, 3, GEOM.T, GEOM.Z, GEOM.W)
     vc = tr.restrict(f)
     tr.prolong(vc)
     dof, cvol = BG.coarse_dof, BG.coarse_volume
     CoarseOperator(x=cplx(cvol, dof, dof), y=cplx(8, cvol, dof, dof),
                    bg=BG).apply(vc)
-    # CholQR² (2 products a pass), restrict, prolong, coarse apply (one
-    # product of the 9 stencil blocks side by side)
-    assert len(seen) == 7
+    # CholQR² (2 products a pass, a coarse t row at a time), restrict,
+    # prolong, coarse apply (one product of the 9 stencil blocks side by
+    # side)
+    assert len(seen) == 4 * BG.coarse_shape[0] + 3
     assert set(seen) == {(False, "highest")}
     assert torch.backends.cuda.matmul.allow_tf32 is True
     assert torch.get_float32_matmul_precision() == "high"
