@@ -3371,7 +3371,7 @@ def phase_mg_levels(geom_dims, light_dims, probe_dims, cli_dims, mg6: dict):
               f"{MG_JAX_RECORD_ITERS})  warm secs {rec['secs']:.4f}  V-cycle"
               f" {vc_ms:.2f} ms (two levels, phase 6: {two_ms:.2f} ms)  "
               f"true_res {rec['true_res']:.3e} (complex128; complex64 solve "
-              f"{rec['true_res_solve']:.3e})  telemetry {rec['telemetry']}",
+              f"{rec['true_res_solve']:.3e})  GFLOP/s {rec['gflops']:.1f}",
               flush=True)
         _galerkin(mg.transfer2, mg.coarse.apply, mg.coarse2.apply, gen,
                   "level-2 Galerkin D2 = R2 D1 P2 (complex64)")

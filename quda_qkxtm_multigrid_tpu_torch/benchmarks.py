@@ -229,9 +229,8 @@ def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
     Returns the record and the preconditioner.  The record holds the
     setup's host seconds and their split (each coarser level's under
     "level2" / "level3"), the multi-source CG iterations of each
-    null-vector batch, each solve's outer
-    iterations and seconds, GFLOP/s, the warm solve's ``SolveTelemetry``
-    (``telemetry``), the warm solution's true residual in complex128
+    null-vector batch, each solve's outer iterations and seconds,
+    GFLOP/s, the warm solution's true residual in complex128
     (``c128_true_res``) and the solve's own (None without a final
     residual), the K1, K1d and K2 launches of the setup and of the
     solves, and the peak device memory (None on the CPU)."""
@@ -262,7 +261,7 @@ def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
     secs_cold = time.perf_counter() - t0
     n2 = _launch_counts()
     t0 = time.perf_counter()
-    out, tel = mg_solve(mg, b, telemetry=True, **kw)
+    out = mg_solve(mg, b, **kw)
     _sync(dev)
     secs = time.perf_counter() - t0
     n3 = _launch_counts()
@@ -276,7 +275,6 @@ def bench_mg(geom: Geometry, tol: float = 1e-7, nvec: int = 24,
         "iters": out.iters, "iters_cold": cold.iters, "secs": secs,
         "secs_cold": secs_cold,
         "gflops": mg.dirac.flops_per_mat() * max(out.iters, 1) / secs / 1e9,
-        "telemetry": tel.as_dict(),
         "true_res": _c128_true_res(u, dparams, geom, out.x, b),
         "true_res_solve": ((float(out.r2) / b2) ** 0.5
                            if kw["final_resid"] else None)}
@@ -372,8 +370,11 @@ def _light_mg_record(d: Dirac, b: torch.Tensor, params: MGParams, tol: float,
     mg = setup_mg(d, params, torch.Generator(device=dev).manual_seed(seed))
     _sync(dev)
     setup_secs = time.perf_counter() - t0
-    out, tel = mg_solve(mg, b, tol=tol, solver="gcr-pc", telemetry=True)
-    rec = {f"{tag}setup_secs": setup_secs, f"{tag}secs": tel.secs,
+    t0 = time.perf_counter()
+    out = mg_solve(mg, b, tol=tol, solver="gcr-pc")
+    _sync(dev)
+    rec = {f"{tag}setup_secs": setup_secs,
+           f"{tag}secs": time.perf_counter() - t0,
            f"{tag}iters": out.iters,
            f"{tag}res": (float(out.r2) / float(norm2(b))) ** 0.5,
            f"{tag}true_res": c128_true_res(d, out.x, b),

@@ -63,6 +63,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     antiperiodic_t, cast_channels, dslash_ch, from_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import mat6_inv_blocks
 from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import op_entry, spanned
 
 CHANNEL_DTYPES = (torch.bfloat16, torch.float32, torch.float64)
 
@@ -253,12 +254,15 @@ class CompactDirac(nn.Module):
                           x_ch=self._a_apply_ch(x_o, 1, dag=True)))
 
     # ---- full-field adapters (the Dirac protocol) ------------------------
+    @spanned("op.layout")
     def _to_ch(self, x):
         return to_channels(x).to(self.spinor_dtype)
 
+    @spanned("op.layout")
     def _from_ch(self, x_ch):
         return from_channels(x_ch, (4, 3)).to(self.field_dtype)
 
+    @op_entry("op.m")
     def m(self, psi, dagger: bool = False):
         fn = self.mdag_ch if dagger else self.m_ch
         e, o = fn(self._to_ch(psi[0]), self._to_ch(psi[1]))
@@ -267,15 +271,19 @@ class CompactDirac(nn.Module):
     def mdag(self, psi):
         return self.m(psi, dagger=True)
 
+    @op_entry("op.m", applies=2)
     def mdagm(self, psi):
         return self.mdag(self.m(psi))
 
+    @op_entry("op.matpc")
     def matpc(self, psi_p, dagger: bool = False):
         return self._from_ch(self.matpc_ch(self._to_ch(psi_p), dagger))
 
+    @op_entry("op.matpc", applies=2)
     def matpc_dagm(self, psi_p):
         return self._from_ch(self.matpc_dagm_ch(self._to_ch(psi_p)))
 
+    @op_entry("op.a_apply", applies=0)
     def a_apply(self, psi_p, parity: int, dagger: bool = False):
         return self._from_ch(self._a_apply_ch(self._to_ch(psi_p), parity,
                                               dagger))

@@ -60,6 +60,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops import twist as _twist
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     antiperiodic_t, cast_channels, clover_channels, dslash_ch,
     dslash_ch_msrc, from_channels, gauge_channels, to_channels)
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import op_entry
 
 
 def _ch_clover_matrix(cinv_ch: torch.Tensor,
@@ -368,6 +369,7 @@ class Dirac(nn.Module):
                    xpay_coef=-(k * k), x_ch=m, **kw)
 
     # ---- parity-diagonal term A ------------------------------------
+    @op_entry("op.a_apply", applies=0)
     def a_apply(self, psi_p: torch.Tensor, parity: int,
                 dagger: bool = False) -> torch.Tensor:
         p = self.params
@@ -396,6 +398,7 @@ class Dirac(nn.Module):
         return psi_p
 
     # ---- full operator ----------------------------------------------
+    @op_entry("op.m")
     def m(self, psi: torch.Tensor, dagger: bool = False) -> torch.Tensor:
         k = self.params.kappa
         out_e = self.a_apply(psi[0], 0, dagger) - k * self.dslash(
@@ -407,6 +410,7 @@ class Dirac(nn.Module):
     def mdag(self, psi: torch.Tensor) -> torch.Tensor:
         return self.m(psi, dagger=True)
 
+    @op_entry("op.m", applies=2)
     def mdagm(self, psi: torch.Tensor) -> torch.Tensor:
         return self.mdag(self.m(psi))
 
@@ -419,6 +423,7 @@ class Dirac(nn.Module):
                 and p.kind in ("twisted-mass", "clover", "twisted-clover"))
 
     # ---- even-odd preconditioned operator ----------------------------
+    @op_entry("op.matpc")
     def matpc(self, psi_p: torch.Tensor, dagger: bool = False):
         p = self.params
         if self._has_fused_matpc:
@@ -441,6 +446,7 @@ class Dirac(nn.Module):
         t = self.dslash(t, pr, dagger=True)
         return psi_p - (k * k) * t
 
+    @op_entry("op.matpc", applies=2)
     def matpc_dagm(self, psi_p: torch.Tensor) -> torch.Tensor:
         if self._has_fused_matpc:
             out = self._fused_matpc_dagm_ch(self._chain_channels(psi_p))

@@ -36,6 +36,7 @@ from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     from_blocked_coarse, from_blocked_flat, to_blocked_coarse,
     to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import spanned
 
 
 def _axis_of_mu(mu: int) -> int:
@@ -77,6 +78,7 @@ class CoarseOperator:
         object.__setattr__(self, "_idx", torch.tensor(
             _stencil_index(tuple(self.bg.coarse_shape)), device=w.device))
 
+    @spanned("coarse.apply")
     @full_float32()
     def apply(self, vc: torch.Tensor) -> torch.Tensor:
         """vc [2, nvec, Tc,Zc,Yc,Xc] → D_c vc (same shape), its products

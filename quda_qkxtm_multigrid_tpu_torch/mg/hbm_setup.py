@@ -55,6 +55,7 @@ from quda_qkxtm_multigrid_tpu_torch.mg.transfer import (
     BlockGeometry, Transfer, block_orthonormalize, to_blocked_flat)
 from quda_qkxtm_multigrid_tpu_torch.ops.clover import make_clover
 from quda_qkxtm_multigrid_tpu_torch.utils import rng as _rng
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import span
 
 _DELTAS = ("delta_mu_coarse", "delta_kappa_coarse", "delta_csw_coarse",
            "delta_mu_pr", "delta_kappa_pr", "delta_csw_pr")
@@ -151,16 +152,19 @@ def setup_mg_hbm(u: torch.Tensor, params: DiracParams, geom: Geometry,
     bg = BlockGeometry(geom, *mgp.block, nvec=mgp.nvec)
     stats = {}
     t0 = time.perf_counter()
-    v = generate_null_vectors_device(cd, mgp, gen, bg, stats)
-    lap("null_vectors_secs", t0, v)
+    with span("setup.null_vectors"):
+        v = generate_null_vectors_device(cd, mgp, gen, bg, stats)
+        lap("null_vectors_secs", t0, v)
     t0 = time.perf_counter()
-    block_orthonormalize(v)
-    lap("ortho_secs", t0, v)
+    with span("setup.ortho"):
+        block_orthonormalize(v)
+        lap("ortho_secs", t0, v)
     transfer = Transfer(v=v, bg=bg)
     del v
     t0 = time.perf_counter()
-    coarse = coarse_from_lean(u, params, geom, transfer)
-    lap("coarse_secs", t0, coarse.y)
+    with span("setup.coarse_build"):
+        coarse = coarse_from_lean(u, params, geom, transfer)
+        lap("coarse_secs", t0, coarse.y)
     t0 = time.perf_counter()
     transfer = _vec_storage_cast(transfer, mgp)
     lap("cast_secs", t0, coarse.y)

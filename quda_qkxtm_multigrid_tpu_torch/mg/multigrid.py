@@ -95,7 +95,8 @@ from quda_qkxtm_multigrid_tpu_torch.solvers.mr import mr
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import summed
 from quda_qkxtm_multigrid_tpu_torch.utils import checkpoint as ckpt
 from quda_qkxtm_multigrid_tpu_torch.utils import rng as _rng
-from quda_qkxtm_multigrid_tpu_torch.utils.profiling import solve_telemetry
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import (
+    host_value, span, spanned)
 
 QUDA_MAX_MG_LEVEL = 4    # the reference's deepest hierarchy
 SOLVE_OPERATORS = ("canonical", "compact")
@@ -273,6 +274,7 @@ class MGPreconditioner:
                  allreduce=allreduce)
         return d.reconstruct(x_p, r)
 
+    @spanned("mg.vcycle")
     def vcycle(self, r: torch.Tensor, mesh=None) -> torch.Tensor:
         """One V(nu_pre, nu_post) cycle approximating M⁻¹ r on the full
         field [2,4,3,T,Z,W]; its residuals and smoother run on the step
@@ -329,6 +331,7 @@ def _cuda_graphed(fn, like: torch.Tensor):
     with torch.cuda.graph(graph):
         static_out = fn(static_in)
 
+    @spanned("mg.coarse_graph")
     def replay(x: torch.Tensor) -> torch.Tensor:
         static_in.copy_(x)
         graph.replay()
@@ -429,41 +432,43 @@ def generate_null_vectors(dirac: Dirac, bg: BlockGeometry,
             v[..., i0:i0 + x.shape[0], :] = torch.movedim(f, 0, -2)
 
     t0 = time.perf_counter()
-    v = torch.empty((2,) + tuple(bg.coarse_shape) + (bg.nvec, bg.bdof),
-                    dtype=dtype, device=dirac.u.device)
-    iters, worst = [], 0.0
-    if fused:
-        for i0 in range(0, bg.nvec, NULL_BATCH):
-            nb = min(NULL_BATCH, bg.nvec - i0)
-            bs = sliced(_rng.random_spinor(gen, whole, dtype,
-                                           batch_shape=(nb,)))
-            if mesh is None:
-                res = invert_msrc(dirac, bs, tol=params.setup_tol,
-                                  maxiter=params.setup_maxiter)
+    with span("setup.null_vectors"):
+        v = torch.empty((2,) + tuple(bg.coarse_shape) + (bg.nvec, bg.bdof),
+                        dtype=dtype, device=dirac.u.device)
+        iters, worst = [], 0.0
+        if fused:
+            for i0 in range(0, bg.nvec, NULL_BATCH):
+                nb = min(NULL_BATCH, bg.nvec - i0)
+                bs = sliced(_rng.random_spinor(gen, whole, dtype,
+                                               batch_shape=(nb,)))
+                if mesh is None:
+                    res = invert_msrc(dirac, bs, tol=params.setup_tol,
+                                      maxiter=params.setup_maxiter)
+                    del bs
+                    put(i0, res.x)
+                    iters.append(res.iters)
+                    worst = max(worst, res.true_res)
+                    continue
+                for i, b in enumerate(bs):
+                    res = invert(dirac, b, tol=params.setup_tol,
+                                 maxiter=params.setup_maxiter, mesh=mesh)
+                    put(i0 + i, res.x)
+                    iters.append(res.iters)
+                    worst = max(worst, res.true_res)
                 del bs
-                put(i0, res.x)
+        else:
+            red = None if mesh is None else mesh.allreduce
+            for i in range(bg.nvec):
+                b = sliced(_rng.random_spinor(gen, whole, dtype))
+                res = bicgstab(dirac.m, b, tol=params.setup_tol,
+                               maxiter=params.setup_maxiter, allreduce=red)
+                put(i, res.x)
                 iters.append(res.iters)
-                worst = max(worst, res.true_res)
-                continue
-            for i, b in enumerate(bs):
-                res = invert(dirac, b, tol=params.setup_tol,
-                             maxiter=params.setup_maxiter, mesh=mesh)
-                put(i0 + i, res.x)
-                iters.append(res.iters)
-                worst = max(worst, res.true_res)
-            del bs
-    else:
-        red = None if mesh is None else mesh.allreduce
-        for i in range(bg.nvec):
-            b = sliced(_rng.random_spinor(gen, whole, dtype))
-            res = bicgstab(dirac.m, b, tol=params.setup_tol,
-                           maxiter=params.setup_maxiter, allreduce=red)
-            put(i, res.x)
-            iters.append(res.iters)
-    _sync(v)
+        _sync(v)
     t1 = time.perf_counter()
-    block_orthonormalize(v)
-    _sync(v)
+    with span("setup.ortho"):
+        block_orthonormalize(v)
+        _sync(v)
     if stats is not None:
         stats["null_vector_secs"] = t1 - t0
         stats["ortho_secs"] = time.perf_counter() - t1
@@ -523,8 +528,9 @@ def _preconditioner(transfer: Transfer, dirac: Dirac, params: MGParams,
                              params.delta_kappa_coarse,
                              params.delta_csw_coarse)
     t0 = time.perf_counter()
-    coarse = _build_level1(transfer, d_coarse)
-    _sync(coarse.y)
+    with span("setup.coarse_build"):
+        coarse = _build_level1(transfer, d_coarse)
+        _sync(coarse.y)
     stats["coarse_build_secs"] = time.perf_counter() - t0
     dirac_pr = _delta_scaled(dirac, params.delta_mu_pr,
                              params.delta_kappa_pr, params.delta_csw_pr)
@@ -762,10 +768,11 @@ def shard_mg(mg: MGPreconditioner, mesh) -> MGPreconditioner:
         transfer=mg.transfer.t_slab(mesh))
 
 
+@spanned("mg.solve")
 def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
              n_krylov: int = 10, max_restarts: int = 50,
-             solver: Optional[str] = None, telemetry: bool = False,
-             mesh=None, final_resid: bool = True):
+             solver: Optional[str] = None, mesh=None,
+             final_resid: bool = True) -> GCRResult:
     """MG-preconditioned outer solve of M x = b.
 
     "gcr-pc": restarted GCR(n_krylov) on the even-odd Schur system
@@ -793,9 +800,8 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
     every reduction of the outer solve is summed over the grid, and
     ``r2`` is the whole lattice's.
 
-    ``telemetry=True`` returns ``(result, utils.profiling.SolveTelemetry)``
-    timed on the host clock from before ``prepare`` to after the last
-    residual, the device synchronised at both ends."""
+    The solve is the span ``mg.solve`` (``utils.profiling``); each host
+    read of a residual counts as ``host_reads``."""
     if solver is None:
         solver = mg.params.outer_solver
     d = mg.dirac
@@ -803,14 +809,8 @@ def mg_solve(mg: MGPreconditioner, b: torch.Tensor, tol: float = 1e-8,
         raise ValueError("a sharded solve needs both a preconditioner on "
                          "that mesh (setup_mg on its ShardedDirac, or "
                          "shard_mg(mg, mesh)) and mg_solve(mesh=mesh)")
-    _sync(b)
-    t0 = time.perf_counter()
-    res = _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver, mesh,
-                    final_resid)
-    if not telemetry:
-        return res
-    _sync(res.x)
-    return res, solve_telemetry(d, res.iters, time.perf_counter() - t0)
+    return _mg_outer(mg, d, b, tol, n_krylov, max_restarts, solver, mesh,
+                     final_resid)
 
 
 def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
@@ -831,8 +831,9 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
         x_p = torch.zeros_like(src)
         r_p = src - d.matpc(x_p)
         r2 = red(norm2(r_p))
-        b2 = float(r2)
+        b2 = host_value(r2)
 
+        @spanned("mg.precond")
         def precond(rp):
             full = torch.zeros((2,) + tuple(rp.shape), dtype=rp.dtype,
                                device=rp.device)
@@ -841,7 +842,7 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
 
         iters = 0
         for _ in range(max_restarts):
-            if float(r2) <= tol * tol * b2:
+            if host_value(r2) <= tol * tol * b2:
                 break
             x_p = x_p + gcr_cycle(ds.matpc, r_p, n_krylov=n_krylov,
                                   precond=precond, allreduce=allreduce)
@@ -855,11 +856,11 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
     x = torch.zeros_like(b)
     r = b - d.m(x)
     r2 = red(norm2(r))
-    b2 = float(r2)
+    b2 = host_value(r2)
     iters = 0
     if solver == "mr-richardson":
         for _ in range(max_restarts * n_krylov):
-            if float(r2) <= tol * tol * b2:
+            if host_value(r2) <= tol * tol * b2:
                 break
             z = vcycle(r)
             w = ds.m(z)
@@ -873,7 +874,7 @@ def _mg_outer(mg: MGPreconditioner, d: Dirac, b: torch.Tensor, tol: float,
             r2 = red(norm2(r))
     elif solver == "gcr":
         for _ in range(max_restarts):
-            if float(r2) <= tol * tol * b2:
+            if host_value(r2) <= tol * tol * b2:
                 break
             x = x + gcr_cycle(ds.m, r, n_krylov=n_krylov, precond=vcycle,
                               allreduce=allreduce)

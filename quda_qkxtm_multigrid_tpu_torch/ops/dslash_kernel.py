@@ -84,6 +84,7 @@ from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, gather_neighbor
 from quda_qkxtm_multigrid_tpu_torch.ops import gamma as _g
 from quda_qkxtm_multigrid_tpu_torch.ops.clover import clover_apply
 from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import su3_mul, su3_dag_mul
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import host_value
 
 _F32, _F64, _BF16 = torch.float32, torch.float64, torch.bfloat16
 _CLOVER_MODES = {None: 0, "fwd": 1, "dag": 2}
@@ -205,7 +206,7 @@ def antiperiodic_t(ud: torch.Tensor, t_rows=None, allmax=None) -> bool:
                                                              minus)])
     if allmax is not None:
         offsets = allmax(offsets)
-    worst, d_plus, d_minus = (float(v) for v in offsets)
+    worst, d_plus, d_minus = (host_value(v) for v in offsets)
     if worst <= tol and d_plus <= tol:
         return False
     if worst <= tol and d_minus <= tol:

@@ -64,6 +64,7 @@ from quda_qkxtm_multigrid_tpu_torch.parallel.halo import (
     box_faces, start_t_faces, t_faces)
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import (
     TMesh, box_slab, local_geometry)
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import op_entry
 
 
 def halo_hop(mesh: TMesh, overlap: bool, g_ch, psi_ch, parity: int,
@@ -160,6 +161,7 @@ class ShardedDirac(Dirac):
                        self.geom, dagger, **self._hop_kw())
         return from_channels(out, (4, 3))
 
+    @op_entry("op.matpc")
     def matpc(self, psi_p: torch.Tensor, dagger: bool = False):
         """M_pc (or M_pc†) of a complex field on this box: on the sharded
         chain two halo hops with their epilogues (the dagger half after
@@ -172,6 +174,7 @@ class ShardedDirac(Dirac):
                                    hop=self._halo(), exact=True)
         return from_channels(out, (4, 3))
 
+    @op_entry("op.matpc", applies=2)
     def matpc_dagm(self, psi_p: torch.Tensor) -> torch.Tensor:
         """M_pc†M_pc of a complex field on this box: on the sharded chain
         four K4 hops, no plain A⁻¹† (``matpc``'s precision and

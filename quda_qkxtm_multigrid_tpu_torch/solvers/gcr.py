@@ -6,7 +6,8 @@ direction is K(r) for the preconditioner K (which may be nonlinear, an
 MG V-cycle), orthogonalised by modified Gram-Schmidt against the earlier
 ones.  It needs no host sync.  ``gcr`` restarts cycles until
 |b − M x|² ≤ tol²|b|², recomputing the true residual at each restart and
-reading it on the host once per restart.
+reading it on the host once per restart (``host_reads``).  A cycle
+is the span ``gcr.cycle`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct, norm2
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import summed
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import (
+    host_value, spanned)
 
 
 class GCRResult(NamedTuple):
@@ -25,6 +28,7 @@ class GCRResult(NamedTuple):
     r2: torch.Tensor       # final |b − M x|² (0-d)
 
 
+@spanned("gcr.cycle")
 def gcr_cycle(matvec: Callable, b: torch.Tensor, n_krylov: int = 10,
               precond: Optional[Callable] = None,
               x0: Optional[torch.Tensor] = None,
@@ -100,7 +104,7 @@ def gcr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     iters = 0
     r2 = red(norm2(r))
     for _ in range(max_restarts):
-        if not bool(r2 > target):
+        if not host_value(r2 > target):
             break
         x = gcr_cycle(matvec, r, n_krylov, precond,
                       allreduce=allreduce) + x

@@ -4,6 +4,7 @@
 
 with ω = 0.85, the reference's production relaxation.  A smoother runs
 an exact step count, so there is no stopping test and no host sync.
+A call is the span ``mr`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ import torch
 
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import cDotProduct
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import summed
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import spanned
 
 
+@spanned("mr")
 def mr(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        niter: int = 4, omega: float = 0.85,
        allreduce: Optional[Callable] = None) -> torch.Tensor:

@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import (
+    host_value, spanned)
 
 
 class ResidualType(enum.Flag):
@@ -133,6 +135,7 @@ def summed(allreduce: Callable, *values: torch.Tensor) -> tuple:
                  for o, v in zip(out, values))
 
 
+@spanned("dc.solve")
 def defect_correction(matvec_hi: Callable, solve_lo: Callable, b,
                       lo_dtype: torch.dtype, tol: float, maxiter: int,
                       max_restarts: int, max_res_increase: int,
@@ -155,7 +158,9 @@ def defect_correction(matvec_hi: Callable, solve_lo: Callable, b,
     the residual that ended the previous restart is reused (the same
     function of the same x), which saves one high-precision matvec a
     restart.  ``allreduce`` sums the outer loop's |r|² over the ranks of
-    a sharded field.  Returns (x, |r|², summed inner iterations,
+    a sharded field.  A call is the span ``dc.solve``, and its three
+    reads of |r|² on the host count as ``host_reads``
+    (``utils.profiling``).  Returns (x, |r|², summed inner iterations,
     ReliableStats)."""
     red = (lambda v: v) if allreduce is None else allreduce
     b2 = red(norm2(b))
@@ -164,18 +169,18 @@ def defect_correction(matvec_hi: Callable, solve_lo: Callable, b,
     r = b
     r2 = b2
     restarts = iters = inc = inc_tot = 0
-    while (bool(r2 > target) and restarts < max_restarts and iters < maxiter
+    while (host_value(r2 > target) and restarts < max_restarts and iters < maxiter
            and inc <= max_res_increase and inc_tot <= max_res_increase_total):
         e = solve_lo(r.to(lo_dtype), maxiter - iters)
         x = x + e.x.to(b.dtype)
         r = b - matvec_hi(x)
         r2_new = red(norm2(r))
-        increased = bool(r2_new > r2)
+        increased = host_value(r2_new > r2)
         inc = inc + 1 if increased else 0
         inc_tot += int(increased)
         r2 = r2_new
         restarts += 1
         iters += e.iters
-    diverged = bool(r2 > target) and (inc > max_res_increase
-                                      or inc_tot > max_res_increase_total)
+    diverged = host_value(r2 > target) and (
+        inc > max_res_increase or inc_tot > max_res_increase_total)
     return x, r2, iters, ReliableStats(restarts, inc, inc_tot, diverged)

@@ -1,7 +1,6 @@
 """The port's solve-side utilities against the JAX package's: the memory
 accountant, the verbosity stack, the NaN guards (and ``invert`` raising
-under ``QKXTM_GUARD=1``), ``TimeProfile``, the ``SolveTelemetry`` of
-``mg_solve(telemetry=True)``; and the MG benchmarks that read them
+under ``QKXTM_GUARD=1``), ``TimeProfile``; and the MG benchmarks
 (``bench_mg`` on three levels and with bf16 null vectors,
 ``bench_light``, ``bench_light2``, ``bench_mg_vecs``) end to end at a
 tiny size on the CPU.
@@ -146,25 +145,6 @@ def test_time_profile_summary_matches_jax(monkeypatch):
     assert tprof.FLOPS_PER_SITE == jprof.FLOPS_PER_SITE
 
 
-def test_mg_solve_telemetry():
-    """``mg_solve(telemetry=True)``: the result and a ``SolveTelemetry``
-    with the JAX record's keys, its iterations the solve's and its
-    GFLOP/s one ``flops_per_mat`` an iteration."""
-    d, b = bm.make_problem(GT, "cpu", dtype=torch.complex64)
-    mg = tmg.setup_mg(d, tmg.MGParams(smoother_pc=True, **SMALL),
-                      torch.Generator().manual_seed(3))
-    out, tel = tmg.mg_solve(mg, b, tol=1e-6, n_krylov=5, solver="gcr-pc",
-                            telemetry=True)
-    plain = tmg.mg_solve(mg, b, tol=1e-6, n_krylov=5, solver="gcr-pc")
-    assert tel.as_dict().keys() == jprof.SolveTelemetry(1, 1.0,
-                                                        1.0).as_dict().keys()
-    assert tel.iters == out.iters == plain.iters > 0
-    assert tel.secs > 0
-    assert tel.gflops == pytest.approx(
-        d.flops_per_mat() * out.iters / tel.secs / 1e9)
-    assert "SolveTelemetry(iters=" in repr(tel)
-
-
 # ---- the MG benchmarks at a tiny size ------------------------------------
 
 @pytest.mark.parametrize("n_level,vec_dtype", [(3, "f32"), (2, "bf16")])
@@ -174,7 +154,7 @@ def test_bench_mg_levels_small(n_level, vec_dtype):
                           vec_dtype=vec_dtype,
                           mg_params=tmg.MGParams(nvec2=4), **SMALL)
     assert rec["true_res"] <= 5e-7
-    assert rec["telemetry"]["iters"] == rec["iters"] > 0
+    assert rec["iters"] > 0
     assert rec["n_level"] == n_level and rec["vec_dtype"] == vec_dtype
     assert ("level2" in rec) == (n_level >= 3)
     assert mg.params.nvec2 == 4 and mg.params.smoother_pc
