@@ -241,6 +241,20 @@ and does not print its last line:
     four hops against plain at that size and its clover fwd + xpay hop
     timed with its bound.
 
+19. the chiral 6×6 clover kernel (C6, ``ops.dslash_kernel.clover_ch``,
+    ``csrc/clover_ch.cu``; ``phase_clover6``, run after phase 2 so that
+    its checks print before the long phases): at 32³×64 and 48³×96 on
+    one parity, every form of the main path against the plain version
+    (``dirac._ch_clover_plain``) on the same random operands, forward
+    and dagger, with and without the twisted term, one source and, at
+    32³×64, three: the bf16 operand with float32 and with bf16 spinors
+    (the bf16 tier's A, its A⁻¹ with ``cinv_bf16``), float32 with
+    float32 and bf16 spinors (the bf16 tier's A⁻¹, the float32 tier),
+    float64 (the float64 tier); then at 48³×96 the bf16-operand,
+    float32 and float64 forms timed against the plain version with
+    their byte bounds.  Its launches are counted phase by phase over
+    the main-path phases that run the operator.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -335,6 +349,12 @@ V2_BF16_REPLACES = ("V2, V3, V4 with bf16=True: quda_qkxtm_multigrid_tpu/"
                     "attic/dslash_pallas4.py:303")
 
 BIG_GEOM = (48, 48, 48, 96)
+CLOVER6_LIMIT = {"float32": 1e-6, "float64": 1e-13}   # C6 vs plain, normwise
+CLOVER6_TWIST = 0.023            # the twisted term's a in phase 19
+CLOVER6_FLOPS = 576              # 72 complex multiply-adds a site
+CLOVER_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/clover_ch.cu"
+CLOVER_KERNEL_REPLACES = ("no pl.pallas_call: quda_qkxtm_multigrid_tpu/"
+                          "dirac.py:49 (_ch_clover_apply, an XLA pass)")
 COMPACT_TOL, COMPACT_MAXITER = 1e-6, 600
 COMPACT_ITERS_BAND = (8, 30)     # the JAX package's compact48 record: 13
 COMPACT_TRUE_RES = 1e-5
@@ -2093,7 +2113,7 @@ def phase_compact_mixed(geom_dims):
     rec["split"] = _split(
         "a third compact-sloppy solve",
         [(cd, "_hop", "inner hops (K1e, K1d)"),
-         (compact, "_ch_clover_apply", "inner plain A⁻¹† on bf16"),
+         (compact, "_ch_clover_apply", "inner 6×6 A⁻¹† on bf16 (clover_ch)"),
          (d, "_fused_matpc_dagm_ch", "outer matvec")] + [
             (d, name, "complex128 stages")
             for name in ("prepare", "matpc", "reconstruct", "m")],
@@ -2154,7 +2174,7 @@ def phase_compact48(geom_dims):
     rec["split"] = _split(
         "a third compact solve",
         [(pb.sloppy, "_hop", "hops (K1d)"),
-         (compact, "_ch_clover_apply", "plain A, A⁻¹ and A⁻¹† applies"),
+         (compact, "_ch_clover_apply", "6×6 A, A⁻¹ and A⁻¹† (clover_ch)"),
          (compact, "_ch_twist", "plain twists")],
         lambda: compact.invert_compact_full(pb.sloppy, pb.b, tol=COMPACT_TOL,
                                             maxiter=COMPACT_MAXITER))
@@ -5603,6 +5623,73 @@ def phase_mg48(geom_dims):
     return rec, launches, peak, err, (ms, plain_ms, bound)
 
 
+def phase_clover6(dims_list):
+    """Phase 19: C6 (``clover_ch``) against ``dirac._ch_clover_plain`` on
+    the card at each of ``dims_list`` (one parity, random operands; the
+    last size timed).  Returns the largest absolute error and the bf16
+    form's (ms, plain ms, bound)."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.dirac import _ch_clover_plain
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import clover_ch
+
+    f32, f64, b16 = torch.float32, torch.float64, torch.bfloat16
+    forms = {"bf16 A, f32 psi": (b16, f32), "bf16 A, bf16 psi": (b16, b16),
+             "f32": (f32, f32), "f32 A, bf16 psi": (f32, b16),
+             "f64": (f64, f64)}
+    err, timed = 0.0, {}
+    for dims in dims_list:
+        t, z, w = Geometry(*dims).lat_shape
+        print(f"phase 19: the 6×6 clover kernel (C6) vs plain at {dims}",
+              flush=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(67)
+        c = torch.randn((t, 144, z, w), generator=gen, device=DEVICE,
+                        dtype=f64)
+        n = 3 if dims != dims_list[-1] else 1
+        v = torch.randn((n, t, 24, z, w), generator=gen, device=DEVICE,
+                        dtype=f64)
+        for label, (cdt, vdt) in forms.items():
+            cc, vv = c.to(cdt), v.to(vdt)
+            worst, launches = 0.0, clover_ch.launches
+            for dag in (False, True):
+                for tw in (0.0, CLOVER6_TWIST):
+                    for src in ((vv[0], vv) if n > 1 else (vv[0],)):
+                        got = clover_ch(cc, src, dag, tw)
+                        want = _ch_clover_plain(src, cc, dag, tw)
+                        if got.dtype != want.dtype:
+                            raise AssertionError(f"C6 {label}: {got.dtype}"
+                                                 f" against {want.dtype}")
+                        worst = max(worst, _rel(got.double(),
+                                                want.double()))
+                        err = max(err, float((got - want).abs().max()))
+                        del got, want
+            made = clover_ch.launches - launches
+            if made != 4 * (2 if n > 1 else 1):
+                raise AssertionError(f"C6 {label}: {made} launches")
+            _check(f"C6 {label} vs plain (fwd, dag, twist, n)", worst,
+                   CLOVER6_LIMIT["float64" if cdt == f64 else "float32"])
+            if dims == dims_list[-1] and label in ("bf16 A, f32 psi", "f32",
+                                                  "f64"):
+                src = vv[0]
+                out = clover_ch(cc, src)
+                ms, plain_ms = _compare_timed(
+                    lambda: clover_ch(cc, src),
+                    lambda: _ch_clover_plain(src, cc))
+                bound = _bound(_nbytes(cc, src, out),
+                               CLOVER6_FLOPS * t * z * w, cdt == f64)
+                timed[label] = (ms, plain_ms, bound)
+                print(f"  C6 {label} at {dims}: {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                      f"({bound[1]}; the kernel at {bound[0] / ms:.2f} of "
+                      f"it)", flush=True)
+                del out
+            del cc, vv
+        del c, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return err, timed["bf16 A, f32 psi"]
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -5614,38 +5701,52 @@ def main():
     import torch
     card = phase_card()
     max_abs = phase_kernel_vs_plain(CHECK_GEOM)
+    err_c6, t_c6 = phase_clover6((SLICE_GEOM, BIG_GEOM))
+    from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import clover_ch
+    c6 = {}   # phase: launches of the 6×6 clover kernel (C6) in it
+
+    def c6_counted(label, fn, *args):
+        clover_ch.launches = 0
+        out = fn(*args)
+        c6[label] = clover_ch.launches
+        return out
+
     phase_identities(CHECK_GEOM)
     tbc = phase_tbc(CHECK_GEOM)
-    k = phase_slice(SLICE_GEOM)
+    k = c6_counted("4", phase_slice, SLICE_GEOM)
     k2 = phase_msrc(CHECK_GEOM, SLICE_GEOM)
-    launches, mg6 = phase_mg(SLICE_GEOM)
+    launches, mg6 = c6_counted("6", phase_mg, SLICE_GEOM)
     err_16 = phase_bf16_kernels(CHECK_GEOM)
-    mixed = phase_mixed(SLICE_GEOM)
+    mixed = c6_counted("7 mixed", phase_mixed, SLICE_GEOM)
     times, bounds, err_time, k2d = phase_bf16_timing(SLICE_GEOM,
                                                      MSRC_TIME_N)
-    k1d_paths, k2d_paths = phase_bf16_paths(CHECK_GEOM)
+    k1d_paths, k2d_paths = c6_counted("7 bf16 paths", phase_bf16_paths,
+                                      CHECK_GEOM)
     err_8a = phase_k1e_k3_kernels(CHECK_GEOM)
-    spin = phase_bf16_spinor(SLICE_GEOM, CHECK_GEOM)
-    cmix = phase_compact_mixed(SLICE_GEOM)
-    big, _, _, _, err_48 = phase_compact48(BIG_GEOM)
+    spin = c6_counted("8b", phase_bf16_spinor, SLICE_GEOM, CHECK_GEOM)
+    cmix = c6_counted("8c", phase_compact_mixed, SLICE_GEOM)
+    big, _, _, _, err_48 = c6_counted("8d", phase_compact48, BIG_GEOM)
     err_9a = phase_local_kernels((CHECK_GEOM, SLICE_GEOM))
-    mesh_runs, t9 = phase_mesh_solve(SLICE_GEOM, k["secs"])
+    mesh_runs, t9 = c6_counted("9", phase_mesh_solve, SLICE_GEOM,
+                               k["secs"])
     vk, _ = phase_v_kernels(CHECK_GEOM, SLICE_GEOM)
-    twop = phase_twop(SLICE_GEOM, CLI_GEOM)
-    thrp = phase_threep_loops(twop, SLICE_GEOM, CLI_GEOM)
-    m16 = phase_mesh_rest(twop.pop("refs"), twop["u"], SLICE_GEOM,
-                          CHECK_GEOM)
+    twop = c6_counted("11", phase_twop, SLICE_GEOM, CLI_GEOM)
+    thrp = c6_counted("12", phase_threep_loops, twop, SLICE_GEOM, CLI_GEOM)
+    m16 = c6_counted("16", phase_mesh_rest, twop.pop("refs"), twop["u"],
+                     SLICE_GEOM, CHECK_GEOM)
     del twop["u"]
-    lv = phase_mg_levels(SLICE_GEOM, LIGHT_GEOM, LIGHT_PROBE_GEOM, CLI_GEOM,
-                         mg6)
-    kr = phase_krylov(SLICE_GEOM, CHECK_GEOM, LIGHT_GEOM)
-    dws = phase_dw_staggered(SLICE_GEOM)
+    lv = c6_counted("13", phase_mg_levels, SLICE_GEOM, LIGHT_GEOM,
+                    LIGHT_PROBE_GEOM, CLI_GEOM, mg6)
+    kr = c6_counted("14", phase_krylov, SLICE_GEOM, CHECK_GEOM, LIGHT_GEOM)
+    dws = c6_counted("15", phase_dw_staggered, SLICE_GEOM)
     err_17 = phase_box_kernels((CHECK_GEOM, SLICE_GEOM))
     t17 = phase_box_timing(SLICE_GEOM)
     box = phase_box_ranks(SLICE_GEOM, CHECK_GEOM)
     t18 = time.perf_counter()
-    ns, ns_launches, err_18a = phase_mg_compact(SLICE_GEOM, mg6)
-    mg48, mg48_launches, _, err_18b, t18b = phase_mg48(BIG_GEOM)
+    ns, ns_launches, err_18a = c6_counted("18a", phase_mg_compact,
+                                          SLICE_GEOM, mg6)
+    mg48, mg48_launches, _, err_18b, t18b = c6_counted("18b", phase_mg48,
+                                                       BIG_GEOM)
     print(f"phase 18 {time.perf_counter() - t18:.1f} s", flush=True)
     k4 = mesh_runs[False]["k4"] + mesh_runs[True]["k4"] + m16["k4"]
     k4_post = (mesh_runs[False]["k4_post"] + mesh_runs[True]["k4_post"]
@@ -5675,7 +5776,10 @@ def main():
           f"output {box['zw_post']}; the compact MG tiers (phase 18a): "
           f"K1 {ns_launches['k1']}, K1d {ns_launches['k1d']}, K2 "
           f"{ns_launches['k2']}; MG at 48³×96 (phase 18b): K1 f64 "
-          f"{mg48_launches['k1 f64']}, K1d f32_g16 {mg48_launches['k1d']}")
+          f"{mg48_launches['k1 f64']}, K1d f32_g16 {mg48_launches['k1d']}; "
+          f"C6 (6×6 clover) by phase {c6}")
+    if not (c6["8d"] and c6["18a"] and c6["18b"]):
+        raise AssertionError(f"C6: no launch on a compact path: {c6}")
     print(card)
     print(f"whole script {time.perf_counter() - T_START:.1f} s", flush=True)
     hop16 = times["K1d bare hop"]
@@ -5754,7 +5858,9 @@ def main():
               *t17[f"box {BOX_TIME[-1]} f32 post"]),
         entry("dslash_ch_box_bf16", BOX_KERNEL_SOURCE, LOCAL_KERNEL_REPLACES,
               box["zw_bf16"], err_17["bf16"],
-              *t17[f"box {BOX_TIME[-1]} bf16"])]}))
+              *t17[f"box {BOX_TIME[-1]} bf16"]),
+        entry("clover_ch bf16 A, f32 psi at 48³×96", CLOVER_KERNEL_SOURCE,
+              CLOVER_KERNEL_REPLACES, sum(c6.values()), err_c6, *t_c6)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -74,6 +74,20 @@ ENTRY_POINTS = {"qkx_dslash_ch_f32": _DSLASH_ARGTYPES,
                 "qkx_dslash_ch_box_post_f32": _BOX_POST_ARGTYPES,
                 "qkx_dslash_ch_box_post_f64": _BOX_POST_ARGTYPES,
                 "qkx_dslash_ch_box_post_f32_g16": _BOX_POST_ARGTYPES}
+# The chiral 6x6 clover apply (csrc/clover_ch.cu): its instances, each
+# ``qkx_clover_ch_<name>``, by (operand, spinor, arithmetic and output)
+# dtype.  They stay out of ``ENTRY_POINTS``, which lists the hop kernels
+# alone: a launch tally that wraps ``ENTRY_POINTS`` has a byte model for
+# every hop entry and none yet for these.
+CLOVER_FORMS = {"f32_c16": ("bfloat16", "float32", "float32"),
+                "f32_c16s16": ("bfloat16", "bfloat16", "float32"),
+                "f32": ("float32", "float32", "float32"),
+                "f32_s16": ("float32", "bfloat16", "float32"),
+                "f64": ("float64", "float64", "float64")}
+# (cinv, v, out, n, T, Z, W, dag, twist_a, stream)
+_CLOVER_ARGTYPES = [_P] * 3 + [_I] * 5 + [_D, _P]
+CLOVER_ENTRY_POINTS = {f"qkx_clover_ch_{name}": _CLOVER_ARGTYPES
+                       for name in CLOVER_FORMS}
 
 
 def _sources() -> list[Path]:
@@ -143,11 +157,12 @@ def build() -> list[Path]:
 @functools.lru_cache(maxsize=None)
 def load_library() -> types.SimpleNamespace:
     """Build if needed and load once per process.  Returns every entry
-    point of ``ENTRY_POINTS`` as an attribute, with its argument types
-    declared (the loaded libraries stay referenced under ``_libs``)."""
+    point of ``ENTRY_POINTS`` and ``CLOVER_ENTRY_POINTS`` as an
+    attribute, with its argument types declared (the loaded libraries
+    stay referenced under ``_libs``)."""
     libs = [ctypes.CDLL(str(so)) for so in build()]
     fns = {}
-    for name, argtypes in ENTRY_POINTS.items():
+    for name, argtypes in {**ENTRY_POINTS, **CLOVER_ENTRY_POINTS}.items():
         owners = [lib for lib in libs if hasattr(lib, name)]
         if len(owners) != 1:
             raise RuntimeError(f"entry point {name} found in {len(owners)} "

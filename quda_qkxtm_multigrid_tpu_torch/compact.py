@@ -27,9 +27,11 @@ Tiers, the channel dtype of ``make_compact``:
             host complex128 operator of the JAX package's
             ``solvers/host_dc.py``, since the card has native float64.
 Every hop is ``ops.dslash_kernel.dslash_ch`` (a CUDA kernel on a CUDA
-tensor); the leading A⁻¹† of a dagger matpc and the A and A⁻¹ of
-prepare / reconstruct / the full operator are plain PyTorch
-(``dirac._ch_clover_apply``, ``dirac._ch_twist``).
+tensor); the leading A⁻¹† of a dagger matpc and the A (with its twist)
+and A⁻¹ of prepare / reconstruct / the full operator are one launch
+each of the 6×6 clover kernel (``ops.dslash_kernel.clover_ch``, through
+``dirac._ch_clover_apply``), and twisted mass's twists plain PyTorch
+(``dirac._ch_twist``).
 
 Full-operator residuals use the symmetric even-odd identity
     r = b − M x  with  M_pp = A_p, M_po = −κ D_po,
@@ -202,10 +204,8 @@ class CompactDirac(nn.Module):
                 raise ValueError("this CompactDirac holds no clover channels "
                                  "(without_clover): it has the Schur chain, "
                                  "prepare and reconstruct, not A or m_ch")
-            out = _ch_clover_apply(v_ch, self.cl_ch[parity], dag=dag)
-            if p.has_twist:
-                out = out + (_ch_twist(v_ch, a, 1.0) - v_ch)
-            return out
+            return _ch_clover_apply(v_ch, self.cl_ch[parity], dag=dag,
+                                    twist_a=a if p.has_twist else 0.0)
         if p.has_twist:
             return _ch_twist(v_ch, a, 1.0)
         return v_ch

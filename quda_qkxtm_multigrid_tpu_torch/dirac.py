@@ -58,7 +58,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops import clover as _cl
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops import twist as _twist
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
-    antiperiodic_t, cast_channels, clover_channels, dslash_ch,
+    antiperiodic_t, cast_channels, clover_channels, clover_ch, dslash_ch,
     dslash_ch_msrc, from_channels, gauge_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.utils.profiling import op_entry
 
@@ -75,18 +75,33 @@ def _ch_clover_matrix(cinv_ch: torch.Tensor,
 
 
 def _ch_clover_apply(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
-                     dag: bool = False) -> torch.Tensor:
+                     dag: bool = False, twist_a: float = 0.0) -> torch.Tensor:
     """Chiral-block 6×6 matrix field (channel operand [T, 144, Z, W])
     applied to a planar-channel spinor [..., T, 24, Z, W] (any leading
-    batch axes); ``dag`` applies the conjugate transpose.  Used only for
-    the leading A⁻¹† of the dagger ordering; every other application is
-    a kernel epilogue.  A bf16 matrix is widened to the spinor's dtype.
-    A bf16 spinor (the bf16 spinor storage) is widened to float32 with
-    the matrix, and the result is float32, as the JAX package's."""
+    batch axes); ``dag`` applies the conjugate transpose, and a nonzero
+    ``twist_a`` adds i·twist_a·γ5·v (the twisted term of A + i a γ5).
+    The A, A⁻¹ and A⁻¹† applies that no hop epilogue takes: a CUDA
+    spinor goes through the kernel (``ops.dslash_kernel.clover_ch``), a
+    CPU one through the plain version, ``_ch_clover_plain``."""
+    if v_ch.is_cuda:
+        return clover_ch(cinv_ch, v_ch, dag, twist_a)
+    return _ch_clover_plain(v_ch, cinv_ch, dag, twist_a)
+
+
+def _ch_clover_plain(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
+                     dag: bool = False, twist_a: float = 0.0) -> torch.Tensor:
+    """``_ch_clover_apply`` in plain PyTorch, the JAX package's
+    ``_ch_clover_apply`` (the kernel's oracle).  A bf16 matrix is
+    widened to the spinor's dtype.  A bf16 spinor (the bf16 spinor
+    storage) is widened to float32 with the matrix, and the result is
+    float32, as the JAX package's."""
     if v_ch.dtype == torch.bfloat16:
         v_ch = v_ch.to(torch.float32)
-    return _ch_matrix_apply(v_ch, _ch_clover_matrix(cinv_ch, v_ch.dtype),
-                            dag)
+    out = _ch_matrix_apply(v_ch, _ch_clover_matrix(cinv_ch, v_ch.dtype),
+                           dag)
+    if twist_a:
+        out = out + (_ch_twist(v_ch, twist_a, 1.0) - v_ch)
+    return out
 
 
 def _ch_matrix_apply(v_ch: torch.Tensor, m: torch.Tensor,

@@ -59,6 +59,14 @@ box instances (``csrc/dslash_ch_box.cu``), which read the z and y faces
 as well and wrap no split axis, with the same second output and float64
 forms.  One plain version, ``dslash_ch_local_reference``.
 
+``clover_ch`` is the chiral 6×6 clover apply on its own (A, A⁻¹ or
+A⁻¹† of a channel operand on a channel spinor, with an optional twisted
+term): one launch of ``csrc/clover_ch.cu``, CUDA tensors only, in the
+form that the operand and spinor dtypes select (``_CLOVER_FORMS``, from
+``_build.CLOVER_FORMS``).  Its plain version, and the choice between
+the two, is ``dirac._ch_clover_apply``'s.  It is no hop: its entry
+points are ``_build.CLOVER_ENTRY_POINTS``.
+
 The antiperiodic t boundary: a gauge that carries it (the t links of
 the last global t row multiplied by −1, the JAX package's
 ``apply_t_boundary``) loses the sign in recon-12, which rebuilds row 2
@@ -80,11 +88,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from quda_qkxtm_multigrid_tpu_torch._build import CLOVER_FORMS
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry, gather_neighbor
 from quda_qkxtm_multigrid_tpu_torch.ops import gamma as _g
 from quda_qkxtm_multigrid_tpu_torch.ops.clover import clover_apply
 from quda_qkxtm_multigrid_tpu_torch.ops.smallmat import su3_mul, su3_dag_mul
-from quda_qkxtm_multigrid_tpu_torch.utils.profiling import host_value
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import (
+    PROFILE, host_value, span)
 
 _F32, _F64, _BF16 = torch.float32, torch.float64, torch.bfloat16
 _CLOVER_MODES = {None: 0, "fwd": 1, "dag": 2}
@@ -636,6 +646,82 @@ dslash_ch.launches = 0
 dslash_ch.launches_bf16 = 0
 dslash_ch.launches_bf16s = 0
 dslash_ch.launches_r8 = 0
+
+
+# the 6×6 clover kernel's instances: (operand dtype, spinor dtype) →
+# (its C entry point ``qkx_clover_ch_<name>``, the dtype of its
+# arithmetic and output)
+_CLOVER_FORMS = {(getattr(torch, c), getattr(torch, s)):
+                 (name, getattr(torch, o))
+                 for name, (c, s, o) in CLOVER_FORMS.items()}
+
+
+def _clover_form(cinv_ch, v_ch) -> tuple:
+    """(name, output dtype) of the instance of the 6×6 clover kernel that
+    the operand and spinor dtypes select; raises on any other mix."""
+    form = _CLOVER_FORMS.get((cinv_ch.dtype, v_ch.dtype))
+    if form is None:
+        raise TypeError(f"no clover_ch form takes a {cinv_ch.dtype} "
+                        f"operand with a {v_ch.dtype} spinor; the forms "
+                        f"are {list(_CLOVER_FORMS)}")
+    return form
+
+
+def _launch_clover(lib, name: str, cinv_ch, v_ch, out, dag: bool,
+                   twist_a: float, stream: int) -> int:
+    """Call the C entry point ``qkx_clover_ch_<name>`` on the sources of
+    ``v_ch`` (its leading axes flattened); returns its CUDA error code."""
+    t, _, z, w = cinv_ch.shape
+    fn = getattr(lib, f"qkx_clover_ch_{name}")
+    return fn(cinv_ch.data_ptr(), v_ch.data_ptr(), out.data_ptr(),
+              v_ch.numel() // (t * 24 * z * w), t, z, w, int(dag),
+              float(twist_a), ctypes.c_void_p(stream))
+
+
+def clover_ch(cinv_ch, v_ch, dag: bool = False, twist_a: float = 0.0):
+    """The chiral-block 6×6 matrices of a channel operand ``cinv_ch``
+    [T, 144, Z, W] (A, A⁻¹ or its clover part) applied to a channel
+    spinor ``v_ch`` [..., T, 24, Z, W] (any leading source axes), the
+    conjugate transpose with ``dag``, plus i·``twist_a``·γ5·v where
+    ``twist_a`` is not 0 (the twisted term of A + i a γ5).  The result
+    is float32, or float64 for a float64 operand and spinor
+    (``_CLOVER_FORMS``; a bf16 spinor is widened).
+
+    It launches ``csrc/clover_ch.cu`` once on the current stream, as
+    the span ``op.clover6``, and adds one to ``clover_ch.launches`` and
+    to the counter ``op.clover6`` (``utils.profiling``).  A strided
+    input is made contiguous first.  Another dtype mix, another shape,
+    or tensors that are not on one CUDA device raise before any launch;
+    on the CPU the operator runs the plain version
+    (``dirac._ch_clover_plain``) instead."""
+    name, out_dtype = _clover_form(cinv_ch, v_ch)
+    if cinv_ch.dim() != 4 or cinv_ch.shape[1] != 144:
+        raise ValueError(f"cinv_ch shape {tuple(cinv_ch.shape)} is not "
+                         "[T, 144, Z, W]")
+    t, _, z, w = cinv_ch.shape
+    if v_ch.dim() < 4 or tuple(v_ch.shape[-4:]) != (t, 24, z, w):
+        raise ValueError(f"v_ch shape {tuple(v_ch.shape)} is not "
+                         f"[..., {t}, 24, {z}, {w}]")
+    if v_ch.device.type != "cuda" or cinv_ch.device != v_ch.device:
+        raise ValueError(f"clover_ch takes CUDA tensors on one device, not "
+                         f"cinv_ch on {cinv_ch.device}, v_ch on "
+                         f"{v_ch.device}")
+    cinv_ch, v_ch = cinv_ch.contiguous(), v_ch.contiguous()
+    out = torch.empty(v_ch.shape, dtype=out_dtype, device=v_ch.device)
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    stream = torch.cuda.current_stream(v_ch.device).cuda_stream
+    with span("op.clover6"), torch.cuda.device(v_ch.device):
+        err = _launch_clover(_build.load_library(), name, cinv_ch, v_ch, out,
+                             dag, twist_a, stream)
+    if err != 0:
+        raise RuntimeError(f"clover_ch kernel launch failed "
+                           f"(qkx_clover_ch_{name}): CUDA error {err}")
+    clover_ch.launches += 1
+    PROFILE.count("op.clover6")
+    return out
+
+
+clover_ch.launches = 0
 
 
 def dslash_parity_kernel(ud, psi_opp, parity: int, geom: Geometry,
