@@ -255,6 +255,23 @@ and does not print its last line:
     their byte bounds.  Its launches are counted phase by phase over
     the main-path phases that run the operator.
 
+20. the Möbius fifth-dimension kernel (M5, ``ops.domain_wall.mobius5_ch``,
+    ``csrc/mobius5_ch.cu``; ``phase_mobius5``, run after phase 19): at
+    the box of the benchmark's ``mdwf48i`` configuration (48³×24, one
+    card's share of RBC/UKQCD 48I's four-card t split, Ls 24) every
+    matrix of ``mobius5_matrices`` (forward and dagger) through the
+    kernel, without x and with x at two coefficients, against the plain
+    ``mobius5_plain`` on the same float32 operands; then Ls 8, 12, 16, 20
+    and 32 at a smaller box, and the one-value-a-thread instance (a field
+    off the 16-byte grid, and an odd Z·W); M5 without and with x timed
+    at the box against the plain version and its byte bound
+    (``portbench.m5bytes``), held to 0.6 of it.  Then the main path:
+    ``invert(MobiusDirac, b, solver="cg")`` at 24³×24 with 48I's action
+    (Ls 24, b5 1.5, c5 0.5, m5 −1.8, m_f 0.00078) on a hot complex64
+    gauge and the benchmark unit's wall source, its M5 launches counted
+    from zero (6 a CG iteration and 11 more), the answer certified in
+    complex128 by the same operator off the kernel route.
+
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
 K1d (V2 bf16), K1e, K2 and K2d (n = 1, 3, 12), K4 and K5 (the slabs of
@@ -355,6 +372,20 @@ CLOVER6_FLOPS = 576              # 72 complex multiply-adds a site
 CLOVER_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/clover_ch.cu"
 CLOVER_KERNEL_REPLACES = ("no pl.pallas_call: quda_qkxtm_multigrid_tpu/"
                           "dirac.py:49 (_ch_clover_apply, an XLA pass)")
+# phase 20: M5 and invert's Möbius route at RBC/UKQCD 48I's action
+# (Blum et al., PRD 93 074505, Table I; m5 in QUDA's sign)
+MOBIUS5_LIMIT = 1e-6             # M5 vs plain, normwise: Ls float32 products
+MOBIUS5_SHARE = 0.6              # M5's least share of its byte bound
+MDWF48I = dict(m5=-1.8, mferm=0.00078, b5=1.5, c5=0.5)
+MDWF_LS = 24
+MDWF_BOX = (48, 48, 48, 24)      # one card's box of 48I's four-card t split
+MDWF_SOLVE_GEOM = (24, 24, 24, 24)
+MDWF_TOL, MDWF_MAXITER = 1e-7, 2000
+MDWF_TRUE_RES = 1e-5             # the mdwf48i cell's limit (PERF.md §2)
+MOBIUS5_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/mobius5_ch.cu"
+MOBIUS5_KERNEL_REPLACES = ("no pl.pallas_call: quda_qkxtm_multigrid_tpu/"
+                           "ops/domain_wall.py:116, :158 (mdw_dslash4_pre, "
+                           "mdw_dslash5_inv, XLA einsums)")
 COMPACT_TOL, COMPACT_MAXITER = 1e-6, 600
 COMPACT_ITERS_BAND = (8, 30)     # the JAX package's compact48 record: 13
 COMPACT_TRUE_RES = 1e-5
@@ -5690,6 +5721,123 @@ def phase_clover6(dims_list):
     return err, timed["bf16 A, f32 psi"]
 
 
+def _mobius5_forms(mats, v, x) -> float:
+    """The worst normwise error of M5 against ``mobius5_plain`` over every
+    matrix of ``mats``, without x and with x at a = 1 and −0.37, each
+    pass one launch."""
+    from quda_qkxtm_multigrid_tpu_torch.ops.domain_wall import (
+        mobius5_ch, mobius5_plain)
+    worst = 0.0
+    for name, mat in mats.items():
+        for xx, a in ((None, 0.0), (x, 1.0), (x, -0.37)):
+            launches = mobius5_ch.launches
+            got = mobius5_ch(mat, v, xx, a)
+            if mobius5_ch.launches != launches + 1:
+                raise AssertionError(f"M5 {name}: no launch")
+            worst = max(worst, _rel64(got, mobius5_plain(mat, v, xx, a)))
+            del got
+    return worst
+
+
+def phase_mobius5(box_dims, solve_dims):
+    """Phase 20: M5 (``mobius5_ch``) against ``mobius5_plain`` on the card,
+    timed at ``box_dims`` with its byte bound, then ``invert``'s Möbius
+    route at ``solve_dims`` certified in complex128.  Returns the largest
+    absolute error, (ms, plain ms, bound) of the form without x, and the
+    solve's record with the M5 launches it made."""
+    import torch
+    from portbench.gauge import make_gauge
+    from portbench.m5bytes import m5_bytes
+    from portbench.units.dw_solve import wall_source
+    from quda_qkxtm_multigrid_tpu_torch.invert import invert
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops.domain_wall import (
+        MobiusDirac, mobius5_ch, mobius5_matrices, mobius5_plain)
+
+    def mats(ls):
+        return {k: torch.tensor(m, dtype=torch.float32, device=DEVICE)
+                for k, m in mobius5_matrices(ls, **MDWF48I).items()}
+
+    def fields(shape, seed, offset=0):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        n = math.prod(shape)
+        buf = torch.randn(2 * n + offset, generator=gen, device=DEVICE)
+        return (buf[offset:offset + n].view(shape),
+                buf[offset + n:].view(shape))
+
+    t, z, w = Geometry(*box_dims).lat_shape
+    shape = (MDWF_LS, t, 24, z, w)
+    print(f"phase 20: the Möbius fifth-dimension kernel (M5) vs plain at "
+          f"{box_dims}, Ls {MDWF_LS}, and invert's Möbius route at "
+          f"{solve_dims}", flush=True)
+    v, x = fields(shape, 71)
+    _check("M5 vs plain at the box (every form)",
+           _mobius5_forms(mats(MDWF_LS), v, x), MOBIUS5_LIMIT)
+    m = mats(MDWF_LS)["pre_inv"]
+    err = float((mobius5_ch(m, v, x, 1.0)
+                 - mobius5_plain(m, v, x, 1.0)).abs().max())
+    timed = {}
+    for label, xx in (("M5", None), ("M5 + x", x)):
+        out = mobius5_ch(m, v, xx, 1.0)
+        ms, plain_ms = _compare_timed(lambda: mobius5_ch(m, v, xx, 1.0),
+                                      lambda: mobius5_plain(m, v, xx, 1.0))
+        bound = _bound(m5_bytes(math.prod(shape) // 24, 1, xx is not None),
+                       2 * MDWF_LS * out.numel())
+        timed[label] = (ms, plain_ms, bound)
+        print(f"  {label} at {box_dims}, Ls {MDWF_LS}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+              f"the kernel at {bound[0] / ms:.2f} of it)", flush=True)
+        if bound[0] / ms < MOBIUS5_SHARE:
+            raise AssertionError(f"{label}: {bound[0] / ms:.2f} of its "
+                                 f"bound < {MOBIUS5_SHARE}")
+        del out
+    del v, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = (4, 24, 8, 32)
+    worst = {ls: _mobius5_forms(mats(ls), *fields((ls,) + small, ls))
+             for ls in (8, 12, 16, 20, 32)}
+    worst["one value a thread"] = _mobius5_forms(
+        mats(MDWF_LS), *fields((MDWF_LS,) + small, 3, offset=1))
+    worst["odd Z·W"] = _mobius5_forms(mats(12), *fields((12, 4, 24, 3, 5),
+                                                        5))
+    print(f"  M5 vs plain by Ls and instance: "
+          f"{ {k: f'{e:.2e}' for k, e in worst.items()} }", flush=True)
+    _check("M5 vs plain (Ls 8-32, one value a thread)",
+           max(worst.values()), MOBIUS5_LIMIT)
+
+    geom = Geometry(*solve_dims)
+    u = make_gauge(solve_dims, 2**31 + 77, DEVICE, "antiperiodic")
+    op = MobiusDirac(u.to(torch.complex64), geom, MDWF_LS, **MDWF48I)
+    b = wall_source(solve_dims, MDWF_LS, (1, 2, 3, 4), 0, 1,
+                    torch.complex64, DEVICE)
+    mobius5_ch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = invert(op, b, tol=MDWF_TOL, maxiter=MDWF_MAXITER, solver="cg")
+    torch.cuda.synchronize()
+    rec = {"secs": time.perf_counter() - t0, "iters": res.iters,
+           "launches": mobius5_ch.launches, "true_res_own": res.true_res}
+    del op
+    op128 = MobiusDirac(u.to(torch.complex128), geom, MDWF_LS, **MDWF48I,
+                        use_kernels=False)
+    b128 = b.to(torch.complex128)
+    rec["true_res"] = _rel(op128.m(res.x.to(torch.complex128)), b128)
+    print(f"  invert(MobiusDirac, 'cg') at {solve_dims}, Ls {MDWF_LS}: "
+          f"{rec['iters']} iterations in {rec['secs']:.2f} s, M5 launches "
+          f"{rec['launches']}, its own true_res {rec['true_res_own']:.3e}, "
+          f"complex128 {rec['true_res']:.3e}", flush=True)
+    if rec["launches"] != 6 * res.iters + 11:
+        raise AssertionError(f"M5 launches {rec['launches']} on the "
+                             f"Möbius route, not 6 x {res.iters} + 11")
+    _check("Möbius route true residual (complex128)", rec["true_res"],
+           MDWF_TRUE_RES)
+    del op128, b128, b, u, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err, timed["M5"], rec
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -5702,6 +5850,7 @@ def main():
     card = phase_card()
     max_abs = phase_kernel_vs_plain(CHECK_GEOM)
     err_c6, t_c6 = phase_clover6((SLICE_GEOM, BIG_GEOM))
+    err_m5, t_m5, dw20 = phase_mobius5(MDWF_BOX, MDWF_SOLVE_GEOM)
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import clover_ch
     c6 = {}   # phase: launches of the 6×6 clover kernel (C6) in it
 
@@ -5777,7 +5926,8 @@ def main():
           f"K1 {ns_launches['k1']}, K1d {ns_launches['k1d']}, K2 "
           f"{ns_launches['k2']}; MG at 48³×96 (phase 18b): K1 f64 "
           f"{mg48_launches['k1 f64']}, K1d f32_g16 {mg48_launches['k1d']}; "
-          f"C6 (6×6 clover) by phase {c6}")
+          f"C6 (6×6 clover) by phase {c6}; M5 on invert's Möbius route "
+          f"(phase 20): {dw20['launches']}")
     if not (c6["8d"] and c6["18a"] and c6["18b"]):
         raise AssertionError(f"C6: no launch on a compact path: {c6}")
     print(card)
@@ -5860,7 +6010,9 @@ def main():
               box["zw_bf16"], err_17["bf16"],
               *t17[f"box {BOX_TIME[-1]} bf16"]),
         entry("clover_ch bf16 A, f32 psi at 48³×96", CLOVER_KERNEL_SOURCE,
-              CLOVER_KERNEL_REPLACES, sum(c6.values()), err_c6, *t_c6)]}))
+              CLOVER_KERNEL_REPLACES, sum(c6.values()), err_c6, *t_c6),
+        entry("mobius5_ch at 48³×24, Ls 24", MOBIUS5_KERNEL_SOURCE,
+              MOBIUS5_KERNEL_REPLACES, dw20["launches"], err_m5, *t_m5)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -88,6 +88,11 @@ CLOVER_FORMS = {"f32_c16": ("bfloat16", "float32", "float32"),
 _CLOVER_ARGTYPES = [_P] * 3 + [_I] * 5 + [_D, _P]
 CLOVER_ENTRY_POINTS = {f"qkx_clover_ch_{name}": _CLOVER_ARGTYPES
                        for name in CLOVER_FORMS}
+# The Möbius fifth-dimension passes (csrc/mobius5_ch.cu, kernel M5):
+# (mat, v, x, out, ls, rows, zw, a, stream).  Outside ``ENTRY_POINTS``
+# too, for the same reason: they are no hop.
+MOBIUS5_ENTRY_POINTS = {"qkx_mobius5_ch_f32": [_P] * 4 + [_I] * 3
+                        + [_D, _P]}
 
 
 def _sources() -> list[Path]:
@@ -157,12 +162,13 @@ def build() -> list[Path]:
 @functools.lru_cache(maxsize=None)
 def load_library() -> types.SimpleNamespace:
     """Build if needed and load once per process.  Returns every entry
-    point of ``ENTRY_POINTS`` and ``CLOVER_ENTRY_POINTS`` as an
-    attribute, with its argument types declared (the loaded libraries
-    stay referenced under ``_libs``)."""
+    point of ``ENTRY_POINTS``, ``CLOVER_ENTRY_POINTS`` and
+    ``MOBIUS5_ENTRY_POINTS`` as an attribute, with its argument types
+    declared (the loaded libraries stay referenced under ``_libs``)."""
     libs = [ctypes.CDLL(str(so)) for so in build()]
     fns = {}
-    for name, argtypes in {**ENTRY_POINTS, **CLOVER_ENTRY_POINTS}.items():
+    for name, argtypes in {**ENTRY_POINTS, **CLOVER_ENTRY_POINTS,
+                           **MOBIUS5_ENTRY_POINTS}.items():
         owners = [lib for lib in libs if hasattr(lib, name)]
         if len(owners) != 1:
             raise RuntimeError(f"entry point {name} found in {len(owners)} "

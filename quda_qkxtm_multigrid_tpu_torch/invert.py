@@ -6,7 +6,9 @@ and report the true residual of the full operator in the source's
 precision.  Solvers: "cg" and its mixed-precision form "cg-mixed" on the
 normal equations M_pc† M_pc x_p = M_pc† src; "bicgstab" and
 "bicgstab-mixed" on M_pc x_p = src.  A ``compact.CompactDirac`` solves
-with "cg" only, through ``compact.invert_compact_full``.  With ``mesh``
+with "cg" only, through ``compact.invert_compact_full``, and so does a
+``ops.domain_wall.MobiusDirac``, through ``domain_wall.invert_mobius``
+(the 5D system, CG on M_pc† M_pc on channels).  With ``mesh``
 the solve runs sharded, one rank's box per process
 (``parallel.sharded``).
 """
@@ -21,6 +23,8 @@ from quda_qkxtm_multigrid_tpu_torch.compact import (
     CompactDirac, invert_compact_full)
 from quda_qkxtm_multigrid_tpu_torch.dirac import Dirac
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
+from quda_qkxtm_multigrid_tpu_torch.ops.domain_wall import (
+    MobiusDirac, invert_mobius)
 from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     dslash_ch_msrc, from_channels, to_channels)
 from quda_qkxtm_multigrid_tpu_torch.parallel.mesh import TMesh
@@ -62,7 +66,8 @@ def _default_sloppy(dirac: Dirac) -> Dirac:
                  u_doubled=cast(dirac.u_doubled))
 
 
-def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
+def invert(dirac: Dirac | CompactDirac | MobiusDirac, b: torch.Tensor,
+           tol: float = 1e-10,
            maxiter: int = 1000, solver: str = "cg",
            sloppy_dirac: Dirac | None = None,
            inner_tol: float = 1e-2, mesh: TMesh | None = None,
@@ -76,7 +81,9 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
     A ``CompactDirac`` operator solves with "cg" only and no sloppy
     operator (``compact.invert_compact_full``, the JAX package's
     dispatch); anything else raises, and so does a ``CompactDirac`` as
-    the sloppy operator.
+    the sloppy operator.  A ``MobiusDirac`` (``b`` a 5D field [Ls, 2, 4,
+    3, T, Z, W], or channels [2, Ls, T, 24, Z, W]) likewise solves with
+    "cg" only and no sloppy operator (``domain_wall.invert_mobius``).
 
     When the operator has the fused kernel chain (``use_kernels`` with a
     twisted or clover kind, symmetric Schur form), the Krylov loops run
@@ -103,6 +110,11 @@ def invert(dirac: Dirac | CompactDirac, b: torch.Tensor, tol: float = 1e-10,
         raise ValueError("a CompactDirac is the one-card path for volumes "
                          "the card's memory limits; shard the full Dirac "
                          "instead")
+    if isinstance(dirac, MobiusDirac):
+        if solver != "cg" or sloppy_dirac is not None or mesh is not None:
+            raise ValueError(f"a MobiusDirac solves with solver='cg' on one "
+                             f"card and no sloppy operator, not {solver!r}")
+        return invert_mobius(dirac, b, tol=tol, maxiter=maxiter)
     if mesh is not None or isinstance(dirac, ShardedDirac):
         return _invert_sharded(dirac, b, tol, maxiter, solver,
                                sloppy_dirac, mesh, overlap, inner_tol)

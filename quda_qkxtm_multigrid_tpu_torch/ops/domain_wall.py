@@ -32,12 +32,39 @@ not SU(3) up to that sign.  A complex field on the kernel route crosses
 to channels and back once an operator (once a hop where the ``Hop4D`` is
 called on it directly).  On a CPU tensor the wrappers run their plain
 versions; off the kernel route (``use_kernels=False``) the hop is the
-plain ``dslash_parity`` of each slice.
+plain ``dslash_parity`` of each slice.  ``Hop4D.ch`` is the span
+``op.hop5`` and takes K2's xpay (x + c·hop).
+
+The fifth-dimension passes (M5): every site-local pass of the Möbius
+operator is out(s) = Σ_s' A_χ[s, s'] ψ(s') (+ a·x(s)) with a real [Ls,
+Ls] matrix a chirality (``mobius5_matrices``, built once in float64:
+D4pre, D̃5, D̃5⁻¹, D4pre D̃5⁻¹, κ2 D̃5⁻¹ and their adjoints).
+``mobius5_ch`` launches ``csrc/mobius5_ch.cu`` once on CUDA float32
+channels (the span and counter ``op.mobius5``) and refuses anything
+else; ``mobius5_plain`` is its plain version.  ``MobiusDirac._m5`` is
+the one place that picks between them: the kernel for a CUDA field on
+the kernel route (so a float64 field there raises), the plain version
+for a CPU field or off the kernel route.
+
+The solve path: ``MobiusDirac`` (s-constant b5, c5) keeps the gauge
+channels and the M5 matrices once, runs on channels from its first pass
+to its last, and has the interface of ``invert``: ``prepare``,
+``reconstruct``, ``matpc(dagger=)`` (2 hops and 3 M5 passes, the
+symmetric even-even Schur form of ``mdw_matpc``), ``matpc_dagm`` and
+``m`` (``mdw_mat``), counted in ``op.applies`` at their outermost
+entry.  ``invert(op, b, solver="cg")`` dispatches to ``invert_mobius``
+(the span ``dw.solve``): the Schur source, CG on M_pc† M_pc in the
+operator's channel dtype (the span ``dw.cg``, whose self time is CG's
+own vector updates and reductions), the odd parity rebuilt and the true
+residual of the full 5D system.  ``mdw_mat`` and ``mdw_matpc`` stay for their
+callers.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import numbers
 
 import numpy as np
 import torch
@@ -49,6 +76,8 @@ from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
     antiperiodic_t, dslash_ch, dslash_ch_msrc, from_channels, gauge_channels,
     to_channels)
 from quda_qkxtm_multigrid_tpu_torch.utils.precision import full_float32
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import (
+    PROFILE, op_entry, span, spanned)
 
 DW_DSLASH_FLOPS_PER_SITE = 1320   # 4D part; +96 bulk / 120 wall for 5th dim
 
@@ -146,18 +175,27 @@ class Hop4D:
     def gauge_ch(self, dtype: torch.dtype, parity: int) -> torch.Tensor:
         return self._gauge(dtype)[parity]
 
-    def ch(self, psi_ch: torch.Tensor, parity: int,
-           dagger: bool = False) -> torch.Tensor:
-        """The bare hop of channels [Ls, T, 24, Z, W]: one multi-source
-        launch at n = Ls in float32, one double-precision launch a slice
-        in float64."""
+    def ch(self, psi_ch: torch.Tensor, parity: int, dagger: bool = False,
+           xpay_coef: float | None = None,
+           x_ch: torch.Tensor | None = None) -> torch.Tensor:
+        """The hop of channels [Ls, T, 24, Z, W], bare or, with
+        ``xpay_coef``, x + c·hop (``x_ch`` of ψ's shape): one
+        multi-source launch at n = Ls in float32, one double-precision
+        launch a slice in float64; the span ``op.hop5``."""
         psi_ch = psi_ch.contiguous()
         g = self.gauge_ch(psi_ch.dtype, parity)
-        kw = self.hop_kw
-        if psi_ch.dtype == torch.float32:
-            return dslash_ch_msrc(g, psi_ch, parity, self.geom, dagger, **kw)
-        return torch.stack([dslash_ch(g, v, parity, self.geom, dagger, **kw)
-                            for v in psi_ch])
+        kw = dict(self.hop_kw)
+        if xpay_coef is not None:
+            kw.update(xpay_coef=float(xpay_coef), x_ch=x_ch.contiguous())
+        with span("op.hop5"):
+            if psi_ch.dtype == torch.float32:
+                return dslash_ch_msrc(g, psi_ch, parity, self.geom, dagger,
+                                      **kw)
+            xs = kw.pop("x_ch", None)
+            return torch.stack([
+                dslash_ch(g, v, parity, self.geom, dagger, **kw,
+                          **({} if xs is None else {"x_ch": xs[s]}))
+                for s, v in enumerate(psi_ch)])
 
     def plain(self, psi5: torch.Tensor, parity: int,
               dagger: bool = False) -> torch.Tensor:
@@ -404,3 +442,288 @@ def mdw_matpc(u, psi5_p: torch.Tensor, m5: float, mferm: float, b5, c5,
         t = mdw_dslash4_pre(h(t, parity, True), b5, c5, mferm, dagger=True)
         return v + t
     return _apply(op, h, psi5_p, False)
+
+
+# ---- the fifth-dimension passes of the Möbius operator (M5) ---------------
+# Every site-local pass of ``mdw_matpc`` and ``mdw_mat`` has one shape:
+# out(s) = Σ_s' A_χ[s, s'] ψ(s') (+ a·x(s)), χ the chirality of the spin
+# (spins 0-1: channels 0-11, spins 2-3: channels 12-23) and A a real
+# [Ls, Ls] matrix a chirality.  ``mobius5_matrices`` builds each A once
+# in float64; a pass is one launch of ``csrc/mobius5_ch.cu`` on a CUDA
+# float32 field (``mobius5_ch``) or the plain ``mobius5_plain``, as
+# ``MobiusDirac._m5`` picks.
+
+MOBIUS5_MAX_LS = 32          # the kernel's largest Ls (csrc/mobius5_ch.cu)
+
+
+def mobius5_matrices(ls: int, m5: float, mferm: float, b5: float,
+                     c5: float) -> dict:
+    """The real [2, Ls, Ls] matrices (float64) of the Möbius operator's
+    fifth-dimension passes, s-constant b5 and c5:
+
+      pre          D4pre = b5 + (c5/2) D5hop
+      d5, inv      D̃5 = 1 + κ5 D5hop and D̃5⁻¹
+      pre_inv      D4pre D̃5⁻¹ (between the two hops of M_pc)
+      inv_k2       κ2 D̃5⁻¹, κ2 = −κ_b² (M_pc's last pass, with x = ψ)
+      *_dag        the adjoints: pre_dag = D4preᵀ, d5_dag = D̃5ᵀ,
+                   inv_k2_dag = κ2 D̃5⁻ᵀ, inv_pre_dag = D̃5⁻ᵀ D4preᵀ,
+                   kb_pre_dag = −κ_b D4preᵀ (M†'s hop term)
+    """
+    kb, _, k5 = mdw_kappas(b5, c5, m5, ls)
+    kb, k5 = float(kb[0]), float(k5[0])
+    one = np.eye(ls)
+    # D5hop of spins 0-1 and of spins 2-3, exactly: D̃5 at κ5 = 1, less 1
+    hop = _d5_matrices(ls, np.ones(ls), mferm).real[[0, 2]] - one
+    pre = b5 * one + 0.5 * c5 * hop
+    d5 = one + k5 * hop
+    inv = np.linalg.inv(d5)
+    t = lambda a: np.swapaxes(a, 1, 2)     # noqa: E731
+    return {"pre": pre, "d5": d5, "inv": inv, "pre_inv": pre @ inv,
+            "inv_k2": -kb * kb * inv, "pre_dag": t(pre), "d5_dag": t(d5),
+            "inv_k2_dag": -kb * kb * t(inv), "inv_pre_dag": t(inv) @ t(pre),
+            "kb_pre_dag": -kb * t(pre)}
+
+
+def mobius5_plain(mat: torch.Tensor, v_ch: torch.Tensor,
+                  x_ch: torch.Tensor | None = None,
+                  a: float = 0.0) -> torch.Tensor:
+    """out(s) = Σ_s' mat[χ, s, s'] v(s') (+ a·x(s)) on channels [Ls, T,
+    24, Z, W], ``mat`` [2, Ls, Ls] in ``v_ch``'s dtype (module note
+    above): the plain version of ``mobius5_ch``."""
+    ls, t, _, z, w = v_ch.shape
+    with full_float32():
+        out = torch.einsum("hsr,rthczw->sthczw", mat,
+                           v_ch.reshape(ls, t, 2, 12, z, w))
+    out = out.reshape(v_ch.shape)
+    if x_ch is not None:
+        out = out.add_(x_ch, alpha=a)
+    return out
+
+
+def mobius5_ch(mat: torch.Tensor, v_ch: torch.Tensor,
+               x_ch: torch.Tensor | None = None,
+               a: float = 0.0) -> torch.Tensor:
+    """``mobius5_plain``'s pass as one launch of ``csrc/mobius5_ch.cu``
+    on the current stream for a CUDA float32 ``v_ch`` (Ls ≤
+    ``MOBIUS5_MAX_LS``), as the span ``op.mobius5``, counted in
+    ``mobius5_ch.launches`` and the counters ``op.mobius5`` (launches)
+    and ``op.mobius5.xpay`` (those with ``x_ch``).  Another dtype, a
+    tensor off the card, another shape or a larger Ls raises before any
+    launch."""
+    if v_ch.dim() != 5 or v_ch.shape[2] != 24:
+        raise ValueError(f"v_ch shape {tuple(v_ch.shape)} is not "
+                         "[Ls, T, 24, Z, W]")
+    ls = v_ch.shape[0]
+    if tuple(mat.shape) != (2, ls, ls) or mat.dtype != v_ch.dtype:
+        raise ValueError(f"mat {tuple(mat.shape)} {mat.dtype} is not "
+                         f"[2, {ls}, {ls}] {v_ch.dtype}")
+    if x_ch is not None and (x_ch.shape != v_ch.shape
+                             or x_ch.dtype != v_ch.dtype):
+        raise ValueError(f"x_ch {tuple(x_ch.shape)} {x_ch.dtype} is not "
+                         f"v_ch's {tuple(v_ch.shape)} {v_ch.dtype}")
+    if v_ch.device.type != "cuda" or any(
+            t is not None and t.device != v_ch.device for t in (mat, x_ch)):
+        raise ValueError(f"mobius5_ch takes CUDA tensors on one device, "
+                         f"not v_ch on {v_ch.device}, mat on {mat.device}")
+    if v_ch.dtype != torch.float32:
+        raise TypeError(f"mobius5_ch launches on float32 channels, not "
+                        f"{v_ch.dtype}")
+    t, _, z, w = v_ch.shape[1:]
+    if ls > MOBIUS5_MAX_LS:
+        raise ValueError(f"Ls {ls} > {MOBIUS5_MAX_LS}, the kernel's most")
+    mat, v_ch = mat.contiguous(), v_ch.contiguous()
+    x_ch = None if x_ch is None else x_ch.contiguous()
+    out = torch.empty_like(v_ch)
+    from quda_qkxtm_multigrid_tpu_torch import _build
+    stream = torch.cuda.current_stream(v_ch.device).cuda_stream
+    with span("op.mobius5"), torch.cuda.device(v_ch.device):
+        err = _build.load_library().qkx_mobius5_ch_f32(
+            mat.data_ptr(), v_ch.data_ptr(),
+            None if x_ch is None else x_ch.data_ptr(), out.data_ptr(),
+            ls, t * 24, z * w, float(a), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"mobius5_ch kernel launch failed: CUDA error "
+                           f"{err}")
+    mobius5_ch.launches += 1
+    PROFILE.count("op.mobius5")
+    if x_ch is not None:
+        PROFILE.count("op.mobius5.xpay")
+    return out
+
+
+mobius5_ch.launches = 0
+
+
+# ---- the Möbius operator on the solve path --------------------------------
+
+class MobiusDirac:
+    """The Möbius domain-wall operator of ``mdw_mat`` / ``mdw_matpc``
+    (s-constant b5, c5; QUDA_MATPC_EVEN_EVEN, the symmetric Schur form)
+    with the interface ``invert`` uses: ``prepare``, ``reconstruct``,
+    ``matpc(dagger=)``, ``matpc_dagm`` and ``m``.
+
+    It keeps the gauge channels of its ``Hop4D`` (float32 for complex64
+    links, float64 for complex128) and the M5 matrices
+    (``mobius5_matrices``) in that dtype, once.  Every method runs on
+    channels from its first pass to its last: a parity [Ls, T, 24, Z,
+    W], a full field [2, Ls, T, 24, Z, W]; a complex field ([Ls, 4, 3,
+    T, Z, W], [Ls, 2, 4, 3, T, Z, W]) crosses to channels and back once
+    a call.  M_pc is 2 hops (K2 at n = Ls) and 3 M5 passes; M is 2 hops
+    and 4 passes.  The passes launch ``mobius5_ch`` on a CUDA field
+    with ``use_kernels`` (None: a CUDA gauge), which takes float32 only:
+    a complex128 operator on the card runs with ``use_kernels=False``.
+    A CPU field, or ``use_kernels=False``, runs the plain version."""
+
+    def __init__(self, u: torch.Tensor, geom: Geometry, ls: int, m5: float,
+                 mferm: float, b5: float, c5: float,
+                 use_kernels: bool | None = None):
+        if not all(isinstance(c, numbers.Real) for c in (b5, c5)):
+            raise TypeError("MobiusDirac takes s-constant b5 and c5; "
+                            "zMöbius runs through mdw_mat / mdw_matpc")
+        self.geom, self.ls = geom, int(ls)
+        self.m5, self.mferm, self.b5, self.c5 = m5, mferm, b5, c5
+        self.hop = Hop4D(u, geom, use_kernels)
+        self.dtype = (torch.float32 if u.dtype == torch.complex64
+                      else torch.float64)
+        self.kappa_b = float(mdw_kappas(b5, c5, m5, self.ls)[0][0])
+        self.mats = {k: torch.tensor(v, dtype=self.dtype, device=u.device)
+                     for k, v in mobius5_matrices(self.ls, m5, mferm, b5,
+                                                  c5).items()}
+        for p in (0, 1):
+            self.hop.gauge_ch(self.dtype, p)
+
+    # ---- layouts ------------------------------------------------------
+    def _parity_ch(self, v: torch.Tensor) -> torch.Tensor:
+        return (to_channels5(v) if v.is_complex() else v).to(self.dtype)
+
+    def _full_ch(self, v: torch.Tensor):
+        """(even, odd) channels of a full field in either layout."""
+        if v.is_complex():
+            return tuple(to_channels5(v[:, p]).to(self.dtype)
+                         for p in (0, 1))
+        return v[0].to(self.dtype), v[1].to(self.dtype)
+
+    @staticmethod
+    def _parity_out(out_ch: torch.Tensor, like: torch.Tensor):
+        if not like.is_complex():
+            return out_ch
+        return from_channels5(out_ch).to(like.dtype)
+
+    @staticmethod
+    def _full_out(even: torch.Tensor, odd: torch.Tensor,
+                  like: torch.Tensor) -> torch.Tensor:
+        """The full field of two parities' channels in ``like``'s
+        layout, written slice by slice (no stacked copies)."""
+        if not like.is_complex():
+            return torch.stack([even, odd])
+        ls = even.shape[0]
+        out = torch.empty((ls, 2, 4, 3) + tuple(even.shape[-4:-3])
+                          + tuple(even.shape[-2:]), dtype=like.dtype,
+                          device=even.device)
+        for p, ch in enumerate((even, odd)):
+            for s in range(ls):
+                out[s, p] = from_channels(ch[s], (4, 3))
+        return out
+
+    # ---- the passes -----------------------------------------------------
+    def _m5(self, name: str, v: torch.Tensor, x: torch.Tensor | None = None,
+            a: float = 1.0) -> torch.Tensor:
+        if self.hop.use_kernels and v.is_cuda:
+            return mobius5_ch(self.mats[name], v, x, a)
+        return mobius5_plain(self.mats[name], v, x, a)
+
+    def matpc_ch(self, v: torch.Tensor, dagger: bool = False):
+        """M_pc (or M_pc†) of channels [Ls, T, 24, Z, W] on the even
+        parity: 2 hops, 3 passes (``mdw_matpc``)."""
+        h = self.hop.ch
+        if not dagger:
+            t = h(self._m5("pre", v), 1)
+            t = h(self._m5("pre_inv", t), 0)
+            return self._m5("inv_k2", t, v)
+        t = h(self._m5("inv_k2_dag", v), 1, True)
+        t = h(self._m5("inv_pre_dag", t), 0, True)
+        return self._m5("pre_dag", t, v)
+
+    def m_ch(self, even: torch.Tensor, odd: torch.Tensor,
+             dagger: bool = False):
+        """(M ψ)_e, (M ψ)_o of two parities' channels (``mdw_mat``):
+        D̃5 ψ_p − κ_b D4 D4pre ψ_{1−p}, or its adjoint."""
+        parts, kb = (even, odd), self.kappa_b
+        out = []
+        for p in (0, 1):
+            if not dagger:
+                t = self._m5("pre", parts[1 - p])
+                out.append(self.hop.ch(t, p, False, -kb,
+                                       self._m5("d5", parts[p])))
+            else:
+                t = self.hop.ch(parts[1 - p], p, True)
+                out.append(self._m5("kb_pre_dag", t,
+                                    self._m5("d5_dag", parts[p])))
+        return out[0], out[1]
+
+    def prepare_ch(self, b_e: torch.Tensor, b_o: torch.Tensor):
+        """The Schur source D̃5⁻¹(b_e + κ_b D4 D4pre D̃5⁻¹ b_o)."""
+        t = self.hop.ch(self._m5("pre_inv", b_o), 0, False, self.kappa_b,
+                        b_e)
+        return self._m5("inv", t)
+
+    def reconstruct_ch(self, x_e: torch.Tensor, b_o: torch.Tensor):
+        """The odd parity D̃5⁻¹(b_o + κ_b D4 D4pre x_e)."""
+        t = self.hop.ch(self._m5("pre", x_e), 1, False, self.kappa_b, b_o)
+        return self._m5("inv", t)
+
+    # ---- the interface of ``invert`` --------------------------------
+    @op_entry("op.matpc")
+    def matpc(self, psi_p: torch.Tensor, dagger: bool = False):
+        return self._parity_out(self.matpc_ch(self._parity_ch(psi_p),
+                                              dagger), psi_p)
+
+    @op_entry("op.matpc", applies=2)
+    def matpc_dagm(self, psi_p: torch.Tensor) -> torch.Tensor:
+        v = self._parity_ch(psi_p)
+        return self._parity_out(self.matpc_ch(self.matpc_ch(v), True),
+                                psi_p)
+
+    @op_entry("op.m")
+    def m(self, psi: torch.Tensor, dagger: bool = False) -> torch.Tensor:
+        return self._full_out(*self.m_ch(*self._full_ch(psi), dagger), psi)
+
+    def prepare(self, b: torch.Tensor) -> torch.Tensor:
+        """b (full) → the Schur source on the even parity."""
+        return self._parity_out(self.prepare_ch(*self._full_ch(b)), b)
+
+    def reconstruct(self, x_e: torch.Tensor, b: torch.Tensor):
+        """The even-parity solution and the source → the full solution."""
+        xe = self._parity_ch(x_e)
+        return self._full_out(xe, self.reconstruct_ch(
+            xe, self._full_ch(b)[1]), b)
+
+
+@spanned("dw.solve")
+def invert_mobius(op: MobiusDirac, b: torch.Tensor, tol: float = 1e-7,
+                  maxiter: int = 2000):
+    """Solve M x = b (``invert``'s Möbius route): b (full, either
+    layout) to channels, the Schur source, CG on M_pc† M_pc in the
+    operator's channel dtype (float32 for complex64 links) to ``tol``
+    as the span ``dw.cg``, the odd parity rebuilt, and the true
+    residual |b − M x| / |b| of the full system.  Returns an ``invert.InvertResult`` with x in b's
+    layout and dtype."""
+    from quda_qkxtm_multigrid_tpu_torch.invert import InvertResult
+    from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
+    from quda_qkxtm_multigrid_tpu_torch.solvers.cg import cg
+    b_e, b_o = op._full_ch(b)
+    src = op.prepare_ch(b_e, b_o)
+    rhs = op.matpc(src, dagger=True)
+    del src
+    with span("dw.cg"):
+        res = cg(op.matpc_dagm, rhs, tol=tol, maxiter=maxiter)
+    del rhs
+    x_e = res.x
+    x_o = op.reconstruct_ch(x_e, b_o)
+    r2 = b2 = 0.0
+    for bp, mp in zip((b_e, b_o), op.m_ch(x_e, x_o)):
+        r2 = r2 + norm2(bp - mp)
+        b2 = b2 + norm2(bp)
+    del b_e, b_o
+    rel = float(torch.sqrt(r2 / b2))
+    return InvertResult(op._full_out(x_e, x_o, b), res.iters, rel)

@@ -3,7 +3,8 @@ mixed-precision form ``cg_mixed`` (a sloppy inner CG inside
 high-precision defect-correction restarts).
 
 A Python loop over eager PyTorch ops: the stopping test reads |r|² on
-the host, so each iteration synchronises with the device once.  Works
+the host (``utils.profiling.host_value``, the counter ``host_reads``),
+so each iteration synchronises with the device once.  Works
 on complex fields and on real planar-channel fields alike.
 """
 
@@ -17,6 +18,7 @@ from quda_qkxtm_multigrid_tpu_torch.ops.blas import (
     axpy, norm2, reDotProduct, xpay)
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import (
     ReliableStats, defect_correction, heavy_quark_residual_sq)
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import host_value
 
 
 class CGResult(NamedTuple):
@@ -59,9 +61,9 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
     def not_done(r2):
         if tol_hq is None:
-            return bool(r2 > target)
-        return bool((r2 > target)
-                    | (heavy_quark_residual_sq(x, r) > tol_hq * tol_hq))
+            return host_value(r2 > target)
+        return host_value((r2 > target)
+                          | (heavy_quark_residual_sq(x, r) > tol_hq * tol_hq))
 
     while k < maxiter and not_done(r2):
         ap = matvec(p)
