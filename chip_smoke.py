@@ -270,7 +270,18 @@ and does not print its last line:
     (Ls 24, b5 1.5, c5 0.5, m5 −1.8, m_f 0.00078) on a hot complex64
     gauge and the benchmark unit's wall source, its M5 launches counted
     from zero (6 a CG iteration and 11 more), the answer certified in
-    complex128 by the same operator off the kernel route.
+    complex128 by the same operator off the kernel route; its CG runs
+    the fused steps of phase 21 (5 launches an iteration and 2 more).
+
+21. the fused CG steps (``ops.blas.cg_pap``, ``cg_r_update_norm``,
+    ``cg_xp_update``, ``csrc/blas_cg.cu``; ``phase_cg_fused``, run after
+    phase 20): on vectors of the ``mdwf48i`` cell (a half-parity 5D
+    field at 48³×24, Ls 24: 764 M reals) in float32 and float64, each
+    step against its plain version, then a slice off the 16-byte grid
+    with a scalar tail; one fused float32 iteration timed against its
+    10-pass byte bound (held to 0.8 of it), the plain steps and the
+    separate eager calls they replaced.  Their launches are counted
+    phase by phase, with C6's, from phase 20 on.
 
 Phase 2b, after phase 3: a random gauge with the antiperiodic t boundary
 at 16³×32 through every recon-12 form of K1 (float32, float64; V2),
@@ -386,6 +397,13 @@ MOBIUS5_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/mobius5_ch.cu"
 MOBIUS5_KERNEL_REPLACES = ("no pl.pallas_call: quda_qkxtm_multigrid_tpu/"
                            "ops/domain_wall.py:116, :158 (mdw_dslash4_pre, "
                            "mdw_dslash5_inv, XLA einsums)")
+# phase 21: the fused CG steps (csrc/blas_cg.cu) at the mdwf48i vector size
+CG_LIMIT = {"float32": 1e-6, "float64": 1e-13}   # normwise, vs plain
+CG_SHARE = 0.8                   # a fused iteration's least share of its bound
+CG_PASSES = 10                   # 2 (Re<p, Ap>) + 3 (r, |r|^2) + 5 (x, p)
+CG_KERNEL_SOURCE = "quda_qkxtm_multigrid_tpu_torch/csrc/blas_cg.cu"
+CG_KERNEL_REPLACES = ("no pl.pallas_call: quda_qkxtm_multigrid_tpu/"
+                      "solvers/cg.py (CG's updates and reductions, XLA ops)")
 COMPACT_TOL, COMPACT_MAXITER = 1e-6, 600
 COMPACT_ITERS_BAND = (8, 30)     # the JAX package's compact48 record: 13
 COMPACT_TRUE_RES = 1e-5
@@ -5838,6 +5856,130 @@ def phase_mobius5(box_dims, solve_dims):
     return err, timed["M5"], rec
 
 
+def _cg_launches() -> int:
+    """The fused CG steps' kernel launches so far (``ops.blas``)."""
+    from quda_qkxtm_multigrid_tpu_torch.ops import blas
+    return (blas.cg_pap.launches + blas.cg_r_update_norm.launches
+            + blas.cg_xp_update.launches)
+
+
+def _cg_launches_zero():
+    from quda_qkxtm_multigrid_tpu_torch.ops import blas
+    blas.cg_pap.launches = 0
+    blas.cg_r_update_norm.launches = 0
+    blas.cg_xp_update.launches = 0
+
+
+def phase_cg_fused(box_dims):
+    """Phase 21: the fused CG steps (``ops.blas.cg_pap``,
+    ``cg_r_update_norm``, ``cg_xp_update``) against their plain versions
+    on the card, in float32 and float64, on vectors of the ``mdwf48i``
+    cell (a half-parity 5D field at ``box_dims``, Ls ``MDWF_LS``: 764 M
+    reals), then a slice off the 16-byte grid with a scalar tail; then one
+    fused float32 iteration timed against its 10-pass byte bound, the
+    plain steps and the separate eager calls it replaced.  Returns the
+    largest normwise error and (ms, plain ms, bound)."""
+    import torch
+    from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
+    from quda_qkxtm_multigrid_tpu_torch.ops import blas
+
+    t, z, w = Geometry(*box_dims).lat_shape
+    shape = (MDWF_LS, t, 24, z, w)
+    print(f"phase 21: the fused CG steps vs plain at {box_dims}, Ls "
+          f"{MDWF_LS} ({math.prod(shape)} reals a vector), and a fused "
+          f"iteration timed", flush=True)
+
+    def rel0(a, b) -> float:
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    def check(dt, shape, seed, offset=0):
+        """The three steps, one at a time (at most six vectors live):
+        the largest normwise error of each output against plain."""
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        n = math.prod(shape)
+
+        def vec():
+            buf = torch.randn(n + offset, generator=gen, device=DEVICE,
+                              dtype=dt)
+            return buf[offset:].view(shape)
+        p, ap, x, r = vec(), vec(), vec(), vec()
+        alpha = torch.tensor(0.37, dtype=torch.float64, device=DEVICE)
+        beta = torch.tensor(0.81, dtype=torch.float64, device=DEVICE)
+        errs = {"pap": rel0(blas.cg_pap(p, ap), blas.cg_pap_plain(p, ap))}
+        rk = r.clone()
+        r2k = blas.cg_r_update_norm(rk, ap, alpha)
+        r2p = blas.cg_r_update_norm_plain(r, ap, alpha)
+        errs["r2"] = rel0(r2k, r2p)
+        errs["r"] = _rel(rk, r)
+        del rk, ap
+        xk, pk = x.clone(), p.clone()
+        blas.cg_xp_update(xk, pk, r, alpha, beta)
+        blas.cg_xp_update_plain(x, p, r, alpha, beta)
+        errs["x"], errs["p"] = _rel(xk, x), _rel(pk, p)
+        torch.cuda.synchronize()
+        return errs
+
+    worst = 0.0
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        for label, shp, off in (("mdwf48i", shape, 0),
+                                ("off the grid, tail", (1_000_003,), 1)):
+            errs = check(dt, shp, 91, off)
+            print(f"  {name} {label}: "
+                  f"{ {k: f'{e:.2e}' for k, e in errs.items()} }",
+                  flush=True)
+            _check(f"CG steps {name} vs plain ({label})", max(errs.values()),
+                   CG_LIMIT[name])
+            worst = max(worst, max(errs.values()))
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=DEVICE).manual_seed(92)
+    p, ap, x, r = (torch.randn(shape, generator=gen, device=DEVICE)
+                   for _ in range(4))
+    r2 = blas.cg_pap(r, r)
+
+    def fused():
+        alpha = r2 / blas.cg_pap(p, ap)
+        r2n = blas.cg_r_update_norm(r, ap, alpha)
+        blas.cg_xp_update(x, p, r, alpha, r2n / r2)
+
+    def plain():
+        alpha = r2 / blas.cg_pap_plain(p, ap)
+        r2n = blas.cg_r_update_norm_plain(r, ap, alpha)
+        blas.cg_xp_update_plain(x, p, r, alpha, r2n / r2)
+
+    def eager():
+        """The separate calls the steps replaced (``cg``'s old loop body)."""
+        alpha = r2.float() / blas.reDotProduct(p, ap)
+        blas.axpy(alpha, p, x)
+        blas.axpy(-alpha, ap, r)
+        blas.xpay(r, blas.norm2(r) / r2.float(), p)
+
+    # the values run off to inf within a few dozen iterations; the card's
+    # float pipes take them at the same rate
+    med = _turns({"plain": plain, "eager": eager, "kernel": fused},
+                 {"plain": 2, "eager": 10, "kernel": 20})
+    bound = _bound(CG_PASSES * p.numel() * p.element_size(),
+                   10 * p.numel())
+    print(f"  one fused iteration: {med['kernel']:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}; {bound[0] / med['kernel']:.2f} of "
+          f"it), plain {med['plain']:.4f} ms, the separate eager calls "
+          f"{med['eager']:.4f} ms ({med['eager'] / med['kernel']:.2f}x)",
+          flush=True)
+    print(f"  launches: cg_pap {blas.cg_pap.launches}, cg_r_update_norm "
+          f"{blas.cg_r_update_norm.launches}, cg_xp_update "
+          f"{blas.cg_xp_update.launches}", flush=True)
+    share = bound[0] / med["kernel"]
+    if share < CG_SHARE:
+        raise AssertionError(f"a fused CG iteration: {share:.2f} of its "
+                             f"bound < {CG_SHARE}")
+    del p, ap, x, r, r2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst, (med["kernel"], med["plain"], bound)
+
+
 def _light_operator(geom, kappa: float):
     """The complex64 twisted-clover operator of ``bench_light`` at κ."""
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import light_problem
@@ -5850,15 +5992,24 @@ def main():
     card = phase_card()
     max_abs = phase_kernel_vs_plain(CHECK_GEOM)
     err_c6, t_c6 = phase_clover6((SLICE_GEOM, BIG_GEOM))
-    err_m5, t_m5, dw20 = phase_mobius5(MDWF_BOX, MDWF_SOLVE_GEOM)
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import clover_ch
     c6 = {}   # phase: launches of the 6×6 clover kernel (C6) in it
+    cgk = {}  # phase: launches of the fused CG steps in it
 
     def c6_counted(label, fn, *args):
         clover_ch.launches = 0
+        _cg_launches_zero()
         out = fn(*args)
         c6[label] = clover_ch.launches
+        cgk[label] = _cg_launches()
         return out
+
+    err_m5, t_m5, dw20 = c6_counted("20", phase_mobius5, MDWF_BOX,
+                                    MDWF_SOLVE_GEOM)
+    if cgk["20"] != 5 * dw20["iters"] + 2:
+        raise AssertionError(f"fused CG launches {cgk['20']} on the Möbius "
+                             f"route, not 5 x {dw20['iters']} + 2")
+    err_cg, t_cg = phase_cg_fused(MDWF_BOX)
 
     phase_identities(CHECK_GEOM)
     tbc = phase_tbc(CHECK_GEOM)
@@ -5927,7 +6078,8 @@ def main():
           f"{ns_launches['k2']}; MG at 48³×96 (phase 18b): K1 f64 "
           f"{mg48_launches['k1 f64']}, K1d f32_g16 {mg48_launches['k1d']}; "
           f"C6 (6×6 clover) by phase {c6}; M5 on invert's Möbius route "
-          f"(phase 20): {dw20['launches']}")
+          f"(phase 20): {dw20['launches']}; the fused CG steps by phase "
+          f"{cgk}")
     if not (c6["8d"] and c6["18a"] and c6["18b"]):
         raise AssertionError(f"C6: no launch on a compact path: {c6}")
     print(card)
@@ -6012,7 +6164,10 @@ def main():
         entry("clover_ch bf16 A, f32 psi at 48³×96", CLOVER_KERNEL_SOURCE,
               CLOVER_KERNEL_REPLACES, sum(c6.values()), err_c6, *t_c6),
         entry("mobius5_ch at 48³×24, Ls 24", MOBIUS5_KERNEL_SOURCE,
-              MOBIUS5_KERNEL_REPLACES, dw20["launches"], err_m5, *t_m5)]}))
+              MOBIUS5_KERNEL_REPLACES, dw20["launches"], err_m5, *t_m5),
+        entry("blas_cg, one fused float32 iteration at 48³×24, Ls 24",
+              CG_KERNEL_SOURCE, CG_KERNEL_REPLACES, sum(cgk.values()),
+              err_cg, *t_cg)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_L = ctypes.c_int64
 # (psi, g, cinv, x, out, out2, T, Z, W, Xh, parity, dagger, recon12,
 #  twist, ta, tb, clover, xpay, xc, post, pa, pb, stream)
 _DSLASH_ARGTYPES = [_P] * 6 + [_I] * 8 + [_D, _D, _I, _I, _D, _I, _D, _D, _P]
@@ -93,6 +94,17 @@ CLOVER_ENTRY_POINTS = {f"qkx_clover_ch_{name}": _CLOVER_ARGTYPES
 # too, for the same reason: they are no hop.
 MOBIUS5_ENTRY_POINTS = {"qkx_mobius5_ch_f32": [_P] * 4 + [_I] * 3
                         + [_D, _P]}
+# The fused steps of a CG iteration (csrc/blas_cg.cu, kernel CG), float32
+# and float64 each, outside ``ENTRY_POINTS`` too: no hop.
+#   pap            (p, ap, n, blocks, partials, out, stream)
+#   r_update_norm  (r, ap, alpha, n, blocks, partials, out, stream)
+#   xp_update      (x, p, r, alpha, beta, n, blocks, stream)
+BLAS_ENTRY_POINTS = {
+    f"qkx_cg_{name}_{form}": argtypes
+    for name, argtypes in (("pap", [_P, _P, _L, _I, _P, _P, _P]),
+                           ("r_update_norm", [_P] * 3 + [_L, _I] + [_P] * 3),
+                           ("xp_update", [_P] * 5 + [_L, _I, _P]))
+    for form in ("f32", "f64")}
 
 
 def _sources() -> list[Path]:
@@ -162,13 +174,15 @@ def build() -> list[Path]:
 @functools.lru_cache(maxsize=None)
 def load_library() -> types.SimpleNamespace:
     """Build if needed and load once per process.  Returns every entry
-    point of ``ENTRY_POINTS``, ``CLOVER_ENTRY_POINTS`` and
-    ``MOBIUS5_ENTRY_POINTS`` as an attribute, with its argument types
-    declared (the loaded libraries stay referenced under ``_libs``)."""
+    point of ``ENTRY_POINTS``, ``CLOVER_ENTRY_POINTS``,
+    ``MOBIUS5_ENTRY_POINTS`` and ``BLAS_ENTRY_POINTS`` as an attribute,
+    with its argument types declared (the loaded libraries stay
+    referenced under ``_libs``)."""
     libs = [ctypes.CDLL(str(so)) for so in build()]
     fns = {}
     for name, argtypes in {**ENTRY_POINTS, **CLOVER_ENTRY_POINTS,
-                           **MOBIUS5_ENTRY_POINTS}.items():
+                           **MOBIUS5_ENTRY_POINTS,
+                           **BLAS_ENTRY_POINTS}.items():
         owners = [lib for lib in libs if hasattr(lib, name)]
         if len(owners) != 1:
             raise RuntimeError(f"entry point {name} found in {len(owners)} "

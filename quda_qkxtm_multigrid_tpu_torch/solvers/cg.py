@@ -2,10 +2,14 @@
 mixed-precision form ``cg_mixed`` (a sloppy inner CG inside
 high-precision defect-correction restarts).
 
-A Python loop over eager PyTorch ops: the stopping test reads |r|² on
-the host (``utils.profiling.host_value``, the counter ``host_reads``),
-so each iteration synchronises with the device once.  Works
-on complex fields and on real planar-channel fields alike.
+A Python loop around three fused steps (``ops.blas.cg_pap``,
+``cg_r_update_norm``, ``cg_xp_update``: hand-written kernels on a CUDA
+field, their plain versions on a CPU one), with α, β and |r|² kept on
+the device as 0-d float64 tensors.  The stopping test reads |r|² on the
+host (``utils.profiling.host_value``, the counter ``host_reads``), so
+each iteration synchronises with the device once; each iteration adds 1
+to the counter ``krylov.fused_iters``.  Works on complex fields and on
+real planar-channel fields alike.
 """
 
 from __future__ import annotations
@@ -15,16 +19,16 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import (
-    axpy, norm2, reDotProduct, xpay)
+    cg_pap, cg_r_update_norm, cg_xp_update, norm2)
 from quda_qkxtm_multigrid_tpu_torch.solvers.support import (
     ReliableStats, defect_correction, heavy_quark_residual_sq)
-from quda_qkxtm_multigrid_tpu_torch.utils.profiling import host_value
+from quda_qkxtm_multigrid_tpu_torch.utils.profiling import PROFILE, host_value
 
 
 class CGResult(NamedTuple):
     x: torch.Tensor
     iters: int             # iterations used
-    r2: torch.Tensor       # final |r|² of the solved system (0-d)
+    r2: torch.Tensor       # final |r|² of the solved system (0-d, real)
     stats: Optional[ReliableStats] = None   # of the mixed-precision solver
 
 
@@ -42,20 +46,22 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     the canonical complex layout [..., 4, 3, T, Z, W]); the two tests
     reach the host in one read.  ``allreduce`` sums each local reduction
     over the ranks of a sharded field (``parallel.mesh.TMesh.allreduce``);
-    None leaves them local."""
+    None leaves them local.  x, r and p are contiguous copies, updated in
+    place; ``r2`` is returned in b's real precision."""
     if tol_hq is not None and allreduce is not None:
         raise ValueError("tol_hq has no sharded form: its site mean would "
                          "stay on this rank's box")
     red = (lambda v: v) if allreduce is None else allreduce
+    dense = torch.contiguous_format
     if x0 is None:
-        x = torch.zeros_like(b)
-        r = b.clone()
+        x = torch.zeros_like(b, memory_format=dense)
+        r = b.clone(memory_format=dense)
     else:
-        x = x0.clone()
-        r = b - matvec(x0)
+        x = x0.clone(memory_format=dense)
+        r = (b - matvec(x0)).contiguous()
     b2 = red(norm2(b)) if abs_b2 is None else abs_b2
     target = (tol * tol) * b2
-    r2 = red(norm2(r))
+    r2 = red(cg_pap(r, r))
     p = r.clone()
     k = 0
 
@@ -66,15 +72,15 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                           | (heavy_quark_residual_sq(x, r) > tol_hq * tol_hq))
 
     while k < maxiter and not_done(r2):
-        ap = matvec(p)
-        alpha = r2 / red(reDotProduct(p, ap))
-        axpy(alpha, p, x)
-        axpy(-alpha, ap, r)
-        r2_new = red(norm2(r))
-        xpay(r, r2_new / r2, p)
+        ap = matvec(p).contiguous()
+        alpha = r2 / red(cg_pap(p, ap))
+        r2_new = red(cg_r_update_norm(r, ap, alpha))
+        del ap
+        cg_xp_update(x, p, r, alpha, r2_new / r2)
         r2 = r2_new
         k += 1
-    return CGResult(x, k, r2)
+        PROFILE.count("krylov.fused_iters")
+    return CGResult(x, k, r2.to(b.real.dtype))
 
 
 def cg_mixed(matvec_hi: Callable, matvec_lo: Callable, b: torch.Tensor,
