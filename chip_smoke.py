@@ -33,7 +33,8 @@ and does not print its last line:
    and coarse build; cold and warm solves; the complex128 true residual;
    the kernels' launch counts; restrict and prolong against complex128;
    a second null-vector generation split into its parts, which must run
-   no batched plain A⁻¹†; the V-cycle's share of a solve;
+   no stand-alone batched A⁻¹† (C6 on n sources); the V-cycle's share of
+   a solve;
 7. the bf16 operand tier (K1d, K2d) and the mixed-precision solve: K1d
    against its plain version at 16³×32 for every form of the bf16 chain
    and the bf16-ψ hop, and against the float32 kernel (the difference
@@ -1358,17 +1359,19 @@ def phase_mg(geom_dims):
 
     # where the null-vector phase's time goes: a second generation on
     # the same operator and settings, split; its multi-source matvecs
-    # are the four-hop chain, so the batched plain A⁻¹† of a stand-alone
-    # multi-source dagger half (on kept matrices) may not run
+    # are the four-hop chain, so the batched A⁻¹† (a C6 launch on n
+    # sources) of a stand-alone multi-source dagger half may not run
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     nv_stats, batched = {}, []
-    matrix_apply = dirac_module._ch_matrix_apply
+    c6 = dirac_module.clover_ch
 
-    def spy(v_ch, m, dag=False):
+    def spy(cinv_ch, v_ch, *args, **kwargs):
+        launches = c6.launches
+        out = c6(cinv_ch, v_ch, *args, **kwargs)
         if v_ch.dim() == 5:     # a batch of sources [n, T, 24, Z, W]
-            batched.append(v_ch.shape[0])
-        return matrix_apply(v_ch, m, dag)
-    dirac_module._ch_matrix_apply = spy
+            batched.append(c6.launches - launches)
+        return out
+    dirac_module.clover_ch = spy
     dslash_ch_msrc.launches = 0
     try:
         split = _split(
@@ -1382,14 +1385,14 @@ def phase_mg(geom_dims):
             lambda: generate_null_vectors(d, tr.bg, gen, mg.params,
                                           stats=nv_stats))
     finally:
-        dirac_module._ch_matrix_apply = matrix_apply
+        dirac_module.clover_ch = c6
     msrc_second = dslash_ch_msrc.launches
     print(f"  its multi-source CG iterations per batch "
           f"{nv_stats['msrc_iters']}, K2 launches {msrc_second}, batched "
-          f"plain A⁻¹† applies {len(batched)}", flush=True)
+          f"A⁻¹† launches (C6) {sum(batched)}", flush=True)
     if batched:
-        raise AssertionError("the multi-source path ran a batched plain "
-                             "A⁻¹†")
+        raise AssertionError(f"the multi-source path ran {sum(batched)} "
+                             f"stand-alone batched A⁻¹† launches")
     if msrc_second != 4 * sum(nv_stats["msrc_iters"]):
         raise AssertionError(f"K2 launches {msrc_second} != 4 × "
                              f"{sum(nv_stats['msrc_iters'])}")
@@ -1641,8 +1644,7 @@ def phase_bf16_timing(geom_dims, n_time: int):
     "chain f32": ..}) and K2d's record at n_time."""
     import torch
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import make_problem
-    from quda_qkxtm_multigrid_tpu_torch.dirac import (
-        _ch_matrix_apply, as_sloppy)
+    from quda_qkxtm_multigrid_tpu_torch.dirac import as_sloppy
     from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_msrc, dslash_ch_reference, to_channels)
@@ -1720,18 +1722,20 @@ def phase_bf16_timing(geom_dims, n_time: int):
         {"bf16": 10, "f32": 10})
     # M_pc† M_pc on the batch: the path's four hops (the dagger half's
     # A⁻¹† the second output of the forward half) against two matpc
-    # halves (the dagger half led by a plain A⁻¹†); then each dagger
-    # half alone: the chain's two hops on the forward half's outputs, and
-    # the stand-alone half with its plain A⁻¹†
+    # halves (the dagger half led by a C6 A⁻¹† on n sources); then each
+    # dagger half alone: the chain's two hops on the forward half's
+    # outputs, and the stand-alone half with its leading A⁻¹†
+    def half(op, v, dagger):
+        return op._fused_matpc_ch(v, dagger, hop=dslash_ch_msrc)
+
     for tier, op in (("bf16", s), ("f32", d)):
         err[f"chain {tier}"] = _compare(
             op._fused_matpc_dagm_ch(psi_b, hop=dslash_ch_msrc),
-            op._fused_matpc_ch_msrc(op._fused_matpc_ch_msrc(psi_b, False),
-                                    True),
+            half(op, half(op, psi_b, False), True),
             f"msrc four-hop chain vs two halves ({tier}, n={n_time})",
             F32_LIMIT)
     g16, c16, k = o16["g"], o16["ci"], d.params.kappa
-    fwd = lambda: s._fused_matpc_ch_msrc(psi_b, False)
+    fwd = lambda: half(s, psi_b, False)
     m, m_pre = dslash_ch_msrc(g16[pr], dslash_ch_msrc(
         g16[1 - pr], psi_b, 1 - pr, geom, recon12=True, clover="fwd",
         cinv_ch=c16[1 - pr]), pr, geom, recon12=True, clover="fwd",
@@ -1743,19 +1747,16 @@ def phase_bf16_timing(geom_dims, n_time: int):
     turns(f"msrc matpc†matpc n={n_time}", {
         "bf16 four hops": lambda: s._fused_matpc_dagm_ch(
             psi_b, hop=dslash_ch_msrc),
-        "bf16 two halves": lambda: s._fused_matpc_ch_msrc(fwd(), True),
+        "bf16 two halves": lambda: half(s, fwd(), True),
         "f32 four hops": lambda: d._fused_matpc_dagm_ch(
             psi_b, hop=dslash_ch_msrc),
-        "f32 two halves": lambda: d._fused_matpc_ch_msrc(
-            d._fused_matpc_ch_msrc(psi_b, False), True)},
+        "f32 two halves": lambda: half(d, half(d, psi_b, False), True)},
         {k_: 5 for k_ in ("bf16 four hops", "bf16 two halves",
                           "f32 four hops", "f32 two halves")})
     turns(f"msrc matpc† half n={n_time} (bf16)", {
         "in the chain": chain_half,
-        "alone": lambda: s._fused_matpc_ch_msrc(m, True),
-        "its plain A⁻¹†": lambda: _ch_matrix_apply(
-            m, s._clover_matrix(f32, pr), dag=True)},
-        {"in the chain": 5, "alone": 5, "its plain A⁻¹†": 5})
+        "alone": lambda: half(s, m, True)},
+        {"in the chain": 5, "alone": 5})
     err["k2d"] = max(r["err"] for r in k2d.values())
     return out, bounds, err, k2d[n_time]
 
@@ -2109,7 +2110,7 @@ def phase_compact_mixed(geom_dims):
     compact operator's own channels.  Returns the compact run's record,
     with those errors under "err"."""
     import torch
-    from quda_qkxtm_multigrid_tpu_torch import compact
+    from quda_qkxtm_multigrid_tpu_torch import compact, dirac
     from quda_qkxtm_multigrid_tpu_torch.benchmarks import (
         bench_cg, bench_compact_sloppy, compact_sloppy_solve, make_problem)
     from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
@@ -2162,7 +2163,7 @@ def phase_compact_mixed(geom_dims):
     rec["split"] = _split(
         "a third compact-sloppy solve",
         [(cd, "_hop", "inner hops (K1e, K1d)"),
-         (compact, "_ch_clover_apply", "inner 6×6 A⁻¹† on bf16 (clover_ch)"),
+         (dirac, "_ch_clover_apply", "inner 6×6 A⁻¹† on bf16 (clover_ch)"),
          (d, "_fused_matpc_dagm_ch", "outer matvec")] + [
             (d, name, "complex128 stages")
             for name in ("prepare", "matpc", "reconstruct", "m")],
@@ -2219,12 +2220,13 @@ def phase_compact48(geom_dims):
                              f"{COMPACT_ITERS_BAND}")
     _check("compact true residual (its own operator)", rec["true_res"],
            COMPACT_TRUE_RES)
-    from quda_qkxtm_multigrid_tpu_torch import compact
+    from quda_qkxtm_multigrid_tpu_torch import compact, dirac
     rec["split"] = _split(
         "a third compact solve",
-        [(pb.sloppy, "_hop", "hops (K1d)"),
-         (compact, "_ch_clover_apply", "6×6 A, A⁻¹ and A⁻¹† (clover_ch)"),
-         (compact, "_ch_twist", "plain twists")],
+        [(pb.sloppy, "_hop", "hops (K1d)")] + [
+            (mod, "_ch_clover_apply", "6×6 A, A⁻¹ and A⁻¹† (clover_ch)")
+            for mod in (compact, dirac)] + [
+            (mod, "_ch_twist", "plain twists") for mod in (compact, dirac)],
         lambda: compact.invert_compact_full(pb.sloppy, pb.b, tol=COMPACT_TOL,
                                             maxiter=COMPACT_MAXITER))
     dc = bench_cg48_dc(geom, inner_tol=DC_INNER_TOL, tol=DC_TOL, problem=pb)
@@ -2539,7 +2541,7 @@ def _sharded_chain_checks(ds, d, v, psi128):
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_local)
 
-    plain = ("_ch_matrix_apply", "_ch_clover_apply", "_ch_twist")
+    plain = ("_ch_clover_apply", "_ch_twist")
     saved = {n: getattr(dmod, n) for n in plain}
     calls = []
 
@@ -2600,15 +2602,13 @@ def phase_local_timing(geom, d, mesh):
     in one call (median of 5) at the size of 9b, ring of one, with each
     kernel's output held against its plain version's; then each hop
     with its exchange as the chain runs it, one sharded matpc†matpc
-    with each (K4 + post, K4 with the plain leading A⁻¹†, K5) against
-    the unsharded four-hop chain and against the sharded chain's own
-    form run unsharded (two matpc halves through K1), the complex128
-    sharded and unsharded matpc†matpc, and the K5 chain's plain leading
-    A⁻¹†.  Returns the medians, the bounds of K4 (bare and with the
-    second output) and K5, the chain checks and the largest absolute
-    errors against the plain versions."""
+    with each (K4 + post, K4 with its leading A⁻¹† through C6, K5)
+    against the unsharded four-hop chain and against the sharded chain's
+    own form run unsharded (two matpc halves through K1), and the
+    complex128 sharded and unsharded matpc†matpc.  Returns the medians,
+    the bounds of K4 (bare and with the second output) and K5, the chain
+    checks and the largest absolute errors against the plain versions."""
     import torch
-    from quda_qkxtm_multigrid_tpu_torch.dirac import _ch_matrix_apply
     from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
         dslash_ch, dslash_ch_local, dslash_ch_local_reference,
         dslash_ch_overlap, to_channels)
@@ -2661,9 +2661,7 @@ def phase_local_timing(geom, d, mesh):
             d._fused_matpc_ch(v, False), True),
         "sharded matpc†matpc c128, K4 f64 + post": lambda: ds.matpc_dagm(
             psi128),
-        "unsharded matpc†matpc c128, K1 f64": lambda: d.matpc_dagm(psi128),
-        "its plain A⁻¹† (kept matrices)": lambda: _ch_matrix_apply(
-            v, ds._clover_matrix(f32, pr), dag=True)}
+        "unsharded matpc†matpc c128, K1 f64": lambda: d.matpc_dagm(psi128)}
     n_runs = {k: (3 if "plain" in k else 10 if "matpc" in k else 20)
               for k in fns}
     out = {k: fns[k]() for k in ("K4", "K5", "K4 + post", "K4 plain",

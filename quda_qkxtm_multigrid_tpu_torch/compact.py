@@ -50,12 +50,13 @@ Left out on purpose, as TPU squeezes: host staging of the build
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
 
 from quda_qkxtm_multigrid_tpu_torch.dirac import (
-    DiracParams, _ch_clover_apply, _ch_twist)
+    DiracParams, _ch_clover_apply, _ch_matpc, _ch_twist)
 from quda_qkxtm_multigrid_tpu_torch.lattice import Geometry
 from quda_qkxtm_multigrid_tpu_torch.ops import dslash as _dsl
 from quda_qkxtm_multigrid_tpu_torch.ops.blas import norm2
@@ -140,7 +141,7 @@ class CompactDirac(nn.Module):
         return CompactDirac(self.g_ch, self.cinv_ch, None, self.params,
                             self.geom, self.antiperiodic)
 
-    # ---- fused hot path (the chain of Dirac._fused_matpc_*_ch) ----------
+    # ---- fused hot path (dirac._ch_matpc, the chain of Dirac's) ----------
     def _hop(self, parity: int, psi_ch, **kw):
         return dslash_ch(self.g_ch[parity], psi_ch, parity, self.geom,
                          recon12=True, antiperiodic=self.antiperiodic, **kw)
@@ -152,37 +153,14 @@ class CompactDirac(nn.Module):
         return self.cinv_ch[parity]
 
     def matpc_ch(self, psi_ch, dagger: bool = False, out_dtype=None):
-        """Symmetric Schur operator on a channel spinor.  ``out_dtype=
-        torch.bfloat16`` stores the intermediate and output planes in
-        bf16 (the bf16 spinor storage, K1e); the arithmetic stays
-        float32."""
-        p = self.params
-        pr, k = p.matpc_parity, p.kappa
-        kw = dict(out_dtype=out_dtype)
-        if p.has_clover:
-            ci_p, ci_o = self._cinv(pr), self._cinv(1 - pr)
-            if not dagger:
-                t = self._hop(1 - pr, psi_ch, clover="fwd", cinv_ch=ci_o,
-                              **kw)
-                return self._hop(pr, t, clover="fwd", cinv_ch=ci_p,
-                                 xpay_coef=-(k * k), x_ch=psi_ch, **kw)
-            t = _ch_clover_apply(psi_ch, ci_p, dag=True)
-            t = self._hop(1 - pr, t, dagger=True, clover="dag", cinv_ch=ci_o,
-                          **kw)
-            return self._hop(pr, t, dagger=True, xpay_coef=-(k * k),
-                             x_ch=psi_ch, **kw)
-        a = 2.0 * p.kappa * p.mu * p.flavor
-        if dagger:
-            a = -a
-        tw = (-a, 1.0 / (1.0 + a * a))
-        if not dagger:
-            t = self._hop(1 - pr, psi_ch, twist=tw, **kw)
-            return self._hop(pr, t, twist=tw, xpay_coef=-(k * k),
-                             x_ch=psi_ch, **kw)
-        t = _ch_twist(psi_ch, tw[0], tw[1])
-        t = self._hop(1 - pr, t, dagger=True, twist=tw, **kw)
-        return self._hop(pr, t, dagger=True, xpay_coef=-(k * k),
-                         x_ch=psi_ch, **kw)
+        """Symmetric Schur operator on a channel spinor (``dirac.
+        _ch_matpc`` on ``_hop``).  ``out_dtype=torch.bfloat16`` stores the
+        intermediate and output planes in bf16 (the bf16 spinor storage,
+        K1e); the arithmetic stays float32."""
+        cinv = ((self._cinv(0), self._cinv(1)) if self.params.has_clover
+                else None)
+        return _ch_matpc(functools.partial(self._hop, out_dtype=out_dtype),
+                         cinv, self.params, psi_ch, dagger)
 
     def matpc_dagm_ch(self, psi_ch, storage_dtype=None):
         """Normal operator M†M; ``storage_dtype=torch.bfloat16`` keeps the

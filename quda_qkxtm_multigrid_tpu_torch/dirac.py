@@ -21,8 +21,10 @@ Even-odd preconditioning (parity p = solve parity):
 With ``use_kernels`` every hop goes through ``ops.dslash_kernel.dslash_ch``
 (the CUDA kernel on a CUDA tensor), and the symmetric twisted / clover
 Schur operators run as chains of fused hops on planar-channel fields
-[T, 24, Z, W] (the ``_..._ch`` methods).  The channel chain computes in
-the precision of the field it is given.
+[T, 24, Z, W]: M_pc and M_pc† through ``_ch_matpc`` (which
+``CompactDirac`` and the sharded operator run too), M_pc†M_pc through
+``Dirac._fused_matpc_dagm_ch``.  The channel chain computes in the
+precision of the field it is given.
 
 The fused chain reads the gauge in recon-12 form, which loses the −1
 that the antiperiodic t boundary puts on the last t row's links
@@ -63,17 +65,6 @@ from quda_qkxtm_multigrid_tpu_torch.ops.dslash_kernel import (
 from quda_qkxtm_multigrid_tpu_torch.utils.profiling import op_entry
 
 
-def _ch_clover_matrix(cinv_ch: torch.Tensor,
-                      dtype: torch.dtype) -> torch.Tensor:
-    """The chiral-block 6×6 matrices of a channel operand [T, 144, Z, W]
-    as a complex field [T, 2, 6, 6, Z, W] of the real ``dtype`` (a bf16
-    operand is widened)."""
-    t, _, z, w = cinv_ch.shape
-    cinv_ch = cinv_ch.to(dtype)
-    return torch.complex(cinv_ch[:, 0::2], cinv_ch[:, 1::2]).reshape(
-        t, 2, 6, 6, z, w)
-
-
 def _ch_clover_apply(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
                      dag: bool = False, twist_a: float = 0.0) -> torch.Tensor:
     """Chiral-block 6×6 matrix field (channel operand [T, 144, Z, W])
@@ -91,24 +82,16 @@ def _ch_clover_apply(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
 def _ch_clover_plain(v_ch: torch.Tensor, cinv_ch: torch.Tensor,
                      dag: bool = False, twist_a: float = 0.0) -> torch.Tensor:
     """``_ch_clover_apply`` in plain PyTorch, the JAX package's
-    ``_ch_clover_apply`` (the kernel's oracle).  A bf16 matrix is
-    widened to the spinor's dtype.  A bf16 spinor (the bf16 spinor
-    storage) is widened to float32 with the matrix, and the result is
-    float32, as the JAX package's."""
+    ``_ch_clover_apply`` (the kernel's oracle): the operand's chiral
+    blocks as complex 6×6 matrices, contracted with the spinor's.  A
+    bf16 matrix is widened to the spinor's dtype.  A bf16 spinor (the
+    bf16 spinor storage) is widened to float32 with the matrix, and the
+    result is float32, as the JAX package's."""
     if v_ch.dtype == torch.bfloat16:
         v_ch = v_ch.to(torch.float32)
-    out = _ch_matrix_apply(v_ch, _ch_clover_matrix(cinv_ch, v_ch.dtype),
-                           dag)
-    if twist_a:
-        out = out + (_ch_twist(v_ch, twist_a, 1.0) - v_ch)
-    return out
-
-
-def _ch_matrix_apply(v_ch: torch.Tensor, m: torch.Tensor,
-                     dag: bool = False) -> torch.Tensor:
-    """``_ch_clover_apply`` with the matrices given as
-    ``_ch_clover_matrix`` makes them."""
-    t, _, z, w = v_ch.shape[-4:]
+    t, _, z, w = cinv_ch.shape
+    c = cinv_ch.to(v_ch.dtype)
+    m = torch.complex(c[:, 0::2], c[:, 1::2]).reshape(t, 2, 6, 6, z, w)
     lead = v_ch.shape[:-4]
     v = torch.complex(v_ch[..., 0::2, :, :], v_ch[..., 1::2, :, :]).reshape(
         *lead, t, 2, 6, z, w)
@@ -116,7 +99,10 @@ def _ch_matrix_apply(v_ch: torch.Tensor, m: torch.Tensor,
         out = torch.einsum("thcrzw,...thczw->...thrzw", m.conj(), v)
     else:
         out = torch.einsum("thrczw,...thczw->...thrzw", m, v)
-    return torch.stack([out.real, out.imag], dim=-3).reshape(v_ch.shape)
+    out = torch.stack([out.real, out.imag], dim=-3).reshape(v_ch.shape)
+    if twist_a:
+        out = out + (_ch_twist(v_ch, twist_a, 1.0) - v_ch)
+    return out
 
 
 def _ch_twist(psi_ch: torch.Tensor, a: float, b: float) -> torch.Tensor:
@@ -128,6 +114,36 @@ def _ch_twist(psi_ch: torch.Tensor, a: float, b: float) -> torch.Tensor:
     out_re = b * (re - (a * g5) * im)
     out_im = b * (im + (a * g5) * re)
     return torch.stack([out_re, out_im], dim=-3).reshape(psi_ch.shape)
+
+
+def _ch_matpc(hop, cinv, params: DiracParams, psi_ch: torch.Tensor,
+              dagger: bool = False) -> torch.Tensor:
+    """The symmetric Schur operator M_pc, or M_pc† with ``dagger``, on a
+    planar-channel spinor: two fused hops, the A⁻¹ of each parity in
+    their epilogues (the chiral 6×6 matvec of ``cinv``, or the twist of
+    twisted mass) and the final −κ² xpay in the last.  The dagger half
+    leads with A_p⁻¹† (``_ch_clover_apply``, or the twist).
+
+    ``hop(parity, ψ, **epilogue)`` is a hop bound to its gauge channels,
+    geometry, t boundary and storage form (``Dirac``'s K1, K2 or halo
+    hop, ``CompactDirac._hop``); ``cinv`` holds the clover-inverse
+    channel operands of both parities, None for twisted mass."""
+    pr, k = params.matpc_parity, params.kappa
+    xpay = dict(xpay_coef=-(k * k), x_ch=psi_ch)
+    if params.has_clover:
+        if not dagger:
+            t = hop(1 - pr, psi_ch, clover="fwd", cinv_ch=cinv[1 - pr])
+            return hop(pr, t, clover="fwd", cinv_ch=cinv[pr], **xpay)
+        t = _ch_clover_apply(psi_ch, cinv[pr], dag=True)
+        t = hop(1 - pr, t, dagger=True, clover="dag", cinv_ch=cinv[1 - pr])
+        return hop(pr, t, dagger=True, **xpay)
+    a = 2.0 * params.kappa * params.mu * params.flavor
+    tw = (a if dagger else -a, 1.0 / (1.0 + a * a))
+    if not dagger:
+        t = hop(1 - pr, psi_ch, twist=tw)
+        return hop(pr, t, twist=tw, **xpay)
+    t = hop(1 - pr, _ch_twist(psi_ch, *tw), dagger=True, twist=tw)
+    return hop(pr, t, dagger=True, **xpay)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,19 +257,6 @@ class Dirac(nn.Module):
                          for p in (0, 1)]
         return ops
 
-    def _clover_matrix(self, dtype: torch.dtype, parity: int):
-        """The clover inverse of ``parity`` as complex matrices
-        (``_ch_clover_matrix``) for spinors of real ``dtype``, made from
-        the channel operand once and kept: the leading A⁻¹† of the
-        multi-source and of the sharded dagger half reads it on every
-        call (both run on float32 spinors: one parity in complex64, 0.6
-        GB at 32³×64)."""
-        key = ("matrix", dtype, parity)
-        if key not in self._ch_cache:
-            self._ch_cache[key] = _ch_clover_matrix(
-                self._operands(dtype)["ci"][parity], dtype)
-        return self._ch_cache[key]
-
     def _chain_channels(self, psi_p: torch.Tensor) -> torch.Tensor:
         """A complex field as the channel spinor of the fused chain: in
         its own precision, or float32 in the bf16 tier (spinors stay
@@ -276,112 +279,54 @@ class Dirac(nn.Module):
             return from_channels(out, (4, 3))
         return _dsl.dslash_parity(self.u, psi_opp, parity, self.geom, dagger)
 
-    def _matpc_tm_ch(self, psi_ch: torch.Tensor, dagger: bool,
-                     hop=dslash_ch, exact: bool = False):
-        """Fused twisted-mass symmetric matpc on channels: the A⁻¹ twists
-        and the final −κ² xpay run in the hop epilogues.  ``hop`` is
-        ``dslash_ch``, on a batch of sources ``dslash_ch_msrc``, or the
-        sharded operator's halo hop; ``exact`` reads the operands in the
-        spinors' precision in the bf16 tier too (``_operands``)."""
-        p = self.params
-        pr, k = p.matpc_parity, p.kappa
-        ops = self._operands(psi_ch.dtype, exact)
-        g, kw = ops["g"], self._hop_kw()
-        a = 2.0 * p.kappa * p.mu * p.flavor
-        if dagger:
-            a = -a
-        tw = (-a, 1.0 / (1.0 + a * a))
-        if not dagger:
-            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, twist=tw, **kw)
-            return hop(g[pr], t, pr, self.geom, twist=tw,
-                       xpay_coef=-(k * k), x_ch=psi_ch, **kw)
-        t = _ch_twist(psi_ch, tw[0], tw[1])
-        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, twist=tw,
-                **kw)
-        return hop(g[pr], t, pr, self.geom, dagger=True,
-                   xpay_coef=-(k * k), x_ch=psi_ch, **kw)
-
-    def _matpc_clover_ch(self, psi_ch: torch.Tensor, dagger: bool,
-                         hop=dslash_ch, exact: bool = False):
-        """Fused (twisted-)clover symmetric matpc on channels: the A⁻¹
-        chiral 6×6 matvecs run in the hop epilogues (``hop`` and
-        ``exact`` as in ``_matpc_tm_ch``)."""
-        p = self.params
-        pr, k = p.matpc_parity, p.kappa
-        ops = self._operands(psi_ch.dtype, exact)
-        g, ci, kw = ops["g"], ops["ci"], self._hop_kw()
-        if not dagger:
-            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, clover="fwd",
-                    cinv_ch=ci[1 - pr], **kw)
-            return hop(g[pr], t, pr, self.geom, clover="fwd",
-                       cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch, **kw)
-        if hop is dslash_ch or exact:
-            # K1's chain, and the sharded operator's one-off matpc† on a
-            # complex field: no kept matrices
-            t = _ch_clover_apply(psi_ch, ci[pr], dag=True)
-        else:
-            # every matvec of the multi-source CG or of the sharded CG
-            # with K5 (its halo hop): keep the matrices
-            t = _ch_matrix_apply(psi_ch,
-                                 self._clover_matrix(psi_ch.dtype, pr),
-                                 dag=True)
-        t = hop(g[1 - pr], t, 1 - pr, self.geom, dagger=True, clover="dag",
-                cinv_ch=ci[1 - pr], **kw)
-        return hop(g[pr], t, pr, self.geom, dagger=True,
-                   xpay_coef=-(k * k), x_ch=psi_ch, **kw)
+    def _bound_hop(self, hop, g):
+        """``hop`` (``dslash_ch``, ``dslash_ch_msrc`` on a batch of
+        sources [n, T, 24, Z, W], the sharded operator's halo hop, or the
+        plain ``dslash_ch_reference`` where a caller times the chain)
+        bound to the gauge channels ``g`` of both parities, the geometry
+        and the t boundary: the ``hop(parity, ψ, **epilogue)`` of
+        ``_ch_matpc``."""
+        kw = self._hop_kw()
+        return lambda parity, psi_ch, **epi: hop(g[parity], psi_ch, parity,
+                                                 self.geom, **kw, **epi)
 
     def _fused_matpc_ch(self, psi_ch: torch.Tensor, dagger: bool,
                         hop=dslash_ch, exact: bool = False):
-        if self.params.has_clover:
-            return self._matpc_clover_ch(psi_ch, dagger, hop, exact)
-        return self._matpc_tm_ch(psi_ch, dagger, hop, exact)
-
-    def _fused_matpc_ch_msrc(self, psi_ch_b: torch.Tensor, dagger: bool):
-        """Multi-source fused matpc on float32 channels [n, T, 24, Z, W]:
-        the same chain with the multi-source hop, which reads the gauge
-        and clover once for all n sources.  The dagger half alone runs
-        its leading A⁻¹† (or twist) batched before the first hop; the
-        normal operator's chain, ``_fused_matpc_dagm_ch(hop=
-        dslash_ch_msrc)``, takes it from the forward half's second
-        output instead."""
-        return self._fused_matpc_ch(psi_ch_b, dagger, hop=dslash_ch_msrc)
+        """M_pc (M_pc† with ``dagger``) on channels through ``_ch_matpc``
+        with ``hop`` (``_bound_hop``) on this operator's operands;
+        ``exact`` reads them in the spinors' precision in the bf16 tier
+        too (``_operands``)."""
+        ops = self._operands(psi_ch.dtype, exact)
+        return _ch_matpc(self._bound_hop(hop, ops["g"]), ops.get("ci"),
+                         self.params, psi_ch, dagger)
 
     def _fused_matpc_dagm_ch(self, psi_ch: torch.Tensor, hop=dslash_ch,
                              exact: bool = False):
         """matpc†·matpc as four fused hops: the leading A⁻¹† of the dagger
         half is the second output (``post_op``) of the forward half's
-        last hop.  ``hop`` is the hop function: ``dslash_ch``,
-        ``dslash_ch_msrc`` on a batch of sources [n, T, 24, Z, W], the
-        sharded operator's halo hop (K4), or the plain
-        ``dslash_ch_reference`` where a caller times the chain;
-        ``exact`` as in ``_matpc_tm_ch``."""
+        last hop.  ``hop`` and ``exact`` as in ``_fused_matpc_ch``."""
         p = self.params
         pr, k = p.matpc_parity, p.kappa
         ops = self._operands(psi_ch.dtype, exact)
-        g, kw = ops["g"], self._hop_kw()
+        hop = self._bound_hop(hop, ops["g"])
         if p.has_clover:
             ci = ops["ci"]
-            t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, clover="fwd",
-                    cinv_ch=ci[1 - pr], **kw)
-            m, m_pre = hop(g[pr], t, pr, self.geom, clover="fwd",
-                           cinv_ch=ci[pr], xpay_coef=-(k * k), x_ch=psi_ch,
-                           post_op=("clover",), **kw)
-            t2 = hop(g[1 - pr], m_pre, 1 - pr, self.geom, dagger=True,
-                     clover="dag", cinv_ch=ci[1 - pr], **kw)
-            return hop(g[pr], t2, pr, self.geom, dagger=True,
-                       xpay_coef=-(k * k), x_ch=m, **kw)
+            t = hop(1 - pr, psi_ch, clover="fwd", cinv_ch=ci[1 - pr])
+            m, m_pre = hop(pr, t, clover="fwd", cinv_ch=ci[pr],
+                           xpay_coef=-(k * k), x_ch=psi_ch,
+                           post_op=("clover",))
+            t2 = hop(1 - pr, m_pre, dagger=True, clover="dag",
+                     cinv_ch=ci[1 - pr])
+            return hop(pr, t2, dagger=True, xpay_coef=-(k * k), x_ch=m)
         a = 2.0 * p.kappa * p.mu * p.flavor
         b = 1.0 / (1.0 + a * a)
         # the forward half applies b(1 - i a γ5) = A⁻¹, the sign
-        # convention of _matpc_tm_ch (its twist is (-a, b))
-        t = hop(g[1 - pr], psi_ch, 1 - pr, self.geom, twist=(-a, b), **kw)
-        m, m_pre = hop(g[pr], t, pr, self.geom, twist=(-a, b),
-                       xpay_coef=-(k * k), x_ch=psi_ch,
-                       post_op=("twist", a, b), **kw)
-        t2 = hop(g[1 - pr], m_pre, 1 - pr, self.geom, dagger=True,
-                 twist=(a, b), **kw)
-        return hop(g[pr], t2, pr, self.geom, dagger=True,
-                   xpay_coef=-(k * k), x_ch=m, **kw)
+        # convention of _ch_matpc (its twist is (-a, b))
+        t = hop(1 - pr, psi_ch, twist=(-a, b))
+        m, m_pre = hop(pr, t, twist=(-a, b), xpay_coef=-(k * k), x_ch=psi_ch,
+                       post_op=("twist", a, b))
+        t2 = hop(1 - pr, m_pre, dagger=True, twist=(a, b))
+        return hop(pr, t2, dagger=True, xpay_coef=-(k * k), x_ch=m)
 
     # ---- parity-diagonal term A ------------------------------------
     @op_entry("op.a_apply", applies=0)

@@ -23,14 +23,16 @@ field's precision (float64 for complex128: the counterpart of
 parity-diagonal term is local.
 
 The sharded fused chain is the unsharded one (``Dirac._fused_matpc_ch``,
-``_fused_matpc_dagm_ch``) with ``halo_hop`` for its hop, a face exchange
-before each: on a t-ring K4, which reads the received t faces in place,
+that is ``dirac._ch_matpc``, and ``_fused_matpc_dagm_ch``) with
+``halo_hop`` for its hop, a face exchange before each: on a t-ring K4,
+which reads the received t faces in place,
 or with ``overlap`` K5, whose interior runs while the faces,
 spin-projected when T_loc > 2, are in flight; on a grid that splits z
 or y, K4's box instances, which read the z and y faces too.  K4 takes
 K1's second output, so M_pc†M_pc is four K4 hops, the dagger half's
 leading A⁻¹† the second output of the forward half's last hop; K5 has
-none, so its chain keeps that A⁻¹† plain.  ``matpc`` and ``matpc_dagm``
+none, so its chain applies that A⁻¹† on its own (C6, through
+``dirac._ch_clover_apply``).  ``matpc`` and ``matpc_dagm``
 run the chain on complex fields in their precision (float64 for
 complex128, on K4's float64 forms), on operands of that precision in
 the bf16 operand tier too; ``matpc_ch`` and ``matpc_dagm_ch`` run it on
@@ -190,7 +192,7 @@ class ShardedDirac(Dirac):
         """The sharded fused matpc (or matpc†) on this box's channel
         field [T_loc, 24, Z_loc, W_loc] and the tier's operands, the JAX
         package's chain: two halo hops (K4, or K5 with ``overlap`` on a
-        t-ring), the dagger half after a plain A⁻¹† or twist."""
+        t-ring), the dagger half after a stand-alone A⁻¹† (C6) or twist."""
         self._require_chain()
         return self._fused_matpc_ch(psi_ch, dagger, hop=self._halo(overlap))
 
@@ -201,7 +203,7 @@ class ShardedDirac(Dirac):
         dagger half's leading A⁻¹† the second output of the forward
         half's last hop (``Dirac._fused_matpc_dagm_ch``); with
         ``overlap`` K5, which has no second output: ``matpc_ch`` twice,
-        the dagger half after a plain A⁻¹†."""
+        the dagger half after a stand-alone A⁻¹† (C6)."""
         if overlap:
             return self.matpc_ch(self.matpc_ch(psi_ch, False, True), True,
                                  True)

@@ -214,18 +214,16 @@ def test_bf16_chain_is_the_f32_chain_on_bf16_operands(tmc_dirac, flds):
 @pytest.mark.parametrize("dagger", [False, True])
 def test_bf16_msrc_chain_is_the_single_source_chain(tmc_dirac, flds, dagger):
     """The bf16 multi-source matpc equals the single-source one source by
-    source, bit for bit; its dagger half keeps the widened clover-inverse
-    matrices on the operator and reuses them."""
+    source, bit for bit; its dagger half applies A⁻¹† from the channel
+    operand as the single-source half does, so the operator keeps no
+    clover matrices: its cache holds the operands of each dtype only."""
     s = as_sloppy(tmc_dirac, kernel_bf16=True)
     cols = torch.stack([dk.to_channels(T(f[0])) for f in flds[2:4]]).to(F32)
-    got = s._fused_matpc_ch_msrc(cols, dagger)
+    got = s._fused_matpc_ch(cols, dagger, hop=dk.dslash_ch_msrc)
     ref = torch.stack([s._fused_matpc_ch(c, dagger) for c in cols])
     assert torch.equal(got, ref)
-    pr = s.params.matpc_parity
-    kept = [k for k in s._ch_cache if isinstance(k, tuple)]
-    assert kept == ([("matrix", F32, pr)] if dagger else [])
-    if dagger:
-        assert s._clover_matrix(F32, pr) is s._ch_cache[kept[0]]
+    assert list(s._ch_cache) == [BF16]
+    assert set(s._ch_cache[BF16]) == {"g", "ci"}
 
 
 def test_bf16_dirac_matpc_and_dslash_dtypes(tmc_dirac, flds):

@@ -5,8 +5,9 @@ was (the plain version, which the JAX-parity tests hold), the reader of
 the benchmark's ``clover6.device_s`` metric, and, ``cuda``-marked (each
 skips itself without a card), the kernel against the plain version on
 the card for every form, both orderings, with and without the twisted
-term, one and three sources, on the vector and the scalar path, and the
-compact operator's A, prepare and reconstruct through it.
+term, one and three sources, on the vector and the scalar path, the
+compact operator's A, prepare and reconstruct through it, and the
+multi-source dagger half through it against single-source halves.
 
 Tolerances, kernel against plain on identical operands (the sums taken
 in another order): 1e-6 relative normwise in float32 (six-term complex
@@ -141,11 +142,21 @@ def test_clover_forms_match_the_entry_points():
 
 def _parent_apply(v_ch, cinv_ch, dag=False):
     """``dirac._ch_clover_apply`` as it was before the kernel: the
-    plain body, verbatim."""
+    plain body (the chiral blocks as complex 6×6 matrices, an einsum),
+    verbatim."""
     if v_ch.dtype == torch.bfloat16:
         v_ch = v_ch.to(torch.float32)
-    return dirac._ch_matrix_apply(
-        v_ch, dirac._ch_clover_matrix(cinv_ch, v_ch.dtype), dag)
+    t, _, z, w = cinv_ch.shape
+    c = cinv_ch.to(v_ch.dtype)
+    m = torch.complex(c[:, 0::2], c[:, 1::2]).reshape(t, 2, 6, 6, z, w)
+    lead = v_ch.shape[:-4]
+    v = torch.complex(v_ch[..., 0::2, :, :], v_ch[..., 1::2, :, :]).reshape(
+        *lead, t, 2, 6, z, w)
+    if dag:
+        out = torch.einsum("thcrzw,...thczw->...thrzw", m.conj(), v)
+    else:
+        out = torch.einsum("thrczw,...thczw->...thrzw", m, v)
+    return torch.stack([out.real, out.imag], dim=-3).reshape(v_ch.shape)
 
 
 @pytest.mark.parametrize("dt", [F64, F32, BF16], ids=str)
@@ -274,6 +285,28 @@ def test_compact_dirac_on_card(tier, monkeypatch):
     tol = TOL[cd.spinor_dtype]
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and _rel(g, w) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_msrc_dagger_half_on_card(bf16):
+    """The multi-source dagger half M_pc† (``Dirac._fused_matpc_ch`` with
+    ``dslash_ch_msrc``) on three sources, its leading A⁻¹† one C6 launch
+    over all three, equals three single-source halves (one C6 launch
+    each) bit for bit, in the float32 and the bf16 operand tier."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    u = rng.random_gauge(gen, GT, torch.complex64).to(dev)
+    d = dirac.make_dirac(u, tmc_params(bf16=bf16), GT)
+    psi = rng.random_spinor(gen, GT, torch.complex64, (3,)).to(dev)
+    cols = torch.stack([dk.to_channels(psi[i, 0]) for i in range(3)])
+    launches = dk.clover_ch.launches
+    got = d._fused_matpc_ch(cols, True, hop=dk.dslash_ch_msrc)
+    assert dk.clover_ch.launches == launches + 1
+    want = torch.stack([d._fused_matpc_ch(c, True) for c in cols])
+    torch.cuda.synchronize()
+    assert dk.clover_ch.launches == launches + 4
+    assert got.shape == cols.shape and torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -188,6 +188,28 @@ def test_float64_tier_is_the_canonical_operator(flds, kind):
         assert rel(got, ref) <= 1e-12
 
 
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("dagger", [False, True])
+@pytest.mark.parametrize("kind", ["twisted-mass", "twisted-clover"])
+def test_compact_chain_is_the_dirac_chain(flds, kind, dagger, tier):
+    """``CompactDirac.matpc_ch`` on a ``Dirac``'s own channel operands
+    (``_operands``: gauge and clover inverse stacked over the parities)
+    is ``Dirac._fused_matpc_ch``, bit for bit, in the float32 and the
+    bf16 operand tier: both run the one chain, ``dirac._ch_matpc``."""
+    u, b = flds
+    params = DiracParams(use_kernels=True, kernel_bf16=tier == "bf16",
+                         **(TMC if kind == TMC["kind"] else TM))
+    d = dirac_from_numpy(u, params, GT)
+    ops = d._operands(F32)
+    assert ops["g"][0].dtype == (BF16 if tier == "bf16" else F32)
+    ci = ops.get("ci")
+    cd = CompactDirac(torch.stack(ops["g"]),
+                      None if ci is None else torch.stack(ci), None,
+                      d.params, GT, d.antiperiodic)
+    v = to_channels(T(b[0])).to(F32)
+    assert torch.equal(cd.matpc_ch(v, dagger), d._fused_matpc_ch(v, dagger))
+
+
 def test_widened_is_the_same_operator(flds):
     """``widened`` casts the stored channels exactly; the float64 chain on
     them agrees with the bf16 tier's float32 chain to float32 rounding."""

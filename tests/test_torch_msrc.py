@@ -97,7 +97,8 @@ def test_fused_matpc_msrc_matches_pallas(pallas_fields, dagger):
     dj = jd.make_dirac(u, jd.DiracParams(use_pallas=True, **TMC), GJ_P)
     ref = dj._fused_matpc_ch_msrc(jnp.asarray(psi), dagger, interpret=True)
     dt = dirac_from_numpy(u, DiracParams(use_kernels=True, **TMC), GT_P)
-    assert rel(dt._fused_matpc_ch_msrc(T(psi), dagger), ref) <= F32
+    got = dt._fused_matpc_ch(T(psi), dagger, hop=dk.dslash_ch_msrc)
+    assert rel(got, ref) <= F32
 
 
 # ---- the wrapper and the matpc against single-source forms --------------
@@ -120,7 +121,7 @@ def test_fused_matpc_msrc_equals_single_source(dirac_pair, kind, dagger):
     d = dirac_from_numpy(u, DiracParams(use_kernels=True,
                                         **(TMC if kind == TMC["kind"]
                                            else TM)), GT)
-    got = d._fused_matpc_ch_msrc(cols, dagger)
+    got = d._fused_matpc_ch(cols, dagger, hop=dk.dslash_ch_msrc)
     ref = torch.stack([d._fused_matpc_ch(c, dagger) for c in cols])
     assert rel(got, N(ref)) == 0.0
 

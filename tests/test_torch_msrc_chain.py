@@ -7,7 +7,7 @@ operator's four-hop chain.
 * the four-hop M_pc† M_pc chain on a batch, ``Dirac._fused_matpc_dagm_ch(
   hop=dslash_ch_msrc)`` (the dagger half's A⁻¹† or twist the forward
   half's second output), against two multi-source matpc halves (the
-  dagger half leading with a plain A⁻¹†), in float32 (1e-6), for the
+  dagger half leading with a stand-alone A⁻¹†), in float32 (1e-6), for the
   twisted-clover and twisted-mass operators and the bf16 operand tier;
 * ``invert_msrc`` on the fused path (float32 channel CG through that
   chain) against the JAX package's ``invert_msrc`` in complex128 at
@@ -112,7 +112,8 @@ def test_msrc_four_hop_chain_is_two_halves(flds, kind):
     cols = torch.stack([dk.to_channels(T(p[0])) for p in psi[:N_SRC]]).to(
         torch.float32)
     got = d._fused_matpc_dagm_ch(cols, hop=dk.dslash_ch_msrc)
-    ref = d._fused_matpc_ch_msrc(d._fused_matpc_ch_msrc(cols, False), True)
+    half = functools.partial(d._fused_matpc_ch, hop=dk.dslash_ch_msrc)
+    ref = half(half(cols, False), True)
     assert got.shape == cols.shape
     assert rel(got, ref) <= CHAIN
 
